@@ -29,6 +29,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "distributed: spawns subprocesses with fake multi-device "
         "meshes (excluded by check.sh --fast)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with CUDA (the PyTorch port's "
+        "hand-written kernels); skips elsewhere")
 
 
 def run_subprocess(code: str, devices: int = 8, timeout: int = 900, env_extra=None):
