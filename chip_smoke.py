@@ -11,18 +11,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
 2. build: every CUDA source of ``repro_torch.kernels.csrc`` with ``nvcc``
    (one process per source, all at once); prints seconds and ptxas' report;
 3. kernels: each kernel against its plain PyTorch version at the main
-   path's shapes, with its time, the plain version's, the least time the
+   paths' shapes, with its time, the plain version's, the least time the
    card could take (``bound_ms``) and, where one PyTorch call computes the
    same function, that call's time (``library_ms``, a yardstick the port
-   never calls);
-4. end to end: the full-width, full-depth ``srds-dit-sd2`` DiT (28 layers,
+   never calls): the flash forward, the flash backward's dq and dkv
+   kernels (against ``ref.attention_bwd``), DDIM and the fused residual;
+4. sampling: the full-width, full-depth ``srds-dit-sd2`` DiT (28 layers,
    d 1152, 16 heads of 72, bf16) with weights drawn from a numpy seed
    (every leaf nonzero) and loaded through ``load_jax_params``; DDIM on
    ``ddpm_linear`` with N=25, B=5, K=2 per-sample.  ``sample_sequential``,
    then ``srds_sample`` at ``max_iters=B`` (the main path: launch counts
    reset just before and read just after), held against the sequential
    sample, then ``srds_sample`` with an early-exit ``tol``.  Launch counts
-   must equal what the loop implies.
+   must equal what the loop implies;
+5. training: the same DiT and weights through ``launch.train.build``:
+   the gradient of one ``diffusion_loss`` at batch 2 through the kernels
+   against the plain attention's, whole and over the q, k and v
+   projections alone; ``train_loop`` for 5 AdamW steps at
+   batch 8 (launch counts reset just before and read just after: flash
+   forward, dq and dkv 28 x 5 each), each step's wall time, loss, grad
+   norm and peak memory; the loss on a held-out probe batch (one the loop
+   does not train on, with fixed t and eps) lower after the steps than
+   before; the loop's last checkpoint (about 7 GB, in a temporary
+   directory, deleted after) restored and compared bitwise with the live
+   parameters and moments.  Two controls show that the gradient check can
+   fail: with the attention gradients zeroed, and with the backward's
+   ``delta`` term dropped, both readings must miss their limit.  Last,
+   a reading (no check) of the probe loss over 5 steps at the launcher's
+   default learning rate, which is why this phase trains at a tenth of it.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -48,6 +64,29 @@ EARLY_TOL = 1e-2
 # latents per fine step, 2 per sequential step) perturb every eval.  An
 # H100 run measured 1.05e-5; the limit keeps a margin of about 100x.
 SRDS_VS_SEQ_REL_L2 = 1e-3
+TRAIN_BATCH, TRAIN_STEPS, GRAD_BATCH = 8, 5, 2
+# a tenth of the launcher's default (LAUNCHER_LR): the random-weight DiT
+# (adaLN gates open in all 28 layers) is far rougher than the adaLN-zero
+# init, and Adam's first steps move every weight by about the step's lr.
+# Phase 5 ends with a reading of the held-out probe at LAUNCHER_LR: on an
+# H100 it went from 2.044 down to 0.569 after 3 steps, then up to 2.282
+# after 5; at TRAIN_LR it fell to 1.623.
+TRAIN_LR, LAUNCHER_LR = 3e-5, 3e-4
+# the whole gradient at batch 2, full depth, bf16, through the kernels vs
+# through the plain attention: the same math rounded to bf16 at other
+# places.  An H100 run measured 1.55e-3, and 1.75e-3 over the q, k and v
+# projections' leaves alone.  The first limit, 5e-2, let a backward
+# without its delta term through (1.10e-2; 0.148 over q/k/v) and barely
+# caught one with the attention gradients zeroed (5.88e-2; 1.0 over
+# q/k/v): most of the gradient does not flow through attention.  This
+# limit, for both readings, is 3x the measured values and half the delta
+# control's; the run's controls must miss it in both.
+KERNEL_VS_PLAIN_GRAD_REL_L2 = 5e-3
+# dq/dk/dv in bf16 against the plain backward: the kernel rounds once from
+# f32, the plain version at other places, so they differ by about one bf16
+# ulp (2^-7 relative at most; an H100 run measured 1.95e-3 absolute)
+BWD_BF16_ATOL, BWD_BF16_RTOL = 4e-3, 1e-2
+BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 
 def smi_line() -> str:
@@ -95,6 +134,281 @@ def check_case(label, got, want, atol, rtol, timing):
     return dict(case=label, max_abs_err=err, atol=atol, rtol=rtol, **timing)
 
 
+def backward_cases(torch, ref, randn, cases):
+    """The flash backward's dq and dkv kernels against ``ref.attention_bwd``
+    at the training shape (batch 8 x 16 heads), the coarse batch, CIFAR
+    width in f32 and ragged Sq/Sk.  ``plain_ms`` and ``library_ms`` time a
+    whole backward: the plain version and SDPA's backward (the yardstick)
+    compute dq, dk and dv together."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    for bh, sq, sk, d, dtype in [(128, 1024, 1024, 72, "bfloat16"),
+                                 (32, 1024, 1024, 72, "bfloat16"),
+                                 (24, 64, 64, 64, "float32"),
+                                 (32, 100, 77, 72, "bfloat16")]:
+        tdt = getattr(torch, dtype)
+        q, k, v, do = (randn((1, bh, s, d), tdt) for s in (sq, sk, sk, sq))
+        q3, k3, v3, do3 = (x[0] for x in (q, k, v, do))
+        o3, lse = fa.flash_attention_fwd(q3, k3, v3)
+        delta = (do3.float() * o3.float()).sum(dim=-1)
+        scale = d ** -0.5
+
+        def dq_fn():
+            return (fa.flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta,
+                                              scale),)
+
+        def dkv_fn():
+            return fa.flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta,
+                                              scale)
+
+        def plain():
+            return ref.attention_bwd(q, k, v, o3[None], lse[None], do,
+                                     causal=False)
+
+        want = plain()
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        sdpa = F.scaled_dot_product_attention(qg, kg, vg)
+        reps = 10 if sq >= 1024 else 100
+        plain_ms = time_ms(plain, max(reps // 5, 2))
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            sdpa, (qg, kg, vg), do, retain_graph=True), reps)
+        reads = nbytes(q, k, v, do, lse, delta)
+        atol, rtol = ((BWD_BF16_ATOL, BWD_BF16_RTOL) if dtype == "bfloat16"
+                      else (1e-4, 1e-4))
+        for name, fn, ref_out, flops in (
+                ("flash_attention_bwd_dq", dq_fn, want[:1], 6.0),
+                ("flash_attention_bwd_dkv", dkv_fn, want[1:], 8.0)):
+            got = fn()
+            b_ms, b_by = bound(reads + nbytes(*got),
+                               flops * bh * sq * sk * d, dtype)
+            timing = dict(ms=time_ms(fn, reps), plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by,
+                          library_ms=library_ms)
+            cases[name].append(check_case(
+                f"{name} {dtype} BH={bh} Sq={sq} Sk={sk} D={d}",
+                torch.cat([g.reshape(-1) for g in got]),
+                torch.cat([w.reshape(-1) for w in ref_out]), atol, rtol,
+                timing))
+
+
+def _bits(t):
+    """A tensor's raw bits, for a bitwise comparison (-0.0 != 0.0)."""
+    import torch
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.view(ints[t.element_size()]) if t.is_floating_point() else t
+
+
+def rel_l2(got, want) -> float:
+    """Relative L2 distance of two lists of tensors, taken as one vector."""
+    import math
+    import torch
+    num = sum(torch.sum(torch.square(a.float() - b.float()))
+              for a, b in zip(got, want))
+    den = sum(torch.sum(torch.square(b.float())) for b in want)
+    return math.sqrt((num / den).item())
+
+
+def gradient_check(torch, ops, model, images):
+    """The whole gradient of one ``diffusion_loss`` at batch ``GRAD_BATCH``
+    through the kernels against the plain attention's, and two controls
+    that the check must catch: the attention gradients zeroed, and the
+    backward run without its ``delta = rowsum(dO * O)`` term.  The same
+    holds over the q, k and v projections' leaves alone, whose gradient
+    flows only through attention."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train import diffusion_loss
+    names, params = zip(*model.named_parameters())
+    qkv = [i for i, n in enumerate(names)
+           if n.endswith((".attn.wq", ".attn.wk", ".attn.wv"))]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    t = 999.0 * torch.rand((GRAD_BATCH,), generator=g, device="cuda")
+    small = {"images": images[:GRAD_BATCH]}
+    eps = torch.randn(small["images"].shape, generator=g, device="cuda")
+
+    def grads(use_kernel):
+        loss, _ = diffusion_loss(model, small, t=t, eps=eps,
+                                 use_kernel=use_kernel)
+        return loss.item(), torch.autograd.grad(loss, params)
+
+    def zeroed(q, k, v, o, lse, do, **_):
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+
+    def no_delta(q, k, v, o, lse, do, *, scale=None, **_):
+        scale = q.shape[-1] ** -0.5 if scale is None else scale
+        zero = torch.zeros_like(lse)
+        return (fa.flash_attention_bwd_dq(q, k, v, do, lse, zero, scale),
+                *fa.flash_attention_bwd_dkv(q, k, v, do, lse, zero, scale))
+
+    def distances(got):
+        return (rel_l2(got, gp),
+                rel_l2([got[i] for i in qkv], [gp[i] for i in qkv]))
+
+    def control(bwd):
+        kernel_bwd = ops.flash_attention_bwd
+        ops.flash_attention_bwd = bwd
+        try:
+            return distances(grads(None)[1])
+        finally:
+            ops.flash_attention_bwd = kernel_bwd
+
+    lp, gp = grads(False)
+    lk, gk = grads(None)
+    (rel, rel_qkv), loss_line = distances(gk), f"loss {lk:.6f} vs {lp:.6f}"
+    del gk
+    controls = {"attention gradients zeroed": control(zeroed),
+                "delta dropped": control(no_delta)}
+    del gp
+    torch.cuda.empty_cache()
+    print(f"  gradient at batch {GRAD_BATCH}, kernels vs plain attention: "
+          f"rel L2 {rel:.3e}, q/k/v projections alone {rel_qkv:.3e} (limit "
+          f"{KERNEL_VS_PLAIN_GRAD_REL_L2}), {loss_line}", flush=True)
+    for name, (r, r_qkv) in controls.items():
+        print(f"  control, {name}: rel L2 {r:.3e}, q/k/v projections "
+              f"alone {r_qkv:.3e}, both must miss the limit", flush=True)
+    if not max(rel, rel_qkv) <= KERNEL_VS_PLAIN_GRAD_REL_L2:
+        raise AssertionError(f"kernel and plain gradients differ: rel L2 "
+                             f"{rel}, over q/k/v {rel_qkv}")
+    for name, (r, r_qkv) in controls.items():
+        if not min(r, r_qkv) > KERNEL_VS_PLAIN_GRAD_REL_L2:
+            raise AssertionError(f"the gradient check does not catch a "
+                                 f"backward with the {name}: rel L2 {r}, "
+                                 f"over q/k/v {r_qkv}")
+
+
+def train_phase(torch, ops, cfg, tree):
+    """Phase 5; returns the launch counts of the ``train_loop`` run."""
+    import math
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.data import DataConfig, fold_in, make_stream
+    from repro_torch.launch import train as launch
+    from repro_torch.runtime import LoopConfig, train_loop
+    from repro_torch.train import diffusion_loss
+
+    t0 = time.perf_counter()
+    cfg, model, opt_state, step, _ = launch.build(
+        cfg.name, lr=TRAIN_LR, total_steps=TRAIN_STEPS, params=tree,
+        device="cuda")
+    stream = make_stream(cfg, DataConfig(seed=SEED,
+                                         global_batch=TRAIN_BATCH),
+                         device="cuda")
+    print(f"[5/5] training {cfg.name} through launch.train.build "
+          f"({time.perf_counter() - t0:.1f} s), batch {TRAIN_BATCH}, "
+          f"{stream.size}x{stream.size}x{stream.channels} images", flush=True)
+    loop_seed = SEED + 1
+
+    gradient_check(torch, ops, model, stream.batch(0)["images"])
+
+    # the probe: a batch the loop does not train on (it takes batches
+    # 0 .. TRAIN_STEPS - 1), with fixed t and eps
+    probe = {"images": stream.batch(TRAIN_STEPS)["images"]}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    probe_t = 999.0 * torch.rand((TRAIN_BATCH,), generator=g, device="cuda")
+    probe_eps = torch.randn(probe["images"].shape, generator=g,
+                            device="cuda")
+
+    def probe_loss(m):
+        with torch.no_grad():
+            return diffusion_loss(m, probe, t=probe_t,
+                                  eps=probe_eps)[0].item()
+
+    before = probe_loss(model)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ckpt = Checkpointer(ckdir, keep=1)
+        rows = []
+
+        def timed_step(*args, **kw):
+            torch.cuda.reset_peak_memory_stats()
+            out = step(*args, **kw)
+            torch.cuda.synchronize()       # the step's wall time ends here
+            rows.append({"peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+            return out
+
+        def log(i, m):
+            rows[-1].update(m)
+            print(f"  step {i}: wall {m['step_time_s']:.3f} s, loss "
+                  f"{m['loss']:.5f}, grad_norm {m['grad_norm']:.4f}, lr "
+                  f"{m['lr']:.3e}, peak memory {rows[-1]['peak_gb']:.2f} GB",
+                  flush=True)
+
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model, opt_state, _ = train_loop(
+            timed_step, model, opt_state, stream, loop_seed, ckpt,
+            LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS,
+                       log_every=1), metrics_cb=log)
+        loop_s = time.perf_counter() - t1
+        counts = ops.launch_counts()
+        print(f"  train_loop ({TRAIN_STEPS} steps, main path): "
+              f"{loop_s:.3f} s, launches {counts}", flush=True)
+        want = cfg.num_layers * TRAIN_STEPS
+        for name in ("flash_attention_fwd",) + BWD_KERNELS:
+            if counts[name] != want:
+                raise AssertionError(f"{name}: {counts[name]} launches in "
+                                     f"train_loop, expected {want}")
+        losses = [r["loss"] for r in rows]
+        if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"train losses not finite: {losses}")
+        after = probe_loss(model)
+        print(f"  held-out probe loss (batch {TRAIN_STEPS}, fixed t and "
+              f"eps) {before:.6f} -> {after:.6f} at lr {TRAIN_LR}",
+              flush=True)
+        if not after < before:
+            raise AssertionError("the probe loss did not fall")
+
+        # the loop's last checkpoint against the live state, bitwise
+        save_s = loop_s - sum(r["step_time_s"] for r in rows)
+        size = sum(os.path.getsize(os.path.join(root, f))
+                   for root, _, files in os.walk(ckdir) for f in files)
+        live = {"params": dict(model.named_parameters()), "opt": opt_state}
+        template = {"params": {n: torch.empty_like(p)
+                               for n, p in live["params"].items()},
+                    "opt": {"m": {n: torch.empty_like(x)
+                                  for n, x in opt_state["m"].items()},
+                            "v": {n: torch.empty_like(x)
+                                  for n, x in opt_state["v"].items()},
+                            "step": torch.empty_like(opt_state["step"])}}
+        t2 = time.perf_counter()
+        _, saved_step, _ = ckpt.restore(template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t2
+        ckpt.close()
+        same = all(torch.equal(_bits(a), _bits(b)) for (_, a), (_, b) in
+                   zip(flatten(template), flatten(live)))
+        print(f"  checkpoint step {saved_step}: {size / 1e9:.3f} GB, save "
+              f"(the loop's last, async + wait) {save_s:.1f} s, restore "
+              f"{restore_s:.1f} s, bitwise equal to the live state: {same}",
+              flush=True)
+        if saved_step != TRAIN_STEPS or not same:
+            raise AssertionError("the checkpoint does not restore the live "
+                                 "state bitwise")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    del model, opt_state, live, template
+    torch.cuda.empty_cache()
+
+    # a reading: the same steps at the launcher's default learning rate
+    _, model, opt_state, step, _ = launch.build(
+        cfg.name, lr=LAUNCHER_LR, total_steps=TRAIN_STEPS, params=tree,
+        device="cuda")
+    readings = [probe_loss(model)]
+    for s in range(TRAIN_STEPS):
+        model, opt_state, _ = step(model, opt_state, stream.batch(s),
+                                   torch.Generator(device="cuda")
+                                   .manual_seed(fold_in(loop_seed, s)))
+        readings.append(probe_loss(model))
+    print(f"  reading: held-out probe loss after 0..{TRAIN_STEPS} steps at "
+          f"the launcher's lr {LAUNCHER_LR}: "
+          + " ".join(f"{x:.6f}" for x in readings), flush=True)
+    del model, opt_state
+    torch.cuda.empty_cache()
+    return counts
+
+
 def kernel_phase(torch, ops, ref):
     import torch.nn.functional as F
     dev = torch.device("cuda")
@@ -103,7 +417,8 @@ def kernel_phase(torch, ops, ref):
     def randn(shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
-    cases = {"flash_attention_fwd": [], "ddim_fused": [],
+    cases = {"flash_attention_fwd": [], "flash_attention_bwd_dq": [],
+             "flash_attention_bwd_dkv": [], "ddim_fused": [],
              "parareal_update_residual": []}
     # flash forward: SD-v2 fine and coarse batches (10 and 2 latents x 16
     # heads, S 1024, D 72) in bf16, CIFAR-width f32, and ragged Sq/Sk
@@ -130,6 +445,8 @@ def kernel_phase(torch, ops, ref):
         cases["flash_attention_fwd"].append(check_case(
             f"flash_attention_fwd {dtype} BH={bh} Sq={sq} Sk={sk} D={d}",
             got, want, tol, tol, timing))
+
+    backward_cases(torch, ref, randn, cases)
 
     # DDIM: the fine step's 10 folded latents, per-row coefficients
     x, e = randn((BLOCKS * SAMPLES, 64, 64, 4)), randn((BLOCKS * SAMPLES,
@@ -188,32 +505,32 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/4] device: {smi} (torch {torch.__version__}, CUDA "
+    print(f"[1/5] device: {smi} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda})", flush=True)
 
     # ---- 2. build --------------------------------------------------------
     from repro_torch.kernels import _build, ops, ref
     secs = _build.build_all()
-    print(f"[2/4] build: {len(_build.sources())} CUDA source(s) in "
+    print(f"[2/5] build: {len(_build.sources())} CUDA source(s) in "
           f"{secs:.1f} s", flush=True)
     for name, log in _build.build_log.items():
         print(f"  nvcc {name}.cu:\n" + "\n".join(
             "    " + line for line in log.strip().splitlines()))
 
     # ---- 3. kernels against their plain versions -------------------------
-    print("[3/4] kernels vs plain versions (times on this card)", flush=True)
+    print("[3/5] kernels vs plain versions (times on this card)", flush=True)
     cases = kernel_phase(torch, ops, ref)
 
-    # ---- 4. end to end ---------------------------------------------------
+    # ---- 4. sampling -----------------------------------------------------
     import repro_torch.core as C
     from repro_torch.configs import get_arch
     from repro_torch.models import dit
 
     cfg = get_arch("srds-dit-sd2")
     t0 = time.perf_counter()
-    model = dit.load_jax_params(cfg, dit.random_jax_tree(cfg, seed=SEED),
-                                device="cuda")
-    print(f"[4/4] srds-dit-sd2: {cfg.num_layers} layers, d {cfg.d_model}, "
+    tree = dit.random_jax_tree(cfg, seed=SEED)
+    model = dit.load_jax_params(cfg, tree, device="cuda")
+    print(f"[4/5] srds-dit-sd2: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads}x{cfg.resolved_head_dim} heads, {cfg.dtype}, "
           f"{dit.param_count(model) / 1e6:.1f} M params, built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -237,8 +554,9 @@ def main() -> int:
         return out, counts, wall
 
     def expect(counts, ddim, resid):
-        want = {"flash_attention_fwd": layers * ddim, "ddim_fused": ddim,
-                "parareal_update_residual": resid}
+        want = {"flash_attention_fwd": layers * ddim,
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                "ddim_fused": ddim, "parareal_update_residual": resid}
         if counts != want:
             raise AssertionError(f"launch counts {counts} != {want}")
 
@@ -253,7 +571,7 @@ def main() -> int:
                                                     x_init, fixed))
     p = int(res.iterations.max())
     expect(main_counts, B + p * (S + B), p * B)
-    if min(main_counts.values()) == 0:
+    if min(n for k, n in main_counts.items() if k not in BWD_KERNELS) == 0:
         raise AssertionError(f"a kernel never ran on the main path: "
                              f"{main_counts}")
     sample = res.sample
@@ -286,10 +604,21 @@ def main() -> int:
           f"delta history {hist}", flush=True)
     if not bool(torch.isfinite(res2.sample).all()):
         raise AssertionError("early-exit srds sample is not finite")
+    del model, model_fn
+    torch.cuda.empty_cache()
+
+    # ---- 5. training -----------------------------------------------------
+    train_counts = train_phase(torch, ops, cfg, tree)
 
     sources = {"flash_attention_fwd": (
         "cuda", "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
         "src/repro/kernels/flash_attention.py:85"),
+        "flash_attention_bwd_dq": (
+            "cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention.py:453"),
+        "flash_attention_bwd_dkv": (
+            "cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention.py:494"),
         "ddim_fused": ("triton", "src/repro_torch/kernels/elementwise.py",
                        "src/repro/kernels/elementwise.py:34"),
         "parareal_update_residual": (
@@ -298,9 +627,15 @@ def main() -> int:
     kernels = []
     for name, (route, source, replaces) in sources.items():
         first = cases[name][0]            # the main path's shape
+        # a kernel's launches are those of its path: training for the
+        # backward, sampling for the rest (the forward runs on both)
+        by_path = {"srds_sample": main_counts[name],
+                   "train_loop": train_counts[name]}
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
-            launches=main_counts[name],
+            launches=by_path["train_loop" if name in BWD_KERNELS
+                             else "srds_sample"],
+            launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in cases[name]),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],

@@ -10,9 +10,15 @@ Counterpart of ``repro.kernels.ops``.  The rule is the same for every op:
   (``chip_smoke.py``'s yardstick; the main path never passes it).
 
 Each kernel wrapper carries a ``launches`` counter
-(``flash_attention_fwd.launches``, ``ddim_fused.launches``,
+(``flash_attention_fwd.launches``, ``flash_attention_bwd_dq.launches``,
+``flash_attention_bwd_dkv.launches``, ``ddim_fused.launches``,
 ``parareal_update_residual.launches``) that :func:`launch_counts` reads
 and :func:`reset_launch_counts` zeroes.
+
+:func:`attention` is differentiable: it runs through
+:class:`FlashAttention`, the counterpart of ``repro.kernels.ops._flash``
+(a ``jax.custom_vjp``), whose backward is the flash backward kernels on a
+CUDA tensor and their plain version on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -21,9 +27,12 @@ from typing import Dict, Optional
 import torch
 
 from . import elementwise, ref
-from .flash_attention import flash_attention_fwd
+from .flash_attention import (flash_attention_bwd, flash_attention_bwd_dkv,
+                              flash_attention_bwd_dq, flash_attention_fwd)
 
 _COUNTED = {"flash_attention_fwd": flash_attention_fwd,
+            "flash_attention_bwd_dq": flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
             "ddim_fused": elementwise.ddim_fused,
             "parareal_update_residual": elementwise.parareal_update_residual}
 
@@ -48,21 +57,59 @@ def _kernel(x: torch.Tensor, use_kernel: Optional[bool]) -> bool:
     return x.is_cuda and use_kernel is not False
 
 
+def _heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, S, D) -> contiguous (B*H, S, D), the kernels' layout."""
+    return x.reshape(x.shape[0] * x.shape[1], *x.shape[2:]).contiguous()
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the flash kernels' forward and backward.
+
+    Inputs ``(B, Hq, Sq, D)`` x ``(B, Hkv, Sk, D)``.  The forward keeps
+    ``(q, k, v, o, lse)``; the backward recomputes P from ``lse``.  On a
+    CUDA tensor both directions launch the kernels (forms the kernels do
+    not take raise ``NotImplementedError``); on a CPU tensor they run
+    :func:`ref.attention` and :func:`ref.attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.mask = dict(causal=causal, window=window, scale=scale)
+        if q.is_cuda:
+            q3, k3, v3 = _heads(q), _heads(k), _heads(v)
+            o3, lse = flash_attention_fwd(q3, k3, v3, **ctx.mask)
+            ctx.save_for_backward(q3, k3, v3, o3, lse)
+            ctx.shapes = q.shape, k.shape
+            return o3.view(q.shape)
+        o, lse = ref.attention(q, k, v, **ctx.mask)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.is_cuda:
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, lse,
+                                             _heads(do.to(q.dtype)),
+                                             **ctx.mask)
+            q_shape, k_shape = ctx.shapes
+            grads = dq.view(q_shape), dk.view(k_shape), dv.view(k_shape)
+        else:
+            grads = ref.attention_bwd(q, k, v, o, lse, do.to(q.dtype),
+                                      **ctx.mask)
+        return (*grads, None, None, None)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               scale: Optional[float] = None,
               use_kernel: Optional[bool] = None) -> torch.Tensor:
-    """(B, Hq, Sq, D) x (B, Hkv, Sk, D) -> (B, Hq, Sq, D)."""
-    if not _kernel(q, use_kernel):
+    """(B, Hq, Sq, D) x (B, Hkv, Sk, D) -> (B, Hq, Sq, D), differentiable
+    through :class:`FlashAttention`; ``use_kernel=False`` is the plain
+    :func:`ref.attention`, differentiated by autograd."""
+    if use_kernel is False:
         return ref.attention(q, k, v, causal=causal, window=window,
                              scale=scale)[0]
-    b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    o, _ = flash_attention_fwd(q.reshape(b * hq, sq, d),
-                               k.reshape(b * hkv, sk, d),
-                               v.reshape(b * hkv, sk, d),
-                               causal=causal, window=window, scale=scale)
-    return o.reshape(b, hq, sq, d)
+    return FlashAttention.apply(q, k, v, causal, window, scale)
 
 
 def ddim_fused(x: torch.Tensor, eps: torch.Tensor, a, b, *,

@@ -36,13 +36,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         v = v.repeat_interleave(group, dim=1)
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-    kpos = torch.arange(sk, device=q.device)[None, :]
-    keep = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        keep = kpos <= qpos
-    if window is not None:
-        keep = keep & (kpos > qpos - window)
+    keep = _keep(sq, sk, causal, window, q.device)
     s = torch.where(keep, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(keep, torch.exp(s - m), 0.0)
@@ -51,6 +45,55 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / l_safe
     lse = (m + torch.log(l_safe)).squeeze(-1)
     return o.to(q.dtype), lse
+
+
+def _keep(sq: int, sk: int, causal: bool, window: Optional[int],
+          device) -> torch.Tensor:
+    """(Sq, Sk) bool mask, query positions right-aligned to the keys."""
+    qpos = torch.arange(sq, device=device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=device)[None, :]
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        keep = kpos <= qpos
+    if window is not None:
+        keep = keep & (kpos > qpos - window)
+    return keep
+
+
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                  causal: bool = True, window: Optional[int] = None,
+                  scale: Optional[float] = None):
+    """Gradients of :func:`attention` by the flash kernels' formula.
+
+    Shapes as :func:`attention`; ``o`` and ``lse`` are its outputs and
+    ``do`` the gradient of ``o``.  P is recomputed from ``lse``
+    (``p = exp(s * scale - lse)``), ``delta = rowsum(dO * O)`` and
+    ``ds = p * (dp - delta) * scale``; all math in f32.  Returns
+    ``(dq, dk, dv)`` in the dtypes of q, k and v, with dk and dv summed
+    over each GQA group."""
+    hq, sq, d = q.shape[1], q.shape[2], q.shape[3]
+    b, hkv, sk = k.shape[0], k.shape[1], k.shape[2]
+    group = hq // hkv
+    kf, vf = k.float(), v.float()
+    if group > 1:
+        kf = kf.repeat_interleave(group, dim=1)
+        vf = vf.repeat_interleave(group, dim=1)
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    qf, dof = q.float(), do.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    keep = _keep(sq, sk, causal, window, q.device)
+    p = torch.where(keep, torch.exp(s * scale - lse[..., None]), 0.0)
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    if group > 1:
+        dk = dk.reshape(b, hkv, group, sk, d).sum(dim=2)
+        dv = dv.reshape(b, hkv, group, sk, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _rows(c, x: torch.Tensor) -> torch.Tensor:

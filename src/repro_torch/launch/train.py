@@ -1,0 +1,106 @@
+"""Training launcher: config -> model and optimizer state -> fault-tolerant
+loop (counterpart of ``repro.launch.train``), for the DiT family on one
+device (``--mesh local``).  The pod meshes wait for the multi-device port
+(ROADMAP A10), the language-model archs for the LLM zoo (A11).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch srds-dit-sd2 \\
+        --steps 5 --batch 8
+
+runs on the CUDA card; ``--device cpu`` (with ``--reduced``) runs on the
+CPU.  Without ``--ckpt`` the checkpoints go to a temporary directory that
+is deleted at exit; at full width one checkpoint is about 7 GB.
+"""
+from __future__ import annotations
+
+import argparse
+import tempfile
+from typing import Optional
+
+import torch
+
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs import get_arch
+from repro_torch.data import DataConfig, make_stream
+from repro_torch.models.dit import init_dit, load_jax_params, resolve_device
+from repro_torch.optim import AdamWConfig, init_opt_state, warmup_cosine
+from repro_torch.runtime import LoopConfig, PreemptionSignal, train_loop
+from repro_torch.train import make_train_step
+
+
+def build(arch: str, *, mesh_kind: str = "local", reduced: bool = False,
+          lr: float = 3e-4, total_steps: int = 100, device="cuda",
+          params=None):
+    """``(cfg, model, opt_state, step, loss_kind)`` for ``arch``.
+
+    ``params``: a JAX-layout parameter tree (numpy leaves) to start from,
+    loaded through ``load_jax_params``; by default a fresh DiT
+    (``init_dit`` from seed 0, as the JAX launcher's ``PRNGKey(0)``)."""
+    if mesh_kind != "local":
+        raise NotImplementedError(f"mesh {mesh_kind!r} waits for the "
+                                  f"multi-device port (ROADMAP A10)")
+    cfg = get_arch(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    device = resolve_device(device)
+    if params is not None:
+        model = load_jax_params(cfg, params, device=device)
+    else:
+        model = init_dit(cfg, torch.Generator().manual_seed(0),
+                         device=device)
+    opt_state = init_opt_state(dict(model.named_parameters()))
+    opt_cfg = AdamWConfig(lr=lr, schedule=warmup_cosine(
+        lr, max(10, total_steps // 10), total_steps))
+    step = make_train_step(cfg, opt_cfg, loss_kind="diffusion")
+    return cfg, model, opt_state, step, "diffusion"
+
+
+def run(args, ckpt_dir: str):
+    cfg, model, opt_state, step, _ = build(
+        args.arch, mesh_kind=args.mesh, reduced=args.reduced, lr=args.lr,
+        total_steps=args.steps, device=args.device)
+    stream = make_stream(cfg, DataConfig(global_batch=args.batch),
+                         device=args.device)
+    ckpt = Checkpointer(ckpt_dir)
+    losses = []
+
+    def log(step_i, m):
+        losses.append(m["loss"])
+        print(f"step {step_i}: " + " ".join(f"{k}={v:.4g}"
+                                            for k, v in m.items()),
+              flush=True)
+
+    try:
+        train_loop(step, model, opt_state, stream, 1, ckpt,
+                   LoopConfig(total_steps=args.steps,
+                              ckpt_every=args.ckpt_every, log_every=1),
+                   preemption=PreemptionSignal(install_sigterm=True),
+                   metrics_cb=log)
+    finally:
+        ckpt.close()
+    if losses:
+        print(f"final loss: {losses[-1]:.4f} (first: {losses[0]:.4f})")
+    return losses
+
+
+def main(argv: Optional[list] = None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--mesh", default="local", choices=["local", "pod1", "pod2"])
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory (resumes from it); default: "
+                         "a temporary one, deleted at exit")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    args = ap.parse_args(argv)
+    if args.ckpt is not None:
+        return run(args, args.ckpt)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_") as d:
+        return run(args, d)
+
+
+if __name__ == "__main__":
+    main()

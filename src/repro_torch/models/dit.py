@@ -9,14 +9,19 @@ modulation splits as ``(shift_attn, scale_attn, shift_mlp, gate_attn,
 scale_mlp, gate_mlp)``, GELU is the tanh form, SiLU runs in f32.
 
 :func:`load_jax_params` turns the JAX parameter tree (numpy leaves,
-``blocks`` stacked on a leading ``num_layers`` axis) into a :class:`DiT`;
-:func:`init_dit` draws a fresh one with the JAX shapes and scales from a
+``blocks`` stacked on a leading ``num_layers`` axis) into a :class:`DiT`,
+and :func:`load_jax_opt_state` JAX's AdamW moments into the port's
+optimizer state, so a JAX train state continues here;
+:func:`init_dit` draws a fresh DiT with the JAX shapes and scales from a
 ``torch.Generator``.  adaLN-zero leaves ``mod``, ``mod_b``, ``mod_f``,
 ``mod_fb`` and ``patch_out`` at zero, so a fresh DiT predicts eps == 0.
+The parameters are trainable; the samplers' :func:`make_denoiser` runs
+without autograd.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -42,8 +47,7 @@ def resolve_device(device) -> torch.device:
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device))
 
 
 class DiTBlock(nn.Module):
@@ -86,8 +90,10 @@ class DiT(nn.Module):
         self.mod_fb = _param((2 * d,), dtype, device)
         self.patch_out = _param((d, p_in), dtype, device)
 
-    def forward(self, x_img: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        """x_img: (B, H, W, C); t: (B,) conditioning times -> eps."""
+    def forward(self, x_img: torch.Tensor, t: torch.Tensor, *,
+                use_kernel: Optional[bool] = None) -> torch.Tensor:
+        """x_img: (B, H, W, C); t: (B,) conditioning times -> eps.
+        ``use_kernel=False`` takes the plain attention (a yardstick)."""
         cfg = self.cfg
         b, h, w, c = x_img.shape
         p = cfg.patch_size
@@ -108,7 +114,8 @@ class DiT(nn.Module):
             h_in = _modulate(apply_norm(x), sa, ga)
             attn = attention_full(blk.attn, h_in, num_heads=cfg.num_heads,
                                   num_kv_heads=cfg.num_kv_heads,
-                                  head_dim=cfg.resolved_head_dim)
+                                  head_dim=cfg.resolved_head_dim,
+                                  use_kernel=use_kernel)
             x = x + gm[:, None] * attn
             h2 = _modulate(apply_norm(x), sm, s2)
             x = x + g2[:, None] * apply_mlp(blk.mlp, h2)
@@ -196,23 +203,58 @@ def _set(param: nn.Parameter, value, what: str) -> None:
     param.copy_(torch.from_numpy(value))
 
 
+def jax_leaf_names(cfg: ArchConfig):
+    """``(name, jax_path, layer)`` for every DiT parameter: ``name`` is the
+    module's own (``blocks.3.attn.wq``), ``jax_path`` the leaf's path in the
+    JAX tree (``blocks/attn/wq``) and ``layer`` its index on the stacked
+    layer axis (None outside ``blocks``)."""
+    top, blk = _leaves(cfg)
+    out = [(path.replace("/", "."), path, None) for path, _ in top]
+    out += [(f"blocks.{i}.{path.replace('/', '.')}", f"blocks/{path}", i)
+            for path, _ in blk for i in range(cfg.num_layers)]
+    return out
+
+
+def _jax_values(cfg: ArchConfig, tree):
+    """``{name: numpy f32 value}`` of a JAX-layout DiT tree."""
+    out, leaves = {}, {}
+    for name, path, layer in jax_leaf_names(cfg):
+        if path not in leaves:
+            leaves[path] = np.asarray(_tree_get(tree, path), np.float32)
+            if layer is not None and leaves[path].shape[0] != cfg.num_layers:
+                raise ValueError(f"{path}: {leaves[path].shape[0]} layers, "
+                                 f"config has {cfg.num_layers}")
+        out[name] = leaves[path] if layer is None else leaves[path][layer]
+    return out
+
+
 @torch.no_grad()
 def load_jax_params(cfg: ArchConfig, tree, device="cuda") -> DiT:
     """A :class:`DiT` holding the JAX parameter tree ``tree`` (numpy or
     array-like leaves, any float dtype; ``blocks`` leaves stacked on a
     leading ``num_layers`` axis, as ``jax.vmap(blk)`` builds them)."""
     model = DiT(cfg, device=device)
-    top, blk = _leaves(cfg)
-    for path, _ in top:
-        _set(_module_param(model, path), _tree_get(tree, path), path)
-    for path, _ in blk:
-        stacked = np.asarray(_tree_get(tree["blocks"], path), np.float32)
-        if stacked.shape[0] != cfg.num_layers:
-            raise ValueError(f"blocks/{path}: {stacked.shape[0]} layers, "
-                             f"config has {cfg.num_layers}")
-        for i, block in enumerate(model.blocks):
-            _set(_module_param(block, path), stacked[i], f"blocks/{path}")
+    params = dict(model.named_parameters())
+    for name, value in _jax_values(cfg, tree).items():
+        _set(params[name], value, name)
     return model
+
+
+@torch.no_grad()
+def load_jax_opt_state(model: DiT, jax_opt_state):
+    """The port's optimizer state (``repro_torch.optim.init_opt_state``'s
+    layout, on the model's device) holding JAX's ``{"m", "v", "step"}``
+    (numpy leaves, ``blocks`` stacked on the layer axis), so a JAX train
+    state continues in the port."""
+    device = next(model.parameters()).device
+    state = {}
+    for key in ("m", "v"):
+        state[key] = {name: torch.from_numpy(np.array(value)).to(device)
+                      for name, value in _jax_values(
+                          model.cfg, jax_opt_state[key]).items()}
+    state["step"] = torch.tensor(int(np.asarray(jax_opt_state["step"])),
+                                 dtype=torch.int32, device=device)
+    return state
 
 
 @torch.no_grad()

@@ -27,17 +27,19 @@ def apply_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
 
 
 def attention_full(p, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
-                   head_dim: int) -> torch.Tensor:
+                   head_dim: int,
+                   use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Non-causal full-sequence attention without rotary embeddings,
     x: (B, S, d) -> (B, S, d), through
-    :func:`repro_torch.kernels.ops.attention` (the flash kernel on CUDA).
-    ``p`` maps ``wq``/``wk``/``wv``/``wo`` to weights."""
+    :func:`repro_torch.kernels.ops.attention` (the flash kernels, forward
+    and backward, on CUDA).  ``p`` maps ``wq``/``wk``/``wv``/``wo`` to
+    weights."""
     b, s, _ = x.shape
     q = (x @ p["wq"]).reshape(b, s, num_heads, head_dim)
     k = (x @ p["wk"]).reshape(b, s, num_kv_heads, head_dim)
     v = (x @ p["wv"]).reshape(b, s, num_kv_heads, head_dim)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    o = kops.attention(qt, kt, vt, causal=False)
+    o = kops.attention(qt, kt, vt, causal=False, use_kernel=use_kernel)
     return o.transpose(1, 2).reshape(b, s, num_heads * head_dim) @ p["wo"]
 
 

@@ -7,8 +7,13 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
 
 Tolerances: f32 attention 2e-5 (the kernel sums in another order); bf16
 attention outputs may differ by one bf16 ulp of values of order 1 (2e-2);
-the fused residual update rounds the same f32 values once, so its output
-is bitwise equal and its sums agree to 1e-5 relative.
+the backward's gradients sum over a whole sequence (up to 1,024 terms per
+element), so f32 gradients agree to 1e-4; the bf16 kernels and the plain
+backward each round f32 values once, so they differ by at most about one
+bf16 ulp (atol 4e-3, rtol 1e-2), while autograd through the plain bf16
+attention rounds at more places (2e-2); the fused residual update rounds
+the same f32 values once,
+so its output is bitwise equal and its sums agree to 1e-5 relative.
 """
 import numpy as np
 import pytest
@@ -18,6 +23,8 @@ from repro_torch.kernels import ops, ref
 
 F32_TOL = 2e-5
 BF16_TOL = 2e-2
+GRAD_F32_TOL = 1e-4
+GRAD_BF16_ATOL, GRAD_BF16_RTOL = 4e-3, 1e-2
 SUM_RTOL = 1e-5
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # (B, H, Sq, Sk, D): SD-v2's head dim 72, CIFAR's 64, ragged Sq and Sk
@@ -64,6 +71,87 @@ def test_flash_kernel_lse_on_card(cuda):
     o_ref, lse_ref = ref.attention(q[None], k[None], v[None], causal=False)
     torch.testing.assert_close(o, o_ref[0], atol=F32_TOL, rtol=F32_TOL)
     torch.testing.assert_close(lse, lse_ref[0], atol=F32_TOL, rtol=F32_TOL)
+
+
+def _qkv(cuda, case, dtype, grad=False):
+    b, h, sq, sk, d = case
+    return [torch.from_numpy(_rand(i, (b, h, s, d))).to(cuda, DTYPES[dtype])
+            .requires_grad_(grad) for i, s in enumerate((sq, sk, sk))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+def test_flash_bwd_kernels_match_plain_on_card(cuda, case, dtype):
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+    b, h, sq, sk, d = case
+    q, k, v = _qkv(cuda, case, dtype)
+    do = torch.from_numpy(_rand(9, (b, h, sq, d))).to(cuda, DTYPES[dtype])
+    q3, k3, v3, do3 = (t.reshape(b * h, *t.shape[2:]) for t in (q, k, v, do))
+    o3, lse = flash_attention_fwd(q3, k3, v3)
+    before = ops.launch_counts()
+    dq, dk, dv = flash_attention_bwd(q3, k3, v3, o3, lse, do3)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["flash_attention_bwd_dq"] == \
+        before["flash_attention_bwd_dq"] + 1
+    assert after["flash_attention_bwd_dkv"] == \
+        before["flash_attention_bwd_dkv"] + 1
+    want = ref.attention_bwd(q, k, v, o3.view(q.shape), lse.view(b, h, sq),
+                             do, causal=False)
+    atol, rtol = ((GRAD_BF16_ATOL, GRAD_BF16_RTOL) if dtype == "bfloat16"
+                  else (GRAD_F32_TOL, GRAD_F32_TOL))
+    for got, w in zip((dq, dk, dv), want):
+        assert got.dtype == q.dtype
+        torch.testing.assert_close(got.view(w.shape).float(), w.float(),
+                                   atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_attention_grads_on_card_equal_plain_path(cuda, dtype):
+    """A loss through ``ops.attention`` on the card gets gradients for q,
+    k and v (through the backward kernels) equal to the plain path's."""
+    case = (2, 3, 100, 77, 72)
+    q, k, v = _qkv(cuda, case, dtype, grad=True)
+    before = ops.launch_counts()
+    got = torch.autograd.grad(ops.attention(q, k, v, causal=False)
+                              .float().sin().sum(), (q, k, v))
+    assert ops.launch_counts()["flash_attention_bwd_dkv"] == \
+        before["flash_attention_bwd_dkv"] + 1
+    want = torch.autograd.grad(ops.attention(q, k, v, causal=False,
+                                             use_kernel=False)
+                               .float().sin().sum(), (q, k, v))
+    tol = BF16_TOL if dtype == "bfloat16" else GRAD_F32_TOL
+    for g, w in zip(got, want):
+        assert g is not None and bool(torch.isfinite(g).all())
+        assert g.abs().max() > 0
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_is_bitwise_deterministic_on_card(cuda):
+    q, k, v = _qkv(cuda, (2, 16, 1024, 1024, 72), "bfloat16", grad=True)
+    runs = [torch.autograd.grad(ops.attention(q, k, v, causal=False)
+                                .float().square().sum(), (q, k, v))
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_refuses_unported_forms_on_card(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    x = torch.ones(2, 16, 8, device=cuda)
+    lse = torch.zeros(2, 16, device=cuda)
+    with pytest.raises(NotImplementedError, match="B5"):
+        flash_attention_bwd(x, x, x, x, lse, x, causal=True)
+    with pytest.raises(NotImplementedError, match="B5"):
+        flash_attention_bwd(torch.ones(4, 16, 8, device=cuda), x, x,
+                            torch.ones(4, 16, 8, device=cuda),
+                            torch.zeros(4, 16, device=cuda),
+                            torch.ones(4, 16, 8, device=cuda))
 
 
 @pytest.mark.cuda

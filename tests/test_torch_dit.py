@@ -65,7 +65,7 @@ def test_dit_eps_matches_jax(width):
     want = np.asarray(jdit.dit_forward(jcfg, _jax_tree(tree), jnp.asarray(x),
                                        jnp.asarray(t), use_kernel=True))
     model = tdit.load_jax_params(tcfg, tree, device="cpu")
-    got = model(torch.from_numpy(x), torch.from_numpy(t)).numpy()
+    got = model(torch.from_numpy(x), torch.from_numpy(t)).detach().numpy()
     assert got.shape == x.shape and np.all(np.isfinite(got))
     assert np.abs(want).mean() > 0.1           # not a vacuous comparison
     np.testing.assert_allclose(got, want, rtol=0,

@@ -8,9 +8,10 @@ kernels themselves are held against the plain versions on the card by
 tests/test_torch_cuda.py and ``chip_smoke.py``.
 
 Tolerances: f32 results agree to 2e-5 (summation order differs between
-frameworks); bf16 outputs are compared after each side rounds to bf16, so
-they may differ by one bf16 ulp of values of order 1 (2e-2); residual sums
-are f32 over the same f32 values, relative 1e-5.
+frameworks), f32 gradients to 5e-5 (the JAX package's own gradient test's
+limit: they sum one more product); bf16 outputs are compared after each
+side rounds to bf16, so they may differ by one bf16 ulp of values of order
+1 (2e-2); residual sums are f32 over the same f32 values, relative 1e-5.
 """
 import jax
 
@@ -23,10 +24,12 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention_bwd as jflash_bwd
 from repro.kernels.flash_attention import flash_attention_fwd as jflash
 from repro_torch.kernels import ops, ref
 
 F32_TOL = 2e-5
+GRAD_F32_TOL = 5e-5
 BF16_TOL = 2e-2
 SUM_RTOL = 1e-5
 RAGGED_TILE = 32          # JAX flash tile for the ragged-tile cases
@@ -87,6 +90,59 @@ def test_attention_twin_matches_jax_kernel_and_oracle(case, dtype):
     torch.testing.assert_close(ops.attention(qt, kt, vt, causal=False,
                                              use_kernel=False), o,
                                atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ATTN_CASES, ids=str)
+def test_attention_bwd_twin_matches_jax_kernels_and_grad(case, dtype):
+    """``ref.attention_bwd`` against JAX's ``flash_attention_bwd`` (the
+    ``_dq_kernel``/``_dkv_kernel`` bodies, interpreted) fed the same o and
+    lse, and against ``jax.vjp`` through the JAX oracle."""
+    b, h, sq, sk, d = case
+    (qt, qj), (kt, kj), (vt, vj), (dot, doj) = (
+        _both(_rand(i, (b, h, s, d)), dtype)
+        for i, s in enumerate((sq, sk, sk, sq)))
+    o, lse = ref.attention(qt, kt, vt, causal=False)
+    grads = ref.attention_bwd(qt, kt, vt, o, lse, dot, causal=False)
+    assert [g.dtype for g in grads] == [qt.dtype] * 3
+    q3, k3, v3, do3 = (x.reshape(b * h, -1, d) for x in (qj, kj, vj, doj))
+    tiles = dict(causal=False, block_q=RAGGED_TILE, block_k=RAGGED_TILE,
+                 interpret=True)
+    jo, jlse = jflash(q3, k3, v3, **tiles)
+    want_kernel = jflash_bwd(q3, k3, v3, jo, jlse, do3, **tiles)
+    _, vjp = jax.vjp(lambda q, k, v: jref.attention(q, k, v, causal=False),
+                     qj, kj, vj)
+    want_grad = vjp(doj)
+    tol = BF16_TOL if dtype == "bfloat16" else GRAD_F32_TOL
+    for got, wk, wg in zip(grads, want_kernel, want_grad):
+        np.testing.assert_allclose(_np(got), _np(wk).reshape(got.shape),
+                                   atol=tol, rtol=tol)
+        np.testing.assert_allclose(_np(got), _np(wg), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("mask", [dict(causal=False), dict(causal=True),
+                                  dict(causal=True, window=5)], ids=str)
+@pytest.mark.parametrize("case", ATTN_CASES[1:3] + [(2, 4, 24, 40, 16)],
+                         ids=str)
+def test_attention_function_grads_match_jax_grad(case, mask):
+    """``torch.autograd.grad`` through the port's ``ops.attention`` (the
+    ``FlashAttention`` Function, plain on the CPU) against ``jax.grad``
+    through ``repro.kernels.ops.attention(use_kernel=True)`` (the custom
+    VJP over the interpreted flash kernels), sin-sum loss, f32.  The last
+    case is GQA (4 query heads over 2 KV heads)."""
+    b, h, sq, sk, d = case
+    hkv = 2 if h == 4 else h
+    (qt, qj), (kt, kj), (vt, vj) = (
+        _both(_rand(i, (b, hh, s, d)), "float32")
+        for i, (hh, s) in enumerate(((h, sq), (hkv, sk), (hkv, sk))))
+    qkv = [x.requires_grad_() for x in (qt, kt, vt)]
+    got = torch.autograd.grad(ops.attention(*qkv, **mask).sin().sum(), qkv)
+    want = jax.grad(lambda q, k, v: jnp.sum(jnp.sin(jops.attention(
+        q, k, v, use_kernel=True, **mask))), (0, 1, 2))(qj, kj, vj)
+    for g, w, name in zip(got, want, "qkv"):
+        assert g.abs().max() > 0, name
+        np.testing.assert_allclose(_np(g), _np(w), atol=GRAD_F32_TOL,
+                                   rtol=GRAD_F32_TOL, err_msg=f"d{name}")
 
 
 @pytest.mark.parametrize("mask", [dict(causal=True),
@@ -197,13 +253,19 @@ def test_cpu_dispatch_launches_no_kernel():
     ops.ddim_fused(x, x, 0.5, 0.6)
     ops.parareal_update_residual(x, x, x, x)
     ops.attention(x[None, None], x[None, None], x[None, None], causal=False)
-    assert ops.launch_counts() == {"flash_attention_fwd": 0, "ddim_fused": 0,
+    q = x[None, None].requires_grad_()
+    torch.autograd.grad(ops.attention(q, q, q, causal=False).sum(), q)
+    assert ops.launch_counts() == {"flash_attention_fwd": 0,
+                                   "flash_attention_bwd_dq": 0,
+                                   "flash_attention_bwd_dkv": 0,
+                                   "ddim_fused": 0,
                                    "parareal_update_residual": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_unported_forms():
     from repro_torch.kernels import elementwise
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
     x = torch.ones(2, 16, 8)
     with pytest.raises(ValueError, match="CUDA"):
         elementwise.ddim_fused(x, x, torch.tensor(0.5), torch.tensor(0.6))
@@ -215,6 +277,11 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_unported_forms():
         flash_attention_fwd(x, x, x, causal=True)
     with pytest.raises(NotImplementedError, match="B3"):
         flash_attention_fwd(torch.ones(4, 16, 8), x, x)
+    lse = torch.zeros(2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd(x, x, x, x, lse, x)
+    with pytest.raises(NotImplementedError, match="B5"):
+        flash_attention_bwd(x, x, x, x, lse, x, window=4)
 
 
 def test_build_targets_sources_by_hash(monkeypatch):
@@ -222,7 +289,7 @@ def test_build_targets_sources_by_hash(monkeypatch):
     hash, inside the package's ignored build directory; without nvcc the
     build raises instead of falling back."""
     from repro_torch.kernels import _build
-    assert _build.sources() == ["flash_attention_fwd"]
+    assert _build.sources() == ["flash_attention_bwd", "flash_attention_fwd"]
     target = _build._target("flash_attention_fwd")
     assert target.parent == _build.BUILD_DIR
     assert target.name.startswith("libflash_attention_fwd-")
