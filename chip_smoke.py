@@ -15,7 +15,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    card could take (``bound_ms``) and, where one PyTorch call computes the
    same function, that call's time (``library_ms``, a yardstick the port
    never calls): the flash forward, the flash backward's dq and dkv
-   kernels (against ``ref.attention_bwd``), DDIM and the fused residual;
+   kernels (against ``ref.attention_bwd``), DDIM, the fused residual and
+   the fused update without it (``parareal_update``: f32 at the serving
+   shape, bf16, ragged; two runs bitwise equal);
 4. sampling: the full-width, full-depth ``srds-dit-sd2`` DiT (28 layers,
    d 1152, 16 heads of 72, bf16) with weights drawn from a numpy seed
    (every leaf nonzero) and loaded through ``load_jax_params``; DDIM on
@@ -24,7 +26,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    reset just before and read just after), held against the sequential
    sample, then ``srds_sample`` with an early-exit ``tol``.  Launch counts
    must equal what the loop implies;
-5. training: the same DiT and weights through ``launch.train.build``:
+5. serving: the same DiT behind ``repro_torch.serve``: a
+   ``DiffusionSamplingEngine`` (N=25, B=5, 2 slots, default ``ExactPrefix``
+   truncation, ``norm='l1_mean'``) driven by ``AsyncServeLoop`` on a
+   ``MonotonicClock`` under FIFO, over a ``bursty_trace`` of 6 requests in
+   2 bursts of 3 (two at ``tol=0``, four at a loose ``tol``); launch counts
+   reset just before and read just after.  Each ``tol=0`` sample against
+   ``sample_sequential`` from the same noise; each request's iterations and
+   evals against its standalone ``srds_sample(truncate=True)``; launch
+   counts against the engine's refinement record; one ``_host_fetch`` per
+   refinement plus one per completion, and no other host sync (PyTorch's
+   sync debug mode); per-request latency and the run's wall time.  Then
+   the two ``tol=0`` requests again with ``norm='l2_mean'``: the
+   ``parareal_update`` kernel once per refined block, the residual kernel
+   never, and samples equal to the first run's;
+6. training: the same DiT and weights through ``launch.train.build``:
    the gradient of one ``diffusion_loss`` at batch 2 through the kernels
    against the plain attention's, whole and over the q, k and v
    projections alone; ``train_loop`` for 5 AdamW steps at
@@ -64,6 +80,19 @@ EARLY_TOL = 1e-2
 # latents per fine step, 2 per sequential step) perturb every eval.  An
 # H100 run measured 1.05e-5; the limit keeps a margin of about 100x.
 SRDS_VS_SEQ_REL_L2 = 1e-3
+# phase 5: the serving engine's slots, and a bursty trace whose tiers
+# draw (tol=0, tol=0, loose | loose, loose, loose) from this seed (checked)
+SERVE_SLOTS, SERVE_PERIOD, SERVE_TRACE_SEED = 2, 1.0, 75
+# the loose tier's tol, between the residuals of refinements 2 and 3 in
+# phase 4's early-exit delta history (an H100 run read 0.159 and 0.0093
+# there, and 0.153-0.164 and 0.0092-0.0093 for the served requests), so
+# its requests stop at refinement 3, a factor 3 or more from any residual
+LOOSE_TOL = 5e-2
+# PyTorch's sync debug mode's warning for a synchronizing call
+SYNC_WARNING = "called a synchronizing CUDA operation"
+# the l2_mean run against the l1_mean run, tol=0 requests: the norm
+# changes nothing that is computed, so bitwise is expected
+SERVE_L2_VS_L1_REL = 1e-6
 TRAIN_BATCH, TRAIN_STEPS, GRAD_BATCH = 8, 5, 2
 # a tenth of the launcher's default (LAUNCHER_LR): the random-weight DiT
 # (adaLN gates open in all 28 layers) is far rougher than the adaLN-zero
@@ -276,7 +305,7 @@ def gradient_check(torch, ops, model, images):
 
 
 def train_phase(torch, ops, cfg, tree):
-    """Phase 5; returns the launch counts of the ``train_loop`` run."""
+    """Phase 6; returns the launch counts of the ``train_loop`` run."""
     import math
     import shutil
     import tempfile
@@ -294,7 +323,7 @@ def train_phase(torch, ops, cfg, tree):
     stream = make_stream(cfg, DataConfig(seed=SEED,
                                          global_batch=TRAIN_BATCH),
                          device="cuda")
-    print(f"[5/5] training {cfg.name} through launch.train.build "
+    print(f"[6/6] training {cfg.name} through launch.train.build "
           f"({time.perf_counter() - t0:.1f} s), batch {TRAIN_BATCH}, "
           f"{stream.size}x{stream.size}x{stream.channels} images", flush=True)
     loop_seed = SEED + 1
@@ -409,6 +438,151 @@ def train_phase(torch, ops, cfg, tree):
     return counts
 
 
+def serve_phase(torch, ops, C, model_fn, sched, solver, layers):
+    """Phase 5; returns the launch counts of the l1_mean run and of the
+    l2_mean run."""
+    import warnings
+    import numpy as np
+    from repro_torch import serve
+    from repro_torch.serve import diffusion as sd
+    B, S = C.resolve_blocks(N_STEPS, BLOCKS)
+    shape = (64, 64, 4)
+    tiers = [serve.Tier(tol=0.0, weight=1.0),
+             serve.Tier(tol=LOOSE_TOL, weight=2.0)]
+    trace = serve.bursty_trace(2, 3, period=SERVE_PERIOD, tiers=tiers,
+                               seed=SERVE_TRACE_SEED)
+    if [r.tol for r in trace] != [0.0, 0.0] + [LOOSE_TOL] * 4:
+        raise AssertionError(f"unexpected tiers {[r.tol for r in trace]}")
+    print(f"[5/6] serving: {len(trace)} requests in 2 bursts "
+          f"{SERVE_PERIOD} s apart (tols {[r.tol for r in trace]}), "
+          f"{SERVE_SLOTS} slots, N={N_STEPS}, B={B}, AsyncServeLoop on a "
+          f"MonotonicClock, FIFO", flush=True)
+    real_fetch = sd._host_fetch
+    fetches = []
+
+    def hidden_syncs(fn):
+        """Run ``fn`` under PyTorch's sync debug mode; returns its result
+        and the synchronizing calls it made (the mode does not see every
+        kind, e.g. none inside the ctypes-bound kernels' C code)."""
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        return out, [str(w.message) for w in caught
+                     if SYNC_WARNING in str(w.message)]
+
+    # a control: the detector must see a plain .item()
+    _, control = hidden_syncs(lambda: torch.ones(1, device="cuda").item())
+    if len(control) != 1:
+        raise AssertionError(f"the sync detector missed an .item(): "
+                             f"{control}")
+
+    def counted_fetch(f):
+        fetches.append(tuple(f.host.shape))
+        return real_fetch(f)
+
+    def drive(label, norm, reqs):
+        eng = serve.DiffusionSamplingEngine(
+            model_fn, shape, solver, num_steps=N_STEPS,
+            batch_size=SERVE_SLOTS, num_blocks=B, norm=norm,
+            clock=serve.MonotonicClock(), device="cuda")
+        loop = serve.AsyncServeLoop(eng, serve.FIFO(), max_inflight=2)
+        fetches.clear()
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        sd._host_fetch = counted_fetch
+        t0 = time.perf_counter()
+        try:
+            rep, hidden = hidden_syncs(lambda: loop.run(reqs))
+        finally:
+            sd._host_fetch = real_fetch
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        frontiers = eng.refine_frontiers
+        ddim = eng.init_sweeps * B + sum(S + B - f for f in frontiers)
+        blocks = sum(B - f for f in frontiers)
+        resid = ("parareal_update_residual" if norm == "l1_mean"
+                 else "parareal_update")
+        want = dict.fromkeys(counts, 0)
+        want.update({"flash_attention_fwd": layers * ddim,
+                     "ddim_fused": ddim, resid: blocks})
+        st = eng.stats()
+        print(f"  {label}: wall {wall:.3f} s, {len(frontiers)} refinements "
+              f"(frontiers {frontiers}), {eng.init_sweeps} init sweeps, "
+              f"launches {counts}; host fetches {len(fetches)} "
+              f"({len(frontiers)} refinements + {len(rep.responses)} "
+              f"completions), other host syncs {len(hidden)}; physical "
+              f"evals {st['physical_evals']}, effective "
+              f"{st['effective_evals']}", flush=True)
+        if counts != want:
+            raise AssertionError(f"{label}: launch counts {counts} != {want} "
+                                 f"from the refinement record")
+        if min(counts[k] for k in ("flash_attention_fwd", "ddim_fused",
+                                   resid)) == 0:
+            raise AssertionError(f"{label}: a kernel never ran: {counts}")
+        if len(fetches) != len(frontiers) + len(rep.responses):
+            raise AssertionError(f"{label}: {len(fetches)} host fetches, "
+                                 f"expected one per refinement and one per "
+                                 f"completion")
+        if hidden:
+            raise AssertionError(f"{label}: hidden host syncs: {hidden[:3]}")
+        if rep.rejected or rep.preempted or \
+                sorted(rep.responses) != list(range(len(reqs))):
+            raise AssertionError(f"{label}: not every request completed")
+        return rep, counts, wall
+
+    rep, l1_counts, wall = drive("l1_mean run (main path)", "l1_mean", trace)
+    for rid, req in enumerate(trace):
+        r = rep.responses[rid]
+        x0 = serve.default_noise(req.seed, shape, torch.float32, "cuda")
+        cfg = C.SRDSConfig(num_blocks=B, tol=req.tol, truncate=True)
+        alone = C.srds_sample(model_fn, sched, solver, x0[None], cfg)
+        it = int(alone.iterations)
+        evals = C.srds_stats(sched, solver, cfg, it).total_evals
+        sample = torch.from_numpy(r.sample).cuda()
+        if sample.shape != shape or not bool(torch.isfinite(sample).all()):
+            raise AssertionError(f"request {rid}: bad sample")
+        rel_alone = ((sample - alone.sample[0]).norm()
+                     / alone.sample[0].norm()).item()
+        line = (f"  request {rid} (seed {req.seed}, tol {req.tol}, arrival "
+                f"{req.arrival_time:.1f} s): iterations {r.iterations} "
+                f"(standalone {it}), evals {r.model_evals} (standalone "
+                f"{evals}), latency {r.latency:.3f} s, delta history "
+                f"{[float(f'{d:.4g}') for d in r.delta_history]}, rel L2 to "
+                f"standalone {rel_alone:.3e}")
+        if req.tol == 0.0:
+            seq = C.sample_sequential(model_fn, sched, solver, x0[None])[0]
+            rel = ((sample - seq).norm() / seq.norm()).item()
+            line += f", to sequential {rel:.3e} (limit {SRDS_VS_SEQ_REL_L2})"
+            if not rel <= SRDS_VS_SEQ_REL_L2:
+                raise AssertionError(f"request {rid}: differs from the "
+                                     f"sequential sample: rel L2 {rel}")
+        print(line, flush=True)
+        if (r.iterations, r.model_evals) != (it, evals):
+            raise AssertionError(f"request {rid}: iterations/evals differ "
+                                 f"from its standalone run")
+    lats = sorted(r.latency for r in rep.responses.values())
+    print(f"  latency p50 {rep.latency_p50:.3f} s, max {lats[-1]:.3f} s, "
+          f"makespan {rep.makespan:.3f} s, wall {wall:.3f} s", flush=True)
+
+    exact = [dict(vars(r), arrival_time=0.0) for r in trace[:2]]
+    rep2, l2_counts, _ = drive("l2_mean run, the tol=0 requests", "l2_mean",
+                               [serve.SampleRequest(**r) for r in exact])
+    for rid in range(2):
+        a = rep2.responses[rid].sample
+        b = rep.responses[rid].sample
+        rel = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        print(f"  request {rid}: l2_mean vs l1_mean sample rel L2 {rel:.3e}, "
+              f"bitwise equal {bool(np.array_equal(a, b))}", flush=True)
+        if not rel <= SERVE_L2_VS_L1_REL:
+            raise AssertionError(f"request {rid}: the l2_mean run's sample "
+                                 f"differs from the l1_mean run's: {rel}")
+    return l1_counts, l2_counts
+
+
 def kernel_phase(torch, ops, ref):
     import torch.nn.functional as F
     dev = torch.device("cuda")
@@ -419,7 +593,7 @@ def kernel_phase(torch, ops, ref):
 
     cases = {"flash_attention_fwd": [], "flash_attention_bwd_dq": [],
              "flash_attention_bwd_dkv": [], "ddim_fused": [],
-             "parareal_update_residual": []}
+             "parareal_update_residual": [], "parareal_update": []}
     # flash forward: SD-v2 fine and coarse batches (10 and 2 latents x 16
     # heads, S 1024, D 72) in bf16, CIFAR-width f32, and ragged Sq/Sk
     for bh, sq, sk, d, dtype in [(160, 1024, 1024, 72, "bfloat16"),
@@ -485,6 +659,33 @@ def kernel_phase(torch, ops, ref):
         cases["parareal_update_residual"].append(check_case(
             f"parareal_update_residual float32 {shape} batch_dims={nd}",
             resid, resid_r, 0.0, 1e-5, timing))
+
+    # fused update without the residual (B4): one corrector block of the
+    # serving engine's 2 slots in f32, the same in bf16, and a ragged size
+    for shape, dtype in [((SAMPLES, 64, 64, 4), "float32"),
+                         ((SAMPLES, 64, 64, 4), "bfloat16"),
+                         ((3, 1000, 7), "float32")]:
+        tdt = getattr(torch, dtype)
+        y, c, p = (randn(shape, tdt) for _ in range(3))
+        out, resid = ops.parareal_update(y, c, p)
+        again = ops.parareal_update(y, c, p)
+        out_r, resid_r = ref.parareal_update(y, c, p)
+        if not torch.equal(out, out_r):
+            raise AssertionError("parareal_update: the update is not bitwise "
+                                 "equal to its plain version")
+        if not (torch.equal(_bits(again[0]), _bits(out))
+                and torch.equal(_bits(again[1]), _bits(resid))):
+            raise AssertionError("parareal_update: two runs differ")
+        b_ms, b_by = bound(nbytes(y, c, p, out, resid), 5.0 * y.numel(),
+                           "float32")
+        timing = dict(
+            ms=time_ms(lambda: ops.parareal_update(y, c, p), 500),
+            plain_ms=time_ms(lambda: ops.parareal_update(
+                y, c, p, use_kernel=False), 200),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        cases["parareal_update"].append(check_case(
+            f"parareal_update {dtype} {shape} (out bitwise, two runs "
+            f"bitwise)", resid, resid_r, 0.0, 1e-5, timing))
     return cases
 
 
@@ -505,20 +706,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/5] device: {smi} (torch {torch.__version__}, CUDA "
+    print(f"[1/6] device: {smi} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda})", flush=True)
 
     # ---- 2. build --------------------------------------------------------
     from repro_torch.kernels import _build, ops, ref
     secs = _build.build_all()
-    print(f"[2/5] build: {len(_build.sources())} CUDA source(s) in "
+    print(f"[2/6] build: {len(_build.sources())} CUDA source(s) in "
           f"{secs:.1f} s", flush=True)
     for name, log in _build.build_log.items():
         print(f"  nvcc {name}.cu:\n" + "\n".join(
             "    " + line for line in log.strip().splitlines()))
 
     # ---- 3. kernels against their plain versions -------------------------
-    print("[3/5] kernels vs plain versions (times on this card)", flush=True)
+    print("[3/6] kernels vs plain versions (times on this card)", flush=True)
     cases = kernel_phase(torch, ops, ref)
 
     # ---- 4. sampling -----------------------------------------------------
@@ -530,7 +731,7 @@ def main() -> int:
     t0 = time.perf_counter()
     tree = dit.random_jax_tree(cfg, seed=SEED)
     model = dit.load_jax_params(cfg, tree, device="cuda")
-    print(f"[4/5] srds-dit-sd2: {cfg.num_layers} layers, d {cfg.d_model}, "
+    print(f"[4/6] srds-dit-sd2: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads}x{cfg.resolved_head_dim} heads, {cfg.dtype}, "
           f"{dit.param_count(model) / 1e6:.1f} M params, built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -556,7 +757,8 @@ def main() -> int:
     def expect(counts, ddim, resid):
         want = {"flash_attention_fwd": layers * ddim,
                 "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-                "ddim_fused": ddim, "parareal_update_residual": resid}
+                "ddim_fused": ddim, "parareal_update_residual": resid,
+                "parareal_update": 0}
         if counts != want:
             raise AssertionError(f"launch counts {counts} != {want}")
 
@@ -571,7 +773,8 @@ def main() -> int:
                                                     x_init, fixed))
     p = int(res.iterations.max())
     expect(main_counts, B + p * (S + B), p * B)
-    if min(n for k, n in main_counts.items() if k not in BWD_KERNELS) == 0:
+    if min(n for k, n in main_counts.items()
+           if k not in BWD_KERNELS + ("parareal_update",)) == 0:
         raise AssertionError(f"a kernel never ran on the main path: "
                              f"{main_counts}")
     sample = res.sample
@@ -604,10 +807,14 @@ def main() -> int:
           f"delta history {hist}", flush=True)
     if not bool(torch.isfinite(res2.sample).all()):
         raise AssertionError("early-exit srds sample is not finite")
+
+    # ---- 5. serving ------------------------------------------------------
+    serve_counts, serve_l2_counts = serve_phase(torch, ops, C, model_fn,
+                                                sched, solver, layers)
     del model, model_fn
     torch.cuda.empty_cache()
 
-    # ---- 5. training -----------------------------------------------------
+    # ---- 6. training -----------------------------------------------------
     train_counts = train_phase(torch, ops, cfg, tree)
 
     sources = {"flash_attention_fwd": (
@@ -623,18 +830,24 @@ def main() -> int:
                        "src/repro/kernels/elementwise.py:34"),
         "parareal_update_residual": (
             "triton", "src/repro_torch/kernels/elementwise.py",
-            "src/repro/kernels/elementwise.py:63")}
+            "src/repro/kernels/elementwise.py:63"),
+        "parareal_update": ("triton", "src/repro_torch/kernels/elementwise.py",
+                            "src/repro/kernels/elementwise.py:110")}
+    # a kernel's launches are those of its path: training for the
+    # backward, the l2_mean serving run for parareal_update, serving (this
+    # slice's main path) for the rest
+    path_of = dict.fromkeys(BWD_KERNELS, "train_loop")
+    path_of["parareal_update"] = "serve_l2_mean"
     kernels = []
     for name, (route, source, replaces) in sources.items():
         first = cases[name][0]            # the main path's shape
-        # a kernel's launches are those of its path: training for the
-        # backward, sampling for the rest (the forward runs on both)
         by_path = {"srds_sample": main_counts[name],
+                   "serve": serve_counts[name],
+                   "serve_l2_mean": serve_l2_counts[name],
                    "train_loop": train_counts[name]}
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
-            launches=by_path["train_loop" if name in BWD_KERNELS
-                             else "srds_sample"],
+            launches=by_path[path_of.get(name, "serve")],
             launches_by_path=by_path,
             max_abs_err=max(c["max_abs_err"] for c in cases[name]),
             ms=first["ms"], plain_ms=first["plain_ms"],

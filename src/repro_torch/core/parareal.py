@@ -12,8 +12,7 @@ import torch
 
 from .denoiser import as_denoiser
 from .engine import (SRDSConfig, SRDSResult, fold_fine_fn, iteration_cost,
-                     predicted_evals, resolve_blocks, result_from_state,
-                     run_parareal)
+                     resolve_blocks, result_from_state, run_parareal)
 from .schedules import DiffusionSchedule
 from .sequential import SampleStats
 from .solvers import ModelFn, SolverConfig, solve
@@ -31,7 +30,13 @@ def srds_sample(model_fn: ModelFn, sched: DiffusionSchedule,
     With ``cfg.per_sample`` convergence is gated per sample (results equal
     K independent calls) and ``iterations``/``final_delta``/
     ``delta_history`` gain a K axis.  ``tol`` overrides ``cfg.tol``; per
-    sample it may be a ``(K,)`` tensor.
+    sample it may be a ``(K,)`` tensor.  ``cfg.truncate`` fine-solves only
+    the non-frozen suffix ``[prefix_frontier(p), B)`` at refinement p
+    (bitwise equal for elementwise models); ``cfg.window`` takes any
+    frontier policy, and under ``ResidualWindow`` the result's
+    ``window_history`` holds each refinement's window bound (its realized
+    cost is ``windowed_evals``).  ``cfg.accel`` mixes the refinement fixed
+    point (fewer iterations, zero extra evals).
     """
     if cfg.block_sharding is not None:
         raise NotImplementedError("block sharding is not ported yet "
@@ -66,18 +71,25 @@ def srds_sample(model_fn: ModelFn, sched: DiffusionSchedule,
 def srds_stats(sched: DiffusionSchedule, solver: SolverConfig,
                cfg: SRDSConfig, iterations: int,
                pipelined: bool = False) -> SampleStats:
-    """Paper-style eval accounting, untruncated: init B sequential coarse
-    steps, then per refinement S fine steps (parallel across blocks) and
-    the B-step sequential sweep."""
+    """Paper-style eval accounting: init B sequential coarse steps, then
+    per refinement S fine steps (parallel across blocks) and the
+    sequential sweep.  Truncated runs (``cfg.truncate`` or a truncating
+    ``cfg.window``) fine-solve and sweep only ``[static_frontier(p), B)``:
+    total evals follow the policy's ``predict_evals`` and the serial sweep
+    shortens with the frontier."""
+    from .window import resolve_policy
     if pipelined:
         raise NotImplementedError("wavefront pricing is not ported yet "
                                   "(ROADMAP A10)")
-    if cfg.truncate or cfg.window is not None:
-        raise NotImplementedError("truncated pricing is not ported yet "
-                                  "(ROADMAP A5)")
     B, S = resolve_blocks(sched.num_steps, cfg.num_blocks)
     e = solver.evals_per_step
     k = int(iterations)
     cost = iteration_cost(sched.num_steps, cfg.num_blocks, e)
-    return SampleStats(serial_evals=e * (B + k * (S + B)),
-                       total_evals=predicted_evals(cost, k), iterations=k)
+    pol = resolve_policy(cfg.window, cfg.truncate)
+    if pol.truncates:
+        serial = e * (B + sum(S + B - pol.static_frontier(p, B)
+                              for p in range(k)))
+    else:
+        serial = e * (B + k * (S + B))
+    return SampleStats(serial_evals=serial,
+                       total_evals=pol.predict_evals(cost, k), iterations=k)

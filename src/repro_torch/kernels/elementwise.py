@@ -1,11 +1,14 @@
 """Fused elementwise Triton kernels for the sampler's inner loop.
 
-Counterparts of ``repro.kernels.elementwise``'s ``_ddim_kernel`` and
-``_parareal_resid_kernel``.  Both are one memory-bound pass over flat
-contiguous tensors: masked loads cover the ragged tail, so the TPU's
-``(rows, 128)`` padding is not needed.  Bound: bytes (each input read
-once, the output written once); at the DiT's latents one pass moves a few
-MB, under a microsecond of HBM time, so launch latency dominates.
+Counterparts of ``repro.kernels.elementwise``'s ``_ddim_kernel``,
+``_parareal_resid_kernel`` and ``_parareal_kernel``.  Each is one
+memory-bound pass over flat contiguous tensors: masked loads cover the
+ragged tail, so the TPU's ``(rows, 128)`` padding is not needed.  Bound:
+bytes (each input read once, the output written once); at the DiT's
+latents one pass moves a few MB at most, under a microsecond of HBM time,
+so launch latency dominates.  The two update kernels reduce to one f32
+partial per tile and a second small kernel sums the partials in a fixed
+order: no float atomics, so two runs are bitwise equal.
 
 Triton is imported inside the launching functions only, so the module
 imports on machines without it; the wrappers take CUDA tensors (the ops
@@ -73,6 +76,21 @@ def _triton_kernels():
         tl.store(part_ptr + s.to(tl.int64) * tiles + t, tl.sum(d, axis=0))
 
     @triton.jit
+    def update_kernel(y_ptr, c_ptr, p_ptr, o_ptr, part_ptr, n_total,
+                      BLOCK: tl.constexpr):
+        # program t: tile t of the flat tensor, one partial of |cur - prev|
+        t = tl.program_id(0)
+        offs = t.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+        mask = offs < n_total
+        y = tl.load(y_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        c = tl.load(c_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        p = tl.load(p_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        out = y + c - p
+        tl.store(o_ptr + offs, out.to(o_ptr.dtype.element_ty), mask=mask)
+        d = tl.where(mask, tl.abs(c - p), 0.0)
+        tl.store(part_ptr + t, tl.sum(d, axis=0))
+
+    @triton.jit
     def sum_partials_kernel(part_ptr, out_ptr, tiles, BLOCK: tl.constexpr):
         # one program per slice, walking its partials in a fixed order
         s = tl.program_id(0)
@@ -84,7 +102,7 @@ def _triton_kernels():
         tl.store(out_ptr + s, tl.sum(acc, axis=0))
 
     _kernels.update(ddim=ddim_kernel, resid=resid_kernel,
-                    sum_partials=sum_partials_kernel)
+                    update=update_kernel, sum_partials=sum_partials_kernel)
     return _kernels
 
 
@@ -172,3 +190,38 @@ def parareal_update_residual(y: torch.Tensor, cur: torch.Tensor,
 
 
 parareal_update_residual.launches = 0
+
+
+# the B4 kernel's own definition: RL002 exempts the JAX package's
+# kernels directory, not the port's
+# reprolint: disable=RL002
+def parareal_update(y: torch.Tensor, cur: torch.Tensor, prev: torch.Tensor):
+    """``out = y + cur - prev`` (rounded once from f32) and the f32 L1 sum
+    ``|cur - prev|`` over the whole tensor, as a 0-d tensor.
+
+    Replaces ``repro.kernels.elementwise.parareal_update_pallas``
+    (``_parareal_kernel``).  One masked pass over the flat tensors writes
+    ``out`` and one partial per tile; the partials kernel sums them in a
+    fixed order.  Counts each call in ``parareal_update.launches``.
+    """
+    _check("parareal_update", y, cur, prev)
+    y, cur, prev = (t.contiguous() for t in (y, cur, prev))
+    out = torch.empty_like(y)
+    n = y.numel()
+    if n == 0:
+        return out, torch.zeros((), dtype=torch.float32, device=y.device)
+    tiles = math.ceil(n / RESID_BLOCK)
+    partials = torch.empty((1, tiles), dtype=torch.float32, device=y.device)
+    resid = torch.empty((1,), dtype=torch.float32, device=y.device)
+    ks = _triton_kernels()
+    with torch.cuda.device(y.device):
+        ks["update"][(tiles,)](y, cur, prev, out, partials, n,
+                               BLOCK=RESID_BLOCK, num_warps=NUM_WARPS)
+        ks["sum_partials"][(1,)](partials, resid, tiles,
+                                 BLOCK=PARTIALS_BLOCK,
+                                 num_warps=PARTIALS_NUM_WARPS)
+    parareal_update.launches += 1
+    return out, resid.reshape(())
+
+
+parareal_update.launches = 0

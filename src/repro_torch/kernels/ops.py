@@ -12,8 +12,8 @@ Counterpart of ``repro.kernels.ops``.  The rule is the same for every op:
 Each kernel wrapper carries a ``launches`` counter
 (``flash_attention_fwd.launches``, ``flash_attention_bwd_dq.launches``,
 ``flash_attention_bwd_dkv.launches``, ``ddim_fused.launches``,
-``parareal_update_residual.launches``) that :func:`launch_counts` reads
-and :func:`reset_launch_counts` zeroes.
+``parareal_update_residual.launches``, ``parareal_update.launches``)
+that :func:`launch_counts` reads and :func:`reset_launch_counts` zeroes.
 
 :func:`attention` is differentiable: it runs through
 :class:`FlashAttention`, the counterpart of ``repro.kernels.ops._flash``
@@ -34,7 +34,8 @@ _COUNTED = {"flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd_dq": flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
             "ddim_fused": elementwise.ddim_fused,
-            "parareal_update_residual": elementwise.parareal_update_residual}
+            "parareal_update_residual": elementwise.parareal_update_residual,
+            "parareal_update": elementwise.parareal_update}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -133,3 +134,14 @@ def parareal_update_residual(y: torch.Tensor, cur: torch.Tensor,
                                             batch_dims=batch_dims)
     return elementwise.parareal_update_residual(y, cur, prev, old,
                                                 batch_dims=batch_dims)
+
+
+# the B4 kernel's own definition: RL002 exempts the JAX package's
+# kernels directory, not the port's
+# reprolint: disable=RL002
+def parareal_update(y: torch.Tensor, cur: torch.Tensor, prev: torch.Tensor,
+                    *, use_kernel: Optional[bool] = None):
+    """``(y + cur - prev, sum|cur - prev|)`` in one pass; the sum is f32."""
+    if not _kernel(y, use_kernel):
+        return ref.parareal_update(y, cur, prev)
+    return elementwise.parareal_update(y, cur, prev)

@@ -114,6 +114,21 @@ def ddim_fused(x: torch.Tensor, eps: torch.Tensor, a, b) -> torch.Tensor:
     return (torch.sqrt(b) * x0 + torch.sqrt(1.0 - b) * ef).to(x.dtype)
 
 
+# the B4 kernel's own definition: RL002 exempts the JAX package's
+# kernels directory, not the port's
+# reprolint: disable=RL002
+def parareal_update(y: torch.Tensor, cur: torch.Tensor,
+                    prev: torch.Tensor):
+    """out = y + cur - prev, rounded once from f32 to y's dtype like the
+    kernel, and the f32 L1 sum |cur - prev| (the correction's size).
+
+    The JAX oracle computes ``out`` in the input dtype, rounding twice in
+    bf16 (ROADMAP C6); in f32 the two agree bitwise.
+    """
+    cf, pf = cur.float(), prev.float()
+    return (y.float() + cf - pf).to(y.dtype), (cf - pf).abs().sum()
+
+
 def parareal_update_residual(y: torch.Tensor, cur: torch.Tensor,
                              prev: torch.Tensor, old: torch.Tensor, *,
                              batch_dims: int = 0):

@@ -13,7 +13,14 @@ backward each round f32 values once, so they differ by at most about one
 bf16 ulp (atol 4e-3, rtol 1e-2), while autograd through the plain bf16
 attention rounds at more places (2e-2); the fused residual update rounds
 the same f32 values once,
-so its output is bitwise equal and its sums agree to 1e-5 relative.
+so its output is bitwise equal and its sums agree to 1e-5 relative; so
+does the update without the residual (``parareal_update``).  SRDS on a
+small f32 DiT with ``norm='l2_mean'``: the fused and plain updates add the
+same f32 values in the same order, so their samples agree to 1e-5 (the
+rest of the solve is shared), and the sample at the iteration cap equals
+the sequential one to 1e-4.  The serving engine on the card makes one
+host fetch per refinement plus one per completion and no other host sync
+(PyTorch's sync debug mode), and its samples equal ``simulate()``'s.
 """
 import numpy as np
 import pytest
@@ -185,3 +192,105 @@ def test_residual_kernel_slices_independent_of_batch_on_card(cuda):
         _, alone = ops.parareal_update_residual(y[s], c[s], p[s], o[s],
                                                 batch_dims=1)
         assert alone.item() == batch[k].item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 64, 64, 4), (5, 2, 64, 64, 4),
+                                   (3, 1000, 7)], ids=str)
+def test_parareal_update_kernel_matches_plain_on_card(cuda, shape, dtype):
+    y, c, p = (torch.from_numpy(_rand(i, shape)).to(cuda, DTYPES[dtype])
+               for i in range(3))
+    before = ops.launch_counts()["parareal_update"]
+    out, resid = ops.parareal_update(y, c, p)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["parareal_update"] == before + 1
+    out_r, resid_r = ref.parareal_update(y, c, p)
+    torch.testing.assert_close(out, out_r, atol=0, rtol=0)
+    torch.testing.assert_close(resid, resid_r, atol=0, rtol=SUM_RTOL)
+    out2, resid2 = ops.parareal_update(y, c, p)
+    assert torch.equal(out2, out) and torch.equal(resid2, resid)
+
+
+def _small_dit_fn(cuda):
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.models import dit
+    cfg = ArchConfig(name="dit-small", num_layers=2, d_model=144,
+                     num_heads=2, num_kv_heads=2, d_ff=288, patch_size=2,
+                     in_channels=4, dtype="float32")
+    model = dit.load_jax_params(cfg, dit.random_jax_tree(cfg, seed=0),
+                                device=cuda)
+    return dit.make_denoiser(model)
+
+
+@pytest.mark.cuda
+def test_srds_l2_mean_on_card_small_dit(cuda):
+    import repro_torch.core as C
+    fn = _small_dit_fn(cuda)
+    sched = C.make_schedule("ddpm_linear", 16)
+    x0 = torch.from_numpy(_rand(5, (2, 16, 16, 4))).to(cuda)
+    cfg = dict(num_blocks=4, tol=0.0, norm="l2_mean", per_sample=True,
+               truncate=True)
+    ops.reset_launch_counts()
+    res = C.srds_sample(fn, sched, C.SolverConfig("ddim"), x0,
+                        C.SRDSConfig(**cfg))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    # truncated refinements 0..3 cover 4, 4, 3 and 2 blocks
+    assert counts["parareal_update"] == 4 + 4 + 3 + 2
+    assert counts["parareal_update_residual"] == 0
+    plain = C.srds_sample(fn, sched, C.SolverConfig("ddim"), x0,
+                          C.SRDSConfig(use_fused_update=False, **cfg))
+    torch.testing.assert_close(res.sample, plain.sample, atol=1e-5,
+                               rtol=1e-5)
+    seq = C.sample_sequential(fn, sched, C.SolverConfig("ddim"), x0)
+    torch.testing.assert_close(res.sample, seq, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_serving_engine_one_sync_per_refinement_on_card(cuda, monkeypatch):
+    import warnings
+    from repro_torch import serve
+    from repro_torch.core import SolverConfig
+    from repro_torch.serve import diffusion as sd
+    scale = torch.linspace(0.5, 1.5, 8, device=cuda)
+
+    def model(x, t):
+        return torch.tanh(x * scale) * (0.5 + 0.001 * t[:, None])
+
+    fetches = []
+    real = sd._host_fetch
+
+    def counted(f):
+        fetches.append(f)
+        return real(f)
+
+    def engine():
+        return serve.DiffusionSamplingEngine(
+            model, (8,), SolverConfig("ddim"), num_steps=36, batch_size=2,
+            device=cuda)
+
+    trace = serve.poisson_trace(
+        6, rate=300.0, tiers=[serve.Tier(tol=1e-2), serve.Tier(tol=1e-5)],
+        seed=0)
+    sync = serve.simulate(engine(), trace)
+    eng = engine()
+    monkeypatch.setattr(sd, "_host_fetch", counted)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rep = serve.AsyncServeLoop(eng, serve.FIFO()).run(trace)
+            n_run = len(caught)
+            torch.ones(1, device=cuda).item()    # a control the mode sees
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    hidden = [i for i, w in enumerate(caught)
+              if "called a synchronizing CUDA operation" in str(w.message)]
+    assert hidden == [n_run]
+    assert len(fetches) == len(eng.refine_frontiers) + len(rep.responses)
+    assert sorted(rep.responses) == sorted(sync.responses)
+    for rid, r in sync.responses.items():
+        assert rep.responses[rid].iterations == r.iterations
+        assert np.array_equal(rep.responses[rid].sample, r.sample)

@@ -202,7 +202,7 @@ def test_ddim_fused_per_row_coefficients():
 
 
 # --------------------------------------------------------------------------
-# fused predictor-corrector update + L1 residual
+# fused predictor-corrector update + L1 residual, and without it (B4)
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -235,6 +235,37 @@ def test_parareal_update_residual_twin_matches_jax(batch_dims, shape, dtype):
     torch.testing.assert_close(r2, resid, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(7,), (3, 129), (2, 64, 64, 4),
+                                   (5, 2, 8, 8, 4)], ids=str)
+def test_parareal_update_twin_matches_jax_kernel(shape, dtype):
+    """B4: ``out`` is bitwise the JAX kernel's (both round ``y + cur -
+    prev`` once from f32) and the L1 sum of ``|cur - prev|`` agrees to
+    1e-5 relative; in f32 the JAX oracle (which works in the input dtype)
+    agrees as closely, in bf16 within two bf16 ulps (ROADMAP C6)."""
+    (yt, yj), (ct, cj), (pt, pj) = (_both(_rand(i, shape), dtype)
+                                    for i in range(3))
+    out, resid = ref.parareal_update(yt, ct, pt)
+    assert out.dtype == yt.dtype and out.shape == yt.shape
+    assert resid.dtype == torch.float32 and resid.shape == ()
+    jout, jres = jops.parareal_update(yj, cj, pj, use_kernel=True)
+    np.testing.assert_array_equal(_np(out), _np(jout))
+    np.testing.assert_allclose(_np(resid), _np(jres), rtol=SUM_RTOL)
+    rout, rres = jref.parareal_update(yj, cj, pj)
+    if dtype == "float32":
+        np.testing.assert_array_equal(_np(out), _np(rout))
+        np.testing.assert_allclose(_np(resid), _np(rres), rtol=SUM_RTOL)
+    else:
+        np.testing.assert_allclose(_np(out), _np(rout), atol=BF16_TOL * 4,
+                                   rtol=BF16_TOL * 4)
+        # the oracle rounds each cur - prev to bf16 before it sums: every
+        # term within 2^-9 relative, so the sum too
+        np.testing.assert_allclose(_np(resid), _np(rres), rtol=2.0 ** -9)
+    o2, r2 = ops.parareal_update(yt, ct, pt)
+    torch.testing.assert_close(o2, out, atol=0, rtol=0)
+    torch.testing.assert_close(r2, resid, atol=0, rtol=0)
+
+
 def test_parareal_residual_slices_independent_of_batch():
     """A slice's residual is bitwise the same alone or in a K-batch."""
     shape = (4, 3, 50)
@@ -252,6 +283,7 @@ def test_cpu_dispatch_launches_no_kernel():
     x = torch.ones(4, 8)
     ops.ddim_fused(x, x, 0.5, 0.6)
     ops.parareal_update_residual(x, x, x, x)
+    ops.parareal_update(x, x, x)
     ops.attention(x[None, None], x[None, None], x[None, None], causal=False)
     q = x[None, None].requires_grad_()
     torch.autograd.grad(ops.attention(q, q, q, causal=False).sum(), q)
@@ -259,7 +291,8 @@ def test_cpu_dispatch_launches_no_kernel():
                                    "flash_attention_bwd_dq": 0,
                                    "flash_attention_bwd_dkv": 0,
                                    "ddim_fused": 0,
-                                   "parareal_update_residual": 0}
+                                   "parareal_update_residual": 0,
+                                   "parareal_update": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_unported_forms():
@@ -271,6 +304,8 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_unported_forms():
         elementwise.ddim_fused(x, x, torch.tensor(0.5), torch.tensor(0.6))
     with pytest.raises(ValueError, match="CUDA"):
         elementwise.parareal_update_residual(x, x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        elementwise.parareal_update(x, x, x)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_fwd(x, x, x)
     with pytest.raises(NotImplementedError, match="B3"):
