@@ -17,7 +17,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    never calls): the flash forward, the flash backward's dq and dkv
    kernels (against ``ref.attention_bwd``), DDIM, the fused residual and
    the fused update without it (``parareal_update``: f32 at the serving
-   shape, bf16, ragged; two runs bitwise equal);
+   shape, bf16, ragged; two runs bitwise equal); the forward's causal
+   grouped-query form at qwen3-8b's prefill shape, a ragged right-aligned
+   causal case and the sliding-window form at hymba-1.5b's shape; the
+   WKV kernel at rwkv6-1.6b's prefill shape, at T = 1 and a ragged T (two
+   runs bitwise equal);
 4. sampling: the full-width, full-depth ``srds-dit-sd2`` DiT (28 layers,
    d 1152, 16 heads of 72, bf16) with weights drawn from a numpy seed
    (every leaf nonzero) and loaded through ``load_jax_params``; DDIM on
@@ -54,7 +58,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    fail: with the attention gradients zeroed, and with the backward's
    ``delta`` term dropped, both readings must miss their limit.  Last,
    a reading (no check) of the probe loss over 5 steps at the launcher's
-   default learning rate, which is why this phase trains at a tenth of it.
+   default learning rate, which is why this phase trains at a tenth of it;
+7. LM serving: ``qwen3-8b`` at full width and depth (36 layers, d 4096,
+   32/8 heads of 128, 8.19 B parameters in bf16) with random weights
+   drawn on the card from a seeded CUDA generator, behind
+   ``repro_torch.serve.ServingEngine(batch_size=4)``: 4 requests with
+   prompts of 2048, 1536, 1024 and 512 random token ids and 32, 32, 16
+   and 16 new tokens (launch counts reset just before and read just
+   after: the causal GQA flash forward 36 times in prefill, never in a
+   decode step); prefill wall time, decode ms per step, tokens/s, peak
+   memory.  Checks: the prefill's last logits through the kernels against
+   the plain attention's (relative L2), decode step 1 against
+   ``forward_train`` over the prompts plus the first tokens, and a control
+   that must miss the first check (the same prefill with
+   ``causal=False``);
+8. the same for ``rwkv6-1.6b`` (24 layers, d 2048, 1.60 B parameters):
+   the WKV kernel 24 times per prefill and per decode step.  Its random
+   bf16 model amplifies any change of rounding, so every layer's WKV
+   launch in one bf16 prefill is first held against the plain scan on
+   that layer's inputs, and checks 1-3 then run the same weights in f32;
+   the first check also holds the final WKV states, and the control
+   (decode step 1 with the carried WKV state dropped) must miss the
+   second.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -116,6 +141,38 @@ KERNEL_VS_PLAIN_GRAD_REL_L2 = 5e-3
 # ulp (2^-7 relative at most; an H100 run measured 1.95e-3 absolute)
 BWD_BF16_ATOL, BWD_BF16_RTOL = 4e-3, 1e-2
 BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# the forward's causal, window and GQA forms against the plain version,
+# (atol, rtol) and a rel L2 limit over the whole output, by dtype.  In bf16
+# the kernel rounds its f32 result once, the plain version too, after
+# summing in another order: an H100 run measured 3.9e-3 max abs error
+# (one ulp for |o| in [0.5, 1)) in both bf16 cases.  Typical |o| at S 2048
+# is only 0.04-0.05, so the rel L2 over all outputs is what catches a small
+# bias in late rows: the same run read 3.66e-5 and 3.59e-5 (bf16) and
+# 7.1e-7 (f32); the limits are about 3x those
+MASKED_TOL = {"bfloat16": (8e-3, 1e-2), "float32": (2e-5, 2e-5)}
+MASKED_REL_L2 = {"bfloat16": 1e-4, "float32": 2e-6}
+# phases 7-8: 4 requests for ServingEngine(batch_size=4), token ids below
+# both vocabularies (rwkv6's 65,536), the same requests for both models
+LM_PROMPTS, LM_NEW, LM_TOKEN_IDS = (2048, 1536, 1024, 512), (32, 32, 16,
+                                                            16), 65536
+# (kernels vs plain prefill, teacher-forced decode) rel L2 limits.  qwen3-8b
+# in bf16: an H100 run measured 1.52e-2 and 1.49e-2 (one bf16 ulp in the
+# attention outputs, or other cuBLAS kernels for 4 rows, carried through 36
+# layers of random weights), and 0.891 for the causal=False control: the
+# limit is about 3x the readings and 1/18 of the control.  rwkv6-1.6b's
+# random-weight bf16 model amplifies any change of rounding: an H100 run
+# read 0.466 kernels vs plain on its served prefill, while on each layer's
+# own inputs 2e-4 of the WKV outputs differed from the plain scan's, nearly
+# all by one ulp; the plain path against itself with half of layer 0's WKV
+# output moved one ulp read 0.712 (layer 23: 3.0e-3).  So its checks run
+# the same weights in f32: that run measured 2.37e-4 (logits), 1.78e-4
+# (final WKV states) and 3.77e-5 (teacher forcing), and 1.35 for the
+# dropped-state control: the limit is 4x the largest reading.
+LM_LIMITS = {"qwen3-8b": (5e-2, 5e-2), "rwkv6-1.6b": (1e-3, 1e-3)}
+# the WKV kernel's final state against the plain scan's on one layer's
+# inputs: the same f32 recurrence summed in another order (an H100 run
+# measured at most 3.5e-8 over the 24 layers)
+WKV_STATE_REL_L2 = 1e-5
 
 
 def smi_line() -> str:
@@ -323,7 +380,7 @@ def train_phase(torch, ops, cfg, tree):
     stream = make_stream(cfg, DataConfig(seed=SEED,
                                          global_batch=TRAIN_BATCH),
                          device="cuda")
-    print(f"[6/6] training {cfg.name} through launch.train.build "
+    print(f"[6/8] training {cfg.name} through launch.train.build "
           f"({time.perf_counter() - t0:.1f} s), batch {TRAIN_BATCH}, "
           f"{stream.size}x{stream.size}x{stream.channels} images", flush=True)
     loop_seed = SEED + 1
@@ -453,7 +510,7 @@ def serve_phase(torch, ops, C, model_fn, sched, solver, layers):
                                seed=SERVE_TRACE_SEED)
     if [r.tol for r in trace] != [0.0, 0.0] + [LOOSE_TOL] * 4:
         raise AssertionError(f"unexpected tiers {[r.tol for r in trace]}")
-    print(f"[5/6] serving: {len(trace)} requests in 2 bursts "
+    print(f"[5/8] serving: {len(trace)} requests in 2 bursts "
           f"{SERVE_PERIOD} s apart (tols {[r.tol for r in trace]}), "
           f"{SERVE_SLOTS} slots, N={N_STEPS}, B={B}, AsyncServeLoop on a "
           f"MonotonicClock, FIFO", flush=True)
@@ -583,6 +640,375 @@ def serve_phase(torch, ops, C, model_fn, sched, solver, layers):
     return l1_counts, l2_counts
 
 
+def profile_reading(torch, label, fn):
+    """One call of ``fn`` after a warm-up, under ``torch.profiler``: wall
+    ms (host clock, profiler cost included), device ms summed over
+    kernels, the busy share, and device ms by group (a reading)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.profiling import by_group, device_ms_by_name
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    groups = by_group(device_ms_by_name(prof))
+    dev = sum(groups.values())
+    print(f"  profile, {label}: wall {wall:.3f} ms, device {dev:.3f} ms, "
+          f"busy share {dev / wall:.3f}; " + ", ".join(
+              f"{g} {ms:.3f} ms ({ms / dev:.2f})" for g, ms in
+              sorted(groups.items(), key=lambda kv: -kv[1])), flush=True)
+
+
+def lm_requests(np):
+    """The LM phases' traffic: 4 prompts of random token ids (below both
+    vocabularies, from the seed) and their generation budgets."""
+    rng = np.random.default_rng(SEED)
+    return [(rng.integers(0, LM_TOKEN_IDS, n), m)
+            for n, m in zip(LM_PROMPTS, LM_NEW)]
+
+
+def ulp_distance(torch, a, b):
+    """Elementwise distance between two bf16 tensors in units in the last
+    place (the bit patterns mapped to ordered integers; -0 and +0 are 0)."""
+    def key(x):
+        i = x.contiguous().view(torch.int16).int()
+        return torch.where(i < 0, -32768 - i, i)
+    return (key(a) - key(b)).abs()
+
+
+def wkv_layer_check(torch, ops, tf, cfg, model, batch):
+    """Every WKV launch of one bf16 prefill held against the plain scan on
+    the same inputs (each layer's own r, k, v, decay and state): out within
+    2e-2 + 2e-2 |x| and the final state to WKV_STATE_REL_L2 (rel L2, f32);
+    the outputs' distance in bf16 ulps is a reading."""
+    kernel_wkv, errs = ops.rwkv6_wkv, []
+
+    def both(r, k, v, w, u, state=None, *, use_kernel=None):
+        out, s_t = kernel_wkv(r, k, v, w, u, state)
+        out_r, s_r = kernel_wkv(r, k, v, w, u, state, use_kernel=False)
+        if not torch.allclose(out.float(), out_r.float(), atol=2e-2,
+                              rtol=2e-2):
+            raise AssertionError("rwkv6_wkv differs from the plain scan on "
+                                 "a layer's inputs")
+        ulps = ulp_distance(torch, out, out_r)
+        far = (ulps > 1) & (out_r.float().abs() > 0)
+        errs.append(((out.float() - out_r.float()).abs().max().item(),
+                     rel_l2([s_t], [s_r]), ulps.max().item(),
+                     out_r.float().abs()[far].max().item() if far.any()
+                     else 0.0, (ulps > 0).float().mean().item(),
+                     (ulps > 1).float().mean().item(),
+                     out_r.float().abs().mean().item()))
+        return out, s_t
+
+    ops.rwkv6_wkv = both
+    try:
+        tf.prefill(cfg, model, batch)
+    finally:
+        ops.rwkv6_wkv = kernel_wkv
+    out_err, state_rel, ulp_max, far_x = (max(e[i] for e in errs)
+                                          for i in range(4))
+    off1, off2, mean_x = (sum(e[i] for e in errs) / len(errs)
+                          for i in (4, 5, 6))
+    print(f"  1a. the WKV kernel on each of the {len(errs)} layers' own "
+          f"inputs (bf16) vs the plain scan: out max abs err {out_err:.3e} "
+          f"(within 2e-2 + 2e-2 |x|; mean |x| {mean_x:.3e}); out in bf16 "
+          f"ulps: {off1:.2e} of the elements differ, {off2:.2e} by more "
+          f"than 1 ulp (at most {ulp_max} ulps, where |x| <= {far_x:.3e}); "
+          f"final state rel L2 at most {state_rel:.3e} (limit "
+          f"{WKV_STATE_REL_L2})", flush=True)
+    if len(errs) != cfg.num_layers or not state_rel <= WKV_STATE_REL_L2:
+        raise AssertionError(f"rwkv6_wkv's state differs from the plain "
+                             f"scan's on the model's inputs: {state_rel}")
+
+
+def nudged_prefill(torch, ops, tf, cfg, model, batch, layer):
+    """The plain prefill with one layer's WKV output changed by rounding
+    alone: a seeded random half of its nonzero elements moved one bf16 ulp
+    away from zero.  The kernel takes no part: this shows how far the
+    model carries a change of one ulp in one layer."""
+    plain_wkv, calls = ops.rwkv6_wkv, []
+    gen = torch.Generator(device=batch["tokens"].device).manual_seed(SEED)
+
+    def nudged(r, k, v, w, u, state=None, *, use_kernel=None):
+        out, s_t = plain_wkv(r, k, v, w, u, state, use_kernel=False)
+        if len(calls) == layer:
+            up = (torch.rand(out.shape, generator=gen, device=out.device)
+                  < 0.5) & (out != 0)
+            out = (out.view(torch.int16) + up.to(torch.int16)).view(
+                out.dtype)
+        calls.append(layer)
+        return out, s_t
+
+    ops.rwkv6_wkv = nudged
+    try:
+        logits, _ = tf.prefill(cfg, model, batch, use_kernel=False)
+    finally:
+        ops.rwkv6_wkv = plain_wkv
+    return logits
+
+
+def lm_phase(torch, ops, step, arch, limits):
+    """Phases 7 and 8: ``arch`` at full width and depth with random
+    weights from a seeded CUDA generator, serving 4 requests through
+    ``repro_torch.serve.ServingEngine``; then the checks.  Returns the
+    launch counts of the served run."""
+    import dataclasses
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.rwkv6 import RWKVState
+    from repro_torch.serve import Request, ServingEngine
+
+    cfg = get_arch(arch)
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda")
+    torch.cuda.synchronize()
+    kernel = "rwkv6_wkv" if cfg.block == "rwkv6" else "flash_attention_fwd"
+    print(f"[{step}/8] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}, "
+          f"{tf.param_count(model) / 1e9:.3f} B params drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s; serving {len(LM_PROMPTS)} "
+          f"requests (prompts {LM_PROMPTS}, max_new_tokens {LM_NEW})",
+          flush=True)
+    reqs = lm_requests(np)
+    engine = ServingEngine(cfg, model, batch_size=len(reqs),
+                           max_seq=max(LM_PROMPTS) + max(LM_NEW))
+    calls = []
+
+    def timed(kind, fn):
+        def run(*args):
+            before = ops.launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            after = ops.launch_counts()
+            calls.append((kind, time.perf_counter() - t,
+                          {k: after[k] - before[k] for k in after}))
+            return out
+        return run
+
+    engine._prefill = timed("prefill", engine._prefill)
+    engine._decode = timed("decode", engine._decode)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    outs = engine.generate([Request(prompt=p, max_new_tokens=m)
+                            for p, m in reqs])
+    wall = time.perf_counter() - t
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prefill_s = calls[0][1]
+    decode_s = [c[1] for c in calls[1:]]
+    n_tok = sum(len(o) for o in outs)
+    print(f"  served (main path): wall {wall:.3f} s, prefill "
+          f"{prefill_s:.3f} s, decode {1e3 * sum(decode_s) / len(decode_s):.2f}"
+          f" ms per step over {len(decode_s)} steps (min "
+          f"{1e3 * min(decode_s):.2f}), {n_tok} tokens, "
+          f"{n_tok / wall:.1f} tokens/s, peak memory {peak:.2f} GB; launches "
+          f"{counts}", flush=True)
+    print(f"  launches per call: prefill {calls[0][2][kernel]}, decode "
+          f"{sorted(set(c[2][kernel] for c in calls[1:]))} ({kernel})",
+          flush=True)
+    if [len(o) for o in outs] != list(LM_NEW) or not all(
+            0 <= x < cfg.vocab_size for o in outs for x in o):
+        raise AssertionError(f"{arch}: bad generations {outs}")
+    per_decode = cfg.num_layers if kernel == "rwkv6_wkv" else 0
+    want = dict.fromkeys(counts, 0)
+    want[kernel] = cfg.num_layers + per_decode * len(decode_s)
+    if counts != want or calls[0][2][kernel] != cfg.num_layers or any(
+            c[2][kernel] != per_decode for c in calls[1:]):
+        raise AssertionError(f"{arch}: launch counts {counts} != {want} "
+                             f"({cfg.num_layers} per prefill, {per_decode} "
+                             f"per decode step)")
+
+    # a reading and the checks, on the engine's left-padded batch
+    plen = max(LM_PROMPTS)
+    toks = torch.zeros((len(reqs), plen), dtype=torch.long)
+    for i, (p, _) in enumerate(reqs):
+        toks[i, plen - len(p):] = torch.from_numpy(p)
+    batch = {"tokens": toks.cuda()}
+    out = {}
+
+    def prefill():
+        out["logits"], out["cache"] = tf.prefill(cfg, model, batch)
+
+    profile_reading(torch, f"prefill ({len(reqs)} x {plen} tokens)",
+                    prefill)
+    cache = out["cache"]
+    if cfg.block == "attn_mlp":
+        cache = tuple(F.pad(c, (0, 0, 0, 0, 0, 1)) for c in cache)
+    first = {"tokens": out.pop("logits").argmax(-1)[:, None]}
+    profile_reading(torch, f"decode step (batch {len(reqs)})",
+                    lambda: tf.decode_step(cfg, model, first, cache, plen))
+    del out, cache
+    lim_plain, lim_tf = limits
+    if cfg.block == "rwkv6":
+        wkv_layer_check(torch, ops, tf, cfg, model, batch)
+        # the served bf16 model amplifies rounding: readings, no limit.
+        # The witnesses move one layer's WKV output by rounding alone, on
+        # the plain path, and read what the kernel's path reads.
+        logits, _ = tf.prefill(cfg, model, batch)
+        plain, _ = tf.prefill(cfg, model, batch, use_kernel=False)
+        first, last = (rel_l2([nudged_prefill(torch, ops, tf, cfg, model,
+                                              batch, i)], [plain])
+                       for i in (0, cfg.num_layers - 1))
+        print(f"  reading, bf16 (the served dtype): prefill last logits, "
+              f"kernels vs plain, rel L2 {rel_l2([logits], [plain]):.3e}; "
+              f"witnesses, plain vs plain with a random half of one "
+              f"layer's WKV output one bf16 ulp further from zero: layer 0 "
+              f"{first:.3e}, layer {cfg.num_layers - 1} {last:.3e}; checks "
+              f"1-3 run the same model in f32", flush=True)
+        model.float()
+    logits, cache = tf.prefill(cfg, model, batch)
+    plain, plain_cache = tf.prefill(cfg, model, batch, use_kernel=False)
+    rel = rel_l2([logits], [plain])
+    line = (f"  1. prefill last logits ({next(model.parameters()).dtype}), "
+            f"kernels vs plain: rel L2 {rel:.3e} (limit {lim_plain})")
+    if cfg.block == "rwkv6":
+        rel_s = rel_l2([cache.wkv], [plain_cache.wkv])
+        line += f"; final WKV states rel L2 {rel_s:.3e} (same limit)"
+        rel = max(rel, rel_s)
+    print(line, flush=True)
+    if not rel <= lim_plain:
+        raise AssertionError(f"{arch}: kernels and plain prefill differ: "
+                             f"{rel}")
+    del plain_cache
+    tok = logits[:, :cfg.vocab_size].argmax(dim=-1)
+    if cfg.block == "attn_mlp":
+        cache = tuple(F.pad(c, (0, 0, 0, 0, 0, 1)) for c in cache)
+        dropped = None
+    else:
+        dropped = RWKVState(cache.x_tmix.clone(), torch.zeros_like(
+            cache.wkv), cache.x_cmix.clone())
+    step1, _ = tf.decode_step(cfg, model, {"tokens": tok[:, None]}, cache,
+                              plen)
+    full = tf.forward_train(cfg, model, {"tokens": torch.cat(
+        [batch["tokens"], tok[:, None]], dim=1)})[:, -1]
+    rel_tf = rel_l2([step1], [full])
+    print(f"  2. teacher forcing: decode step 1 vs forward_train over prompt "
+          f"+ first token: rel L2 {rel_tf:.3e} (limit {lim_tf}), argmax "
+          f"equal {bool(torch.equal(step1.argmax(-1), full.argmax(-1)))}",
+          flush=True)
+    if not rel_tf <= lim_tf:
+        raise AssertionError(f"{arch}: decode and the full forward differ: "
+                             f"{rel_tf}")
+    if dropped is None:
+        wrong, _ = tf.prefill(dataclasses.replace(cfg, causal=False), model,
+                              batch)
+        rel_c, what, lim = rel_l2([wrong], [plain]), "check 1", lim_plain
+        ctl = "prefill with causal=False"
+    else:
+        wrong, _ = tf.decode_step(cfg, model, {"tokens": tok[:, None]},
+                                  dropped, plen)
+        rel_c, what, lim = rel_l2([wrong], [full]), "check 2", lim_tf
+        ctl = "decode step 1 with the carried WKV state dropped"
+    print(f"  3. control, {ctl}: rel L2 {rel_c:.3e}, must miss {what}'s "
+          f"limit {lim}", flush=True)
+    if not rel_c > lim:
+        raise AssertionError(f"{arch}: {what} does not catch the control "
+                             f"({ctl}): {rel_c}")
+    return counts
+
+
+def masked_flash_cases(torch, ops, ref, randn, cases):
+    """The forward's causal, sliding-window and grouped-query forms against
+    the plain version: qwen3-8b's prefill (batch 4 x 32 query heads over 8
+    KV heads, S 2048, D 128, bf16, causal), a ragged right-aligned causal
+    case in f32 (Sq 100, Sk 1000, group 4) and hymba-1.5b's attention (25
+    query over 5 KV heads, S 2048, D 64, bf16, causal, window 1024).  The
+    bound counts the live (q, k) pairs only; ``library_ms`` is SDPA on K/V
+    repeated to the query heads beforehand (``is_causal`` for the square
+    causal case, the boolean keep-mask otherwise)."""
+    import torch.nn.functional as F
+    for b, hq, hkv, sq, sk, d, dtype, window in [
+            (4, 32, 8, 2048, 2048, 128, "bfloat16", None),
+            (2, 8, 2, 100, 1000, 64, "float32", None),
+            (4, 25, 5, 2048, 2048, 64, "bfloat16", 1024)]:
+        tdt = getattr(torch, dtype)
+        q = randn((b, hq, sq, d), tdt)
+        k, v = randn((b, hkv, sk, d), tdt), randn((b, hkv, sk, d), tdt)
+        mask = dict(causal=True, window=window)
+        got = ops.attention(q, k, v, **mask)
+        want, _ = ref.attention(q, k, v, **mask)
+        keep = ref._keep(sq, sk, True, window, q.device)   # live pairs
+        flops = 4.0 * b * hq * int(keep.sum()) * d
+        b_ms, b_by = bound(nbytes(q, k, v, got) + 4 * b * hq * sq, flops,
+                           dtype)
+        kx, vx = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+        sdpa = (dict(is_causal=True) if sq == sk and window is None
+                else dict(attn_mask=keep))
+        reps = 10 if sq >= 1024 else 100
+        timing = dict(
+            ms=time_ms(lambda: ops.attention(q, k, v, **mask), reps),
+            plain_ms=time_ms(lambda: ops.attention(q, k, v, **mask,
+                                                   use_kernel=False), 2),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, kx, vx, **sdpa), reps))
+        atol, rtol = MASKED_TOL[dtype]
+        rel, rel_lim = rel_l2([got], [want]), MASKED_REL_L2[dtype]
+        form = "causal" + (f" window={window}" if window else "")
+        cases["flash_attention_fwd_causal_gqa"].append(check_case(
+            f"flash_attention_fwd {form} {dtype} BH={b * hq} "
+            f"BKV={b * hkv} Sq={sq} Sk={sk} D={d} (rel L2 {rel:.3e}, "
+            f"limit {rel_lim})", got, want, atol, rtol, timing))
+        if not rel <= rel_lim:
+            raise AssertionError(f"flash_attention_fwd {form}: rel L2 {rel} "
+                                 f"against the plain version")
+
+
+def wkv_cases(torch, ops, randn, cases):
+    """The WKV kernel against the plain scan: rwkv6-1.6b's prefill (batch
+    4 x 32 heads, T 2048, Dk = Dv = 64, r/k/v bf16, w/u/state f32, from the
+    zero state), a decode step (T 1), a ragged T (7) and an f32 case, each
+    run twice and held bitwise equal.  The bound counts the flops the
+    function needs on the f32 units: 5 per state element per step (r.S and
+    decay * S + k v^T) and 3 Dk + 2 Dv per step for the bonus term
+    v (r.(u*k)); PyTorch has no single call for it (``library_ms`` null)."""
+    for b, h, t, dk, dtype, zero in [(4, 32, 2048, 64, "bfloat16", True),
+                                     (4, 32, 1, 64, "bfloat16", False),
+                                     (4, 32, 7, 64, "bfloat16", False),
+                                     (2, 4, 300, 64, "float32", False)]:
+        tdt = getattr(torch, dtype)
+        r, k, v = (randn((b, h, t, dk)).mul(0.5).to(tdt) for _ in range(3))
+        w = (randn((b, h, t, dk)) * 0.5 - 1.0).clamp(-8.0, 4.0)
+        u = randn((h, dk)) * 0.3
+        s0 = (torch.zeros((b, h, dk, dk), device=r.device) if zero
+              else randn((b, h, dk, dk)) * 0.2)
+        out, s_t = ops.rwkv6_wkv(r, k, v, w, u, s0)
+        again = ops.rwkv6_wkv(r, k, v, w, u, s0)
+        out_r, s_r = ops.rwkv6_wkv(r, k, v, w, u, s0, use_kernel=False)
+        if not (torch.equal(_bits(again[0]), _bits(out))
+                and torch.equal(_bits(again[1]), _bits(s_t))):
+            raise AssertionError("rwkv6_wkv: two runs differ")
+        s_err = (s_t - s_r).abs().max().item()
+        if not torch.allclose(s_t, s_r, atol=1e-4, rtol=1e-4):
+            raise AssertionError(f"rwkv6_wkv: the final state differs from "
+                                 f"the plain scan's by {s_err}")
+        b_ms, b_by = bound(nbytes(r, k, v, w, u, s0, out, s_t),
+                           b * h * t * (5.0 * dk * dk + 5.0 * dk),
+                           "float32")
+        timing = dict(
+            ms=time_ms(lambda: ops.rwkv6_wkv(r, k, v, w, u, s0),
+                       20 if t >= 1024 else 200),
+            plain_ms=time_ms(lambda: ops.rwkv6_wkv(r, k, v, w, u, s0,
+                                                   use_kernel=False), 2),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        tol = 2e-2 if dtype == "bfloat16" else 1e-4
+        cases["rwkv6_wkv"].append(check_case(
+            f"rwkv6_wkv {dtype} B={b} H={h} T={t} D={dk} (state max err "
+            f"{s_err:.3e}, limit 1e-4; two runs bitwise)", out, out_r, tol,
+            tol, timing))
+
+
 def kernel_phase(torch, ops, ref):
     import torch.nn.functional as F
     dev = torch.device("cuda")
@@ -593,7 +1019,8 @@ def kernel_phase(torch, ops, ref):
 
     cases = {"flash_attention_fwd": [], "flash_attention_bwd_dq": [],
              "flash_attention_bwd_dkv": [], "ddim_fused": [],
-             "parareal_update_residual": [], "parareal_update": []}
+             "parareal_update_residual": [], "parareal_update": [],
+             "flash_attention_fwd_causal_gqa": [], "rwkv6_wkv": []}
     # flash forward: SD-v2 fine and coarse batches (10 and 2 latents x 16
     # heads, S 1024, D 72) in bf16, CIFAR-width f32, and ragged Sq/Sk
     for bh, sq, sk, d, dtype in [(160, 1024, 1024, 72, "bfloat16"),
@@ -620,6 +1047,7 @@ def kernel_phase(torch, ops, ref):
             f"flash_attention_fwd {dtype} BH={bh} Sq={sq} Sk={sk} D={d}",
             got, want, tol, tol, timing))
 
+    masked_flash_cases(torch, ops, ref, randn, cases)
     backward_cases(torch, ref, randn, cases)
 
     # DDIM: the fine step's 10 folded latents, per-row coefficients
@@ -686,6 +1114,8 @@ def kernel_phase(torch, ops, ref):
         cases["parareal_update"].append(check_case(
             f"parareal_update {dtype} {shape} (out bitwise, two runs "
             f"bitwise)", resid, resid_r, 0.0, 1e-5, timing))
+
+    wkv_cases(torch, ops, randn, cases)
     return cases
 
 
@@ -706,20 +1136,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/6] device: {smi} (torch {torch.__version__}, CUDA "
+    print(f"[1/8] device: {smi} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda})", flush=True)
 
     # ---- 2. build --------------------------------------------------------
     from repro_torch.kernels import _build, ops, ref
     secs = _build.build_all()
-    print(f"[2/6] build: {len(_build.sources())} CUDA source(s) in "
+    print(f"[2/8] build: {len(_build.sources())} CUDA source(s) in "
           f"{secs:.1f} s", flush=True)
     for name, log in _build.build_log.items():
         print(f"  nvcc {name}.cu:\n" + "\n".join(
             "    " + line for line in log.strip().splitlines()))
 
     # ---- 3. kernels against their plain versions -------------------------
-    print("[3/6] kernels vs plain versions (times on this card)", flush=True)
+    print("[3/8] kernels vs plain versions (times on this card)", flush=True)
     cases = kernel_phase(torch, ops, ref)
 
     # ---- 4. sampling -----------------------------------------------------
@@ -731,7 +1161,7 @@ def main() -> int:
     t0 = time.perf_counter()
     tree = dit.random_jax_tree(cfg, seed=SEED)
     model = dit.load_jax_params(cfg, tree, device="cuda")
-    print(f"[4/6] srds-dit-sd2: {cfg.num_layers} layers, d {cfg.d_model}, "
+    print(f"[4/8] srds-dit-sd2: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads}x{cfg.resolved_head_dim} heads, {cfg.dtype}, "
           f"{dit.param_count(model) / 1e6:.1f} M params, built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -758,7 +1188,7 @@ def main() -> int:
         want = {"flash_attention_fwd": layers * ddim,
                 "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
                 "ddim_fused": ddim, "parareal_update_residual": resid,
-                "parareal_update": 0}
+                "parareal_update": 0, "rwkv6_wkv": 0}
         if counts != want:
             raise AssertionError(f"launch counts {counts} != {want}")
 
@@ -774,7 +1204,7 @@ def main() -> int:
     p = int(res.iterations.max())
     expect(main_counts, B + p * (S + B), p * B)
     if min(n for k, n in main_counts.items()
-           if k not in BWD_KERNELS + ("parareal_update",)) == 0:
+           if k not in BWD_KERNELS + ("parareal_update", "rwkv6_wkv")) == 0:
         raise AssertionError(f"a kernel never ran on the main path: "
                              f"{main_counts}")
     sample = res.sample
@@ -816,6 +1246,14 @@ def main() -> int:
 
     # ---- 6. training -----------------------------------------------------
     train_counts = train_phase(torch, ops, cfg, tree)
+    del tree
+    torch.cuda.empty_cache()
+
+    # ---- 7-8. LM serving -------------------------------------------------
+    lm_counts = {}
+    for step, arch in ((7, "qwen3-8b"), (8, "rwkv6-1.6b")):
+        lm_counts[arch] = lm_phase(torch, ops, step, arch, LM_LIMITS[arch])
+        torch.cuda.empty_cache()
 
     sources = {"flash_attention_fwd": (
         "cuda", "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -832,19 +1270,32 @@ def main() -> int:
             "triton", "src/repro_torch/kernels/elementwise.py",
             "src/repro/kernels/elementwise.py:63"),
         "parareal_update": ("triton", "src/repro_torch/kernels/elementwise.py",
-                            "src/repro/kernels/elementwise.py:110")}
+                            "src/repro/kernels/elementwise.py:110"),
+        "flash_attention_fwd_causal_gqa": (
+            "cuda", "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
+            "src/repro/kernels/flash_attention.py:85"),
+        "rwkv6_wkv": ("cuda", "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+                      "src/repro/kernels/rwkv6_scan.py:37")}
     # a kernel's launches are those of its path: training for the
-    # backward, the l2_mean serving run for parareal_update, serving (this
-    # slice's main path) for the rest
+    # backward, the l2_mean serving run for parareal_update, the served
+    # qwen3-8b requests for the causal GQA forward (the same wrapper and
+    # counter as the DiT's forward), the served rwkv6-1.6b requests for
+    # WKV, DiT serving for the rest
     path_of = dict.fromkeys(BWD_KERNELS, "train_loop")
     path_of["parareal_update"] = "serve_l2_mean"
+    path_of["flash_attention_fwd_causal_gqa"] = "serve_qwen3-8b"
+    path_of["rwkv6_wkv"] = "serve_rwkv6-1.6b"
     kernels = []
     for name, (route, source, replaces) in sources.items():
         first = cases[name][0]            # the main path's shape
-        by_path = {"srds_sample": main_counts[name],
-                   "serve": serve_counts[name],
-                   "serve_l2_mean": serve_l2_counts[name],
-                   "train_loop": train_counts[name]}
+        counter = ("flash_attention_fwd"
+                   if name == "flash_attention_fwd_causal_gqa" else name)
+        by_path = {"srds_sample": main_counts[counter],
+                   "serve": serve_counts[counter],
+                   "serve_l2_mean": serve_l2_counts[counter],
+                   "train_loop": train_counts[counter],
+                   **{f"serve_{a}": c[counter]
+                      for a, c in lm_counts.items()}}
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=by_path[path_of.get(name, "serve")],

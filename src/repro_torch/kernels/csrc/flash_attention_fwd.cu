@@ -1,9 +1,9 @@
-// Flash attention forward for Hopper (sm_90a), non-causal, no window, one
-// KV head per query head.
+// Flash attention forward for Hopper (sm_90a): non-causal, causal and
+// sliding-window masks, grouped-query attention.
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention_fwd and its TPU
 // body _fwd_kernel: o = softmax(q k^T * scale) v and the per-row logsumexp,
-// for (BH, Sq, D) x (BH, Sk, D) inputs in bf16 or f32, D % 4 == 0, D <= 128.
+// for (BH, Sq, D) x (BKV, Sk, D) inputs in bf16 or f32, D % 4 == 0, D <= 128.
 //
 // Design.  The TPU kernel carried (acc, m, l) in VMEM scratch across a
 // sequential grid axis over KV tiles; blocks here run in no order, so the KV
@@ -16,12 +16,21 @@
 // of _fwd_kernel.  Ragged Sq / Sk are masked in the kernel: rows past the end
 // load as zero, their scores are masked, their outputs are not stored.
 //
+// Masks and groups (_mask and the index_map of the TPU kernel).  Query
+// positions are right-aligned to the keys, q_pos = row + Sk - Sq; causal
+// keeps k <= q_pos and a window keeps k > q_pos - window.  Query head bh
+// reads KV head bh / group, so K/V are never repeated in memory.  The KV
+// loop's bounds skip every tile with no live entry for the block's rows (the
+// TPU kernel's pl.when(live)): causal prefill visits about half the tiles of
+// the non-causal form, a window about window / Sk of them.
+//
 // Bound.  At the DiT's shapes (S = 1024, D = 72) the work is 4 S^2 D flops
 // per head against 8 S D bytes moved, far above the card's ridge, so the
-// bound is compute.  This first version uses the f32 FMA units, not the
-// tensor cores: q and k are read from shared memory as float4 so each
-// 16-byte load feeds 4 to 8 FMAs, and the key rows use a stride of D + 4
-// floats so the 32 lanes' float4 loads hit distinct banks.
+// bound is compute (causal: the live half of it).  This first version uses
+// the f32 FMA units, not the tensor cores: q and k are read from shared
+// memory as float4 so each 16-byte load feeds 4 to 8 FMAs, and the key rows
+// use a stride of D + 4 floats so the 32 lanes' float4 loads hit distinct
+// banks.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -73,7 +82,8 @@ template <typename T, int DPL>   // DPL: output dims per lane, ceil(D / 32)
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int Sq, int Sk, int D, float scale) {
+                 float* __restrict__ lse, int Sq, int Sk, int D, int group,
+                 int causal, int window, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int ldk = D + 4;                     // float4-aligned, bank-spread
   float* sq = smem;                          // [kBlockQ][D]
@@ -86,8 +96,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (blockIdx.x - bh * n_qt) * kBlockQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const T* qb = q + (size_t)bh * Sq * D;
-  const T* kb = k + (size_t)bh * Sk * D;
-  const T* vb = v + (size_t)bh * Sk * D;
+  const T* kb = k + (size_t)(bh / group) * Sk * D;
+  const T* vb = v + (size_t)(bh / group) * Sk * D;
   const float* qw = sq + warp * kRows * D;
   float* pw = sp + warp * kRows * kBlockK;
 
@@ -102,7 +112,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
   }
 
-  for (int k0 = 0; k0 < Sk; k0 += kBlockK) {
+  // live keys of each row r: [lo[r], hi[r]]; of the block: the KV tiles
+  // from k_begin up to k_end (tiles with no live entry are never visited)
+  const int q_off = Sk - Sq;
+  int lo[kRows], hi[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int q_pos = q0 + warp * kRows + r + q_off;
+    hi[r] = causal ? min(q_pos, Sk - 1) : Sk - 1;
+    lo[r] = window > 0 ? q_pos - window + 1 : 0;
+  }
+  const int q_first = q0 + q_off;
+  const int q_last = min(q0 + kBlockQ, Sq) - 1 + q_off;
+  const int k_end = causal ? min(Sk, q_last + 1) : Sk;
+  const int k_begin = window > 0
+      ? max(0, q_first - window + 1) / kBlockK * kBlockK : 0;
+
+  for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
     __syncthreads();                         // the previous tile is consumed
     load_tile(sk, ldk, kb, k0, kBlockK, Sk, D);
     load_tile(sv, D, vb, k0, kBlockK, Sk, D);
@@ -126,9 +152,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     // online softmax update, one row at a time across the warp
-    const bool keep_lo = k0 + lane < Sk, keep_hi = k0 + lane + 32 < Sk;
+    const int kp_lo = k0 + lane, kp_hi = k0 + lane + 32;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
+      const bool keep_lo = kp_lo >= lo[r] && kp_lo <= hi[r];
+      const bool keep_hi = kp_hi >= lo[r] && kp_hi <= hi[r];
       const float s0 = keep_lo ? s[r][0] * scale : kNegInf;
       const float s1 = keep_hi ? s[r][1] * scale : kNegInf;
       const float m_new = fmaxf(m[r], warp_max(fmaxf(s0, s1)));
@@ -181,49 +209,59 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+struct Args {
+  int bh, sq, sk, d, group, causal, window;
+  float scale;
+};
+
 template <typename T, int DPL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int sq, int sk, int d, float scale,
-                   cudaStream_t stream) {
+                   void* lse, const Args& a, cudaStream_t stream) {
+  const int d = a.d;
   const size_t smem = sizeof(float) *
       (kBlockQ * d + kBlockK * (d + 4) + kBlockK * d + kWarps * kRows * kBlockK);
   auto kernel = flash_fwd_kernel<T, DPL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int blocks = bh * ((sq + kBlockQ - 1) / kBlockQ);
+  const int blocks = a.bh * ((a.sq + kBlockQ - 1) / kBlockQ);
   kernel<<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      sq, sk, d, scale);
+      a.sq, a.sk, d, a.group, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     void* lse, int bh, int sq, int sk, int d, float scale,
-                     cudaStream_t s) {
-  switch ((d + 31) / 32) {
-    case 1: return launch<T, 1>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
-    case 2: return launch<T, 2>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
-    case 3: return launch<T, 3>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
-    case 4: return launch<T, 4>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+                     void* lse, const Args& a, cudaStream_t s) {
+  switch ((a.d + 31) / 32) {
+    case 1: return launch<T, 1>(q, k, v, o, lse, a, s);
+    case 2: return launch<T, 2>(q, k, v, o, lse, a, s);
+    case 3: return launch<T, 3>(q, k, v, o, lse, a, s);
+    case 4: return launch<T, 4>(q, k, v, o, lse, a, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  The caller checks shapes, dtypes and
-// contiguity; D % 4 == 0 and D <= 128.  Returns the launch's CUDA error.
+// q: (bh, sq, d); k, v: (bh / group, sk, d).  causal: 0 or 1; window: the
+// sliding window, 0 for none.  dtype: 0 = float32, 1 = bfloat16.  The caller
+// checks shapes, dtypes and contiguity; D % 4 == 0 and D <= 128.  Returns the
+// launch's CUDA error.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int bh, int sq, int sk,
-                                   int d, float scale, int dtype, void* stream) {
-  if (d % 4 != 0 || d > 128 || d <= 0) return (int)cudaErrorInvalidValue;
+                                   int d, int group, int causal, int window,
+                                   float scale, int dtype, void* stream) {
+  if (d % 4 != 0 || d > 128 || d <= 0 || group <= 0 || bh % group != 0 ||
+      window < 0)
+    return (int)cudaErrorInvalidValue;
+  const Args a{bh, sq, sk, d, group, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 1
-      ? dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, sq, sk, d, scale, s)
-      : dispatch<float>(q, k, v, o, lse, bh, sq, sk, d, scale, s);
+      ? dispatch<__nv_bfloat16>(q, k, v, o, lse, a, s)
+      : dispatch<float>(q, k, v, o, lse, a, s);
   return (int)err;
 }
 

@@ -3,10 +3,13 @@
 Counterparts of ``repro.kernels.flash_attention.flash_attention_fwd``
 (``_fwd_kernel``, in ``csrc/flash_attention_fwd.cu``) and
 ``flash_attention_bwd`` (``_dq_kernel`` and ``_dkv_kernel``, in
-``csrc/flash_attention_bwd.cu``).  The kernels take the non-causal,
-``window=None``, one-KV-head-per-query-head form the DiT runs; the causal,
-sliding-window and GQA forms raise ``NotImplementedError`` until the LLM
-zoo needs them (ROADMAP B3, with B5 for the backward).
+``csrc/flash_attention_bwd.cu``).  The forward takes every form of the
+JAX kernel: non-causal (the DiT), causal and sliding-window masks with
+right-aligned query positions, and grouped-query attention (the language
+models).  The backward takes the non-causal, ``window=None``,
+one-KV-head-per-query-head form the DiT trains with; its causal,
+sliding-window and GQA forms raise ``NotImplementedError`` until the
+language models train (ROADMAP B5).
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from . import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_SIGNATURE = {"flash_attention_fwd":
-                  ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P), _I)}
+                  ((_P,) * 5 + (_I,) * 7 + (_F, _I, _P), _I)}
 _BWD_SIGNATURE = {
     "flash_attention_bwd_dq":
         ((_P,) * 7 + (_I, _I, _I, _I, _F, _I, _P), _I),
@@ -31,19 +34,17 @@ MAX_HEAD_DIM = 128
 HEAD_DIM_MULTIPLE = 4
 
 
-def _check(q, k, v, causal, window, what: str, roadmap: str) -> int:
-    """Raise on what the kernels do not take; returns the head dim."""
-    if causal or window is not None:
-        raise NotImplementedError(f"causal / sliding-window {what} is not "
-                                  f"ported yet (ROADMAP {roadmap})")
+def _check(q, k, v, what: str) -> tuple:
+    """Raise on what the kernels do not take; returns ``(head dim,
+    group)``, the number of query heads per KV head."""
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"expected (BH, S, D) operands, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     bh, _, d = q.shape
-    if k.shape[0] != bh:
-        raise NotImplementedError(f"grouped-query {what} is not ported yet "
-                                  f"(ROADMAP {roadmap})")
+    if k.shape[0] == 0 or bh % k.shape[0]:
+        raise ValueError(f"{bh} query heads do not group over "
+                         f"{k.shape[0]} KV heads")
     if k.shape[2] != d:
         raise ValueError(f"head dims differ: q {d}, k {k.shape[2]}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -57,7 +58,7 @@ def _check(q, k, v, causal, window, what: str, roadmap: str) -> int:
                          f"must be on one CUDA device")
     if k.shape[1] == 0 and q.shape[1] > 0:
         raise ValueError("flash attention needs at least one key")
-    return d
+    return d, bh // k.shape[0]
 
 
 def _stream(device) -> int:
@@ -67,12 +68,18 @@ def _stream(device) -> int:
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = False, window: Optional[int] = None,
                         scale: Optional[float] = None):
-    """q: (BH, Sq, D); k, v: (BKV, Sk, D), all on one CUDA device.
+    """q: (BH, Sq, D); k, v: (BKV, Sk, D) with BH a multiple of BKV
+    (query head ``i`` reads KV head ``i // (BH // BKV)``), all on one CUDA
+    device.  ``causal`` and ``window`` mask as :func:`ref.attention`, with
+    query positions right-aligned to the keys.
 
     Returns ``(o (BH, Sq, D) in q's dtype, lse (BH, Sq) f32)``.  Launches
     the kernel once and counts it in ``flash_attention_fwd.launches``.
     """
-    d = _check(q, k, v, causal, window, "flash attention", "B3")
+    d, group = _check(q, k, v, "flash attention")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be a positive int or None, "
+                         f"got {window}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     bh, sq, _ = q.shape
     sk = k.shape[1]
@@ -85,8 +92,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         code = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), bh, sq, sk, d, scale, _DTYPES[q.dtype],
-            _stream(q.device))
+            lse.data_ptr(), bh, sq, sk, d, group, int(causal),
+            window or 0, scale, _DTYPES[q.dtype], _stream(q.device))
     _build.check(lib, code, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return o, lse
@@ -109,8 +116,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dkv kernel once each, counted in ``flash_attention_bwd_dq.launches``
     and ``flash_attention_bwd_dkv.launches``.
     """
-    d = _check(q, k, v, causal, window, "flash attention backward",
-               "B3, B5")
+    if causal or window is not None or k.shape[:1] != q.shape[:1]:
+        raise NotImplementedError("the causal, sliding-window and "
+                                  "grouped-query forms of the flash "
+                                  "attention backward are not ported yet "
+                                  "(ROADMAP B5)")
+    d, _ = _check(q, k, v, "flash attention backward")
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
                          f"have q's shape {tuple(q.shape)}")

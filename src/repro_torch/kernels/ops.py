@@ -12,8 +12,9 @@ Counterpart of ``repro.kernels.ops``.  The rule is the same for every op:
 Each kernel wrapper carries a ``launches`` counter
 (``flash_attention_fwd.launches``, ``flash_attention_bwd_dq.launches``,
 ``flash_attention_bwd_dkv.launches``, ``ddim_fused.launches``,
-``parareal_update_residual.launches``, ``parareal_update.launches``)
-that :func:`launch_counts` reads and :func:`reset_launch_counts` zeroes.
+``parareal_update_residual.launches``, ``parareal_update.launches``,
+``rwkv6_wkv.launches``) that :func:`launch_counts` reads and
+:func:`reset_launch_counts` zeroes.
 
 :func:`attention` is differentiable: it runs through
 :class:`FlashAttention`, the counterpart of ``repro.kernels.ops._flash``
@@ -26,7 +27,7 @@ from typing import Dict, Optional
 
 import torch
 
-from . import elementwise, ref
+from . import elementwise, ref, rwkv6_scan
 from .flash_attention import (flash_attention_bwd, flash_attention_bwd_dkv,
                               flash_attention_bwd_dq, flash_attention_fwd)
 
@@ -35,7 +36,8 @@ _COUNTED = {"flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
             "ddim_fused": elementwise.ddim_fused,
             "parareal_update_residual": elementwise.parareal_update_residual,
-            "parareal_update": elementwise.parareal_update}
+            "parareal_update": elementwise.parareal_update,
+            "rwkv6_wkv": rwkv6_scan.rwkv6_wkv}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -68,8 +70,9 @@ class FlashAttention(torch.autograd.Function):
 
     Inputs ``(B, Hq, Sq, D)`` x ``(B, Hkv, Sk, D)``.  The forward keeps
     ``(q, k, v, o, lse)``; the backward recomputes P from ``lse``.  On a
-    CUDA tensor both directions launch the kernels (forms the kernels do
-    not take raise ``NotImplementedError``); on a CPU tensor they run
+    CUDA tensor both directions launch the kernels (the forward takes
+    every mask and group; the backward's causal, sliding-window and GQA
+    forms raise ``NotImplementedError``); on a CPU tensor they run
     :func:`ref.attention` and :func:`ref.attention_bwd`."""
 
     @staticmethod
@@ -111,6 +114,24 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.attention(q, k, v, causal=causal, window=window,
                              scale=scale)[0]
     return FlashAttention.apply(q, k, v, causal, window, scale)
+
+
+def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor,
+              state: Optional[torch.Tensor] = None, *,
+              use_kernel: Optional[bool] = None):
+    """r, k, w: (B, H, T, Dk); v: (B, H, T, Dv); u: (H, Dk); state:
+    (B, H, Dk, Dv) f32, zeros when None.  Returns ``(out (B, H, T, Dv) in
+    v's dtype, final state f32)``.  The JAX wrapper's TPU tuning knobs
+    (``chunk``, ``tuner``, ``plat``) have no counterpart: the kernel
+    streams all T steps in one block per batch x head."""
+    if state is None:
+        b, h, _, dk = r.shape
+        state = torch.zeros((b, h, dk, v.shape[-1]), dtype=torch.float32,
+                            device=r.device)
+    if not _kernel(r, use_kernel):
+        return ref.rwkv6_wkv(r, k, v, w, u, state)
+    return rwkv6_scan.rwkv6_wkv(r, k, v, w, u, state)
 
 
 def ddim_fused(x: torch.Tensor, eps: torch.Tensor, a, b, *,

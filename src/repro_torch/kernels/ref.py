@@ -96,6 +96,35 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor,
+              state: Optional[torch.Tensor] = None):
+    """RWKV6 'WKV': linear attention with a data-dependent decay, the
+    sequential f32 scan (twin of ``repro.kernels.ref.rwkv6_wkv``).
+
+    r, k, w: (B, H, T, Dk); v: (B, H, T, Dv); u: (H, Dk) bonus; state:
+    (B, H, Dk, Dv) f32 (zeros when None).  ``w`` are decay logits:
+    ``decay_t = exp(-exp(w_t))`` per channel, and
+
+        out_t = r_t @ (S_{t-1} + diag(u) k_t v_t^T)
+        S_t   = diag(decay_t) S_{t-1} + k_t v_t^T
+
+    Returns ``(out (B, H, T, Dv) in v's dtype, final state f32)``.
+    """
+    bsz, h, t, dk = r.shape
+    dv = v.shape[-1]
+    s = (torch.zeros((bsz, h, dk, dv), dtype=torch.float32, device=r.device)
+         if state is None else state.float())
+    rf, kf, vf, wf = (x.float() for x in (r, k, v, w))
+    uf = u.float()[None, :, :, None]
+    outs = []
+    for i in range(t):
+        a = kf[:, :, i, :, None] * vf[:, :, i, None, :]      # (B,H,Dk,Dv)
+        outs.append(torch.einsum("bhk,bhkv->bhv", rf[:, :, i], s + uf * a))
+        s = torch.exp(-torch.exp(wf[:, :, i]))[..., None] * s + a
+    return torch.stack(outs, dim=2).to(v.dtype), s
+
+
 def _rows(c, x: torch.Tensor) -> torch.Tensor:
     """A coefficient of shape () or (M,) as f32, broadcastable over x."""
     c = torch.as_tensor(c, dtype=torch.float32, device=x.device)

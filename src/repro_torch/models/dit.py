@@ -4,7 +4,8 @@ Patchified image -> transformer blocks with time-conditioned modulation
 -> unpatchify to an epsilon prediction, in the JAX layout ``(B, H, W, C)``
 at the public functions; ``DiT.forward`` is the counterpart of JAX's
 ``dit_forward(cfg, params, x_img, t)``.  It follows the JAX code, not the
-config: both in-block norms and ``ln_f`` are RMSNorm (eps 1e-6), the
+config: both in-block norms and ``ln_f`` are RMSNorm (eps 1e-6) whatever
+``cfg.norm`` says, attention is non-causal without rope, the
 modulation splits as ``(shift_attn, scale_attn, shift_mlp, gate_attn,
 scale_mlp, gate_mlp)``, GELU is the tanh form, SiLU runs in f32.
 
@@ -112,13 +113,13 @@ class DiT(nn.Module):
             mod = silu_t @ blk.mod + blk.mod_b
             sa, ga, sm, gm, s2, g2 = mod.chunk(6, dim=-1)
             h_in = _modulate(apply_norm(x), sa, ga)
-            attn = attention_full(blk.attn, h_in, num_heads=cfg.num_heads,
-                                  num_kv_heads=cfg.num_kv_heads,
-                                  head_dim=cfg.resolved_head_dim,
-                                  use_kernel=use_kernel)
+            attn, _ = attention_full(
+                blk.attn, h_in, num_heads=cfg.num_heads,
+                num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+                causal=False, theta=None, use_kernel=use_kernel)
             x = x + gm[:, None] * attn
             h2 = _modulate(apply_norm(x), sm, s2)
-            x = x + g2[:, None] * apply_mlp(blk.mlp, h2)
+            x = x + g2[:, None] * apply_mlp(blk.mlp, h2, act="gelu")
 
         sf, gf = (silu_t @ self.mod_f + self.mod_fb).chunk(2, dim=-1)
         x = _modulate(apply_norm(x, self.ln_f["scale"]), sf, gf)

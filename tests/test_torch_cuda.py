@@ -21,6 +21,8 @@ rest of the solve is shared), and the sample at the iteration cap equals
 the sequential one to 1e-4.  The serving engine on the card makes one
 host fetch per refinement plus one per completion and no other host sync
 (PyTorch's sync debug mode), and its samples equal ``simulate()``'s.
+The causal, sliding-window and grouped-query forward takes the same
+tolerances as the non-causal one; the WKV kernel's are in its test.
 """
 import numpy as np
 import pytest
@@ -294,3 +296,99 @@ def test_serving_engine_one_sync_per_refinement_on_card(cuda, monkeypatch):
     for rid, r in sync.responses.items():
         assert rep.responses[rid].iterations == r.iterations
         assert np.array_equal(rep.responses[rid].sample, r.sample)
+
+
+# (B, Hq, Hkv, Sq, Sk, D, mask): causal GQA at qwen3's head dim 128, ragged
+# right-aligned queries (Sq < Sk), rows with no live key (Sq > Sk, causal),
+# and hymba's sliding window (group 5, D 64)
+MASKED_CASES = [(2, 8, 2, 200, 200, 128, dict(causal=True)),
+                (2, 8, 2, 100, 1000, 64, dict(causal=True)),
+                (1, 4, 4, 80, 50, 64, dict(causal=True)),
+                (1, 10, 2, 300, 300, 64, dict(causal=True, window=100)),
+                (1, 4, 1, 70, 260, 72, dict(causal=False, window=64))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", MASKED_CASES, ids=str)
+def test_flash_kernel_masks_and_groups_match_plain_on_card(cuda, case,
+                                                           dtype):
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    b, hq, hkv, sq, sk, d, mask = case
+    q, k, v = (torch.from_numpy(_rand(i, (b, h, s, d))).to(cuda,
+                                                          DTYPES[dtype])
+               for i, (h, s) in enumerate(((hq, sq), (hkv, sk), (hkv, sk))))
+    before = ops.launch_counts()["flash_attention_fwd"]
+    o = ops.attention(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention_fwd"] == before + 1
+    o_ref, lse_ref = ref.attention(q, k, v, **mask)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    _, lse = flash_attention_fwd(q.reshape(b * hq, sq, d),
+                                 k.reshape(b * hkv, sk, d),
+                                 v.reshape(b * hkv, sk, d), **mask)
+    torch.testing.assert_close(lse, lse_ref.reshape(b * hq, sq),
+                               atol=F32_TOL, rtol=F32_TOL)
+
+
+# (B, H, T, Dk, Dv): one decode token, a ragged T, rwkv6-1.6b's head dim
+WKV_CASES = [(4, 32, 1, 64, 64), (2, 3, 7, 64, 64), (2, 4, 300, 64, 64),
+             (1, 2, 40, 16, 16), (1, 1, 33, 8, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", WKV_CASES, ids=str)
+def test_wkv_kernel_matches_plain_on_card(cuda, case, dtype):
+    """r, k, v in ``dtype``, w, u and the state f32, as the model feeds
+    them.  The kernel and the plain scan compute the same f32 recurrence
+    in another order: the f32 state agrees to 1e-4 over up to 300 steps,
+    out to 1e-4 in f32 and one bf16 ulp (2e-2) in bf16; two runs are
+    bitwise equal (one owner per state column, no atomics)."""
+    b, h, t, dk, dv = case
+    r, k = (torch.from_numpy(_rand(i, (b, h, t, dk)) * 0.5).to(
+        cuda, DTYPES[dtype]) for i in range(2))
+    v = torch.from_numpy(_rand(2, (b, h, t, dv)) * 0.5).to(cuda,
+                                                          DTYPES[dtype])
+    w = torch.from_numpy(_rand(3, (b, h, t, dk)) * 0.5 - 1.0).to(cuda)
+    u = torch.from_numpy(_rand(4, (h, dk)) * 0.3).to(cuda)
+    s0 = torch.from_numpy(_rand(5, (b, h, dk, dv)) * 0.2).to(cuda)
+    before = ops.launch_counts()["rwkv6_wkv"]
+    out, s_t = ops.rwkv6_wkv(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["rwkv6_wkv"] == before + 1
+    assert out.dtype == v.dtype and s_t.dtype == torch.float32
+    out_r, s_r = ops.rwkv6_wkv(r, k, v, w, u, s0, use_kernel=False)
+    tol = BF16_TOL if dtype == "bfloat16" else 1e-4
+    torch.testing.assert_close(out.float(), out_r.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(s_t, s_r, atol=1e-4, rtol=1e-4)
+    out2, s_t2 = ops.rwkv6_wkv(r, k, v, w, u, s0)
+    assert torch.equal(out2, out) and torch.equal(s_t2, s_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-8b", "rwkv6-1.6b"])
+def test_reduced_lm_served_on_card_equals_cpu(cuda, arch):
+    """The reduced LM (f32) served through the kernels on the card gives
+    the CPU run's tokens (the plain twins), on a ragged batch."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Request, ServingEngine
+    cfg = get_arch(arch).reduced()
+    model = tf.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, 256, n), max_new_tokens=m)
+            for n, m in ((12, 5), (7, 3), (4, 6))]
+    want = ServingEngine(cfg, model, batch_size=3, max_seq=64).generate(reqs)
+    ops.reset_launch_counts()
+    got = ServingEngine(cfg, model.to(cuda), batch_size=3,
+                        max_seq=64).generate(reqs)
+    assert got == want
+    counts = ops.launch_counts()
+    kernel = "rwkv6_wkv" if cfg.block == "rwkv6" else "flash_attention_fwd"
+    calls = 6 if kernel == "rwkv6_wkv" else 1    # prefill + 5 decode steps
+    assert counts[kernel] == cfg.num_layers * calls
+    assert sum(counts.values()) == counts[kernel]

@@ -278,6 +278,77 @@ def test_parareal_residual_slices_independent_of_batch():
         assert alone.item() == batch[k].item()
 
 
+# --------------------------------------------------------------------------
+# rwkv6 wkv
+# --------------------------------------------------------------------------
+
+# (B, H, T, Dk, Dv): tests/test_kernels.py's four shapes, one token, and
+# rwkv6-1.6b's head dim
+WKV_SHAPES = [(1, 1, 16, 8, 8), (2, 3, 40, 16, 16), (1, 2, 64, 32, 32),
+              (1, 1, 7, 8, 8), (2, 3, 1, 16, 16), (1, 2, 20, 64, 64)]
+
+
+def _wkv_inputs(shape, seed=0):
+    b, h, t, dk, dv = shape
+    return (_rand(seed, (b, h, t, dk)) * 0.5, _rand(seed + 1, (b, h, t, dk))
+            * 0.5, _rand(seed + 2, (b, h, t, dv)) * 0.5,
+            _rand(seed + 3, (b, h, t, dk)) * 0.5 - 1.0,
+            _rand(seed + 4, (h, dk)) * 0.3,
+            _rand(seed + 5, (b, h, dk, dv)) * 0.2)
+
+
+@pytest.mark.parametrize("shape", WKV_SHAPES, ids=str)
+def test_rwkv6_wkv_twin_matches_jax_kernel_and_oracle(shape):
+    """The port's twin (``ops.rwkv6_wkv`` on CPU tensors) against JAX's
+    ``ops.rwkv6_wkv(use_kernel=True)`` (the TPU-family Pallas kernel,
+    interpreted) and the JAX oracle, from a nonzero state."""
+    r, k, v, w, u, s0 = _wkv_inputs(shape)
+    out, s_t = ops.rwkv6_wkv(*(torch.from_numpy(x)
+                               for x in (r, k, v, w, u, s0)))
+    assert out.dtype == torch.float32 and s_t.dtype == torch.float32
+    j = [jnp.asarray(x, jnp.float32) for x in (r, k, v, w, u, s0)]
+    for jout, js in (jops.rwkv6_wkv(*j, use_kernel=True), jref.rwkv6_wkv(*j)):
+        np.testing.assert_allclose(_np(out), _np(jout), atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(_np(s_t), _np(js), atol=1e-5, rtol=1e-5)
+
+
+def test_rwkv6_wkv_state_chaining_and_zero_state():
+    """Two calls carrying the state equal one call over [T1 | T2], as in
+    JAX; ``state=None`` is the zero state."""
+    r, k, v, w, u, _ = (torch.from_numpy(x)
+                        for x in _wkv_inputs((1, 2, 32, 8, 8)))
+    full, s_full = ops.rwkv6_wkv(r, k, v, w, u)
+    zero = torch.zeros(1, 2, 8, 8)
+    torch.testing.assert_close(ops.rwkv6_wkv(r, k, v, w, u, zero)[0], full,
+                               atol=0, rtol=0)
+    o1, s1 = ops.rwkv6_wkv(*(x[:, :, :20] for x in (r, k, v, w)), u)
+    o2, s2 = ops.rwkv6_wkv(*(x[:, :, 20:] for x in (r, k, v, w)), u, s1)
+    torch.testing.assert_close(torch.cat([o1, o2], dim=2), full, atol=1e-5,
+                               rtol=1e-5)
+    torch.testing.assert_close(s2, s_full, atol=1e-5, rtol=1e-5)
+    j = [jnp.asarray(x.numpy(), jnp.float32) for x in (r, k, v, w, u)]
+    jout, js = jops.rwkv6_wkv(*j, use_kernel=True)
+    np.testing.assert_allclose(_np(full), _np(jout), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(_np(s_full), _np(js), atol=1e-5, rtol=1e-5)
+
+
+def test_rwkv6_wkv_bf16_rkv_with_f32_decay():
+    """The model's mix of dtypes: r, k, v in bf16, w, u and the state f32;
+    out comes back in v's dtype, the state in f32.  Both sides compute in
+    f32 from the same bf16 values and round out once."""
+    r, k, v, w, u, s0 = _wkv_inputs((2, 2, 24, 16, 16), seed=7)
+    (rt, rj), (kt, kj), (vt, vj) = (_both(x, "bfloat16") for x in (r, k, v))
+    out, s_t = ops.rwkv6_wkv(rt, kt, vt, torch.from_numpy(w),
+                             torch.from_numpy(u), torch.from_numpy(s0))
+    assert out.dtype == torch.bfloat16 and s_t.dtype == torch.float32
+    jout, js = jref.rwkv6_wkv(rj, kj, vj, jnp.asarray(w), jnp.asarray(u),
+                              jnp.asarray(s0))
+    assert jout.dtype == jnp.bfloat16
+    np.testing.assert_allclose(_np(out), _np(jout), atol=BF16_TOL,
+                               rtol=BF16_TOL)
+    np.testing.assert_allclose(_np(s_t), _np(js), atol=1e-5, rtol=1e-5)
+
+
 def test_cpu_dispatch_launches_no_kernel():
     ops.reset_launch_counts()
     x = torch.ones(4, 8)
@@ -287,16 +358,19 @@ def test_cpu_dispatch_launches_no_kernel():
     ops.attention(x[None, None], x[None, None], x[None, None], causal=False)
     q = x[None, None].requires_grad_()
     torch.autograd.grad(ops.attention(q, q, q, causal=False).sum(), q)
+    r = x.reshape(1, 2, 2, 8)
+    ops.rwkv6_wkv(r, r, r, r, torch.ones(2, 8))
     assert ops.launch_counts() == {"flash_attention_fwd": 0,
                                    "flash_attention_bwd_dq": 0,
                                    "flash_attention_bwd_dkv": 0,
                                    "ddim_fused": 0,
                                    "parareal_update_residual": 0,
-                                   "parareal_update": 0}
+                                   "parareal_update": 0,
+                                   "rwkv6_wkv": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_unported_forms():
-    from repro_torch.kernels import elementwise
+    from repro_torch.kernels import elementwise, rwkv6_scan
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_fwd)
     x = torch.ones(2, 16, 8)
@@ -308,15 +382,26 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_unported_forms():
         elementwise.parareal_update(x, x, x)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_fwd(x, x, x)
-    with pytest.raises(NotImplementedError, match="B3"):
+    # the forward takes the causal, window and GQA forms: a CPU tensor is
+    # all it refuses
+    with pytest.raises(ValueError, match="CUDA"):
         flash_attention_fwd(x, x, x, causal=True)
-    with pytest.raises(NotImplementedError, match="B3"):
-        flash_attention_fwd(torch.ones(4, 16, 8), x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_fwd(torch.ones(4, 16, 8), x, x, window=4)
+    with pytest.raises(ValueError, match="group"):
+        flash_attention_fwd(torch.ones(3, 16, 8), x, x)
+    r = x.reshape(1, 2, 16, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        rwkv6_scan.rwkv6_wkv(r, r, r, r, torch.ones(2, 8),
+                             torch.zeros(1, 2, 8, 8))
     lse = torch.zeros(2, 16)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_bwd(x, x, x, x, lse, x)
     with pytest.raises(NotImplementedError, match="B5"):
         flash_attention_bwd(x, x, x, x, lse, x, window=4)
+    with pytest.raises(NotImplementedError, match="B5"):
+        flash_attention_bwd(torch.ones(4, 16, 8), x, x, torch.ones(4, 16, 8),
+                            torch.zeros(4, 16), torch.ones(4, 16, 8))
 
 
 def test_build_targets_sources_by_hash(monkeypatch):
@@ -324,7 +409,8 @@ def test_build_targets_sources_by_hash(monkeypatch):
     hash, inside the package's ignored build directory; without nvcc the
     build raises instead of falling back."""
     from repro_torch.kernels import _build
-    assert _build.sources() == ["flash_attention_bwd", "flash_attention_fwd"]
+    assert _build.sources() == ["flash_attention_bwd", "flash_attention_fwd",
+                                "rwkv6_wkv"]
     target = _build._target("flash_attention_fwd")
     assert target.parent == _build.BUILD_DIR
     assert target.name.startswith("libflash_attention_fwd-")
