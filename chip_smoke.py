@@ -21,7 +21,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    grouped-query form at qwen3-8b's prefill shape, a ragged right-aligned
    causal case and the sliding-window form at hymba-1.5b's shape; the
    WKV kernel at rwkv6-1.6b's prefill shape, at T = 1 and a ragged T (two
-   runs bitwise equal);
+   runs bitwise equal); the backward's causal GQA form at qwen3-8b's
+   training shape, its sliding-window form at hymba-1.5b's and a ragged
+   causal f32 case; the WKV backward at rwkv6-1.6b's training shape, at
+   T = 7 and T = 300 in f32 (two runs bitwise equal);
 4. sampling: the full-width, full-depth ``srds-dit-sd2`` DiT (28 layers,
    d 1152, 16 heads of 72, bf16) with weights drawn from a numpy seed
    (every leaf nonzero) and loaded through ``load_jax_params``; DDIM on
@@ -79,7 +82,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    that layer's inputs, and checks 1-3 then run the same weights in f32;
    the first check also holds the final WKV states, and the control
    (decode step 1 with the carried WKV state dropped) must miss the
-   second.
+   second;
+9. LM training: ``qwen3-8b`` at its published widths with 8 of its 36
+   layers (2.79 B parameters, bf16, drawn on the card), built by
+   ``launch.train.build``'s own calls with the depth cut; 5 AdamW steps
+   through ``train_loop`` at batch 2 x 2048 from ``LMStream`` (launch
+   counts reset just before and read just after: the flash forward, dq
+   and dkv 8 times a step), each step's wall time, loss, peak memory and
+   launches, and a ``torch.profiler`` reading of one step.  Checks: the
+   flash backward on each layer's own inputs, captured from a gradient of
+   the training batch, against the plain backward; every parameter's
+   gradient at batch 1 x 2048 through the kernels against the plain
+   attention's (whole, and over the q/k/v projections alone), with two
+   broken backwards that must miss the limit (without the causal mask;
+   reading KV head ``bh % BKV``); the loss on a held-out batch falls;
+10. the same for ``rwkv6-1.6b`` whole through ``launch.train.build``: the
+   WKV forward and backward 24 times a step.  The WKV backward on each
+   layer's own inputs at T 2048 against ``ref.rwkv6_wkv_bwd``; after the
+   steps, the gradient check on the trained weights in f32 at batch 1 x
+   256 (the random bf16 model amplifies rounding, phase 8) over their
+   first 4 layers (over all 24 the random model's gradient is chaotic in
+   f32 too: a reading), whole and over the decay LoRA leaves alone, with
+   the backward's ``dd`` dropped as the control.
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -151,6 +175,14 @@ BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # 7.1e-7 (f32); the limits are about 3x those
 MASKED_TOL = {"bfloat16": (8e-3, 1e-2), "float32": (2e-5, 2e-5)}
 MASKED_REL_L2 = {"bfloat16": 1e-4, "float32": 2e-6}
+# the backward's masked and grouped forms against the plain backward, rel
+# L2 over dq, or over dk and dv: each side sums in f32 in its own order
+# and rounds once, so in bf16 few elements differ, by one ulp
+BWD_MASKED_REL_L2 = {"bfloat16": 1e-3, "float32": 1e-5}
+# the WKV backward against its plain version, rel L2 per gradient: the
+# same f32 recurrence summed in another order (dr, dk, dv then rounded
+# once to r's dtype)
+WKV_BWD_REL_L2 = {"bfloat16": 1e-2, "float32": 1e-4}
 # phases 7-8: 4 requests for ServingEngine(batch_size=4), token ids below
 # both vocabularies (rwkv6's 65,536), the same requests for both models
 LM_PROMPTS, LM_NEW, LM_TOKEN_IDS = (2048, 1536, 1024, 512), (32, 32, 16,
@@ -169,6 +201,34 @@ LM_PROMPTS, LM_NEW, LM_TOKEN_IDS = (2048, 1536, 1024, 512), (32, 32, 16,
 # (final WKV states) and 3.77e-5 (teacher forcing), and 1.35 for the
 # dropped-state control: the limit is 4x the largest reading.
 LM_LIMITS = {"qwen3-8b": (5e-2, 5e-2), "rwkv6-1.6b": (1e-3, 1e-3)}
+# phases 9-10: LM training at batch 2 x 2048 for 5 AdamW steps,
+# qwen3-8b at its published widths with 8 of its 36 layers (2.79 B
+# parameters: 33.5 GB of weights, gradients and f32 moments; all 36 would
+# need 98 GB), rwkv6-1.6b whole (None).  The lr (the schedule's 5 warm-up
+# steps rise to half of it): qwen3-8b at the launcher's default; rwkv6-
+# 1.6b at a third of it.  Its random-weight model is chaotic (phase 8): a
+# step re-randomizes its logits, and scripts/torch_lm_probe_sweep.py reads
+# its held-out loss flat over 5 steps at lr 3e-5 to 6e-4 and rising above
+# (PERF.md); at 1e-4 the probe falls step by step, at 3e-4 it rose
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 2048, 5
+LM_TRAIN_LR = {"qwen3-8b": 3e-4, "rwkv6-1.6b": 1e-4}
+LM_TRAIN_LAYERS = {"qwen3-8b": 8, "rwkv6-1.6b": None}
+# the gradient checks: qwen3-8b in bf16 at batch 1 x 2048 (the plain
+# attention's (B, H, S, S) f32 intermediates for 8 layers), rwkv6-1.6b in
+# f32 at batch 1 x 256 (the plain scan's autograd is a Python loop) on its
+# trained weights' first 4 layers.  Rel L2 limits, whole and over
+# QKV_LEAVES / DECAY_LEAVES alone, whose gradient flows only through the
+# kernel under check.  qwen3-8b: an H100 run read 1.52e-2 and 1.56e-2
+# (bf16 roundings at other places, through 8 layers of random weights),
+# its controls inf and 2.9e3: the limit is about 3x the readings.
+# rwkv6-1.6b: its random model's gradient explodes with depth (norm 15 at
+# 1 layer, 83 at 4, 3.5e3 at 24), and so does any change of summation
+# order: at init, f32, kernels vs plain read 9.2e-7 at 1 layer, 1.3e-5 at
+# 4 and 7.7e-2 at 24 (0.91 after the 5 steps), so the check cuts the depth
+LM_GRAD_BATCH, LM_GRAD_SEQ_F32, LM_GRAD_LAYERS_F32 = 1, 256, 4
+LM_GRAD_REL_L2 = {"qwen3-8b": 5e-2, "rwkv6-1.6b": 1e-3}
+QKV_LEAVES = (".attn.wq", ".attn.wk", ".attn.wv")
+DECAY_LEAVES = (".tmix.w_base", ".tmix.A_w", ".tmix.B_w")
 # the WKV kernel's final state against the plain scan's on one layer's
 # inputs: the same f32 recurrence summed in another order (an H100 run
 # measured at most 3.5e-8 over the 24 layers)
@@ -380,7 +440,7 @@ def train_phase(torch, ops, cfg, tree):
     stream = make_stream(cfg, DataConfig(seed=SEED,
                                          global_batch=TRAIN_BATCH),
                          device="cuda")
-    print(f"[6/8] training {cfg.name} through launch.train.build "
+    print(f"[6/10] training {cfg.name} through launch.train.build "
           f"({time.perf_counter() - t0:.1f} s), batch {TRAIN_BATCH}, "
           f"{stream.size}x{stream.size}x{stream.channels} images", flush=True)
     loop_seed = SEED + 1
@@ -510,7 +570,7 @@ def serve_phase(torch, ops, C, model_fn, sched, solver, layers):
                                seed=SERVE_TRACE_SEED)
     if [r.tol for r in trace] != [0.0, 0.0] + [LOOSE_TOL] * 4:
         raise AssertionError(f"unexpected tiers {[r.tol for r in trace]}")
-    print(f"[5/8] serving: {len(trace)} requests in 2 bursts "
+    print(f"[5/10] serving: {len(trace)} requests in 2 bursts "
           f"{SERVE_PERIOD} s apart (tols {[r.tol for r in trace]}), "
           f"{SERVE_SLOTS} slots, N={N_STEPS}, B={B}, AsyncServeLoop on a "
           f"MonotonicClock, FIFO", flush=True)
@@ -769,7 +829,7 @@ def lm_phase(torch, ops, step, arch, limits):
         SEED), device="cuda")
     torch.cuda.synchronize()
     kernel = "rwkv6_wkv" if cfg.block == "rwkv6" else "flash_attention_fwd"
-    print(f"[{step}/8] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
+    print(f"[{step}/10] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}, "
           f"{tf.param_count(model) / 1e9:.3f} B params drawn on the card in "
@@ -918,6 +978,311 @@ def lm_phase(torch, ops, step, arch, limits):
     return counts
 
 
+class NoCheckpoints:
+    """A checkpointer for ``train_loop`` that keeps nothing.  The LM phases
+    do not write their states (28 GB of parameters and moments for
+    qwen3-8b's 8 layers); phase 6 holds the DiT's checkpoint bitwise and
+    ``tests/test_torch_lm_train.py`` an LM restart-resume."""
+
+    def latest_step(self):
+        return None
+
+    def save(self, *args, **kwargs):
+        pass
+
+    save_async = save
+
+    def wait(self):
+        pass
+
+
+def permuted_heads_bwd(real_bwd, torch):
+    """A broken flash backward for a control: query head ``i`` read against
+    KV head ``i % BKV`` in place of ``i // group``.  The heads are permuted
+    around the kernel, which then computes exactly that function."""
+    def bwd(q, k, v, o, lse, do, **mask):
+        bh, bkv = q.shape[0], k.shape[0]
+        group = bh // bkv
+        pos = torch.arange(bh, device=q.device)
+        perm = pos // group + (pos % group) * bkv
+        dq, dk, dv = real_bwd(q[perm], k, v, o[perm], lse[perm], do[perm],
+                              **mask)
+        out = torch.empty_like(dq)
+        out[perm] = dq
+        return out, dk, dv
+    return bwd
+
+
+def grad_readings(torch, ops, cfg, model, batch, part, controls):
+    """The whole gradient of one ``lm_loss`` through the kernels against the
+    plain path's (``use_kernel=False``), and over the leaves whose names
+    end in ``part`` alone, as rel L2; then the same with each control's
+    broken backward patched into ``ops``.  Returns ``(readings, loss
+    line)``: ``{name: (whole, part)}`` with ``"kernels"`` first.
+    ``controls`` maps a name to ``(attr, broken)``: the ``ops`` function
+    to replace and its broken version."""
+    from repro_torch.train import lm_loss
+    names, params = zip(*model.named_parameters())
+    sel = [i for i, n in enumerate(names) if n.endswith(part)]
+
+    def grads(use_kernel):
+        loss, _ = lm_loss(cfg, model, batch, use_kernel=use_kernel)
+        return loss.item(), torch.autograd.grad(loss, params)
+
+    def distances(got):
+        return (rel_l2(got, gp),
+                rel_l2([got[i] for i in sel], [gp[i] for i in sel]))
+
+    lp, gp = grads(False)
+    lk, gk = grads(None)
+    readings = {"kernels": distances(gk)}
+    del gk
+    for name, (attr, broken) in controls.items():
+        real = getattr(ops, attr)
+        setattr(ops, attr, broken)
+        try:
+            readings[name] = distances(grads(None)[1])
+        finally:
+            setattr(ops, attr, real)
+    del gp
+    torch.cuda.empty_cache()
+    return readings, f"loss {lk:.6f} vs {lp:.6f}"
+
+
+def check_grad_readings(readings, limit, part, arch):
+    rel, rel_part = readings.pop("kernels")
+    print(f"  gradient, kernels vs plain path: rel L2 {rel:.3e}, over "
+          f"{part} alone {rel_part:.3e} (limit {limit})", flush=True)
+    for name, (r, r_part) in readings.items():
+        print(f"  control, {name}: rel L2 {r:.3e}, over {part} alone "
+              f"{r_part:.3e}, both must miss the limit", flush=True)
+    if not max(rel, rel_part) <= limit:
+        raise AssertionError(f"{arch}: kernel and plain gradients differ: "
+                             f"rel L2 {rel}, over {part} {rel_part}")
+    for name, (r, r_part) in readings.items():
+        if not min(r, r_part) > limit:
+            raise AssertionError(f"{arch}: the gradient check does not "
+                                 f"catch the control ({name}): {r}, "
+                                 f"{r_part}")
+
+
+def lm_train_phase(torch, ops, step_no, arch):
+    """Phases 9 and 10: ``arch`` trained for ``LM_TRAIN_STEPS`` AdamW steps
+    at batch ``LM_TRAIN_BATCH`` x ``LM_TRAIN_SEQ`` through the kernels in
+    both directions; the checks before and after.  Returns the launch
+    counts of the ``train_loop`` run (the main path)."""
+    import dataclasses
+    import math
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, make_stream
+    from repro_torch.kernels import ref
+    from repro_torch.launch import train as launch
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamWConfig, init_opt_state, warmup_cosine
+    from repro_torch.runtime import LoopConfig, train_loop
+    from repro_torch.train import lm_loss, make_train_step
+
+    t0 = time.perf_counter()
+    layers = LM_TRAIN_LAYERS[arch]
+    if layers is None:
+        cfg, model, opt_state, step, _ = launch.build(
+            arch, lr=LM_TRAIN_LR[arch], total_steps=LM_TRAIN_STEPS,
+            device="cuda")
+    else:
+        # launch.build's own calls, with the depth cut (the launcher has
+        # no depth flag); the optimizer state comes after the checks
+        cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+        model = tf.init_params(cfg, torch.Generator(device="cuda")
+                               .manual_seed(0), device="cuda",
+                               trainable=True)
+        opt_state = step = None
+    stream = make_stream(cfg, DataConfig(seed=SEED,
+                                         global_batch=LM_TRAIN_BATCH,
+                                         seq_len=LM_TRAIN_SEQ),
+                         device="cuda")
+    torch.cuda.synchronize()
+    n_params = tf.param_count(model)
+    print(f"[{step_no}/10] training {arch}: {cfg.num_layers} of "
+          f"{get_arch(arch).num_layers} layers, d {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B params ({cfg.dtype}, drawn on the card; "
+          f"{time.perf_counter() - t0:.1f} s), batch {LM_TRAIN_BATCH} x "
+          f"{LM_TRAIN_SEQ} tokens from LMStream, lr {LM_TRAIN_LR[arch]}",
+          flush=True)
+    bwd_name = "rwkv6_wkv_bwd" if cfg.block == "rwkv6" else \
+        "flash_attention_bwd_dkv"
+    errs = []
+
+    # 1. the backward kernel on each layer's own inputs, captured from one
+    # gradient of the training batch, against its plain version
+    if cfg.block == "rwkv6":
+        real_wkv_bwd = ops.rwkv6_wkv_bwd
+
+        def checked(r, k, v, w, u, ckpt, dout, ds_t=None):
+            got = real_wkv_bwd(r, k, v, w, u, ckpt, dout, ds_t)
+            want = ref.rwkv6_wkv_bwd(r, k, v, w, u, ckpt[:, :, 0], dout,
+                                     ds_t)
+            errs.append([rel_l2([g], [x]) for g, x in zip(got, want)])
+            return got
+
+        attr = "rwkv6_wkv_bwd"
+        limit = WKV_BWD_REL_L2["bfloat16"]
+        what = "dr/dk/dv/dw/du/ds0"
+    else:
+        real_bwd = ops.flash_attention_bwd
+
+        def checked(q, k, v, o, lse, do, **mask):
+            got = real_bwd(q, k, v, o, lse, do, **mask)
+            want = ref.attention_bwd(q[None], k[None], v[None], o[None],
+                                     lse[None], do[None], **mask)
+            errs.append([rel_l2([g], [x[0]]) for g, x in zip(got, want)])
+            return got
+
+        attr = "flash_attention_bwd"
+        limit = BWD_MASKED_REL_L2["bfloat16"]
+        what = "dq/dk/dv"
+    real = getattr(ops, attr)
+    setattr(ops, attr, checked)
+    try:
+        batch0 = stream.batch(0)
+        loss, _ = lm_loss(cfg, model, batch0)
+        torch.autograd.grad(loss, list(model.parameters()))
+    finally:
+        setattr(ops, attr, real)
+    worst = [max(e[i] for e in errs) for i in range(len(errs[0]))]
+    print(f"  1. {bwd_name.replace('_dkv', '')} on each of the {len(errs)} "
+          f"layers' own inputs (batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, "
+          f"bf16) vs the plain backward: rel L2 {what} at most "
+          + "/".join(f"{x:.2e}" for x in worst) + f" (limit {limit})",
+          flush=True)
+    if len(errs) != cfg.num_layers or not max(worst) <= limit:
+        raise AssertionError(f"{arch}: the backward kernel differs from its "
+                             f"plain version on the model's inputs: {worst}")
+    del loss
+    torch.cuda.empty_cache()
+
+    # 2. (qwen3-8b, bf16) every parameter's gradient through the kernels
+    # against the plain attention's, with two broken backwards
+    if cfg.block != "rwkv6":
+        small = {k: v[:LM_GRAD_BATCH] for k, v in batch0.items()}
+        real_bwd = ops.flash_attention_bwd
+        readings, line = grad_readings(
+            torch, ops, cfg, model, small, QKV_LEAVES, {
+                "backward without the causal mask": (
+                    "flash_attention_bwd",
+                    lambda *a, **m: real_bwd(*a, **dict(m, causal=False))),
+                "backward reading KV head bh % BKV": (
+                    "flash_attention_bwd",
+                    permuted_heads_bwd(real_bwd, torch))})
+        print(f"  2. gradient at batch {LM_GRAD_BATCH} x {LM_TRAIN_SEQ} "
+              f"(bf16), {line}", flush=True)
+        check_grad_readings(readings, LM_GRAD_REL_L2[arch],
+                            "the q/k/v projections", arch)
+        opt_state = init_opt_state(dict(model.named_parameters()))
+        lr = LM_TRAIN_LR[arch]
+        step = make_train_step(cfg, AdamWConfig(
+            lr=lr, schedule=warmup_cosine(lr, max(10, LM_TRAIN_STEPS // 10),
+                                          LM_TRAIN_STEPS)), loss_kind="lm")
+
+    # the main path: train_loop over LM_TRAIN_STEPS batches; the probe is
+    # a batch the loop does not train on
+    probe = stream.batch(LM_TRAIN_STEPS)
+
+    def probe_loss():
+        with torch.no_grad():
+            return lm_loss(cfg, model, probe)[0].item()
+
+    before = probe_loss()
+    kernels = ((("rwkv6_wkv", "rwkv6_wkv_bwd") if cfg.block == "rwkv6"
+                else ("flash_attention_fwd",) + BWD_KERNELS))
+    rows = []
+
+    def timed_step(*args, **kw):
+        start = ops.launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out = step(*args, **kw)
+        torch.cuda.synchronize()       # the step's wall time ends here
+        end = ops.launch_counts()
+        rows.append({"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": {k: end[k] - start[k] for k in kernels}})
+        return out
+
+    def log(i, m):
+        rows[-1].update(m)
+        print(f"  step {i}: wall {m['step_time_s']:.3f} s, loss "
+              f"{m['loss']:.5f}, grad_norm {m['grad_norm']:.4f}, lr "
+              f"{m['lr']:.3e}, peak memory {rows[-1]['peak_gb']:.2f} GB, "
+              f"launches {rows[-1]['launches']}", flush=True)
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    model, opt_state, _ = train_loop(
+        timed_step, model, opt_state, stream, SEED + 1, NoCheckpoints(),
+        LoopConfig(total_steps=LM_TRAIN_STEPS, ckpt_every=LM_TRAIN_STEPS,
+                   log_every=1), metrics_cb=log)
+    loop_s = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    print(f"  train_loop ({LM_TRAIN_STEPS} steps, main path): {loop_s:.3f} "
+          f"s, launches {counts}", flush=True)
+    want = dict.fromkeys(counts, 0)
+    want.update(dict.fromkeys(kernels, cfg.num_layers * LM_TRAIN_STEPS))
+    if counts != want:
+        raise AssertionError(f"{arch}: launch counts {counts} != {want}")
+    losses = [r["loss"] for r in rows]
+    if len(losses) != LM_TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{arch}: train losses not finite: {losses}")
+    after = probe_loss()
+    print(f"  3. held-out probe loss (batch {LM_TRAIN_STEPS} of the stream) "
+          f"{before:.6f} -> {after:.6f}", flush=True)
+    if not after < before:
+        raise AssertionError(f"{arch}: the probe loss did not fall")
+    profile_reading(torch, f"train step ({LM_TRAIN_BATCH} x {LM_TRAIN_SEQ})",
+                    lambda: step(model, opt_state, batch0))
+    del opt_state, step
+    torch.cuda.empty_cache()
+
+    # 4. (rwkv6-1.6b) the end-to-end gradient check with the same weights
+    # in f32 at a short sequence, with a broken WKV backward.  Over all 24
+    # layers the random model's gradient is itself chaotic (a reading, no
+    # limit); the check takes the trained weights' first LM_GRAD_LAYERS_F32
+    if cfg.block == "rwkv6":
+        model.float()
+        small = {k: v[:1, :LM_GRAD_SEQ_F32] for k, v in batch0.items()}
+        readings, line = grad_readings(torch, ops, cfg, model, small,
+                                       DECAY_LEAVES, {})
+        rel, rel_part = readings["kernels"]
+        print(f"  4a. reading, all {cfg.num_layers} layers at batch 1 x "
+              f"{LM_GRAD_SEQ_F32} (f32 weights), {line}: gradient, kernels "
+              f"vs plain path, rel L2 {rel:.3e}, over the decay leaves "
+              f"alone {rel_part:.3e}", flush=True)
+        cut = dataclasses.replace(cfg, num_layers=LM_GRAD_LAYERS_F32,
+                                  dtype="float32")
+        sub = tf.TransformerLM(cut, device="cuda", trainable=True)
+        with torch.no_grad():
+            trained = dict(model.named_parameters())
+            for name, p in sub.named_parameters():
+                p.copy_(trained[name])
+        del model, trained
+        real_wkv_bwd = ops.rwkv6_wkv_bwd
+
+        def no_dd(*args):
+            dr, dk, dv, dw, du, ds0 = real_wkv_bwd(*args)
+            return dr, dk, dv, torch.zeros_like(dw), du, ds0
+
+        readings, line = grad_readings(
+            torch, ops, cut, sub, small, DECAY_LEAVES,
+            {"backward with dd dropped": ("rwkv6_wkv_bwd", no_dd)})
+        print(f"  4. gradient of the first {LM_GRAD_LAYERS_F32} trained "
+              f"layers at batch 1 x {LM_GRAD_SEQ_F32} (f32 weights), {line}",
+              flush=True)
+        check_grad_readings(readings, LM_GRAD_REL_L2[arch],
+                            "the decay leaves", arch)
+        model = sub
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def masked_flash_cases(torch, ops, ref, randn, cases):
     """The forward's causal, sliding-window and grouped-query forms against
     the plain version: qwen3-8b's prefill (batch 4 x 32 query heads over 8
@@ -1009,6 +1374,147 @@ def wkv_cases(torch, ops, randn, cases):
             tol, timing))
 
 
+def masked_backward_cases(torch, ref, randn, cases):
+    """The flash backward's causal, sliding-window and grouped-query forms
+    against ``ref.attention_bwd``: qwen3-8b's training shape (batch 2 x 32
+    query heads over 8 KV heads, S 2048, D 128, bf16, causal), hymba-1.5b's
+    (2 x 25 query over 5 KV heads, S 2048, D 64, bf16, causal, window
+    1024) and a ragged right-aligned causal case in f32 (Sq 100, Sk 1000,
+    group 4).  dk and dv come back in the KV heads' layout, the group
+    summed in f32 in the kernel and in the plain version.  The bound
+    counts the live (q, k) pairs only; ``plain_ms`` and ``library_ms``
+    time a whole backward (dq, dk and dv together): ``library_ms`` is
+    SDPA's backward on K/V repeated to the query heads beforehand
+    (``is_causal`` for the square causal case, the boolean keep-mask
+    otherwise), whose dk and dv stay per query head."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    for b, hq, hkv, sq, sk, d, dtype, window in [
+            (2, 32, 8, 2048, 2048, 128, "bfloat16", None),
+            (2, 25, 5, 2048, 2048, 64, "bfloat16", 1024),
+            (2, 8, 2, 100, 1000, 64, "float32", None)]:
+        tdt = getattr(torch, dtype)
+        q, do = (randn((b, hq, sq, d), tdt) for _ in range(2))
+        k, v = (randn((b, hkv, sk, d), tdt) for _ in range(2))
+        q3, do3 = (x.reshape(b * hq, sq, d) for x in (q, do))
+        k3, v3 = (x.reshape(b * hkv, sk, d) for x in (k, v))
+        mask = dict(causal=True, window=window)
+        o3, lse = fa.flash_attention_fwd(q3, k3, v3, **mask)
+        delta = (do3.float() * o3.float()).sum(dim=-1)
+        scale = d ** -0.5
+
+        def dq_fn():
+            return (fa.flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta,
+                                              scale, **mask),)
+
+        def dkv_fn():
+            return fa.flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta,
+                                              scale, **mask)
+
+        def plain():
+            return ref.attention_bwd(q, k, v, o3.view(q.shape),
+                                     lse.view(b, hq, sq), do, **mask)
+
+        want = plain()
+        keep = ref._keep(sq, sk, True, window, q.device)
+        live = int(keep.sum())
+        kx, vx = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, kx, vx))
+        sdpa = F.scaled_dot_product_attention(
+            qg, kg, vg, **(dict(is_causal=True) if sq == sk and window is None
+                           else dict(attn_mask=keep)))
+        reps = 5 if sq >= 1024 else 50
+        plain_ms = time_ms(plain, 2)
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            sdpa, (qg, kg, vg), do, retain_graph=True), reps)
+        reads = nbytes(q, k, v, do, lse, delta)
+        atol, rtol = ((BWD_BF16_ATOL, BWD_BF16_RTOL) if dtype == "bfloat16"
+                      else (1e-4, 1e-4))
+        form = "causal" + (f" window={window}" if window else "")
+        for name, fn, ref_out, flops in (
+                ("flash_attention_bwd_dq", dq_fn, want[:1], 6.0),
+                ("flash_attention_bwd_dkv", dkv_fn, want[1:], 8.0)):
+            got = fn()
+            b_ms, b_by = bound(reads + nbytes(*got),
+                               flops * b * hq * live * d, dtype)
+            timing = dict(ms=time_ms(fn, reps), plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by,
+                          library_ms=library_ms)
+            rel = rel_l2(got, [w.reshape(g.shape)
+                               for g, w in zip(got, ref_out)])
+            cases[name + "_causal_gqa"].append(check_case(
+                f"{name} {form} {dtype} BH={b * hq} BKV={b * hkv} Sq={sq} "
+                f"Sk={sk} D={d} (rel L2 {rel:.3e}, limit "
+                f"{BWD_MASKED_REL_L2[dtype]})",
+                torch.cat([g.reshape(-1) for g in got]),
+                torch.cat([w.reshape(-1) for w in ref_out]), atol, rtol,
+                timing))
+            if not rel <= BWD_MASKED_REL_L2[dtype]:
+                raise AssertionError(f"{name} {form}: rel L2 {rel} against "
+                                     f"the plain backward")
+        del qg, kg, vg, sdpa, want
+        torch.cuda.empty_cache()
+
+
+def wkv_backward_cases(torch, ref, randn, cases):
+    """The WKV backward kernel against ``ref.rwkv6_wkv_bwd`` from the
+    forward's checkpoints: rwkv6-1.6b's training shape (batch 2 x 32
+    heads, T 2048, Dk = Dv = 64, r/k/v bf16, w/u/state f32, from the zero
+    state), a ragged T (7) and T 300 in f32, with upstream gradients on
+    out and on the final state; each run twice and held bitwise equal.
+    Every gradient is held by relative L2 over the tensor (the kernel and
+    the plain scan sum in other orders; ``dw`` sums a row of G * S that
+    can cancel, so an elementwise tolerance would be meaningless there).
+    The bound counts 12 flops per state element per step (the recomputed
+    state, S dout, G v, G^T k, rowsum(G * S), the G update) plus 15 Dk +
+    2 Dv per step, on the f32 units; PyTorch has no single call for it
+    (``library_ms`` null)."""
+    from repro_torch.kernels import rwkv6_scan
+    for b, h, t, dk, dtype in [(2, 32, 2048, 64, "bfloat16"),
+                               (2, 32, 7, 64, "bfloat16"),
+                               (2, 4, 300, 64, "float32")]:
+        tdt = getattr(torch, dtype)
+        r, k, v = (randn((b, h, t, dk)).mul(0.5).to(tdt) for _ in range(3))
+        w = (randn((b, h, t, dk)) * 0.5 - 1.0).clamp(-8.0, 4.0)
+        u = randn((h, dk)) * 0.3
+        s0 = (torch.zeros((b, h, dk, dk), device=r.device) if t >= 1024
+              else randn((b, h, dk, dk)) * 0.2)
+        dout = randn((b, h, t, dk)).to(tdt)
+        ds_t = randn((b, h, dk, dk)) * 0.1
+        _, _, ckpt = rwkv6_scan.rwkv6_wkv(r, k, v, w, u, s0,
+                                          checkpoints=True)
+
+        def kernel():
+            return rwkv6_scan.rwkv6_wkv_bwd(r, k, v, w, u, ckpt, dout, ds_t)
+
+        def plain():
+            return ref.rwkv6_wkv_bwd(r, k, v, w, u, s0, dout, ds_t)
+
+        got, again, want = kernel(), kernel(), plain()
+        if not all(torch.equal(_bits(a), _bits(c))
+                   for a, c in zip(got, again)):
+            raise AssertionError("rwkv6_wkv_bwd: two runs differ")
+        rels = [rel_l2([g], [x]) for g, x in zip(got, want)]
+        lim = WKV_BWD_REL_L2[dtype]
+        b_ms, b_by = bound(
+            nbytes(r, k, v, w, u, ckpt, dout, ds_t, *got),
+            b * h * t * (12.0 * dk * dk + 17.0 * dk), "float32")
+        timing = dict(ms=time_ms(kernel, 5 if t >= 1024 else 100),
+                      plain_ms=time_ms(plain, 1), bound_ms=b_ms,
+                      bound_by=b_by, library_ms=None)
+        flat = [torch.cat([x.float().reshape(-1) for x in xs])
+                for xs in (got, want)]
+        scale = max(x.float().abs().max().item() for x in want)
+        cases["rwkv6_wkv_bwd"].append(check_case(
+            f"rwkv6_wkv_bwd {dtype} B={b} H={h} T={t} D={dk} (rel L2 "
+            f"dr/dk/dv/dw/du/ds0 " + "/".join(f"{x:.1e}" for x in rels)
+            + f", limit {lim}; two runs bitwise)", *flat,
+            2e-2 * scale, 2e-2, timing))
+        if not max(rels) <= lim:
+            raise AssertionError(f"rwkv6_wkv_bwd: rel L2 {rels} against "
+                                 f"the plain backward")
+
+
 def kernel_phase(torch, ops, ref):
     import torch.nn.functional as F
     dev = torch.device("cuda")
@@ -1020,7 +1526,9 @@ def kernel_phase(torch, ops, ref):
     cases = {"flash_attention_fwd": [], "flash_attention_bwd_dq": [],
              "flash_attention_bwd_dkv": [], "ddim_fused": [],
              "parareal_update_residual": [], "parareal_update": [],
-             "flash_attention_fwd_causal_gqa": [], "rwkv6_wkv": []}
+             "flash_attention_fwd_causal_gqa": [], "rwkv6_wkv": [],
+             "flash_attention_bwd_dq_causal_gqa": [],
+             "flash_attention_bwd_dkv_causal_gqa": [], "rwkv6_wkv_bwd": []}
     # flash forward: SD-v2 fine and coarse batches (10 and 2 latents x 16
     # heads, S 1024, D 72) in bf16, CIFAR-width f32, and ragged Sq/Sk
     for bh, sq, sk, d, dtype in [(160, 1024, 1024, 72, "bfloat16"),
@@ -1049,6 +1557,7 @@ def kernel_phase(torch, ops, ref):
 
     masked_flash_cases(torch, ops, ref, randn, cases)
     backward_cases(torch, ref, randn, cases)
+    masked_backward_cases(torch, ref, randn, cases)
 
     # DDIM: the fine step's 10 folded latents, per-row coefficients
     x, e = randn((BLOCKS * SAMPLES, 64, 64, 4)), randn((BLOCKS * SAMPLES,
@@ -1116,6 +1625,7 @@ def kernel_phase(torch, ops, ref):
             f"bitwise)", resid, resid_r, 0.0, 1e-5, timing))
 
     wkv_cases(torch, ops, randn, cases)
+    wkv_backward_cases(torch, ref, randn, cases)
     return cases
 
 
@@ -1136,20 +1646,21 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/8] device: {smi} (torch {torch.__version__}, CUDA "
+    print(f"[1/10] device: {smi} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda})", flush=True)
 
     # ---- 2. build --------------------------------------------------------
     from repro_torch.kernels import _build, ops, ref
     secs = _build.build_all()
-    print(f"[2/8] build: {len(_build.sources())} CUDA source(s) in "
+    print(f"[2/10] build: {len(_build.sources())} CUDA source(s) in "
           f"{secs:.1f} s", flush=True)
     for name, log in _build.build_log.items():
         print(f"  nvcc {name}.cu:\n" + "\n".join(
             "    " + line for line in log.strip().splitlines()))
 
     # ---- 3. kernels against their plain versions -------------------------
-    print("[3/8] kernels vs plain versions (times on this card)", flush=True)
+    print("[3/10] kernels vs plain versions (times on this card)",
+          flush=True)
     cases = kernel_phase(torch, ops, ref)
 
     # ---- 4. sampling -----------------------------------------------------
@@ -1161,7 +1672,7 @@ def main() -> int:
     t0 = time.perf_counter()
     tree = dit.random_jax_tree(cfg, seed=SEED)
     model = dit.load_jax_params(cfg, tree, device="cuda")
-    print(f"[4/8] srds-dit-sd2: {cfg.num_layers} layers, d {cfg.d_model}, "
+    print(f"[4/10] srds-dit-sd2: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads}x{cfg.resolved_head_dim} heads, {cfg.dtype}, "
           f"{dit.param_count(model) / 1e6:.1f} M params, built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1188,7 +1699,7 @@ def main() -> int:
         want = {"flash_attention_fwd": layers * ddim,
                 "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
                 "ddim_fused": ddim, "parareal_update_residual": resid,
-                "parareal_update": 0, "rwkv6_wkv": 0}
+                "parareal_update": 0, "rwkv6_wkv": 0, "rwkv6_wkv_bwd": 0}
         if counts != want:
             raise AssertionError(f"launch counts {counts} != {want}")
 
@@ -1204,7 +1715,8 @@ def main() -> int:
     p = int(res.iterations.max())
     expect(main_counts, B + p * (S + B), p * B)
     if min(n for k, n in main_counts.items()
-           if k not in BWD_KERNELS + ("parareal_update", "rwkv6_wkv")) == 0:
+           if k not in BWD_KERNELS + ("parareal_update", "rwkv6_wkv",
+                                      "rwkv6_wkv_bwd")) == 0:
         raise AssertionError(f"a kernel never ran on the main path: "
                              f"{main_counts}")
     sample = res.sample
@@ -1255,6 +1767,12 @@ def main() -> int:
         lm_counts[arch] = lm_phase(torch, ops, step, arch, LM_LIMITS[arch])
         torch.cuda.empty_cache()
 
+    # ---- 9-10. LM training -----------------------------------------------
+    lm_train_counts = {}
+    for step, arch in ((9, "qwen3-8b"), (10, "rwkv6-1.6b")):
+        lm_train_counts[arch] = lm_train_phase(torch, ops, step, arch)
+        torch.cuda.empty_cache()
+
     sources = {"flash_attention_fwd": (
         "cuda", "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
         "src/repro/kernels/flash_attention.py:85"),
@@ -1275,27 +1793,41 @@ def main() -> int:
             "cuda", "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
             "src/repro/kernels/flash_attention.py:85"),
         "rwkv6_wkv": ("cuda", "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
-                      "src/repro/kernels/rwkv6_scan.py:37")}
-    # a kernel's launches are those of its path: training for the
+                      "src/repro/kernels/rwkv6_scan.py:37"),
+        "flash_attention_bwd_dq_causal_gqa": (
+            "cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention.py:453"),
+        "flash_attention_bwd_dkv_causal_gqa": (
+            "cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention.py:494"),
+        "rwkv6_wkv_bwd": ("cuda", "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
+                          "src/repro/kernels/ops.py:199")}
+    # a kernel's launches are those of its path: DiT training for the
     # backward, the l2_mean serving run for parareal_update, the served
     # qwen3-8b requests for the causal GQA forward (the same wrapper and
     # counter as the DiT's forward), the served rwkv6-1.6b requests for
-    # WKV, DiT serving for the rest
+    # WKV, qwen3-8b training for the backward's causal GQA form (the same
+    # wrappers and counters as the DiT's backward), rwkv6-1.6b training
+    # for the WKV backward, DiT serving for the rest
     path_of = dict.fromkeys(BWD_KERNELS, "train_loop")
     path_of["parareal_update"] = "serve_l2_mean"
     path_of["flash_attention_fwd_causal_gqa"] = "serve_qwen3-8b"
     path_of["rwkv6_wkv"] = "serve_rwkv6-1.6b"
+    path_of.update(dict.fromkeys((k + "_causal_gqa" for k in BWD_KERNELS),
+                                 "train_qwen3-8b"))
+    path_of["rwkv6_wkv_bwd"] = "train_rwkv6-1.6b"
     kernels = []
     for name, (route, source, replaces) in sources.items():
         first = cases[name][0]            # the main path's shape
-        counter = ("flash_attention_fwd"
-                   if name == "flash_attention_fwd_causal_gqa" else name)
+        counter = name.replace("_causal_gqa", "")
         by_path = {"srds_sample": main_counts[counter],
                    "serve": serve_counts[counter],
                    "serve_l2_mean": serve_l2_counts[counter],
                    "train_loop": train_counts[counter],
                    **{f"serve_{a}": c[counter]
-                      for a, c in lm_counts.items()}}
+                      for a, c in lm_counts.items()},
+                   **{f"train_{a}": c[counter]
+                      for a, c in lm_train_counts.items()}}
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=by_path[path_of.get(name, "serve")],

@@ -1,5 +1,6 @@
 """Deterministic synthetic data (counterpart of ``repro.data``)."""
-from .pipeline import DataConfig, ImageStream, fold_in, image_formula, make_stream
+from .pipeline import (DataConfig, ImageStream, LMStream, fold_in,
+                       image_formula, make_stream, token_formula)
 
-__all__ = ["DataConfig", "ImageStream", "fold_in", "image_formula",
-           "make_stream"]
+__all__ = ["DataConfig", "ImageStream", "LMStream", "fold_in",
+           "image_formula", "make_stream", "token_formula"]

@@ -4,11 +4,12 @@
 Every batch is a pure function of ``(dataset seed, step)``: its random
 draws come from a ``torch.Generator`` seeded by :func:`fold_in` of the two,
 on the CPU, so a restarted trainer resumes on exactly the batch it would
-have seen, on any device.  The procedural formula (:func:`image_formula`)
-takes the draws as arguments and runs on the stream's device.  Only the
-DiT's ``ImageStream`` is ported; the language-model, audio and VLM
-streams wait for the LLM zoo (ROADMAP A11), and the per-host slicing for
-the multi-device port (A10): the one host takes the whole global batch.
+have seen, on any device.  The procedural formulas (:func:`image_formula`,
+:func:`token_formula`) take the draws as arguments and run on the
+stream's device.  The DiT's ``ImageStream`` and the language models'
+``LMStream`` are ported; the audio and VLM streams wait for those archs
+(ROADMAP A11), and the per-host slicing for the multi-device port (A10):
+the one host takes the whole global batch.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ IMAGE_SIZES = {"srds-dit-cifar": 32, "srds-dit-lsun": 128,
 class DataConfig:
     seed: int = 0
     global_batch: int = 8
+    seq_len: int = 128
 
 
 def fold_in(seed: int, data: int) -> int:
@@ -80,9 +82,50 @@ class ImageStream:
         return {"images": image_formula(*draws, self.size)}
 
 
+def token_formula(a, b, noise, use_noise, seq_len: int,
+                  vocab: int) -> torch.Tensor:
+    """Affine-progression token sequences with uniform noise: (B, seq_len)
+    int64 from the four draws (``a``, ``b`` of shape (B, 1); ``noise`` and
+    the bool ``use_noise`` of shape (B, seq_len)), on their device.  Token
+    i is ``(a * i + b) % vocab`` unless ``use_noise`` picks ``noise``: the
+    same formula as ``LMStream._make`` in JAX."""
+    i = torch.arange(seq_len, device=a.device)[None, :]
+    prog = (a.long() * i + b.long()) % vocab
+    return torch.where(use_noise, noise.long(), prog)
+
+
+class LMStream:
+    """Structured synthetic LM data: each sequence interleaves an affine
+    progression (``t_{i+1} = t_i + a mod V``) with 15% uniform noise, so
+    short training runs visibly reduce the loss."""
+
+    def __init__(self, cfg: DataConfig, vocab: int, device="cuda"):
+        self.cfg = cfg
+        self.vocab = vocab
+        self.device = torch.device(device)
+
+    def draws(self, step: int):
+        """The four draws of ``step``'s batch, on the CPU."""
+        g = torch.Generator().manual_seed(fold_in(self.cfg.seed, step))
+        b, s = self.cfg.global_batch, self.cfg.seq_len
+        return (torch.randint(1, 8, (b, 1), generator=g),
+                torch.randint(0, self.vocab, (b, 1), generator=g),
+                torch.randint(0, self.vocab, (b, s), generator=g),
+                torch.rand((b, s), generator=g) < 0.15)
+
+    def batch(self, step: int):
+        draws = [d.to(self.device) for d in self.draws(step)]
+        tokens = token_formula(*draws, self.cfg.seq_len, self.vocab)
+        return {"tokens": tokens, "labels": tokens}
+
+
 def make_stream(cfg: ArchConfig, data_cfg: DataConfig, device="cuda"):
-    if cfg.family != "dit":
-        raise NotImplementedError(f"the {cfg.family} data streams wait for "
-                                  f"the LLM zoo (ROADMAP A11)")
-    return ImageStream(data_cfg, IMAGE_SIZES.get(cfg.name, 32),
-                       cfg.in_channels, device)
+    """The arch's stream: images for the DiT, tokens for the dense and
+    RWKV language models."""
+    if cfg.family == "dit":
+        return ImageStream(data_cfg, IMAGE_SIZES.get(cfg.name, 32),
+                           cfg.in_channels, device)
+    if cfg.family in ("dense", "ssm"):
+        return LMStream(data_cfg, cfg.vocab_size, device)
+    raise NotImplementedError(f"the {cfg.family} data streams (audio, "
+                              f"vision) wait for those archs (ROADMAP A11)")

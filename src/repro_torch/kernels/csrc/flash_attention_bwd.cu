@@ -1,5 +1,5 @@
-// Flash attention backward for Hopper (sm_90a), non-causal, no window, one
-// KV head per query head.
+// Flash attention backward for Hopper (sm_90a): non-causal, causal and
+// sliding-window masks, grouped-query attention.
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention_bwd and its TPU
 // bodies _dq_kernel and _dkv_kernel: given q, k, v, the upstream gradient dO,
@@ -7,7 +7,8 @@
 //   p  = exp(q k^T * scale - lse),   dp = dO v^T,
 //   ds = p * (dp - delta) * scale,
 //   dq = ds k,   dk = ds^T q,   dv = p^T dO,
-// for (BH, Sq, D) x (BH, Sk, D) inputs in bf16 or f32, D % 4 == 0, D <= 128.
+// for (BH, Sq, D) x (BKV, Sk, D) inputs in bf16 or f32, D % 4 == 0,
+// D <= 128, BH a multiple of BKV (group = BH / BKV query heads per KV head).
 //
 // Design.  The TPU kernels carried f32 accumulators in VMEM scratch across a
 // sequential grid axis; blocks here run in no order, so that axis is a loop
@@ -19,23 +20,34 @@
 // staged in shared memory as f32, rows read by every lane of a warp at once
 // (broadcast) keep stride D, rows read one per lane keep stride D + 4 so the
 // lanes' float4 loads hit distinct banks.
-//   * dq kernel: one block per (head, 64 query rows).  q and dO stay in
-//     shared memory; it walks the keys in tiles of 64 (k and v), and
-//     accumulates dq in registers.
-//   * dkv kernel: one block per (head, 64 key rows).  k and v stay in shared
-//     memory; it walks the queries in tiles of 64 (q, dO, lse, delta), and
-//     accumulates dk and dv in registers (48 floats a lane at D = 72), so
-//     only the staged tiles take shared memory (about 109 KB at D = 72,
-//     above the 48 KB default: the launch opts in).
+//   * dq kernel: one block per (query head, 64 query rows).  q and dO stay
+//     in shared memory; it walks the live keys of KV head bh / group in
+//     tiles of 64 (k and v), and accumulates dq in registers.
+//   * dkv kernel: one block per (KV head, 64 key rows).  k and v stay in
+//     shared memory; it loops over the group's query heads and, for each,
+//     walks the live queries in tiles of 64 (q, dO, lse, delta),
+//     accumulating dk and dv in registers across the whole group (48
+//     floats a lane at D = 72, 64 at D = 128).  JAX writes per-query-head
+//     partials in q's dtype and sums the group in its wrapper; here the
+//     group sum stays in f32 and each output is rounded once.  Only the
+//     staged tiles take shared memory (about 166 KB at D = 128, above the
+//     48 KB default: the launch opts in).
+// Masks (_mask of the TPU kernels): query positions are right-aligned to the
+// keys, q_pos = row + Sk - Sq; causal keeps k <= q_pos and a window keeps
+// k > q_pos - window.  A masked pair has p = 0, so a query row with no live
+// key gets dq = 0 and adds nothing to dk or dv.  The loop bounds skip every
+// tile pair with no live entry (the TPU kernels' pl.when(live)): the dq
+// kernel visits the KV tiles from the first key any of its rows can see to
+// the last, the dkv kernel the Q tiles whose rows can see any of its keys.
 // P is recomputed from lse, never stored.  All math is f32; each output is
 // rounded once to the input dtype.  Ragged Sq / Sk are masked: rows past the
 // end load as zero, their scores get p = 0, their outputs are not stored.
 //
 // Bound.  At the DiT's training shapes (BH 128, S 1024, D 72) the dq kernel
 // does 6 S^2 D and the dkv kernel 8 S^2 D flops per head against about
-// 10 S D bytes, far above the card's ridge, so both are bound by operations.
-// This first version uses the f32 FMA units, not the tensor cores, as the
-// forward does.
+// 10 S D bytes, far above the card's ridge, so both are bound by operations
+// (the masked forms: the live pairs' share of them).  This first version
+// uses the f32 FMA units, not the tensor cores, as the forward does.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -45,6 +57,23 @@ constexpr int kBlock = 64;               // rows of a tile, queries or keys
 constexpr int kWarps = 8;
 constexpr int kRows = kBlock / kWarps;   // rows per warp
 constexpr int kThreads = kWarps * 32;
+
+// The mask of one (query row, key) pair, with query positions right-aligned
+// to the keys (q_pos = row + Sk - Sq); window 0 is none.  The kernels are
+// compiled once with MASKED false, for the non-causal form without a
+// window (the DiT's: only ragged edges are masked, and the dkv kernel
+// keeps to 128 registers, so that at the DiT's D = 72 two blocks share an
+// SM), and once with it true.
+struct Mask {
+  int Sq, Sk, causal, window;
+  template <bool MASKED>
+  __device__ __forceinline__ bool keep(int row, int key) const {
+    if (!MASKED) return row < Sq && key < Sk;
+    const int q_pos = row + Sk - Sq;
+    return row < Sq && key < Sk && (!causal || key <= q_pos) &&
+           (window <= 0 || key > q_pos - window);
+  }
+};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -142,12 +171,13 @@ __device__ __forceinline__ void scores2(float (&s)[kRows][2], float (&t)[kRows][
   }
 }
 
-template <typename T, int DPL>
+template <typename T, int DPL, bool MASKED>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int Sq, int Sk, int D, float scale) {
+                    T* __restrict__ dq, int Sq, int Sk, int D, int group,
+                    Mask mask, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int ldk = D + 4;
   float* sq = smem;                          // [kBlock][D]
@@ -161,8 +191,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (blockIdx.x - bh * n_qt) * kBlock;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = q0 + warp * kRows;
-  const T* kb = k + (size_t)bh * Sk * D;
-  const T* vb = v + (size_t)bh * Sk * D;
+  const T* kb = k + (size_t)(bh / group) * Sk * D;
+  const T* vb = v + (size_t)(bh / group) * Sk * D;
   float* dsw = sds + warp * kRows * kBlock;
 
   load_tile(sq, D, q + (size_t)bh * Sq * D, q0, Sq, D);
@@ -177,7 +207,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
   }
 
-  for (int k0 = 0; k0 < Sk; k0 += kBlock) {
+  // the live keys of the block's rows: the KV tiles from k_begin to k_end
+  const int q_off = Sk - Sq;
+  const int q_first = q0 + q_off;
+  const int q_last = min(q0 + kBlock, Sq) - 1 + q_off;
+  const int k_end = mask.causal ? min(Sk, q_last + 1) : Sk;
+  const int k_begin = mask.window > 0
+      ? max(0, q_first - mask.window + 1) / kBlock * kBlock : 0;
+
+  for (int k0 = k_begin; k0 < k_end; k0 += kBlock) {
     __syncthreads();                         // the previous tile is consumed
     load_tile(sk, ldk, kb, k0, Sk, D);
     load_tile(sv, ldk, vb, k0, Sk, D);
@@ -187,11 +225,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float s[kRows][2], dp[kRows][2];
     scores2(s, dp, sq + warp * kRows * D, sdo + warp * kRows * D, sk, sv,
             ldk, D, lane);
-    const bool keep_lo = k0 + lane < Sk, keep_hi = k0 + lane + 32 < Sk;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const float p0 = keep_lo ? expf(s[r][0] * scale - row_lse[r]) : 0.f;
-      const float p1 = keep_hi ? expf(s[r][1] * scale - row_lse[r]) : 0.f;
+      const int row = row0 + r;
+      const float p0 = mask.keep<MASKED>(row, k0 + lane)
+          ? expf(s[r][0] * scale - row_lse[r]) : 0.f;
+      const float p1 = mask.keep<MASKED>(row, k0 + lane + 32)
+          ? expf(s[r][1] * scale - row_lse[r]) : 0.f;
       dsw[r * kBlock + lane] = p0 * (dp[r][0] - row_delta[r]) * scale;
       dsw[r * kBlock + lane + 32] = p1 * (dp[r][1] - row_delta[r]) * scale;
     }
@@ -201,13 +241,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows(dq + (size_t)bh * Sq * D, acc, row0, Sq, D, lane);
 }
 
-template <typename T, int DPL>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int DPL, bool MASKED>
+__global__ void __launch_bounds__(kThreads, DPL <= 3 ? 2 : 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      T* __restrict__ dk, T* __restrict__ dv, int Sq, int Sk,
-                     int D, float scale) {
+                     int D, int group, Mask mask, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int ldq = D + 4;
   float* sk = smem;                          // [kBlock][D]
@@ -220,19 +260,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sds = sp + kWarps * kRows * kBlock; // [kWarps][kRows][kBlock]
 
   const int n_kt = (Sk + kBlock - 1) / kBlock;
-  const int bh = blockIdx.x / n_kt;
-  const int k0 = (blockIdx.x - bh * n_kt) * kBlock;
+  const int bkv = blockIdx.x / n_kt;
+  const int k0 = (blockIdx.x - bkv * n_kt) * kBlock;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = k0 + warp * kRows;
-  const T* qb = q + (size_t)bh * Sq * D;
-  const T* dob = dout + (size_t)bh * Sq * D;
-  const float* lseb = lse + (size_t)bh * Sq;
-  const float* deltab = delta + (size_t)bh * Sq;
   float* pw = sp + warp * kRows * kBlock;
   float* dsw = sds + warp * kRows * kBlock;
 
-  load_tile(sk, D, k + (size_t)bh * Sk * D, k0, Sk, D);
-  load_tile(sv, D, v + (size_t)bh * Sk * D, k0, Sk, D);
+  load_tile(sk, D, k + (size_t)bkv * Sk * D, k0, Sk, D);
+  load_tile(sv, D, v + (size_t)bkv * Sk * D, k0, Sk, D);
   float dk_acc[kRows][DPL], dv_acc[kRows][DPL];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -240,14 +276,30 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < DPL; ++c) dk_acc[r][c] = dv_acc[r][c] = 0.f;
   }
 
-  for (int q0 = 0; q0 < Sq; q0 += kBlock) {
+  // the queries that see any of the block's keys: rows q_begin .. q_end - 1
+  // (causal: q_pos >= the first key; window: q_pos < the last key + window)
+  const int q_off = Sk - Sq;
+  const int k_last = min(k0 + kBlock, Sk) - 1;
+  const int q_begin = mask.causal
+      ? max(0, k0 - q_off) / kBlock * kBlock : 0;
+  const int q_end = mask.window > 0 ? min(Sq, k_last + mask.window - q_off)
+                                    : Sq;
+
+  // one loop over (query head of the group, query tile) pairs: fewer live
+  // registers than two nested loops, so the DiT's form (group 1, D 72)
+  // stays within 128 registers
+  const int n_q = max(0, (q_end - q_begin + kBlock - 1) / kBlock);
+  for (int it = 0; it < group * n_q; ++it) {
+    const int g = it / n_q;
+    const int q0 = q_begin + (it - g * n_q) * kBlock;
+    const size_t head = (size_t)(bkv * group + g) * Sq;   // its first row
     __syncthreads();                         // the previous tile is consumed
-    load_tile(sq, ldq, qb, q0, Sq, D);
-    load_tile(sdo, ldq, dob, q0, Sq, D);
+    load_tile(sq, ldq, q + head * D, q0, Sq, D);
+    load_tile(sdo, ldq, dout + head * D, q0, Sq, D);
     if (threadIdx.x < kBlock) {
       const int i = q0 + threadIdx.x;
-      slse[threadIdx.x] = i < Sq ? lseb[i] : 0.f;
-      sdelta[threadIdx.x] = i < Sq ? deltab[i] : 0.f;
+      slse[threadIdx.x] = i < Sq ? lse[head + i] : 0.f;
+      sdelta[threadIdx.x] = i < Sq ? delta[head + i] : 0.f;
     }
     __syncthreads();
 
@@ -255,13 +307,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float s[kRows][2], dp[kRows][2];
     scores2(s, dp, sk + warp * kRows * D, sv + warp * kRows * D, sq, sdo,
             ldq, D, lane);
-    const bool keep_lo = q0 + lane < Sq, keep_hi = q0 + lane + 32 < Sq;
     const float lse_lo = slse[lane], lse_hi = slse[lane + 32];
     const float delta_lo = sdelta[lane], delta_hi = sdelta[lane + 32];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const float p0 = keep_lo ? expf(s[r][0] * scale - lse_lo) : 0.f;
-      const float p1 = keep_hi ? expf(s[r][1] * scale - lse_hi) : 0.f;
+      const int key = row0 + r;
+      const float p0 = mask.keep<MASKED>(q0 + lane, key)
+          ? expf(s[r][0] * scale - lse_lo) : 0.f;
+      const float p1 = mask.keep<MASKED>(q0 + lane + 32, key)
+          ? expf(s[r][1] * scale - lse_hi) : 0.f;
       pw[r * kBlock + lane] = p0;
       pw[r * kBlock + lane + 32] = p1;
       dsw[r * kBlock + lane] = p0 * (dp[r][0] - delta_lo) * scale;
@@ -271,8 +325,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     accumulate(dv_acc, pw, sdo, ldq, D, lane);    // dv += p^T dO
     accumulate(dk_acc, dsw, sq, ldq, D, lane);    // dk += ds^T q
   }
-  store_rows(dk + (size_t)bh * Sk * D, dk_acc, row0, Sk, D, lane);
-  store_rows(dv + (size_t)bh * Sk * D, dv_acc, row0, Sk, D, lane);
+  store_rows(dk + (size_t)bkv * Sk * D, dk_acc, row0, Sk, D, lane);
+  store_rows(dv + (size_t)bkv * Sk * D, dv_acc, row0, Sk, D, lane);
 }
 
 template <typename Kernel>
@@ -281,42 +335,53 @@ cudaError_t opt_in(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
+struct Args {
+  int bh, sq, sk, d, group;
+  Mask mask;
+  float scale;
+};
+
 template <typename T, int DPL>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
-                      void* dq, int bh, int sq, int sk, int d, float scale,
-                      cudaStream_t stream) {
+                      void* dq, const Args& a, cudaStream_t stream) {
+  const int d = a.d;
   const size_t smem = sizeof(float) *
       (2 * kBlock * d + 2 * kBlock * (d + 4) + kWarps * kRows * kBlock);
-  auto kernel = flash_bwd_dq_kernel<T, DPL>;
+  auto kernel = a.mask.causal || a.mask.window > 0
+      ? flash_bwd_dq_kernel<T, DPL, true> : flash_bwd_dq_kernel<T, DPL, false>;
   cudaError_t err = opt_in(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int blocks = bh * ((sq + kBlock - 1) / kBlock);
+  const int blocks = a.bh * ((a.sq + kBlock - 1) / kBlock);
   kernel<<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), sq, sk, d, scale);
+      static_cast<T*>(dq), a.sq, a.sk, d, a.group, a.mask, a.scale);
   return cudaGetLastError();
 }
 
 template <typename T, int DPL>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
-                       void* dk, void* dv, int bh, int sq, int sk, int d,
-                       float scale, cudaStream_t stream) {
+                       void* dk, void* dv, const Args& a,
+                       cudaStream_t stream) {
+  const int d = a.d;
   const size_t smem = sizeof(float) *
       (2 * kBlock * d + 2 * kBlock * (d + 4) + 2 * kBlock +
        2 * kWarps * kRows * kBlock);
-  auto kernel = flash_bwd_dkv_kernel<T, DPL>;
+  auto kernel = a.mask.causal || a.mask.window > 0
+      ? flash_bwd_dkv_kernel<T, DPL, true>
+      : flash_bwd_dkv_kernel<T, DPL, false>;
   cudaError_t err = opt_in(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int blocks = bh * ((sk + kBlock - 1) / kBlock);
+  const int blocks = a.bh / a.group * ((a.sk + kBlock - 1) / kBlock);
   kernel<<<blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, d, scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), a.sq, a.sk, d, a.group,
+      a.mask, a.scale);
   return cudaGetLastError();
 }
 
@@ -332,38 +397,42 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 template <typename T>
 cudaError_t dispatch_dq(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
-                        void* dq, int bh, int sq, int sk, int d, float scale,
-                        cudaStream_t s) {
-  DISPATCH_DPL(d, (launch_dq<T, DPL>(q, k, v, dout, lse, delta, dq, bh, sq,
-                                     sk, d, scale, s)))
+                        void* dq, const Args& a, cudaStream_t s) {
+  DISPATCH_DPL(a.d, (launch_dq<T, DPL>(q, k, v, dout, lse, delta, dq, a, s)))
 }
 
 template <typename T>
 cudaError_t dispatch_dkv(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
-                         void* dk, void* dv, int bh, int sq, int sk, int d,
-                         float scale, cudaStream_t s) {
-  DISPATCH_DPL(d, (launch_dkv<T, DPL>(q, k, v, dout, lse, delta, dk, dv, bh,
-                                      sq, sk, d, scale, s)))
+                         void* dk, void* dv, const Args& a, cudaStream_t s) {
+  DISPATCH_DPL(a.d, (launch_dkv<T, DPL>(q, k, v, dout, lse, delta, dk, dv, a,
+                                        s)))
+}
+
+bool valid(int bh, int d, int group, int window) {
+  return d % 4 == 0 && d <= 128 && d > 0 && group > 0 && bh % group == 0 &&
+         window >= 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the outputs); lse and
-// delta are f32 (BH, Sq).  The caller checks shapes, dtypes and contiguity;
-// D % 4 == 0 and D <= 128.  Each returns its launch's CUDA error.
+// q, dout, dq: (bh, sq, d); k, v, dk, dv: (bh / group, sk, d).  lse and
+// delta are f32 (bh, sq).  causal: 0 or 1; window: the sliding window, 0 for
+// none.  dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the outputs).
+// The caller checks shapes, dtypes and contiguity; D % 4 == 0 and D <= 128.
+// Each returns its launch's CUDA error.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
                                       void* dq, int bh, int sq, int sk, int d,
+                                      int group, int causal, int window,
                                       float scale, int dtype, void* stream) {
-  if (d % 4 != 0 || d > 128 || d <= 0) return (int)cudaErrorInvalidValue;
+  if (!valid(bh, d, group, window)) return (int)cudaErrorInvalidValue;
+  const Args a{bh, sq, sk, d, group, Mask{sq, sk, causal, window}, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 1
-      ? dispatch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, bh, sq, sk,
-                                   d, scale, s)
-      : dispatch_dq<float>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
-                           scale, s);
+      ? dispatch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, a, s)
+      : dispatch_dq<float>(q, k, v, dout, lse, delta, dq, a, s);
   return (int)err;
 }
 
@@ -371,15 +440,15 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
                                        void* dk, void* dv, int bh, int sq,
-                                       int sk, int d, float scale, int dtype,
+                                       int sk, int d, int group, int causal,
+                                       int window, float scale, int dtype,
                                        void* stream) {
-  if (d % 4 != 0 || d > 128 || d <= 0) return (int)cudaErrorInvalidValue;
+  if (!valid(bh, d, group, window)) return (int)cudaErrorInvalidValue;
+  const Args a{bh, sq, sk, d, group, Mask{sq, sk, causal, window}, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 1
-      ? dispatch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, bh, sq,
-                                    sk, d, scale, s)
-      : dispatch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d,
-                            scale, s);
+      ? dispatch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, dk, dv, a, s)
+      : dispatch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, a, s);
   return (int)err;
 }
 

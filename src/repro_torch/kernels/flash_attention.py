@@ -6,10 +6,10 @@ Counterparts of ``repro.kernels.flash_attention.flash_attention_fwd``
 ``csrc/flash_attention_bwd.cu``).  The forward takes every form of the
 JAX kernel: non-causal (the DiT), causal and sliding-window masks with
 right-aligned query positions, and grouped-query attention (the language
-models).  The backward takes the non-causal, ``window=None``,
-one-KV-head-per-query-head form the DiT trains with; its causal,
-sliding-window and GQA forms raise ``NotImplementedError`` until the
-language models train (ROADMAP B5).
+models).  So does the backward: the DiT trains through its non-causal
+form, the language models through its causal GQA form.  ``dk`` and ``dv``
+come back in the KV heads' layout, the group summed in f32 inside the
+kernel (JAX sums per-query-head partials in its wrapper).
 """
 from __future__ import annotations
 
@@ -25,10 +25,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_SIGNATURE = {"flash_attention_fwd":
                   ((_P,) * 5 + (_I,) * 7 + (_F, _I, _P), _I)}
 _BWD_SIGNATURE = {
-    "flash_attention_bwd_dq":
-        ((_P,) * 7 + (_I, _I, _I, _I, _F, _I, _P), _I),
-    "flash_attention_bwd_dkv":
-        ((_P,) * 8 + (_I, _I, _I, _I, _F, _I, _P), _I)}
+    "flash_attention_bwd_dq": ((_P,) * 7 + (_I,) * 7 + (_F, _I, _P), _I),
+    "flash_attention_bwd_dkv": ((_P,) * 8 + (_I,) * 7 + (_F, _I, _P), _I)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 HEAD_DIM_MULTIPLE = 4
@@ -61,6 +59,12 @@ def _check(q, k, v, what: str) -> tuple:
     return d, bh // k.shape[0]
 
 
+def _check_window(window: Optional[int]) -> None:
+    if window is not None and window < 1:
+        raise ValueError(f"window must be a positive int or None, "
+                         f"got {window}")
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -77,9 +81,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the kernel once and counts it in ``flash_attention_fwd.launches``.
     """
     d, group = _check(q, k, v, "flash attention")
-    if window is not None and window < 1:
-        raise ValueError(f"window must be a positive int or None, "
-                         f"got {window}")
+    _check_window(window)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     bh, sq, _ = q.shape
     sk = k.shape[1]
@@ -107,21 +109,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = False,
                         window: Optional[int] = None,
                         scale: Optional[float] = None):
-    """Gradients of flash attention: ``(dq, dk, dv)``, each in q's dtype.
+    """Gradients of flash attention: ``(dq (BH, Sq, D), dk, dv (BKV, Sk,
+    D))``, in q's dtype, with ``causal`` and ``window`` as the forward
+    took them.
 
-    q, o, do: (BH, Sq, D); k, v: (BH, Sk, D); lse: the forward's (BH, Sq)
-    f32 logsumexp; all on one CUDA device.  ``delta = rowsum(dO * O)`` is
-    a plain f32 reduction here, outside the kernels, as the JAX version
-    computes it outside its Pallas calls.  Launches the dq kernel and the
-    dkv kernel once each, counted in ``flash_attention_bwd_dq.launches``
-    and ``flash_attention_bwd_dkv.launches``.
+    q, o, do: (BH, Sq, D); k, v: (BKV, Sk, D) with BH a multiple of BKV;
+    lse: the forward's (BH, Sq) f32 logsumexp; all on one CUDA device.
+    ``delta = rowsum(dO * O)`` is a plain f32 reduction here, outside the
+    kernels, as the JAX version computes it outside its Pallas calls.
+    Launches the dq kernel and the dkv kernel once each, counted in
+    ``flash_attention_bwd_dq.launches`` and
+    ``flash_attention_bwd_dkv.launches``.
     """
-    if causal or window is not None or k.shape[:1] != q.shape[:1]:
-        raise NotImplementedError("the causal, sliding-window and "
-                                  "grouped-query forms of the flash "
-                                  "attention backward are not ported yet "
-                                  "(ROADMAP B5)")
     d, _ = _check(q, k, v, "flash attention backward")
+    _check_window(window)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
                          f"have q's shape {tuple(q.shape)}")
@@ -137,28 +138,34 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = lse.contiguous()
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     delta = (do.float() * o.float()).sum(dim=-1)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)
+    mask = dict(causal=causal, window=window)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, **mask)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, **mask)
     return dq, dk, dv
 
 
-def _launch(fn: str, args, bh: int, sq: int, sk: int, d: int, scale: float,
-            dtype: torch.dtype, device) -> None:
+def _launch(fn: str, args, q: torch.Tensor, k: torch.Tensor, scale: float,
+            causal: bool, window: Optional[int]) -> None:
+    bh, sq, d = q.shape
     lib = _build.load("flash_attention_bwd", _BWD_SIGNATURE)
-    with torch.cuda.device(device):
-        code = getattr(lib, fn)(*(t.data_ptr() for t in args), bh, sq, sk, d,
-                                scale, _DTYPES[dtype], _stream(device))
+    with torch.cuda.device(q.device):
+        code = getattr(lib, fn)(*(t.data_ptr() for t in args), bh, sq,
+                                k.shape[1], d, bh // k.shape[0], int(causal),
+                                window or 0, scale, _DTYPES[q.dtype],
+                                _stream(q.device))
     _build.check(lib, code, fn)
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float):
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float, *,
+                           causal: bool = False,
+                           window: Optional[int] = None):
     """dq (BH, Sq, D) from contiguous, checked operands: one launch of the
     dq kernel, counted in ``flash_attention_bwd_dq.launches``."""
-    bh, sq, d = q.shape
+    bh, sq, _ = q.shape
     dq = torch.empty_like(q)
     if bh and sq:
-        _launch("flash_attention_bwd_dq", (q, k, v, do, lse, delta, dq), bh,
-                sq, k.shape[1], d, scale, q.dtype, q.device)
+        _launch("flash_attention_bwd_dq", (q, k, v, do, lse, delta, dq), q, k,
+                scale, causal, window)
         flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -166,16 +173,16 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float):
 flash_attention_bwd_dq.launches = 0
 
 
-def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float):
-    """(dk, dv), each (BH, Sk, D), from contiguous, checked operands: one
-    launch of the dkv kernel, counted in
-    ``flash_attention_bwd_dkv.launches``."""
-    bh, sq, d = q.shape
-    sk = k.shape[1]
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float, *,
+                            causal: bool = False,
+                            window: Optional[int] = None):
+    """(dk, dv), each (BKV, Sk, D) with the GQA group summed, from
+    contiguous, checked operands: one launch of the dkv kernel, counted
+    in ``flash_attention_bwd_dkv.launches``."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if bh and sk:                     # with Sq == 0 the kernel stores zeros
+    if k.shape[0] and k.shape[1]:     # with Sq == 0 the kernel stores zeros
         _launch("flash_attention_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
-                bh, sq, sk, d, scale, q.dtype, q.device)
+                q, k, scale, causal, window)
         flash_attention_bwd_dkv.launches += 1
     return dk, dv
 

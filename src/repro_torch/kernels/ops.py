@@ -13,13 +13,14 @@ Each kernel wrapper carries a ``launches`` counter
 (``flash_attention_fwd.launches``, ``flash_attention_bwd_dq.launches``,
 ``flash_attention_bwd_dkv.launches``, ``ddim_fused.launches``,
 ``parareal_update_residual.launches``, ``parareal_update.launches``,
-``rwkv6_wkv.launches``) that :func:`launch_counts` reads and
-:func:`reset_launch_counts` zeroes.
+``rwkv6_wkv.launches``, ``rwkv6_wkv_bwd.launches``) that
+:func:`launch_counts` reads and :func:`reset_launch_counts` zeroes.
 
-:func:`attention` is differentiable: it runs through
-:class:`FlashAttention`, the counterpart of ``repro.kernels.ops._flash``
-(a ``jax.custom_vjp``), whose backward is the flash backward kernels on a
-CUDA tensor and their plain version on a CPU tensor.
+:func:`attention` and :func:`rwkv6_wkv` are differentiable: they run
+through :class:`FlashAttention` and :class:`RWKV6WKV`, the counterparts of
+``repro.kernels.ops._flash`` and ``_wkv`` (``jax.custom_vjp``s), whose
+backward is a kernel on a CUDA tensor and its plain version on a CPU
+tensor.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch
 from . import elementwise, ref, rwkv6_scan
 from .flash_attention import (flash_attention_bwd, flash_attention_bwd_dkv,
                               flash_attention_bwd_dq, flash_attention_fwd)
+from .rwkv6_scan import rwkv6_wkv_bwd
 
 _COUNTED = {"flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd_dq": flash_attention_bwd_dq,
@@ -37,7 +39,8 @@ _COUNTED = {"flash_attention_fwd": flash_attention_fwd,
             "ddim_fused": elementwise.ddim_fused,
             "parareal_update_residual": elementwise.parareal_update_residual,
             "parareal_update": elementwise.parareal_update,
-            "rwkv6_wkv": rwkv6_scan.rwkv6_wkv}
+            "rwkv6_wkv": rwkv6_scan.rwkv6_wkv,
+            "rwkv6_wkv_bwd": rwkv6_wkv_bwd}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -70,10 +73,9 @@ class FlashAttention(torch.autograd.Function):
 
     Inputs ``(B, Hq, Sq, D)`` x ``(B, Hkv, Sk, D)``.  The forward keeps
     ``(q, k, v, o, lse)``; the backward recomputes P from ``lse``.  On a
-    CUDA tensor both directions launch the kernels (the forward takes
-    every mask and group; the backward's causal, sliding-window and GQA
-    forms raise ``NotImplementedError``); on a CPU tensor they run
-    :func:`ref.attention` and :func:`ref.attention_bwd`."""
+    CUDA tensor both directions launch the kernels, in every mask and
+    group; on a CPU tensor they run :func:`ref.attention` and
+    :func:`ref.attention_bwd`."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
@@ -116,22 +118,54 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return FlashAttention.apply(q, k, v, causal, window, scale)
 
 
+class RWKV6WKV(torch.autograd.Function):
+    """The WKV recurrence with the kernels' forward and backward.
+
+    On a CUDA tensor the forward launches the WKV kernel, writing its
+    state checkpoints only when an input needs a gradient, and the
+    backward launches the WKV backward kernel; on a CPU tensor they run
+    :func:`ref.rwkv6_wkv` and :func:`ref.rwkv6_wkv_bwd`.  Both outputs,
+    ``out`` and the final state, take a gradient."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state):
+        if r.is_cuda:
+            out, s_t, ckpt = rwkv6_scan.rwkv6_wkv(
+                r, k, v, w, u, state,
+                checkpoints=any(ctx.needs_input_grad))
+            ctx.save_for_backward(r, k, v, w, u, ckpt)
+        else:
+            out, s_t = ref.rwkv6_wkv(r, k, v, w, u, state)
+            ctx.save_for_backward(r, k, v, w, u, state)
+        return out, s_t
+
+    @staticmethod
+    def backward(ctx, dout, ds_t):
+        r, k, v, w, u, saved = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(v)
+        bwd = rwkv6_wkv_bwd if r.is_cuda else ref.rwkv6_wkv_bwd
+        return bwd(r, k, v, w, u, saved, dout, ds_t)
+
+
 def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor,
               state: Optional[torch.Tensor] = None, *,
               use_kernel: Optional[bool] = None):
     """r, k, w: (B, H, T, Dk); v: (B, H, T, Dv); u: (H, Dk); state:
     (B, H, Dk, Dv) f32, zeros when None.  Returns ``(out (B, H, T, Dv) in
-    v's dtype, final state f32)``.  The JAX wrapper's TPU tuning knobs
-    (``chunk``, ``tuner``, ``plat``) have no counterpart: the kernel
-    streams all T steps in one block per batch x head."""
+    v's dtype, final state f32)``, differentiable through
+    :class:`RWKV6WKV`; ``use_kernel=False`` is the plain
+    :func:`ref.rwkv6_wkv`, differentiated by autograd.  The JAX wrapper's
+    TPU tuning knobs (``chunk``, ``tuner``, ``plat``) have no counterpart:
+    the kernel streams all T steps in one block per batch x head."""
     if state is None:
         b, h, _, dk = r.shape
         state = torch.zeros((b, h, dk, v.shape[-1]), dtype=torch.float32,
                             device=r.device)
-    if not _kernel(r, use_kernel):
+    if use_kernel is False:
         return ref.rwkv6_wkv(r, k, v, w, u, state)
-    return rwkv6_scan.rwkv6_wkv(r, k, v, w, u, state)
+    return RWKV6WKV.apply(r, k, v, w, u, state)
 
 
 def ddim_fused(x: torch.Tensor, eps: torch.Tensor, a, b, *,

@@ -125,6 +125,58 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack(outs, dim=2).to(v.dtype), s
 
 
+def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor,
+                  s0: Optional[torch.Tensor], dout: torch.Tensor,
+                  ds_t: Optional[torch.Tensor] = None):
+    """Gradients of :func:`rwkv6_wkv` by the backward kernel's formula, a
+    plain reverse scan in f32: the states are recomputed forward from
+    ``s0`` (zeros when None), then walked back from ``G = ds_t`` (zeros
+    when None), with ``c_t = v_t . dout_t`` and ``S_{t-1}`` the state
+    before step t:
+
+        dr_t = S_{t-1} dout_t + (u*k_t) c_t
+        dk_t = G v_t + (u*r_t) c_t
+        dv_t = G^T k_t + (r_t . (u*k_t)) dout_t
+        dw_t = -rowsum(G * S_{t-1}) * decay_t * exp(w_t)
+        du  += r_t * k_t c_t               (summed over the batch too)
+        G    = diag(decay_t) G + r_t dout_t^T,   ds0 = G at the end.
+
+    Returns ``(dr, dk, dv, dw, du, ds0)``: dr, dk, dv in r's dtype; dw
+    (B, H, T, Dk), du (H, Dk) and ds0 (B, H, Dk, Dv) in f32."""
+    bsz, h, t, dk = r.shape
+    dv = v.shape[-1]
+    rf, kf, vf, wf, df = (x.float() for x in (r, k, v, w, dout))
+    uf = u.float()[None]                                     # (1, H, Dk)
+    ew = torch.exp(wf)
+    decay = torch.exp(-ew)
+    s = (torch.zeros((bsz, h, dk, dv), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    states = []                                    # S_{t-1} of each step
+    for i in range(t):
+        states.append(s)
+        s = decay[:, :, i, :, None] * s + (kf[:, :, i, :, None]
+                                           * vf[:, :, i, None, :])
+    g = (torch.zeros_like(s) if ds_t is None else ds_t.float())
+    dr, dk_, dv_, dw = (torch.empty_like(x) for x in (rf, kf, vf, wf))
+    du = torch.zeros((bsz, h, dk), dtype=torch.float32, device=r.device)
+    for i in reversed(range(t)):
+        s_prev, d_i, r_i, k_i, v_i = (states[i], df[:, :, i], rf[:, :, i],
+                                      kf[:, :, i], vf[:, :, i])
+        c = (v_i * d_i).sum(dim=-1, keepdim=True)            # (B, H, 1)
+        b_t = (r_i * uf * k_i).sum(dim=-1, keepdim=True)
+        dr[:, :, i] = (torch.einsum("bhkv,bhv->bhk", s_prev, d_i)
+                       + uf * k_i * c)
+        dk_[:, :, i] = torch.einsum("bhkv,bhv->bhk", g, v_i) + uf * r_i * c
+        dv_[:, :, i] = torch.einsum("bhkv,bhk->bhv", g, k_i) + b_t * d_i
+        dw[:, :, i] = (-(g * s_prev).sum(dim=-1) * decay[:, :, i]
+                       * ew[:, :, i])
+        du = du + r_i * k_i * c
+        g = decay[:, :, i, :, None] * g + r_i[..., None] * d_i[..., None, :]
+    return (dr.to(r.dtype), dk_.to(k.dtype), dv_.to(v.dtype), dw,
+            du.sum(dim=0), g)
+
+
 def _rows(c, x: torch.Tensor) -> torch.Tensor:
     """A coefficient of shape () or (M,) as f32, broadcastable over x."""
     c = torch.as_tensor(c, dtype=torch.float32, device=x.device)

@@ -3,11 +3,14 @@ data-dependent token shift, the WKV recurrence with a data-dependent
 per-channel decay, and the squared-ReLU channel mix.
 
 The WKV recurrence runs through :func:`repro_torch.kernels.ops.rwkv6_wkv`
-(the CUDA kernel on the card, its plain twin on the CPU), in prefill and
-in every decode step.  Dtypes follow the JAX lines: the token-shift and
-projections run in the model dtype, the decay LoRA in f32 (``w_base``,
-``u`` and the state are f32), the group norm and the gates in f32, cast
-back before the next product.
+(the CUDA kernel on the card, its plain twin on the CPU), in prefill, in
+every decode step and in training, where its ``RWKV6WKV`` Function's
+backward is the WKV backward kernel; the decay logits' clamp is
+differentiated by autograd, as JAX differentiates its ``jnp.clip``.
+Dtypes follow the JAX lines: the token-shift and projections run in the
+model dtype, the decay LoRA in f32 (``w_base``, ``u`` and the state are
+f32), the group norm and the gates in f32, cast back before the next
+product.
 
 State per layer: ``(x_tmix (B, d), wkv (B, H, dk, dk) f32, x_cmix (B, d))``.
 """

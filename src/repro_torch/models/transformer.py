@@ -7,8 +7,9 @@ Hymba and MoE blocks wait for ROADMAP A11.
 layer (JAX stacks them on a leading layer axis for ``jax.lax.scan``; the
 port loops over layers), with the JAX tree's leaf names, shapes and
 dtypes (norm scales, RWKV's ``w_base``/``u``/``gn_scale`` in f32, the rest
-in the config's dtype).  The parameters are frozen: the serving path runs
-without autograd, and LM training is not ported yet.
+in the config's dtype).  The parameters are frozen unless the caller asks
+for ``trainable=True`` (``repro_torch.launch.train`` does); the serving
+functions run without autograd either way.
 
 Modes, with the JAX semantics:
   * :func:`forward_hidden` / :func:`forward_train`: the full sequence,
@@ -47,18 +48,19 @@ Leaf = Tuple[str, tuple, torch.dtype, tuple]
 class ParamTree(nn.Module):
     """Parameters nested as in the JAX tree and read the same way,
     ``tree["attn"]["wq"]``; ``spec`` maps a name to ``(shape, dtype)`` or
-    to a nested spec."""
+    to a nested spec.  ``trainable`` sets every parameter's
+    ``requires_grad``."""
 
-    def __init__(self, spec: dict, device):
+    def __init__(self, spec: dict, device, trainable: bool = False):
         super().__init__()
         for name, leaf in spec.items():
             if isinstance(leaf, dict):
-                self.add_module(name, ParamTree(leaf, device))
+                self.add_module(name, ParamTree(leaf, device, trainable))
             else:
                 shape, dtype = leaf
                 self.register_parameter(name, nn.Parameter(
                     torch.zeros(shape, dtype=dtype, device=device),
-                    requires_grad=False))
+                    requires_grad=trainable))
 
     def __getitem__(self, key: str):
         return getattr(self, key)
@@ -141,14 +143,16 @@ def _nest(leaves: List[Leaf]) -> dict:
 
 class TransformerLM(ParamTree):
     """The LM's parameters: ``embed``, ``ln_f``, ``unembed`` and
-    ``blocks`` (one :class:`ParamTree` per layer)."""
+    ``blocks`` (one :class:`ParamTree` per layer), frozen unless
+    ``trainable``."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda",
+                 trainable: bool = False):
         device = resolve_device(device)
         top, blk = _leaves(cfg)
-        super().__init__(_nest(top), device)
+        super().__init__(_nest(top), device, trainable)
         self.cfg = cfg
-        self.blocks = nn.ModuleList(ParamTree(_nest(blk), device)
+        self.blocks = nn.ModuleList(ParamTree(_nest(blk), device, trainable)
                                     for _ in range(cfg.num_layers))
 
 
@@ -170,14 +174,14 @@ def _targets(model: TransformerLM):
 
 @torch.no_grad()
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device="cuda") -> TransformerLM:
+                device="cuda", *, trainable: bool = False) -> TransformerLM:
     """A fresh LM with the JAX init's shapes, dtypes and scales (normal
     draws times 1/sqrt(fan_in), embeddings 0.02, unit norms, RWKV's
     ``w_base`` -0.5, ``u`` 0.3 and zero token-shift mixes).  Each leaf is
     drawn on ``device`` in its own dtype from ``generator`` (a generator
     of that device): qwen3-8b's 8.2 B parameters never pass through host
     memory."""
-    model = TransformerLM(cfg, device=device)
+    model = TransformerLM(cfg, device=device, trainable=trainable)
     for param, _, _, (kind, value) in _targets(model):
         if kind == "normal":
             param.normal_(0.0, value, generator=generator)
@@ -198,12 +202,10 @@ def jax_leaf_names(cfg: ArchConfig):
     return out
 
 
-@torch.no_grad()
-def load_jax_params(cfg: ArchConfig, tree, device="cuda") -> TransformerLM:
-    """An LM holding the JAX parameter tree ``tree`` (numpy or array-like
-    leaves of any float dtype; ``blocks`` leaves stacked on a leading
-    ``num_layers`` axis, as ``jax.vmap`` over layers builds them)."""
-    model = TransformerLM(cfg, device=device)
+def _jax_values(model: TransformerLM, tree):
+    """``(param, value)`` for every leaf of ``model``: ``value`` the JAX
+    tree's f32 numpy leaf (a layer's slice of a stacked ``blocks`` leaf),
+    checked against the parameter's shape."""
     stacked: Dict[str, np.ndarray] = {}
     for param, path, layer, _ in _targets(model):
         if path not in stacked:
@@ -215,8 +217,37 @@ def load_jax_params(cfg: ArchConfig, tree, device="cuda") -> TransformerLM:
         if tuple(value.shape) != tuple(param.shape):
             raise ValueError(f"{path} (layer {layer}): shape {value.shape} "
                              f"!= {tuple(param.shape)}")
+        yield param, value
+
+
+@torch.no_grad()
+def load_jax_params(cfg: ArchConfig, tree, device="cuda", *,
+                    trainable: bool = False) -> TransformerLM:
+    """An LM holding the JAX parameter tree ``tree`` (numpy or array-like
+    leaves of any float dtype; ``blocks`` leaves stacked on a leading
+    ``num_layers`` axis, as ``jax.vmap`` over layers builds them)."""
+    model = TransformerLM(cfg, device=device, trainable=trainable)
+    for param, value in _jax_values(model, tree):
         param.copy_(torch.from_numpy(np.array(value)))   # a writable copy
     return model
+
+
+def load_jax_opt_state(model: TransformerLM, jax_opt_state):
+    """The port's optimizer state (``repro_torch.optim.init_opt_state``'s
+    layout: f32 moments keyed by the model's parameter names, on its
+    device) holding JAX's ``{"m", "v", "step"}`` (numpy leaves, ``blocks``
+    stacked on the layer axis, split here into the port's per-layer
+    trees), so a JAX train state continues in the port."""
+    device = next(model.parameters()).device
+    names = {id(p): n for n, p in model.named_parameters()}
+    state = {}
+    for key in ("m", "v"):
+        loaded = {names[id(p)]: torch.from_numpy(np.array(value)).to(device)
+                  for p, value in _jax_values(model, jax_opt_state[key])}
+        state[key] = {n: loaded[n] for n, _ in model.named_parameters()}
+    state["step"] = torch.tensor(int(np.asarray(jax_opt_state["step"])),
+                                 dtype=torch.int32, device=device)
+    return state
 
 
 def param_count(model: TransformerLM) -> int:

@@ -1,9 +1,10 @@
 """Where device time goes: kernel names grouped by what they compute.
 
 ``torch.profiler`` reports each kernel by its mangled name.  ``kernel_group``
-maps a name to the port's kernel that launched it, to cuBLAS, or to the
-rest (elementwise, norms, copies); ``device_ms_by_name`` sums a profile's
-device time per kernel name.  The port's only use is reading: nothing on a
+maps a name to the port's kernel that launched it (the flash backward's
+masked and grouped forms share the dq and dkv kernels' names), to cuBLAS,
+or to the rest (elementwise, norms, copies); ``device_ms_by_name`` sums a
+profile's device time per kernel name.  The port's only use is reading: nothing on a
 model's path calls this module.
 """
 from __future__ import annotations
@@ -20,6 +21,7 @@ _PORT_KERNELS = (
     ("flash_bwd_dq_kernel", "flash_attention_bwd dq (port)"),
     ("flash_bwd_dkv_kernel", "flash_attention_bwd dkv (port)"),
     ("wkv_fwd_kernel", "rwkv6_wkv (port)"),
+    ("wkv_bwd_kernel", "rwkv6_wkv_bwd (port)"),
 )
 _GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass", "sm90_")
 GEMM = "gemm (cuBLAS)"

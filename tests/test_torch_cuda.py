@@ -151,16 +151,19 @@ def test_flash_bwd_is_bitwise_deterministic_on_card(cuda):
 
 @pytest.mark.cuda
 def test_flash_bwd_refuses_unported_forms_on_card(cuda):
+    """Every mask and group form is ported; what the backward still
+    refuses is a head dim over 128, mixed dtypes and operands off the
+    card."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     x = torch.ones(2, 16, 8, device=cuda)
     lse = torch.zeros(2, 16, device=cuda)
-    with pytest.raises(NotImplementedError, match="B5"):
-        flash_attention_bwd(x, x, x, x, lse, x, causal=True)
-    with pytest.raises(NotImplementedError, match="B5"):
-        flash_attention_bwd(torch.ones(4, 16, 8, device=cuda), x, x,
-                            torch.ones(4, 16, 8, device=cuda),
-                            torch.zeros(4, 16, device=cuda),
-                            torch.ones(4, 16, 8, device=cuda))
+    wide = torch.ones(2, 16, 136, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd(wide, wide, wide, wide, lse, wide, causal=True)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention_bwd(x, x.bfloat16(), x, x, lse, x, causal=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd(x, x.cpu(), x, x, lse, x, window=4)
 
 
 @pytest.mark.cuda
@@ -392,3 +395,156 @@ def test_reduced_lm_served_on_card_equals_cpu(cuda, arch):
     calls = 6 if kernel == "rwkv6_wkv" else 1    # prefill + 5 decode steps
     assert counts[kernel] == cfg.num_layers * calls
     assert sum(counts.values()) == counts[kernel]
+
+
+# the backward's masked and grouped forms, on MASKED_CASES' shapes plus
+# qwen3-8b's group 4 at head dim 128 with Sq > 2 tiles
+MASKED_BWD_CASES = MASKED_CASES + [(1, 8, 2, 320, 320, 128,
+                                    dict(causal=True))]
+
+
+def _masked_qkv(cuda, case, dtype, grad=False):
+    b, hq, hkv, sq, sk, d, _ = case
+    return [torch.from_numpy(_rand(i, (b, h, s, d))).to(cuda, DTYPES[dtype])
+            .requires_grad_(grad)
+            for i, (h, s) in enumerate(((hq, sq), (hkv, sk), (hkv, sk)))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", MASKED_BWD_CASES, ids=str)
+def test_flash_bwd_masks_and_groups_match_plain_on_card(cuda, case, dtype):
+    """The dq and dkv kernels in their causal, sliding-window and GQA forms
+    against ``ref.attention_bwd``: dk and dv in the KV heads' layout, the
+    group summed once in f32 on both sides."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_fwd)
+    b, hq, hkv, sq, sk, d, mask = case
+    q, k, v = _masked_qkv(cuda, case, dtype)
+    do = torch.from_numpy(_rand(9, (b, hq, sq, d))).to(cuda, DTYPES[dtype])
+    q3, do3 = (t.reshape(b * hq, sq, d) for t in (q, do))
+    k3, v3 = (t.reshape(b * hkv, sk, d) for t in (k, v))
+    o3, lse = flash_attention_fwd(q3, k3, v3, **mask)
+    before = ops.launch_counts()
+    dq, dk, dv = flash_attention_bwd(q3, k3, v3, o3, lse, do3, **mask)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] == before[name] + 1
+    assert dk.shape == k3.shape and dv.shape == v3.shape
+    want = ref.attention_bwd(q, k, v, o3.view(q.shape),
+                             lse.view(b, hq, sq), do, **mask)
+    atol, rtol = ((GRAD_BF16_ATOL, GRAD_BF16_RTOL) if dtype == "bfloat16"
+                  else (GRAD_F32_TOL, GRAD_F32_TOL))
+    for got, w in zip((dq, dk, dv), want):
+        assert got.dtype == q.dtype
+        torch.testing.assert_close(got.view(w.shape).float(), w.float(),
+                                   atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_gqa_is_bitwise_deterministic_on_card(cuda):
+    q, k, v = _masked_qkv(cuda, MASKED_BWD_CASES[-1], "bfloat16", grad=True)
+    runs = [torch.autograd.grad(ops.attention(q, k, v, causal=True)
+                                .float().square().sum(), (q, k, v))
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def _wkv_inputs(cuda, case, dtype, grad=False):
+    b, h, t, dk, dv = case
+    r, k = (torch.from_numpy(_rand(i, (b, h, t, dk)) * 0.5).to(
+        cuda, DTYPES[dtype]) for i in range(2))
+    v = torch.from_numpy(_rand(2, (b, h, t, dv)) * 0.5).to(cuda,
+                                                          DTYPES[dtype])
+    w = torch.from_numpy(_rand(3, (b, h, t, dk)) * 0.5 - 1.0).to(cuda)
+    u = torch.from_numpy(_rand(4, (h, dk)) * 0.3).to(cuda)
+    s0 = torch.from_numpy(_rand(5, (b, h, dk, dv)) * 0.2).to(cuda)
+    return [x.requires_grad_(grad) for x in (r, k, v, w, u, s0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("case", WKV_CASES, ids=str)
+def test_wkv_bwd_kernel_matches_plain_on_card(cuda, case, dtype):
+    """``RWKV6WKV``'s backward (the WKV backward kernel, from the forward's
+    checkpoints) against ``ref.rwkv6_wkv_bwd`` on the same upstream
+    gradients of out and of the final state.  Both are f32 recurrences
+    summed in other orders: dw, du and ds0 (f32) agree to 1e-4 relative
+    to the largest element, dr, dk, dv to that in f32 and one bf16 ulp in
+    bf16; two runs are bitwise equal."""
+    x = _wkv_inputs(cuda, case, dtype, grad=True)
+    dout = torch.from_numpy(_rand(7, tuple(x[2].shape))).to(cuda,
+                                                           DTYPES[dtype])
+    ds_t = torch.from_numpy(_rand(8, tuple(x[5].shape))).to(cuda)
+    before = ops.launch_counts()
+
+    def grads():
+        out, s_t = ops.rwkv6_wkv(*x)
+        return torch.autograd.grad((out, s_t), x, (dout, ds_t))
+
+    got = grads()
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["rwkv6_wkv_bwd"] == before["rwkv6_wkv_bwd"] + 1
+    assert after["rwkv6_wkv"] == before["rwkv6_wkv"] + 1
+    want = ref.rwkv6_wkv_bwd(*(t.detach() for t in x), dout, ds_t)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == x[i].dtype and g.shape == x[i].shape
+        scale = w.float().abs().max().item()
+        tol = (BF16_TOL * max(scale, 1.0)
+               if g.dtype == torch.bfloat16 else 1e-4 * max(scale, 1.0))
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+    again = grads()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_wkv_forward_checkpoints_on_card(cuda):
+    """The forward's checkpoints are the states at the chunk starts (the
+    first is s0), and writing them changes no output."""
+    from repro_torch.kernels import rwkv6_scan
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, (2, 3, 70, 64, 64), "float32")
+    out, s_t, ckpt = rwkv6_scan.rwkv6_wkv(r, k, v, w, u, s0,
+                                          checkpoints=True)
+    out2, s_t2, none = rwkv6_scan.rwkv6_wkv(r, k, v, w, u, s0)
+    assert none is None and torch.equal(out, out2) and torch.equal(s_t, s_t2)
+    c = rwkv6_scan.chunk()
+    assert ckpt.shape == (2, 3, -(-70 // c), 64, 64)
+    assert torch.equal(ckpt[:, :, 0], s0)
+    for i in range(1, ckpt.shape[2]):
+        _, s_i = ref.rwkv6_wkv(*(x[:, :, :i * c] for x in (r, k, v, w)), u,
+                               s0)
+        torch.testing.assert_close(ckpt[:, :, i], s_i, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-8b", "rwkv6-1.6b"])
+def test_reduced_lm_grads_on_card_equal_plain_path(cuda, arch):
+    """``lm_loss`` on the reduced LM (f32) through the kernels on the card
+    (the causal GQA flash backward, or the WKV backward) against the plain
+    path's: every parameter's gradient within 1e-4 relative L2, and the
+    backward kernels launched once per layer."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import lm_loss
+    cfg = get_arch(arch).reduced()
+    model = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda, trainable=True)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 70))).to(cuda)
+    batch = {"tokens": toks, "labels": toks}
+    params = list(model.parameters())
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(lm_loss(cfg, model, batch)[0], params)
+    counts = ops.launch_counts()
+    want = torch.autograd.grad(lm_loss(cfg, model, batch,
+                                       use_kernel=False)[0], params)
+    bwd = ("rwkv6_wkv_bwd" if cfg.block == "rwkv6"
+           else "flash_attention_bwd_dkv")
+    assert counts[bwd] == cfg.num_layers
+    for g, w in zip(got, want):
+        rel = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+        assert rel <= 1e-4

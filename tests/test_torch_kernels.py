@@ -120,6 +120,52 @@ def test_attention_bwd_twin_matches_jax_kernels_and_grad(case, dtype):
         np.testing.assert_allclose(_np(got), _np(wg), atol=tol, rtol=tol)
 
 
+# (B, Hq, Hkv, Sq, Sk, D, mask): causal, ragged causal (Sq < Sk, group
+# 2), sliding window with group 4 and group 5, a window without the causal
+# mask (group 4, Sq > Sk)
+MASKED_BWD_CASES = [(1, 2, 2, 64, 64, 32, dict(causal=True)),
+                    (1, 4, 2, 40, 96, 32, dict(causal=True)),
+                    (1, 8, 2, 64, 64, 16, dict(causal=True, window=20)),
+                    (1, 5, 1, 48, 48, 16, dict(causal=True, window=24)),
+                    (1, 4, 1, 50, 33, 16, dict(causal=False, window=16))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MASKED_BWD_CASES, ids=str)
+def test_attention_bwd_twin_masks_and_groups_match_jax_kernels(case, dtype):
+    """``ref.attention_bwd`` in its causal, sliding-window and GQA forms
+    against JAX's ``flash_attention_bwd`` (``_dq_kernel``/``_dkv_kernel``
+    interpreted, fed JAX's own o and lse) plus the group sum of
+    ``repro.kernels.ops._flash_bwd``.  JAX rounds each query head's dk/dv
+    partial to the input dtype before that sum, the port rounds the f32
+    sum once: in bf16 the two differ by up to one bf16 ulp per partial,
+    so bf16 dk/dv are held within ``group`` x 2e-2."""
+    b, hq, hkv, sq, sk, d, mask = case
+    group = hq // hkv
+    (qt, qj), (dot, doj) = (_both(_rand(i, (b, hq, sq, d)), dtype)
+                            for i in (0, 3))
+    (kt, kj), (vt, vj) = (_both(_rand(i, (b, hkv, sk, d)), dtype)
+                          for i in (1, 2))
+    o, lse = ref.attention(qt, kt, vt, **mask)
+    grads = ref.attention_bwd(qt, kt, vt, o, lse, dot, **mask)
+    assert [tuple(g.shape) for g in grads] == [tuple(x.shape)
+                                               for x in (qt, kt, vt)]
+    q3, do3 = (x.reshape(b * hq, sq, d) for x in (qj, doj))
+    k3, v3 = (x.reshape(b * hkv, sk, d) for x in (kj, vj))
+    tiles = dict(block_q=RAGGED_TILE, block_k=RAGGED_TILE, interpret=True,
+                 **mask)
+    jo, jlse = jflash(q3, k3, v3, **tiles)
+    jdq, jdk, jdv = jflash_bwd(q3, k3, v3, jo, jlse, do3, **tiles)
+    jdk, jdv = (np.asarray(jnp.asarray(x, jnp.float32)).reshape(
+        b * hkv, group, sk, d).sum(axis=1) for x in (jdk, jdv))
+    tol = BF16_TOL if dtype == "bfloat16" else GRAD_F32_TOL
+    for got, want, t in ((grads[0], _np(jdq), tol), (grads[1], jdk,
+                                                      tol * group),
+                         (grads[2], jdv, tol * group)):
+        np.testing.assert_allclose(_np(got), want.reshape(got.shape),
+                                   atol=t, rtol=t)
+
+
 @pytest.mark.parametrize("mask", [dict(causal=False), dict(causal=True),
                                   dict(causal=True, window=5)], ids=str)
 @pytest.mark.parametrize("case", ATTN_CASES[1:3] + [(2, 4, 24, 40, 16)],
@@ -349,6 +395,74 @@ def test_rwkv6_wkv_bf16_rkv_with_f32_decay():
     np.testing.assert_allclose(_np(s_t), _np(js), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("shape", WKV_SHAPES, ids=str)
+def test_rwkv6_wkv_bwd_twin_matches_autograd_and_jax_vjp(shape):
+    """``ref.rwkv6_wkv_bwd`` (the backward kernel's reverse scan) against
+    autograd through the port's ``ref.rwkv6_wkv`` and ``jax.vjp`` of
+    ``repro.kernels.ref.rwkv6_wkv`` (JAX's ``ops._wkv_bwd``), with
+    upstream gradients on both out and the final state: every gradient,
+    ``du`` (summed over the batch) and ``ds0`` included, to 1e-5 (f32,
+    other summation orders)."""
+    r, k, v, w, u, s0 = _wkv_inputs(shape)
+    dout = _rand(11, (shape[0], shape[1], shape[2], shape[4]))
+    ds_t = _rand(12, s0.shape)
+    t = [torch.from_numpy(x) for x in (r, k, v, w, u, s0)]
+    got = ref.rwkv6_wkv_bwd(*t, torch.from_numpy(dout),
+                            torch.from_numpy(ds_t))
+    assert [tuple(g.shape) for g in got] == [tuple(x.shape) for x in t]
+    assert all(g.dtype == torch.float32 for g in got)
+    leaves = [x.clone().requires_grad_() for x in t]
+    out, s_t = ref.rwkv6_wkv(*leaves)
+    want_t = torch.autograd.grad((out, s_t), leaves,
+                                 (torch.from_numpy(dout),
+                                  torch.from_numpy(ds_t)))
+    _, vjp = jax.vjp(jref.rwkv6_wkv, *(jnp.asarray(x, jnp.float32)
+                                       for x in (r, k, v, w, u, s0)))
+    want_j = vjp((jnp.asarray(dout), jnp.asarray(ds_t)))
+    for g, wt, wj in zip(got, want_t, want_j):
+        np.testing.assert_allclose(_np(g), _np(wt), atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(_np(g), _np(wj), atol=1e-5, rtol=1e-5)
+
+
+def test_rwkv6_wkv_bwd_twin_bf16_and_zero_upstream_state():
+    """The model's dtypes (r, k, v bf16; w, u, state f32) and no gradient
+    on the final state: dr, dk, dv come back in bf16, rounded once from
+    the f32 values JAX's vjp computes."""
+    r, k, v, w, u, s0 = _wkv_inputs((2, 2, 24, 16, 16), seed=7)
+    (rt, rj), (kt, kj), (vt, vj) = (_both(x, "bfloat16") for x in (r, k, v))
+    (dot, doj) = _both(_rand(13, v.shape), "bfloat16")
+    got = ref.rwkv6_wkv_bwd(rt, kt, vt, torch.from_numpy(w),
+                            torch.from_numpy(u), torch.from_numpy(s0), dot)
+    assert [g.dtype for g in got] == [torch.bfloat16] * 3 + [
+        torch.float32] * 3
+    _, vjp = jax.vjp(lambda *a: jref.rwkv6_wkv(*a)[0], rj, kj, vj,
+                     *(jnp.asarray(x) for x in (w, u, s0)))
+    for g, wj in zip(got, vjp(doj)):
+        tol = BF16_TOL if g.dtype == torch.bfloat16 else 1e-4
+        np.testing.assert_allclose(_np(g), _np(wj), atol=tol, rtol=tol)
+
+
+def test_rwkv6_wkv_op_carries_a_grad_fn_on_cpu():
+    """``ops.rwkv6_wkv`` runs through ``RWKV6WKV`` (its gradient is the
+    plain backward on the CPU); ``use_kernel=False`` is the plain scan
+    under autograd."""
+    t = [torch.from_numpy(x).requires_grad_()
+         for x in _wkv_inputs((1, 2, 9, 8, 8))]
+    out, s_t = ops.rwkv6_wkv(*t)
+    assert type(out.grad_fn).__name__ == "RWKV6WKVBackward"
+    assert out.grad_fn is s_t.grad_fn
+    plain, _ = ops.rwkv6_wkv(*t, use_kernel=False)
+    assert type(plain.grad_fn).__name__ != "RWKV6WKVBackward"
+    got = torch.autograd.grad(out.square().sum() + s_t.sum(), t)
+    want = torch.autograd.grad(plain.square().sum()
+                               + ops.rwkv6_wkv(*t, use_kernel=False)[1]
+                               .sum(), t)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
+    with torch.no_grad():
+        assert ops.rwkv6_wkv(*t)[0].grad_fn is None
+
+
 def test_cpu_dispatch_launches_no_kernel():
     ops.reset_launch_counts()
     x = torch.ones(4, 8)
@@ -358,15 +472,17 @@ def test_cpu_dispatch_launches_no_kernel():
     ops.attention(x[None, None], x[None, None], x[None, None], causal=False)
     q = x[None, None].requires_grad_()
     torch.autograd.grad(ops.attention(q, q, q, causal=False).sum(), q)
-    r = x.reshape(1, 2, 2, 8)
-    ops.rwkv6_wkv(r, r, r, r, torch.ones(2, 8))
+    r = x.reshape(1, 2, 2, 8).requires_grad_()
+    torch.autograd.grad(ops.rwkv6_wkv(r, r, r, r, torch.ones(2, 8))[0]
+                        .sum(), r)
     assert ops.launch_counts() == {"flash_attention_fwd": 0,
                                    "flash_attention_bwd_dq": 0,
                                    "flash_attention_bwd_dkv": 0,
                                    "ddim_fused": 0,
                                    "parareal_update_residual": 0,
                                    "parareal_update": 0,
-                                   "rwkv6_wkv": 0}
+                                   "rwkv6_wkv": 0,
+                                   "rwkv6_wkv_bwd": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_unported_forms():
@@ -397,11 +513,20 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_unported_forms():
     lse = torch.zeros(2, 16)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_bwd(x, x, x, x, lse, x)
-    with pytest.raises(NotImplementedError, match="B5"):
-        flash_attention_bwd(x, x, x, x, lse, x, window=4)
-    with pytest.raises(NotImplementedError, match="B5"):
+    # the backward takes every mask and group form too; what it refuses
+    # is a head dim over 128, mixed dtypes and operands off the card
+    with pytest.raises(ValueError, match="CUDA"):
         flash_attention_bwd(torch.ones(4, 16, 8), x, x, torch.ones(4, 16, 8),
-                            torch.zeros(4, 16), torch.ones(4, 16, 8))
+                            torch.zeros(4, 16), torch.ones(4, 16, 8),
+                            causal=True, window=4)
+    wide = torch.ones(2, 16, 136)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd(wide, wide, wide, wide, lse, wide, causal=True)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention_bwd(x, x.bfloat16(), x, x, lse, x, window=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        rwkv6_scan.rwkv6_wkv_bwd(r, r, r, r, torch.ones(2, 8),
+                                 torch.zeros(1, 2, 1, 8, 8), r)
 
 
 def test_build_targets_sources_by_hash(monkeypatch):

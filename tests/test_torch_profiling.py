@@ -14,6 +14,8 @@ from repro_torch.runtime import profiling
     ("flash_bwd_dkv_kernel<__nv_bfloat16>", "flash_attention_bwd dkv (port)"),
     ("void (anonymous namespace)::wkv_fwd_kernel<__nv_bfloat16, 64>(...)",
      "rwkv6_wkv (port)"),
+    ("void (anonymous namespace)::wkv_bwd_kernel<float, 64>(...)",
+     "rwkv6_wkv_bwd (port)"),
     ("nvjet_tst_128x256_64x4_2x1_v_bz_coopA_TNT", profiling.GEMM),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n", profiling.GEMM),
     ("void at::native::vectorized_elementwise_kernel<4, ...>",

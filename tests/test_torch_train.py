@@ -67,6 +67,12 @@ def _cfgs(width="hd72"):
     return JArch(**kw, **JAX_ONLY), TArch(**kw)
 
 
+def _lm_cfg(family, **kw):
+    """A tiny config of an LM family the port does not train yet."""
+    return TArch(name=f"{family}-lm", num_layers=1, d_model=8, num_heads=1,
+                 num_kv_heads=1, d_ff=8, vocab_size=16, family=family, **kw)
+
+
 def _jax_tree(tree):
     return jax.tree.map(lambda a: jnp.asarray(a, jnp.float32), tree)
 
@@ -140,8 +146,9 @@ def test_diffusion_loss_draws_from_the_generator():
     assert runs[0].item() == runs[1].item() != runs[2].item()
     with pytest.raises(ValueError, match="generator"):
         diffusion_loss(model, batch)
+    # the LM loss is ported; its masked-unit (audio) form is not
     with pytest.raises(NotImplementedError, match="A11"):
-        lm_loss()
+        lm_loss(_lm_cfg("audio", causal=False), model, batch)
 
 
 # --------------------------------------------------------------------------
@@ -307,10 +314,10 @@ def test_image_stream_deterministic_and_step_dependent():
     assert a.min() >= -1 and a.max() <= 1
     other = ImageStream(DataConfig(seed=2, global_batch=3), 32, 4, "cpu")
     assert not torch.equal(other.batch(3)["images"], a)
+    # the LM stream is ported; the audio stream is not
     with pytest.raises(NotImplementedError, match="A11"):
-        make_stream(TArch(name="lm", num_layers=1, d_model=8, num_heads=1,
-                          num_kv_heads=1, d_ff=8, family="dense"),
-                    DataConfig(), device="cpu")
+        make_stream(_lm_cfg("audio", causal=False), DataConfig(),
+                    device="cpu")
 
 
 # --------------------------------------------------------------------------
@@ -496,8 +503,9 @@ def test_launcher_refuses_what_is_not_ported(monkeypatch):
         tlaunch.build("stablelm-3b", device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         tlaunch.build("srds-dit-sd2", mesh_kind="pod1", device="cpu")
+    # the LM step is ported; the MoE block's is not
     with pytest.raises(NotImplementedError, match="A11"):
-        make_train_step(_cfgs()[1], topt.AdamWConfig(), loss_kind="lm")
+        make_train_step(_lm_cfg("moe"), topt.AdamWConfig(), loss_kind="lm")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tlaunch.build("srds-dit-sd2", reduced=True)
