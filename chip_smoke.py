@@ -14,7 +14,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    paths' shapes, with its time, the plain version's, the least time the
    card could take (``bound_ms``) and, where one PyTorch call computes the
    same function, that call's time (``library_ms``, a yardstick the port
-   never calls): the flash forward, the flash backward's dq and dkv
+   never calls): the flash forward (bf16 with a head dim that is a
+   multiple of 8 on its tensor-core route, f32 on its f32-FMA route: each
+   case prints its route and, on the tensor cores, the bf16 terms of P;
+   ptxas' registers and spills of every ``flash_fwd_kernel_tc`` instance;
+   every bf16 case held to the forward's rel L2 limit; at the DiT's and
+   qwen3-8b's shapes readings with P in 1 and 2 terms and the 1-term
+   control, which must miss that limit while the kernel's 3 terms meet
+   it), the flash backward's dq and dkv
    kernels (against ``ref.attention_bwd``), DDIM, the fused residual and
    the fused update without it (``parareal_update``: f32 at the serving
    shape, bf16, ragged; two runs bitwise equal); the forward's causal
@@ -104,6 +111,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    first 4 layers (over all 24 the random model's gradient is chaotic in
    f32 too: a reading), whole and over the decay LoRA leaves alone, with
    the backward's ``dd`` dropped as the control.
+
+Phases 4-7 and 9 also hold the flash forward's launches on their main
+paths to its tensor-core route (``ops.route_counts``: every attention
+there is bf16 with head dim 72 or 128).  Phases 9 and 10 end with ROADMAP
+C10's reading: the busy share of 10 ``train_loop`` steps as the launcher
+runs them (``log_every=10``, pinned non-blocking batch copies) and as it
+ran before (``log_every=1``, pageable copies), each under the profiler
+and PyTorch's sync debug mode (the parameters are put back after).
 
 The last lines are a ``{"kernels": [...]}`` JSON line, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``.
@@ -213,6 +228,9 @@ LM_LIMITS = {"qwen3-8b": (5e-2, 5e-2), "rwkv6-1.6b": (1e-3, 1e-3)}
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 2048, 5
 LM_TRAIN_LR = {"qwen3-8b": 3e-4, "rwkv6-1.6b": 1e-4}
 LM_TRAIN_LAYERS = {"qwen3-8b": 8, "rwkv6-1.6b": None}
+# phases 9-10: the steps of each busy-share window (ROADMAP C10), one
+# launcher log interval
+BUSY_STEPS = 10
 # the gradient checks: qwen3-8b in bf16 at batch 1 x 2048 (the plain
 # attention's (B, H, S, S) f32 intermediates for 8 layers), rwkv6-1.6b in
 # f32 at batch 1 x 256 (the plain scan's autograd is a Python loop) on its
@@ -229,6 +247,8 @@ LM_GRAD_BATCH, LM_GRAD_SEQ_F32, LM_GRAD_LAYERS_F32 = 1, 256, 4
 LM_GRAD_REL_L2 = {"qwen3-8b": 5e-2, "rwkv6-1.6b": 1e-3}
 QKV_LEAVES = (".attn.wq", ".attn.wk", ".attn.wv")
 DECAY_LEAVES = (".tmix.w_base", ".tmix.A_w", ".tmix.B_w")
+# the flash forward's launches by route on each main path (check_tc_route)
+ROUTES_BY_PATH = {}
 # the WKV kernel's final state against the plain scan's on one layer's
 # inputs: the same f32 recurrence summed in another order (an H100 run
 # measured at most 3.5e-8 over the 24 layers)
@@ -335,6 +355,52 @@ def backward_cases(torch, ref, randn, cases):
                 torch.cat([g.reshape(-1) for g in got]),
                 torch.cat([w.reshape(-1) for w in ref_out]), atol, rtol,
                 timing))
+
+
+def check_tc_route(ops, counts, label, path=None):
+    """The flash forward's launches of a main path (``counts``, read just
+    after it) all went through the tensor-core kernel: every attention of
+    the DiT and of qwen3-8b is bf16 with a head dim that is a multiple of
+    8.  Keeps the route counts of ``path`` for the kernels' JSON line and
+    returns them."""
+    routes = ops.route_counts()
+    if path is not None:
+        ROUTES_BY_PATH[path] = routes
+    if (routes["flash_attention_fwd_simt"] != 0
+            or routes["flash_attention_fwd_tc"]
+            != counts["flash_attention_fwd"]):
+        raise AssertionError(f"{label}: the flash forward's bf16 launches "
+                             f"did not all take the tensor-core route: "
+                             f"{routes}, {counts['flash_attention_fwd']} "
+                             f"launches")
+    return routes
+
+
+def ptxas_readings(log: str, kernel: str):
+    """``[(instance, registers, spill stores, spill loads)]`` of ``kernel``
+    from nvcc's ``-Xptxas -v`` report (mangled names: the template
+    arguments are read from ``ILi<n>E``)."""
+    import re
+    out, current = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1)
+            current = (",".join(re.findall(r"Li(\d+)E", name))
+                       if kernel in name else None)
+            spills = None
+            continue
+        if current is None:
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if found:
+            spills = (int(found.group(1)), int(found.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and spills is not None:
+            out.append((current, int(regs.group(1)), *spills))
+            current = None
+    return out
 
 
 def _bits(t):
@@ -489,8 +555,10 @@ def train_phase(torch, ops, cfg, tree):
                        log_every=1), metrics_cb=log)
         loop_s = time.perf_counter() - t1
         counts = ops.launch_counts()
+        routes = check_tc_route(ops, counts, "DiT train_loop", "train_loop")
         print(f"  train_loop ({TRAIN_STEPS} steps, main path): "
-              f"{loop_s:.3f} s, launches {counts}", flush=True)
+              f"{loop_s:.3f} s, launches {counts}, flash forward by route "
+              f"{routes}", flush=True)
         want = cfg.num_layers * TRAIN_STEPS
         for name in ("flash_attention_fwd",) + BWD_KERNELS:
             if counts[name] != want:
@@ -601,7 +669,7 @@ def serve_phase(torch, ops, C, model_fn, sched, solver, layers):
         fetches.append(tuple(f.host.shape))
         return real_fetch(f)
 
-    def drive(label, norm, reqs):
+    def drive(label, norm, reqs, path):
         eng = serve.DiffusionSamplingEngine(
             model_fn, shape, solver, num_steps=N_STEPS,
             batch_size=SERVE_SLOTS, num_blocks=B, norm=norm,
@@ -618,6 +686,7 @@ def serve_phase(torch, ops, C, model_fn, sched, solver, layers):
             sd._host_fetch = real_fetch
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
+        routes = check_tc_route(ops, counts, label, path)
         frontiers = eng.refine_frontiers
         ddim = eng.init_sweeps * B + sum(S + B - f for f in frontiers)
         blocks = sum(B - f for f in frontiers)
@@ -629,7 +698,8 @@ def serve_phase(torch, ops, C, model_fn, sched, solver, layers):
         st = eng.stats()
         print(f"  {label}: wall {wall:.3f} s, {len(frontiers)} refinements "
               f"(frontiers {frontiers}), {eng.init_sweeps} init sweeps, "
-              f"launches {counts}; host fetches {len(fetches)} "
+              f"launches {counts} (flash forward by route {routes}); host "
+              f"fetches {len(fetches)} "
               f"({len(frontiers)} refinements + {len(rep.responses)} "
               f"completions), other host syncs {len(hidden)}; physical "
               f"evals {st['physical_evals']}, effective "
@@ -651,7 +721,8 @@ def serve_phase(torch, ops, C, model_fn, sched, solver, layers):
             raise AssertionError(f"{label}: not every request completed")
         return rep, counts, wall
 
-    rep, l1_counts, wall = drive("l1_mean run (main path)", "l1_mean", trace)
+    rep, l1_counts, wall = drive("l1_mean run (main path)", "l1_mean", trace,
+                                 "serve")
     for rid, req in enumerate(trace):
         r = rep.responses[rid]
         x0 = serve.default_noise(req.seed, shape, torch.float32, "cuda")
@@ -687,7 +758,8 @@ def serve_phase(torch, ops, C, model_fn, sched, solver, layers):
 
     exact = [dict(vars(r), arrival_time=0.0) for r in trace[:2]]
     rep2, l2_counts, _ = drive("l2_mean run, the tol=0 requests", "l2_mean",
-                               [serve.SampleRequest(**r) for r in exact])
+                               [serve.SampleRequest(**r) for r in exact],
+                               "serve_l2_mean")
     for rid in range(2):
         a = rep2.responses[rid].sample
         b = rep.responses[rid].sample
@@ -864,6 +936,7 @@ def lm_phase(torch, ops, step, arch, limits):
                             for p, m in reqs])
     wall = time.perf_counter() - t
     counts = ops.launch_counts()
+    routes = check_tc_route(ops, counts, f"{arch} served", f"serve_{arch}")
     peak = torch.cuda.max_memory_allocated() / 1e9
     prefill_s = calls[0][1]
     decode_s = [c[1] for c in calls[1:]]
@@ -873,7 +946,7 @@ def lm_phase(torch, ops, step, arch, limits):
           f" ms per step over {len(decode_s)} steps (min "
           f"{1e3 * min(decode_s):.2f}), {n_tok} tokens, "
           f"{n_tok / wall:.1f} tokens/s, peak memory {peak:.2f} GB; launches "
-          f"{counts}", flush=True)
+          f"{counts}, flash forward by route {routes}", flush=True)
     print(f"  launches per call: prefill {calls[0][2][kernel]}, decode "
           f"{sorted(set(c[2][kernel] for c in calls[1:]))} ({kernel})",
           flush=True)
@@ -994,6 +1067,61 @@ class NoCheckpoints:
 
     def wait(self):
         pass
+
+
+def busy_windows(torch, step, model, opt_state, stream, label):
+    """ROADMAP C10's reading: ``train_loop`` over ``BUSY_STEPS`` steps as
+    the launcher runs it (``log_every=LOG_EVERY``, the stream's pinned,
+    non-blocking copies), and as it ran before the repair (``log_every=1``,
+    plain copies from pageable memory), each under ``torch.profiler`` and
+    PyTorch's sync debug mode: wall s, device s summed over kernels, the
+    busy share and the synchronizing calls the mode saw.  The parameters
+    are put back after (the phase's later checks read the trained ones)."""
+    import warnings
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import pipeline
+    from repro_torch.launch.train import LOG_EVERY
+    from repro_torch.runtime import LoopConfig, train_loop
+    from repro_torch.runtime.profiling import device_ms_by_name
+    saved = {n: p.detach().clone() for n, p in model.named_parameters()}
+    real_copy = pipeline.host_to_device
+    shares = {}
+    for when, log_every, copy in (
+            ("before the repair (log_every=1, pageable copies)", 1,
+             lambda t, device: t.to(device)),
+            (f"the launcher's (log_every={LOG_EVERY}, pinned copies)",
+             LOG_EVERY, real_copy)):
+        pipeline.host_to_device = copy
+        torch.cuda.synchronize()
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    train_loop(step, model, opt_state, stream, SEED + 3,
+                               NoCheckpoints(),
+                               LoopConfig(total_steps=BUSY_STEPS,
+                                          ckpt_every=BUSY_STEPS,
+                                          log_every=log_every),
+                               metrics_cb=lambda i, m: None)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            pipeline.host_to_device = real_copy
+        dev = sum(device_ms_by_name(prof).values()) / 1e3
+        syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+        shares[when] = dev / wall
+        print(f"  C10 window, {label}, {BUSY_STEPS} steps {when}: wall "
+              f"{wall:.3f} s, device {dev:.3f} s, busy share "
+              f"{dev / wall:.3f}, synchronizing calls seen {syncs} "
+              f"({syncs / BUSY_STEPS:.1f} a step)", flush=True)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(saved[n])
+    return shares
 
 
 def permuted_heads_bwd(real_bwd, torch):
@@ -1222,8 +1350,11 @@ def lm_train_phase(torch, ops, step_no, arch):
                    log_every=1), metrics_cb=log)
     loop_s = time.perf_counter() - t1
     counts = ops.launch_counts()
+    routes = check_tc_route(ops, counts, f"{arch} train_loop",
+                            f"train_{arch}")
     print(f"  train_loop ({LM_TRAIN_STEPS} steps, main path): {loop_s:.3f} "
-          f"s, launches {counts}", flush=True)
+          f"s, launches {counts}, flash forward by route {routes}",
+          flush=True)
     want = dict.fromkeys(counts, 0)
     want.update(dict.fromkeys(kernels, cfg.num_layers * LM_TRAIN_STEPS))
     if counts != want:
@@ -1238,6 +1369,7 @@ def lm_train_phase(torch, ops, step_no, arch):
         raise AssertionError(f"{arch}: the probe loss did not fall")
     profile_reading(torch, f"train step ({LM_TRAIN_BATCH} x {LM_TRAIN_SEQ})",
                     lambda: step(model, opt_state, batch0))
+    busy_windows(torch, step, model, opt_state, stream, arch)
     del opt_state, step
     torch.cuda.empty_cache()
 
@@ -1293,6 +1425,7 @@ def masked_flash_cases(torch, ops, ref, randn, cases):
     repeated to the query heads beforehand (``is_causal`` for the square
     causal case, the boolean keep-mask otherwise)."""
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
     for b, hq, hkv, sq, sk, d, dtype, window in [
             (4, 32, 8, 2048, 2048, 128, "bfloat16", None),
             (2, 8, 2, 100, 1000, 64, "float32", None),
@@ -1323,11 +1456,48 @@ def masked_flash_cases(torch, ops, ref, randn, cases):
         form = "causal" + (f" window={window}" if window else "")
         cases["flash_attention_fwd_causal_gqa"].append(check_case(
             f"flash_attention_fwd {form} {dtype} BH={b * hq} "
-            f"BKV={b * hkv} Sq={sq} Sk={sk} D={d} (rel L2 {rel:.3e}, "
-            f"limit {rel_lim})", got, want, atol, rtol, timing))
+            f"BKV={b * hkv} Sq={sq} Sk={sk} D={d} ({route_label(fa, tdt, d)}"
+            f"; rel L2 {rel:.3e}, limit {rel_lim})", got, want, atol, rtol,
+            timing))
         if not rel <= rel_lim:
             raise AssertionError(f"flash_attention_fwd {form}: rel L2 {rel} "
                                  f"against the plain version")
+        if d == 128 and window is None:
+            terms_control(torch, fa, q, k, v, want, dict(causal=True),
+                          rel_lim)
+
+
+def route_label(fa, dtype, d) -> str:
+    """The forward's route for ``dtype`` and head dim ``d``, and its term
+    count on the tensor-core route."""
+    route = fa.fwd_route(dtype, d)
+    return (f"route tc, P in {fa.TC_TERMS} bf16 terms" if route == "tc"
+            else "route simt (f32 FMA)")
+
+
+def terms_control(torch, fa, q, k, v, want, mask, limit):
+    """The tensor-core kernel with P in 1 and 2 bf16 terms against the
+    plain version (rel L2 of o) and timed, beside its own count's
+    readings: the 1-term control must miss ``limit`` while the kernel's
+    count meets it (run at the DiT's and qwen3-8b's shapes)."""
+    b, hq, sq, d = q.shape
+    qkv = (q.reshape(b * hq, sq, d), k.reshape(-1, *k.shape[2:]),
+           v.reshape(-1, *v.shape[2:]))
+    rel, ms = {}, {}
+    for terms in (1, 2, fa.TC_TERMS):
+        o, _ = fa.flash_attention_fwd_terms(*qkv, terms, **mask)
+        rel[terms] = rel_l2([o.view(want.shape)], [want])
+        ms[terms] = time_ms(lambda: fa.flash_attention_fwd_terms(
+            *qkv, terms, **mask), 20)
+    print(f"    P in bf16 terms, rel L2 of o vs plain (kernel ms): "
+          + ", ".join(f"{t} term{'s' if t > 1 else ''} {r:.3e} "
+                      f"({ms[t]:.4f})" for t, r in rel.items())
+          + f" (limit {limit}; 1 term is the control that must miss it)",
+          flush=True)
+    if not rel[1] > limit >= rel[fa.TC_TERMS]:
+        raise AssertionError(f"terms control: 1 term {rel[1]} must miss "
+                             f"{limit} and {fa.TC_TERMS} terms "
+                             f"{rel[fa.TC_TERMS]} meet it")
 
 
 def wkv_cases(torch, ops, randn, cases):
@@ -1517,8 +1687,18 @@ def wkv_backward_cases(torch, ref, randn, cases):
 
 def kernel_phase(torch, ops, ref):
     import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
+    log = _build.build_log.get("flash_attention_fwd")
+    readings = ptxas_readings(log, "flash_fwd_kernel_tc") if log else []
+    print("  ptxas, flash_fwd_kernel_tc<head dim padded to 16, terms> "
+          "(registers at entry; the consumer warpgroups raise theirs with "
+          "setmaxnreg): " + ("; ".join(
+              f"<{inst}> {regs} registers, spills {st}/{ld} bytes "
+              f"(stores/loads)" for inst, regs, st, ld in readings)
+              if readings else "not rebuilt in this run"), flush=True)
 
     def randn(shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -1551,9 +1731,17 @@ def kernel_phase(torch, ops, ref):
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v), reps))
         tol = 2e-2 if dtype == "bfloat16" else 2e-5
+        rel, rel_lim = rel_l2([got], [want]), MASKED_REL_L2[dtype]
         cases["flash_attention_fwd"].append(check_case(
-            f"flash_attention_fwd {dtype} BH={bh} Sq={sq} Sk={sk} D={d}",
-            got, want, tol, tol, timing))
+            f"flash_attention_fwd {dtype} BH={bh} Sq={sq} Sk={sk} D={d} "
+            f"({route_label(fa, tdt, d)}; rel L2 {rel:.3e}, limit "
+            f"{rel_lim})", got, want, tol, tol, timing))
+        if not rel <= rel_lim:
+            raise AssertionError(f"flash_attention_fwd {dtype} BH={bh}: rel "
+                                 f"L2 {rel} against the plain version")
+        if bh == 160:
+            terms_control(torch, fa, q, k, v, want, dict(causal=False),
+                          rel_lim)
 
     masked_flash_cases(torch, ops, ref, randn, cases)
     backward_cases(torch, ref, randn, cases)
@@ -1684,7 +1872,7 @@ def main() -> int:
         (SAMPLES, 64, 64, 4)).astype(np.float32)).cuda()
     layers = cfg.num_layers
 
-    def run(label, fn):
+    def run(label, fn, path=None):
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1692,7 +1880,9 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         counts = ops.launch_counts()
-        print(f"  {label}: wall {wall:.3f} s, launches {counts}", flush=True)
+        routes = check_tc_route(ops, counts, label, path)
+        print(f"  {label}: wall {wall:.3f} s, launches {counts}, flash "
+              f"forward by route {routes}", flush=True)
         return out, counts, wall
 
     def expect(counts, ddim, resid):
@@ -1711,7 +1901,8 @@ def main() -> int:
                          per_sample=True, tol=0.0)
     res, main_counts, _ = run("srds_sample max_iters=B (main path)",
                               lambda: C.srds_sample(model_fn, sched, solver,
-                                                    x_init, fixed))
+                                                    x_init, fixed),
+                              "srds_sample")
     p = int(res.iterations.max())
     expect(main_counts, B + p * (S + B), p * B)
     if min(n for k, n in main_counts.items()
@@ -1828,10 +2019,13 @@ def main() -> int:
                       for a, c in lm_counts.items()},
                    **{f"train_{a}": c[counter]
                       for a, c in lm_train_counts.items()}}
+        extra = ({"tc_launches_by_path": {
+            k: r["flash_attention_fwd_tc"] for k, r in ROUTES_BY_PATH.items()}}
+            if counter == "flash_attention_fwd" else {})
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=by_path[path_of.get(name, "serve")],
-            launches_by_path=by_path,
+            launches_by_path=by_path, **extra,
             max_abs_err=max(c["max_abs_err"] for c in cases[name]),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],

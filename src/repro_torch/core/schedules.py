@@ -16,6 +16,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.transfer import host_to_device
+
 _SCHEDULES = {}
 
 
@@ -64,18 +66,6 @@ class DiffusionSchedule:
                    host_to_device(self.t_model[idx], device))
             self._tables[key] = hit
         return hit
-
-
-def host_to_device(a: np.ndarray, device) -> torch.Tensor:
-    """A copy of host array ``a`` on ``device`` that does not wait for the
-    device: on a CUDA device the copy goes through pinned memory,
-    non-blocking and ordered on the current stream (a copy from pageable
-    memory would wait for the stream to drain, a hidden host sync)."""
-    t = torch.from_numpy(np.array(a))
-    device = torch.device(device)
-    if device.type != "cuda":
-        return t.to(device)
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _ddpm_alpha_bar(t_train: int, beta_start: float,

@@ -9,7 +9,9 @@ have seen, on any device.  The procedural formulas (:func:`image_formula`,
 stream's device.  The DiT's ``ImageStream`` and the language models'
 ``LMStream`` are ported; the audio and VLM streams wait for those archs
 (ROADMAP A11), and the per-host slicing for the multi-device port (A10):
-the one host takes the whole global batch.
+the one host takes the whole global batch.  A stream's ``batch`` copies
+its draws to the device through pinned memory, non-blocking, so a
+training loop never waits for the card to fetch its next batch.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.transfer import host_to_device
 
 _MASK64 = (1 << 64) - 1
 IMAGE_SIZES = {"srds-dit-cifar": 32, "srds-dit-lsun": 128,
@@ -78,7 +81,7 @@ class ImageStream:
                 uniform((b, 1, 1, c), 0.3, 1.0))
 
     def batch(self, step: int):
-        draws = [d.to(self.device) for d in self.draws(step)]
+        draws = [host_to_device(d, self.device) for d in self.draws(step)]
         return {"images": image_formula(*draws, self.size)}
 
 
@@ -114,7 +117,7 @@ class LMStream:
                 torch.rand((b, s), generator=g) < 0.15)
 
     def batch(self, step: int):
-        draws = [d.to(self.device) for d in self.draws(step)]
+        draws = [host_to_device(d, self.device) for d in self.draws(step)]
         tokens = token_formula(*draws, self.cfg.seq_len, self.vocab)
         return {"tokens": tokens, "labels": tokens}
 

@@ -1,7 +1,9 @@
 """Flash attention forward and backward: the CUDA C++ kernels' wrappers.
 
 Counterparts of ``repro.kernels.flash_attention.flash_attention_fwd``
-(``_fwd_kernel``, in ``csrc/flash_attention_fwd.cu``) and
+(``_fwd_kernel``, in ``csrc/flash_attention_fwd.cu``: bf16 with a head dim
+that is a multiple of 8 on the tensor cores, f32 and other bf16 head dims
+on the f32 FMA units) and
 ``flash_attention_bwd`` (``_dq_kernel`` and ``_dkv_kernel``, in
 ``csrc/flash_attention_bwd.cu``).  The forward takes every form of the
 JAX kernel: non-causal (the DiT), causal and sliding-window masks with
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import re
 from typing import Optional
 
 import torch
@@ -22,8 +25,22 @@ import torch
 from . import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FWD_SIGNATURE = {"flash_attention_fwd":
-                  ((_P,) * 5 + (_I,) * 7 + (_F, _I, _P), _I)}
+_FWD_SIGNATURE = {
+    "flash_attention_fwd": ((_P,) * 5 + (_I,) * 7 + (_F, _I, _P), _I),
+    "flash_attention_fwd_terms": ((_P,) * 5 + (_I,) * 7 + (_F, _I, _P), _I),
+    "flash_attention_fwd_route": ((_I, _I), _I)}
+ROUTES = {1: "tc", 0: "simt"}      # the forward's kernels, by C route code
+
+
+def _tc_terms() -> int:
+    """``kTcTerms`` of ``csrc/flash_attention_fwd.cu``, read from the source
+    (no build needed): the bf16 terms of P in the tensor-core kernel."""
+    src = (_build.CSRC / "flash_attention_fwd.cu").read_text()
+    return int(re.search(r"constexpr int kTcTerms = (\d+);", src).group(1))
+
+
+TC_TERMS = _tc_terms()
+
 _BWD_SIGNATURE = {
     "flash_attention_bwd_dq": ((_P,) * 7 + (_I,) * 7 + (_F, _I, _P), _I),
     "flash_attention_bwd_dkv": ((_P,) * 8 + (_I,) * 7 + (_F, _I, _P), _I)}
@@ -69,6 +86,46 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it, starting on a 16-byte boundary (TMA's)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _fwd_args(q, k, v, causal, window, scale):
+    """Checked, contiguous operands and the outputs of one forward."""
+    d, group = _check(q, k, v, "flash attention")
+    _check_window(window)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    return q, k, v, o, lse, group, scale
+
+
+def _fwd_launch(fn, q, k, v, o, lse, group, causal, window, scale, mode,
+                tc):
+    """One launch of C function ``fn``; ``mode`` is its dtype code or, for
+    the terms entry point, the term count; ``tc``: the tensor-core route."""
+    bh, sq, d = q.shape
+    if tc:
+        q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    lib = _build.load("flash_attention_fwd", _FWD_SIGNATURE)
+    with torch.cuda.device(q.device):
+        code = getattr(lib, fn)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), bh, sq, k.shape[1], d, group, int(causal),
+            window or 0, scale, mode, _stream(q.device))
+    _build.check(lib, code, fn)
+
+
+def fwd_route(dtype: torch.dtype, d: int) -> str:
+    """The kernel :func:`flash_attention_fwd` launches for ``dtype`` and
+    head dim ``d``: ``"tc"`` (tensor cores: bf16, ``d % 8 == 0``) or
+    ``"simt"`` (f32 FMA units), as the C entry point decides."""
+    lib = _build.load("flash_attention_fwd", _FWD_SIGNATURE)
+    return ROUTES[lib.flash_attention_fwd_route(_DTYPES[dtype], d)]
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = False, window: Optional[int] = None,
                         scale: Optional[float] = None):
@@ -78,30 +135,44 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     query positions right-aligned to the keys.
 
     Returns ``(o (BH, Sq, D) in q's dtype, lse (BH, Sq) f32)``.  Launches
-    the kernel once and counts it in ``flash_attention_fwd.launches``.
+    one kernel, counted in ``flash_attention_fwd.launches`` and by its
+    route (:func:`fwd_route`) in ``flash_attention_fwd.route_launches``.
     """
-    d, group = _check(q, k, v, "flash attention")
-    _check_window(window)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    bh, sq, _ = q.shape
-    sk = k.shape[1]
-    scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
-    o = torch.empty_like(q)
-    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    if bh == 0 or sq == 0:
+    q, k, v, o, lse, group, scale = _fwd_args(q, k, v, causal, window,
+                                              scale)
+    if q.shape[0] == 0 or q.shape[1] == 0:
         return o, lse
-    lib = _build.load("flash_attention_fwd", _FWD_SIGNATURE)
-    with torch.cuda.device(q.device):
-        code = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), bh, sq, sk, d, group, int(causal),
-            window or 0, scale, _DTYPES[q.dtype], _stream(q.device))
-    _build.check(lib, code, "flash_attention_fwd")
+    route = fwd_route(q.dtype, q.shape[2])
+    _fwd_launch("flash_attention_fwd", q, k, v, o, lse, group, causal,
+                window, scale, _DTYPES[q.dtype], route == "tc")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.route_launches[route] += 1
     return o, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.route_launches = dict.fromkeys(ROUTES.values(), 0)
+
+
+def flash_attention_fwd_terms(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, terms: int, *,
+                              causal: bool = False,
+                              window: Optional[int] = None,
+                              scale: Optional[float] = None):
+    """The tensor-core kernel with P written as ``terms`` bf16 terms, for
+    bf16 operands with a head dim that is a multiple of 8: :data:`TC_TERMS`
+    is :func:`flash_attention_fwd`'s; 1 and 2 exist for head dims 65-80 and
+    113-128 only, as controls of the numerics (P rounded once to bf16 must
+    miss the forward's limits).  No model's path calls it."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] % 8:
+        raise ValueError("the tensor-core kernel takes bf16 operands with a "
+                         "head dim that is a multiple of 8")
+    q, k, v, o, lse, group, scale = _fwd_args(q, k, v, causal, window,
+                                              scale)
+    if q.shape[0] and q.shape[1]:
+        _fwd_launch("flash_attention_fwd_terms", q, k, v, o, lse, group,
+                    causal, window, scale, int(terms), True)
+    return o, lse
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -14,7 +14,10 @@ Each kernel wrapper carries a ``launches`` counter
 ``flash_attention_bwd_dkv.launches``, ``ddim_fused.launches``,
 ``parareal_update_residual.launches``, ``parareal_update.launches``,
 ``rwkv6_wkv.launches``, ``rwkv6_wkv_bwd.launches``) that
-:func:`launch_counts` reads and :func:`reset_launch_counts` zeroes.
+:func:`launch_counts` reads and :func:`reset_launch_counts` zeroes.  The
+flash forward also counts its launches by route, the tensor-core kernel
+(bf16, head dim a multiple of 8) or the f32-FMA one
+(:func:`route_counts`).
 
 :func:`attention` and :func:`rwkv6_wkv` are differentiable: they run
 through :class:`FlashAttention` and :class:`RWKV6WKV`, the counterparts of
@@ -47,9 +50,19 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in _COUNTED.items()}
 
 
+def route_counts() -> Dict[str, int]:
+    """The flash forward's launches by kernel: ``flash_attention_fwd_tc``
+    (tensor cores) and ``flash_attention_fwd_simt`` (f32 FMA units); they
+    sum to ``launch_counts()["flash_attention_fwd"]``."""
+    return {f"flash_attention_fwd_{route}": n for route, n in
+            flash_attention_fwd.route_launches.items()}
+
+
 def reset_launch_counts() -> None:
     for fn in _COUNTED.values():
         fn.launches = 0
+    for route in flash_attention_fwd.route_launches:
+        flash_attention_fwd.route_launches[route] = 0
 
 
 def fused_default(x: torch.Tensor) -> bool:

@@ -33,6 +33,10 @@ from repro_torch.optim import AdamWConfig, init_opt_state, warmup_cosine
 from repro_torch.runtime import LoopConfig, PreemptionSignal, train_loop
 from repro_torch.train import make_train_step
 
+# the JAX launcher's: a logged step turns every metric into a host float,
+# which waits for the card, so the loop logs every 10th step (and the last)
+LOG_EVERY = 10
+
 
 def build(arch: str, *, mesh_kind: str = "local", reduced: bool = False,
           lr: float = 3e-4, total_steps: int = 100, device="cuda",
@@ -94,7 +98,8 @@ def run(args, ckpt_dir: str):
     try:
         train_loop(step, model, opt_state, stream, 1, ckpt,
                    LoopConfig(total_steps=args.steps,
-                              ckpt_every=args.ckpt_every, log_every=1),
+                              ckpt_every=args.ckpt_every,
+                              log_every=LOG_EVERY),
                    preemption=PreemptionSignal(install_sigterm=True),
                    metrics_cb=log)
     finally:

@@ -67,10 +67,11 @@ from repro_torch.core.engine import (IterationCost, blockwise_norm,
                                      predicted_evals, prefix_frontier,
                                      resolve_blocks, resolve_fused,
                                      suffix_refinement, truncated_evals)
-from repro_torch.core.schedules import host_to_device, make_schedule
+from repro_torch.core.schedules import make_schedule
 from repro_torch.core.solvers import ModelFn, SolverConfig, solve, solver_names
 from repro_torch.core.window import resolve_policy
 from repro_torch.serve.clock import Clock, VirtualClock
+from repro_torch.transfer import host_to_device
 
 __all__ = ["SampleRequest", "SampleResponse", "CompletionRecord",
            "DiffusionSamplingEngine", "IterationEMA", "default_noise"]

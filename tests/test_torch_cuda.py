@@ -22,7 +22,12 @@ the sequential one to 1e-4.  The serving engine on the card makes one
 host fetch per refinement plus one per completion and no other host sync
 (PyTorch's sync debug mode), and its samples equal ``simulate()``'s.
 The causal, sliding-window and grouped-query forward takes the same
-tolerances as the non-causal one; the WKV kernel's are in its test.
+tolerances as the non-causal one; the WKV kernel's are in its test.  In
+bf16 with a head dim that is a multiple of 8 the forward runs on the
+tensor cores (every ATTN_CASES and MASKED_CASES shape, by its route count),
+with P as three bf16 terms: within 1e-4 rel L2 of the plain version at a
+causal GQA shape and at the DiT's, where P rounded once to bf16 misses
+that limit.
 """
 import numpy as np
 import pytest
@@ -334,6 +339,126 @@ def test_flash_kernel_masks_and_groups_match_plain_on_card(cuda, case,
     torch.testing.assert_close(lse, lse_ref.reshape(b * hq, sq),
                                atol=F32_TOL, rtol=F32_TOL)
 
+
+# the tensor-core forward (bf16, head dim a multiple of 8): every shape of
+# ATTN_CASES (non-causal) and of MASKED_CASES
+TC_CASES = ([(b, h, h, sq, sk, d, dict(causal=False))
+             for b, h, sq, sk, d in ATTN_CASES] + MASKED_CASES)
+# P written as bf16 terms, at a causal GQA shape with qwen3-8b's head dim
+# and a non-causal one with the DiT's (72, padded to 80 in the kernel): rel
+# L2 of o against the plain version, the forward's limit in bf16
+# (chip_smoke.MASKED_REL_L2); P rounded once to bf16 (one term) reads about
+# 2e-3 and must miss it
+TERMS_CASES = [(1, 8, 2, 512, 512, 128, dict(causal=True)),
+               (1, 16, 16, 1024, 1024, 72, dict(causal=False))]
+TERMS_REL_L2 = 1e-4
+
+
+def _tc_qkv(cuda, case):
+    b, hq, hkv, sq, sk, d, _ = case
+    return [torch.from_numpy(_rand(i, (b, h, s, d))).to(cuda, torch.bfloat16)
+            for i, (h, s) in enumerate(((hq, sq), (hkv, sk), (hkv, sk)))]
+
+
+def _fwd3(q, k, v, fn, *args, **mask):
+    """A forward kernel on (B, H, S, D) operands through the (BH, S, D)
+    wrappers; returns o as (B, H, S, D) and lse as (B, H, S)."""
+    b, h, sq, d = q.shape
+    o, lse = fn(q.reshape(b * h, sq, d), k.reshape(-1, *k.shape[2:]),
+                v.reshape(-1, *v.shape[2:]), *args, **mask)
+    return o.view(q.shape), lse.view(b, h, sq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_CASES, ids=str)
+def test_flash_tc_kernel_matches_plain_on_card(cuda, case):
+    """bf16 with a head dim that is a multiple of 8 launches the tensor-core
+    kernel (its route count, not the f32-FMA one's); o within the bf16
+    tolerance, lse within the f32 one."""
+    from repro_torch.kernels import flash_attention as fa
+    mask = case[-1]
+    q, k, v = _tc_qkv(cuda, case)
+    assert fa.fwd_route(q.dtype, q.shape[-1]) == "tc"
+    before = ops.route_counts()
+    o, lse = _fwd3(q, k, v, fa.flash_attention_fwd, **mask)
+    torch.cuda.synchronize()
+    after = ops.route_counts()
+    assert after["flash_attention_fwd_tc"] == \
+        before["flash_attention_fwd_tc"] + 1
+    assert after["flash_attention_fwd_simt"] == \
+        before["flash_attention_fwd_simt"]
+    o_ref, lse_ref = ref.attention(q, k, v, **mask)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=BF16_TOL,
+                               rtol=BF16_TOL)
+    torch.testing.assert_close(lse, lse_ref, atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 36), ("float32", 64)])
+def test_flash_simt_route_on_card(cuda, dtype, d):
+    """f32, and bf16 with a head dim that is not a multiple of 8 (TMA needs
+    16-byte rows), take the f32-FMA kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    case = (1, 4, 2, 70, 90, d, dict(causal=True))
+    q, k, v = (t.to(DTYPES[dtype]) for t in _tc_qkv(cuda, case))
+    assert fa.fwd_route(q.dtype, d) == "simt"
+    before = ops.route_counts()
+    o, lse = _fwd3(q, k, v, fa.flash_attention_fwd, causal=True)
+    torch.cuda.synchronize()
+    after = ops.route_counts()
+    assert after["flash_attention_fwd_simt"] == \
+        before["flash_attention_fwd_simt"] + 1
+    assert after["flash_attention_fwd_tc"] == before["flash_attention_fwd_tc"]
+    o_ref, lse_ref = ref.attention(q, k, v, causal=True)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, lse_ref, atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_tc_kernel_is_bitwise_deterministic_on_card(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _tc_qkv(cuda, (2, 16, 16, 1024, 1024, 72, {}))
+    runs = [_fwd3(q, k, v, fa.flash_attention_fwd) for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TERMS_CASES, ids=str)
+def test_flash_tc_terms_control_on_card(cuda, case):
+    """The kernel's bf16 terms of P meet the forward's rel L2 limit; P
+    rounded once to bf16 misses it (the control), and the terms' entry
+    point at the kernel's count is the main one bitwise."""
+    from repro_torch.kernels import flash_attention as fa
+    mask = case[-1]
+    q, k, v = _tc_qkv(cuda, case)
+    o_ref, _ = ref.attention(q, k, v, **mask)
+    rel = {}
+    for terms in (1, fa.TC_TERMS):
+        o, _ = _fwd3(q, k, v, fa.flash_attention_fwd_terms, terms, **mask)
+        rel[terms] = ((o.float() - o_ref.float()).norm()
+                      / o_ref.float().norm()).item()
+    assert torch.equal(o, _fwd3(q, k, v, fa.flash_attention_fwd, **mask)[0])
+    assert rel[fa.TC_TERMS] <= TERMS_REL_L2 < rel[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 72), ("bfloat16", 36),
+                                     ("float32", 64)])
+def test_flash_fwd_refuses_no_keys_on_card(cuda, dtype, d):
+    """Sk == 0 with Sq > 0 is refused before any launch on either route
+    (the plain version has no such form either); Sq == 0 returns empty
+    outputs without a launch."""
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.zeros((2, 5, d), device=cuda, dtype=DTYPES[dtype])
+    kv = torch.zeros((2, 0, d), device=cuda, dtype=DTYPES[dtype])
+    before = ops.route_counts()
+    with pytest.raises(ValueError, match="at least one key"):
+        fa.flash_attention_fwd(q, kv, kv)
+    o, lse = fa.flash_attention_fwd(q[:, :0], kv, kv)
+    assert o.shape == (2, 0, d) and lse.shape == (2, 0)
+    assert ops.route_counts() == before
 
 # (B, H, T, Dk, Dv): one decode token, a ragged T, rwkv6-1.6b's head dim
 WKV_CASES = [(4, 32, 1, 64, 64), (2, 3, 7, 64, 64), (2, 4, 300, 64, 64),

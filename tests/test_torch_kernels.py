@@ -206,6 +206,68 @@ def test_attention_twin_full_signature(mask):
     np.testing.assert_allclose(_np(o), _np(want), atol=F32_TOL, rtol=F32_TOL)
 
 
+def _tc_forward_model(q, k, v, terms, *, causal, window=None, tile=64):
+    """The tensor-core forward's arithmetic in plain PyTorch (bf16
+    operands): S in f32 from the exact bf16 products, scaled to log2 units
+    and masked with NEG_INF, the online (m, l, acc) over 64-key tiles with
+    p in f32 and l summed from it, P written as ``terms`` bf16 terms
+    (hi = bf16(p), mid = bf16(p - hi), ...) each multiplied by V and summed
+    in f32, o = acc / l rounded to bf16."""
+    hq, sq, d = q.shape[1], q.shape[2], q.shape[3]
+    sk = k.shape[2]
+    group = hq // k.shape[1]
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    c = (1.0 / np.sqrt(d)) * np.log2(np.e)
+    keep = ref._keep(sq, sk, causal, window, q.device)
+    m = torch.full((*q.shape[:3], 1), ref.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, dtype=torch.float32)
+    for k0 in range(0, sk, tile):
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                         kf[:, :, k0:k0 + tile]) * np.float32(c)
+        s = torch.where(keep[:, k0:k0 + tile], s, ref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        base = torch.where(m_new == ref.NEG_INF, 0.0, m_new)
+        p = torch.exp2(s - base)
+        l = l * torch.exp2(m - m_new) + p.sum(-1, keepdim=True)
+        acc = acc * torch.exp2(m - m_new)
+        rest = p
+        for _ in range(terms):
+            term = rest.bfloat16().float()
+            acc = acc + torch.einsum("bhqk,bhkd->bhqd", term,
+                                     vf[:, :, k0:k0 + tile])
+            rest = rest - term
+        m = m_new
+    return (acc / torch.where(l == 0.0, 1.0, l)).bfloat16()
+
+
+# (B, Hq, Hkv, Sq, Sk, D, mask): causal GQA at qwen3-8b's head dim, the
+# DiT's non-causal head dim 72
+TC_MODEL_CASES = [(1, 4, 2, 256, 256, 128, dict(causal=True)),
+                  (1, 4, 4, 256, 256, 72, dict(causal=False))]
+TC_REL_L2 = 1e-4          # chip_smoke.MASKED_REL_L2["bfloat16"]
+
+
+@pytest.mark.parametrize("case", TC_MODEL_CASES, ids=str)
+def test_tc_forward_numerics_model_against_jax_oracle(case):
+    """The premise of the tensor-core forward, on the CPU: with P as the
+    kernel's ``TC_TERMS`` bf16 terms, o (bf16) is within 1e-4 rel L2 of
+    the JAX oracle's on the same bf16 inputs; with P rounded once to bf16
+    it misses that limit (the CPU half of chip_smoke's phase-3 control)."""
+    from repro_torch.kernels.flash_attention import TC_TERMS
+    b, hq, hkv, sq, sk, d, mask = case
+    (qt, qj), (kt, kj), (vt, vj) = (
+        _both(_rand(i, (b, h, s, d)), "bfloat16")
+        for i, (h, s) in enumerate(((hq, sq), (hkv, sk), (hkv, sk))))
+    want = _np(jref.attention(qj, kj, vj, **mask))
+    rel = {}
+    for terms in (1, TC_TERMS):
+        got = _np(_tc_forward_model(qt, kt, vt, terms, **mask))
+        rel[terms] = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    assert rel[TC_TERMS] <= TC_REL_L2 < rel[1], rel
+
+
 # --------------------------------------------------------------------------
 # fused DDIM update
 # --------------------------------------------------------------------------
@@ -483,12 +545,14 @@ def test_cpu_dispatch_launches_no_kernel():
                                    "parareal_update": 0,
                                    "rwkv6_wkv": 0,
                                    "rwkv6_wkv_bwd": 0}
+    assert ops.route_counts() == {"flash_attention_fwd_tc": 0,
+                                  "flash_attention_fwd_simt": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_unported_forms():
     from repro_torch.kernels import elementwise, rwkv6_scan
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
-                                                     flash_attention_fwd)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_fwd, flash_attention_fwd_terms)
     x = torch.ones(2, 16, 8)
     with pytest.raises(ValueError, match="CUDA"):
         elementwise.ddim_fused(x, x, torch.tensor(0.5), torch.tensor(0.6))
@@ -506,6 +570,11 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_unported_forms():
         flash_attention_fwd(torch.ones(4, 16, 8), x, x, window=4)
     with pytest.raises(ValueError, match="group"):
         flash_attention_fwd(torch.ones(3, 16, 8), x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_fwd_terms(x.bfloat16(), x.bfloat16(), x.bfloat16(),
+                                  1, causal=True)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention_fwd_terms(x, x, x, 3)
     r = x.reshape(1, 2, 16, 8)
     with pytest.raises(ValueError, match="CUDA"):
         rwkv6_scan.rwkv6_wkv(r, r, r, r, torch.ones(2, 8),

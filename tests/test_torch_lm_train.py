@@ -295,9 +295,11 @@ def test_make_stream_serves_the_language_models(arch):
 # --------------------------------------------------------------------------
 
 def test_launcher_main_trains_reduced_qwen3_on_cpu(capsys):
+    """20 steps, logged at steps 10 and 20 (the launcher's ``log_every``
+    of 10): the loss falls between them."""
     losses = tlaunch.main(["--arch", "qwen3-8b", "--reduced", "--device",
-                           "cpu", "--steps", "5", "--seq", "64"])
-    assert len(losses) == 5 and all(np.isfinite(losses))
+                           "cpu", "--steps", "20", "--seq", "64"])
+    assert len(losses) == 2 and all(np.isfinite(losses))
     assert losses[-1] < losses[0]
     assert "final loss" in capsys.readouterr().out
 

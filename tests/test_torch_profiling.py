@@ -25,6 +25,21 @@ def test_kernel_group(name, group):
     assert profiling.kernel_group(name) == group
 
 
+@pytest.mark.parametrize("name", [
+    "void (anonymous namespace)::tc::flash_fwd_kernel_tc<128, 3>"
+    "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, "
+    "float*, int, int, int, int, int, int, int, float)",
+    "void (anonymous namespace)::flash_fwd_kernel_tc<cute::"
+    "SM90_64x64x16_F32BF16BF16_SS<(cute::GMMA::Major)0, "
+    "(cute::GMMA::Major)0>, cutlass::bfloat16_t, cute::SM90_TMA_LOAD>"
+    "(cute::TmaDescriptor)"])
+def test_kernel_group_tensor_core_forward(name):
+    """The tensor-core flash forward keeps the ``flash_fwd_kernel`` prefix:
+    a name templated on CuTe's SM90 atoms, which carries the GEMM marks
+    ``cutlass`` and ``SM90_``, still lands in the flash group."""
+    assert profiling.kernel_group(name) == "flash_attention_fwd (port)"
+
+
 def test_device_ms_by_group_sums_names_and_skips_host_events():
     x = torch.ones(64, 64)
     with profile(activities=[ProfilerActivity.CPU]) as prof:

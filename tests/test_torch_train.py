@@ -27,6 +27,7 @@ import jax
 jax.config.update("jax_enable_x64", True)
 
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +41,7 @@ from repro.train import losses as jlosses
 from repro.train import steps as jsteps
 from repro_torch import optim as topt
 from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchConfig as TArch
 from repro_torch.data import DataConfig, ImageStream, image_formula, make_stream
 from repro_torch.launch import train as tlaunch
@@ -47,6 +49,7 @@ from repro_torch.models import dit as tdit
 from repro_torch.runtime import (LoopConfig, Preempted, PreemptionSignal,
                                  train_loop)
 from repro_torch.train import diffusion_loss, lm_loss, make_train_step
+from repro_torch.transfer import host_to_device
 
 LOSS_RTOL = 1e-5
 GRAD_REL_L2 = 1e-4
@@ -492,10 +495,56 @@ def test_launcher_trains_reduced_dit_on_cpu(tmp_path):
 
 
 def test_launcher_main_runs_on_cpu(capsys):
+    """Two steps log once, at the last step (the launcher logs every
+    ``LOG_EVERY``-th step and the last)."""
     losses = tlaunch.main(["--arch", "srds-dit-sd2", "--reduced", "--device",
                            "cpu", "--steps", "2", "--batch", "2"])
-    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert len(losses) == 1 and all(np.isfinite(losses))
     assert "final loss" in capsys.readouterr().out
+
+
+def test_launcher_logs_every_tenth_step_on_cpu(capsys):
+    """The launcher passes JAX's ``log_every=10`` to ``train_loop`` (a
+    logged step turns its metrics into host floats, a wait for the card):
+    20 steps call the metrics callback at steps 10 and 20 only."""
+    assert tlaunch.LOG_EVERY == 10
+    losses = tlaunch.main(["--arch", "srds-dit-sd2", "--reduced", "--device",
+                           "cpu", "--steps", "20", "--batch", "2"])
+    out = capsys.readouterr().out
+    assert re.findall(r"^step (\d+):", out, flags=re.M) == ["10", "20"]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+
+
+@pytest.mark.parametrize("arch", ["srds-dit-sd2", "qwen3-8b"])
+def test_stream_batches_copy_through_pinned_memory(monkeypatch, arch):
+    """``ImageStream.batch`` and ``LMStream.batch`` move every draw with
+    ``host_to_device`` (pinned memory, non-blocking on a CUDA device: no
+    wait for the card), and their batches are bitwise those of a plain
+    copy of the same draws."""
+    from repro_torch.data import pipeline
+    cfg = get_arch(arch).reduced()
+    stream = make_stream(cfg, DataConfig(global_batch=3, seq_len=40),
+                         device="cpu")
+    calls = []
+
+    def counted(a, device):
+        calls.append(tuple(a.shape))
+        return host_to_device(a, device)
+
+    monkeypatch.setattr(pipeline, "host_to_device", counted)
+    for step in (0, 7):
+        got = stream.batch(step)
+        draws = stream.draws(step)
+        if cfg.family == "dit":
+            want = {"images": pipeline.image_formula(*draws, stream.size)}
+        else:
+            tokens = pipeline.token_formula(*draws, 40, cfg.vocab_size)
+            want = {"tokens": tokens, "labels": tokens}
+        assert sorted(got) == sorted(want)
+        for key, value in want.items():
+            assert got[key].dtype == value.dtype
+            assert torch.equal(got[key], value)
+    assert calls == [tuple(d.shape) for d in stream.draws(0)] * 2
 
 
 def test_launcher_refuses_what_is_not_ported(monkeypatch):
