@@ -22,7 +22,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    qwen3-8b's shapes readings with P in 1 and 2 terms and the 1-term
    control, which must miss that limit while the kernel's 3 terms meet
    it), the flash backward's dq and dkv
-   kernels (against ``ref.attention_bwd``), DDIM, the fused residual and
+   kernels (against ``ref.attention_bwd``; the same routes, each case
+   printing its route and the bf16 terms of P and dS; ptxas' registers
+   and spills of every ``flash_bwd_dq_kernel_tc`` and
+   ``flash_bwd_dkv_kernel_tc`` instance; every case held to the
+   backward's rel L2 limit over dq and over (dk, dv) and run twice,
+   bitwise equal; at the DiT's and qwen3-8b's shapes readings with P and
+   dS in 1, 2 and 3 terms, where the 1-term control must miss that limit
+   while the kernels' 2 terms meet it), DDIM, the fused residual and
    the fused update without it (``parareal_update``: f32 at the serving
    shape, bf16, ragged; two runs bitwise equal); the forward's causal
    grouped-query form at qwen3-8b's prefill shape, a ragged right-aligned
@@ -112,9 +119,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    f32 too: a reading), whole and over the decay LoRA leaves alone, with
    the backward's ``dd`` dropped as the control.
 
-Phases 4-7 and 9 also hold the flash forward's launches on their main
-paths to its tensor-core route (``ops.route_counts``: every attention
-there is bf16 with head dim 72 or 128).  Phases 9 and 10 end with ROADMAP
+Phases 4-7 and 9 also hold the flash kernels' launches on their main
+paths, forward and backward, to their tensor-core route
+(``ops.route_counts``: every attention there is bf16 with head dim 72 or
+128; the backward runs in phases 6 and 9).  Phases 9 and 10 end with ROADMAP
 C10's reading: the busy share of 10 ``train_loop`` steps as the launcher
 runs them (``log_every=10``, pinned non-blocking batch copies) and as it
 ran before (``log_every=1``, pageable copies), each under the profiler
@@ -305,7 +313,10 @@ def backward_cases(torch, ref, randn, cases):
     at the training shape (batch 8 x 16 heads), the coarse batch, CIFAR
     width in f32 and ragged Sq/Sk.  ``plain_ms`` and ``library_ms`` time a
     whole backward: the plain version and SDPA's backward (the yardstick)
-    compute dq, dk and dv together."""
+    compute dq, dk and dv together.  Every case is also held by rel L2
+    over dq and over (dk, dv) (``BWD_MASKED_REL_L2``), each kernel is run
+    twice and held bitwise equal, and at the training shape the term
+    control runs (``bwd_terms_control``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     for bh, sq, sk, d, dtype in [(128, 1024, 1024, 72, "bfloat16"),
@@ -350,29 +361,76 @@ def backward_cases(torch, ref, randn, cases):
             timing = dict(ms=time_ms(fn, reps), plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by,
                           library_ms=library_ms)
+            rel = bwd_rel_l2(torch, fn, got, ref_out, name)
             cases[name].append(check_case(
-                f"{name} {dtype} BH={bh} Sq={sq} Sk={sk} D={d}",
+                f"{name} {dtype} BH={bh} Sq={sq} Sk={sk} D={d} "
+                f"({route_label(fa, tdt, d, backward=True)}; rel L2 "
+                f"{rel:.3e}, limit {BWD_MASKED_REL_L2[dtype]}; two runs "
+                f"bitwise)",
                 torch.cat([g.reshape(-1) for g in got]),
                 torch.cat([w.reshape(-1) for w in ref_out]), atol, rtol,
                 timing))
+        if bh == 128:
+            bwd_terms_control(torch, fa, (q3, k3, v3, o3, lse, do3), want,
+                              dict(causal=False))
+
+
+def bwd_rel_l2(torch, fn, got, want, label) -> float:
+    """Rel L2 of a backward kernel's outputs (dq, or dk and dv) against the
+    plain backward's, held to ``BWD_MASKED_REL_L2``; a second run of ``fn``
+    must give the same bits (one owner per output tile, no atomics)."""
+    dtype = str(got[0].dtype).replace("torch.", "")
+    rel = rel_l2(got, [w.reshape(g.shape) for g, w in zip(got, want)])
+    if not rel <= BWD_MASKED_REL_L2[dtype]:
+        raise AssertionError(f"{label}: rel L2 {rel} against the plain "
+                             f"backward")
+    if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, fn())):
+        raise AssertionError(f"{label}: two runs differ")
+    return rel
+
+
+def bwd_terms_control(torch, fa, args, want, mask):
+    """The tensor-core dq and dkv kernels with P and dS in 1, 2 and 3 bf16
+    terms against the plain backward (rel L2 over dq and over (dk, dv)),
+    each count timed (dq and dkv together): the 1-term control must miss
+    ``BWD_MASKED_REL_L2`` on both while the kernels' count meets it (run
+    at the DiT's and qwen3-8b's shapes)."""
+    limit = BWD_MASKED_REL_L2["bfloat16"]
+    rel, ms = {}, {}
+    for terms in (1, 2, 3):
+        dq, dk, dv = fa.flash_attention_bwd_terms(*args, terms, **mask)
+        rel[terms] = (rel_l2([dq], [want[0].reshape(dq.shape)]),
+                      rel_l2([dk, dv], [want[1].reshape(dk.shape),
+                                        want[2].reshape(dv.shape)]))
+        ms[terms] = time_ms(lambda: fa.flash_attention_bwd_terms(
+            *args, terms, **mask), 10)
+    print("    P and dS in bf16 terms, rel L2 of dq / (dk, dv) vs plain "
+          "(dq + dkv ms): " + ", ".join(
+              f"{t} term{'s' if t > 1 else ''} {a:.3e} / {b:.3e} "
+              f"({ms[t]:.4f})" for t, (a, b) in rel.items())
+          + f" (limit {limit}; 1 term is the control that must miss it)",
+          flush=True)
+    if not (min(rel[1]) > limit >= max(rel[fa.BWD_TC_TERMS])):
+        raise AssertionError(f"backward terms control: 1 term {rel[1]} must "
+                             f"miss {limit} and {fa.BWD_TC_TERMS} terms "
+                             f"{rel[fa.BWD_TC_TERMS]} meet it")
 
 
 def check_tc_route(ops, counts, label, path=None):
-    """The flash forward's launches of a main path (``counts``, read just
-    after it) all went through the tensor-core kernel: every attention of
-    the DiT and of qwen3-8b is bf16 with a head dim that is a multiple of
-    8.  Keeps the route counts of ``path`` for the kernels' JSON line and
-    returns them."""
+    """The flash kernels' launches of a main path (``counts``, read just
+    after it), forward and the backward's dq and dkv, all went through the
+    tensor-core kernels: every attention of the DiT and of qwen3-8b is bf16
+    with a head dim that is a multiple of 8.  Keeps the route counts of
+    ``path`` for the kernels' JSON line and returns them."""
     routes = ops.route_counts()
     if path is not None:
         ROUTES_BY_PATH[path] = routes
-    if (routes["flash_attention_fwd_simt"] != 0
-            or routes["flash_attention_fwd_tc"]
-            != counts["flash_attention_fwd"]):
-        raise AssertionError(f"{label}: the flash forward's bf16 launches "
-                             f"did not all take the tensor-core route: "
-                             f"{routes}, {counts['flash_attention_fwd']} "
-                             f"launches")
+    for name in ("flash_attention_fwd",) + BWD_KERNELS:
+        if (routes[f"{name}_simt"] != 0
+                or routes[f"{name}_tc"] != counts[name]):
+            raise AssertionError(f"{label}: the {name} bf16 launches did "
+                                 f"not all take the tensor-core route: "
+                                 f"{routes}, {counts[name]} launches")
     return routes
 
 
@@ -557,7 +615,7 @@ def train_phase(torch, ops, cfg, tree):
         counts = ops.launch_counts()
         routes = check_tc_route(ops, counts, "DiT train_loop", "train_loop")
         print(f"  train_loop ({TRAIN_STEPS} steps, main path): "
-              f"{loop_s:.3f} s, launches {counts}, flash forward by route "
+              f"{loop_s:.3f} s, launches {counts}, flash kernels by route "
               f"{routes}", flush=True)
         want = cfg.num_layers * TRAIN_STEPS
         for name in ("flash_attention_fwd",) + BWD_KERNELS:
@@ -698,7 +756,7 @@ def serve_phase(torch, ops, C, model_fn, sched, solver, layers):
         st = eng.stats()
         print(f"  {label}: wall {wall:.3f} s, {len(frontiers)} refinements "
               f"(frontiers {frontiers}), {eng.init_sweeps} init sweeps, "
-              f"launches {counts} (flash forward by route {routes}); host "
+              f"launches {counts} (flash kernels by route {routes}); host "
               f"fetches {len(fetches)} "
               f"({len(frontiers)} refinements + {len(rep.responses)} "
               f"completions), other host syncs {len(hidden)}; physical "
@@ -946,7 +1004,7 @@ def lm_phase(torch, ops, step, arch, limits):
           f" ms per step over {len(decode_s)} steps (min "
           f"{1e3 * min(decode_s):.2f}), {n_tok} tokens, "
           f"{n_tok / wall:.1f} tokens/s, peak memory {peak:.2f} GB; launches "
-          f"{counts}, flash forward by route {routes}", flush=True)
+          f"{counts}, flash kernels by route {routes}", flush=True)
     print(f"  launches per call: prefill {calls[0][2][kernel]}, decode "
           f"{sorted(set(c[2][kernel] for c in calls[1:]))} ({kernel})",
           flush=True)
@@ -1353,7 +1411,7 @@ def lm_train_phase(torch, ops, step_no, arch):
     routes = check_tc_route(ops, counts, f"{arch} train_loop",
                             f"train_{arch}")
     print(f"  train_loop ({LM_TRAIN_STEPS} steps, main path): {loop_s:.3f} "
-          f"s, launches {counts}, flash forward by route {routes}",
+          f"s, launches {counts}, flash kernels by route {routes}",
           flush=True)
     want = dict.fromkeys(counts, 0)
     want.update(dict.fromkeys(kernels, cfg.num_layers * LM_TRAIN_STEPS))
@@ -1467,11 +1525,13 @@ def masked_flash_cases(torch, ops, ref, randn, cases):
                           rel_lim)
 
 
-def route_label(fa, dtype, d) -> str:
-    """The forward's route for ``dtype`` and head dim ``d``, and its term
-    count on the tensor-core route."""
-    route = fa.fwd_route(dtype, d)
-    return (f"route tc, P in {fa.TC_TERMS} bf16 terms" if route == "tc"
+def route_label(fa, dtype, d, backward=False) -> str:
+    """The forward's (or the backward's) route for ``dtype`` and head dim
+    ``d``, and its term count on the tensor-core route."""
+    route = (fa.bwd_route if backward else fa.fwd_route)(dtype, d)
+    terms = (f"P and dS in {fa.BWD_TC_TERMS}" if backward
+             else f"P in {fa.TC_TERMS}")
+    return (f"route tc, {terms} bf16 terms" if route == "tc"
             else "route simt (f32 FMA)")
 
 
@@ -1610,18 +1670,20 @@ def masked_backward_cases(torch, ref, randn, cases):
             timing = dict(ms=time_ms(fn, reps), plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by,
                           library_ms=library_ms)
-            rel = rel_l2(got, [w.reshape(g.shape)
-                               for g, w in zip(got, ref_out)])
+            rel = bwd_rel_l2(torch, fn, got, ref_out, f"{name} {form}")
             cases[name + "_causal_gqa"].append(check_case(
                 f"{name} {form} {dtype} BH={b * hq} BKV={b * hkv} Sq={sq} "
-                f"Sk={sk} D={d} (rel L2 {rel:.3e}, limit "
-                f"{BWD_MASKED_REL_L2[dtype]})",
+                f"Sk={sk} D={d} ({route_label(fa, tdt, d, backward=True)}; "
+                f"rel L2 {rel:.3e}, limit {BWD_MASKED_REL_L2[dtype]}; two "
+                f"runs bitwise)",
                 torch.cat([g.reshape(-1) for g in got]),
                 torch.cat([w.reshape(-1) for w in ref_out]), atol, rtol,
                 timing))
-            if not rel <= BWD_MASKED_REL_L2[dtype]:
-                raise AssertionError(f"{name} {form}: rel L2 {rel} against "
-                                     f"the plain backward")
+        if d == 128 and window is None:
+            bwd_terms_control(torch, fa, (q3, k3, v3, o3, lse, do3),
+                              [want[0].reshape(q3.shape),
+                               want[1].reshape(k3.shape),
+                               want[2].reshape(v3.shape)], mask)
         del qg, kg, vg, sdpa, want
         torch.cuda.empty_cache()
 
@@ -1691,14 +1753,19 @@ def kernel_phase(torch, ops, ref):
     from repro_torch.kernels import flash_attention as fa
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
-    log = _build.build_log.get("flash_attention_fwd")
-    readings = ptxas_readings(log, "flash_fwd_kernel_tc") if log else []
-    print("  ptxas, flash_fwd_kernel_tc<head dim padded to 16, terms> "
-          "(registers at entry; the consumer warpgroups raise theirs with "
-          "setmaxnreg): " + ("; ".join(
-              f"<{inst}> {regs} registers, spills {st}/{ld} bytes "
-              f"(stores/loads)" for inst, regs, st, ld in readings)
-              if readings else "not rebuilt in this run"), flush=True)
+    for source, kernel in (("flash_attention_fwd", "flash_fwd_kernel_tc"),
+                           ("flash_attention_bwd", "flash_bwd_dq_kernel_tc"),
+                           ("flash_attention_bwd",
+                            "flash_bwd_dkv_kernel_tc")):
+        log = _build.build_log.get(source)
+        readings = ptxas_readings(log, kernel) if log else []
+        print(f"  ptxas, {kernel}<head dim padded to 16, terms> (registers "
+              f"at entry; the consumer warpgroups raise theirs with "
+              f"setmaxnreg, to 240 in the forward, 232 in dq and dkv): "
+              + ("; ".join(
+                  f"<{inst}> {regs} registers, spills {st}/{ld} bytes "
+                  f"(stores/loads)" for inst, regs, st, ld in readings)
+                  if readings else "not rebuilt in this run"), flush=True)
 
     def randn(shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -2020,8 +2087,8 @@ def main() -> int:
                    **{f"train_{a}": c[counter]
                       for a, c in lm_train_counts.items()}}
         extra = ({"tc_launches_by_path": {
-            k: r["flash_attention_fwd_tc"] for k, r in ROUTES_BY_PATH.items()}}
-            if counter == "flash_attention_fwd" else {})
+            k: r[f"{counter}_tc"] for k, r in ROUTES_BY_PATH.items()}}
+            if counter in ("flash_attention_fwd",) + BWD_KERNELS else {})
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=by_path[path_of.get(name, "serve")],

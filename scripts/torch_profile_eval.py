@@ -26,36 +26,19 @@ import os
 import subprocess
 import sys
 import time
-from collections import defaultdict
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src"))
 
 
-# CUPTI reports a stall of the launch queue as an event of its own; it is
-# not a kernel and its time overlaps the kernels'
-_NOT_KERNELS = ("Command Buffer Full",)
-
-
-def _group(name: str) -> str:
-    low = name.lower()
-    if "flash_fwd_kernel" in low:
-        return "flash_attention_fwd (port)"
-    if "flash_bwd_dq_kernel" in low:
-        return "flash_attention_bwd dq (port)"
-    if "flash_bwd_dkv_kernel" in low:
-        return "flash_attention_bwd dkv (port)"
-    if any(k in low for k in ("gemm", "nvjet", "xmma", "cutlass", "sm90_")):
-        return "gemm (cuBLAS)"
-    return "other (elementwise, norms, copies)"
-
-
 def _profiled(fn, reps: int):
     """Run ``fn`` ``reps`` times under the profiler: (wall ms per run,
-    {kernel name: device ms per run})."""
+    {kernel name: device ms per run}, device-side events only, read by
+    ``repro_torch.runtime.profiling``)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime import profiling
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -63,14 +46,7 @@ def _profiled(fn, reps: int):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    by_name = defaultdict(float)
-    for evt in prof.key_averages():
-        # device-side events only: a CPU op's device time repeats the
-        # time of the kernels it launched
-        if evt.device_type != DeviceType.CUDA or evt.key in _NOT_KERNELS:
-            continue
-        by_name[evt.key] += evt.self_device_time_total / 1e3 / reps
-    return wall_ms, by_name
+    return wall_ms, profiling.device_ms_by_name(prof, reps)
 
 
 def _report(groups, by_name, dev_ms):
@@ -81,10 +57,11 @@ def _report(groups, by_name, dev_ms):
 
 
 def _by_group(by_name):
-    groups = defaultdict(float)
-    for name, ms in by_name.items():
-        groups[_group(name)] += ms
-    return groups
+    """Device ms by kernel group: the port's kernels (flash forward, dq,
+    dkv, WKV forward and backward), cuBLAS, the rest
+    (``repro_torch.runtime.profiling.kernel_group``)."""
+    from repro_torch.runtime import profiling
+    return profiling.by_group(by_name)
 
 
 def evals(args, torch, cfg, tree) -> None:

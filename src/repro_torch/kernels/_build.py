@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exports plain C functions (pointers, ints, floats
 and a stream) and becomes its own ``lib<name>-<hash>.so`` for ``sm_90a``
 in :data:`BUILD_DIR` (listed in ``.gitignore``), keyed by a hash of the
-source so an edited kernel is rebuilt.  Nothing is built at import: the
+source and of every header in ``csrc/`` (``*.cuh``, which the sources
+include), so an edited kernel or header is rebuilt.  Nothing is built at import: the
 first launch builds what it needs, and :func:`build_all` builds every
 source in parallel (one ``nvcc`` per file, all started together).
 
@@ -40,8 +41,10 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def sources() -> List[str]:

@@ -64,11 +64,11 @@
 // uses the f32 FMA units: q and k are read from shared memory as float4 so
 // each 16-byte load feeds 4 to 8 FMAs, and the key rows use a stride of
 // D + 4 floats so the 32 lanes' float4 loads hit distinct banks.
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90_tc.cuh"
 
 namespace {
 
@@ -288,6 +288,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 namespace {
 namespace tc {
 
+using namespace sm90;   // TMA, mbarriers, wgmma (sm90_tc.cuh)
+
 constexpr int kBlockM = 128;     // query rows per block: two warpgroups of 64
 constexpr int kBlockN = 64;      // keys per tile
 constexpr int kStages = 2;       // K/V ring
@@ -302,214 +304,6 @@ constexpr float kLn2 = 0.69314718055994531f;
 // the bf16 terms of P on flash_attention_fwd's path (kernels/flash_attention.py
 // reads this line for TC_TERMS)
 constexpr int kTcTerms = 3;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.  A
-// wait that never ends (a copy that never lands) traps, so the launch fails
-// with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-    if (tries == (1u << 24)) __trap();
-  }
-}
-
-// One TMA box of the 3-D map (D, S, heads) into shared memory; completion
-// is counted in bytes on `bar`.  Elements out of bounds arrive as zeros.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor, no swizzle: start address, LBO and SBO
-// in 16-byte units (bits 0-13, 16-29, 32-45), layout type 0 (bits 62-63).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Pins a register's value at this point, so the compiler moves no read of
-// an accumulator above the wait and reuses no A fragment before it.
-__device__ __forceinline__ void pin(float& x) {
-  asm volatile("" : "+f"(x) :: "memory");
-}
-__device__ __forceinline__ void pin(uint32_t& x) {
-  asm volatile("" : "+r"(x) :: "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// (lo, hi) rounded to bf16 and packed, lo in the low half; the values the
-// packed pair stands for are subtracted from (lo, hi).
-__device__ __forceinline__ uint32_t take_bf16x2(float& lo, float& hi) {
-  __nv_bfloat162 b = __floats2bfloat162_rn(lo, hi);
-  uint32_t u = *reinterpret_cast<uint32_t*>(&b);
-  lo -= __uint_as_float(u << 16);
-  hi -= __uint_as_float(u & 0xFFFF0000u);
-  return u;
-}
-
-#define WG_F8(i)                                                        \
-  "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]),  \
-      "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
-#define WG_Z8(i)                                                        \
-  "=f"(d[(i)]), "=f"(d[(i) + 1]), "=f"(d[(i) + 2]), "=f"(d[(i) + 3]),  \
-      "=f"(d[(i) + 4]), "=f"(d[(i) + 5]), "=f"(d[(i) + 6]), "=f"(d[(i) + 7])
-
-// The wgmma instructions (bf16 in, f32 accumulate): `wgmma_ss_n64`, S of
-// 64 rows x 64 keys with A (Q) and B (K) K-major in shared memory;
-// `wgmma_rs`, O (64 x N) with A a bf16 fragment in registers (the
-// accumulator's layout) and B (V, keys x N) MN-major in shared memory.
-// Each adds to its accumulator; the `_zero` forms overwrite it (scale-d
-// false), so the accumulator is write-only there and not live before.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-    uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_ss_n64_zero(float (&d)[32], uint64_t da,
-    uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_Z8(0), WG_Z8(8), WG_Z8(16), WG_Z8(24)
-      : "l"(da), "l"(db), "r"(0));
-}
-
-// wgmma_rs and wgmma_rs_zero for N = 16 K (K = 1..8): the accumulator's
-// N / 2 registers are operands 0 .. N/2 - 1 (WG_D##K, WG_OUT##K), then the
-// four A registers A0..A3, V's descriptor B and the scale-d flag P.
-#define WG_D1 "%0, %1, %2, %3, %4, %5, %6, %7"
-#define WG_D2 WG_D1 ", %8, %9, %10, %11, %12, %13, %14, %15"
-#define WG_D3 WG_D2 ", %16, %17, %18, %19, %20, %21, %22, %23"
-#define WG_D4 WG_D3 ", %24, %25, %26, %27, %28, %29, %30, %31"
-#define WG_D5 WG_D4 ", %32, %33, %34, %35, %36, %37, %38, %39"
-#define WG_D6 WG_D5 ", %40, %41, %42, %43, %44, %45, %46, %47"
-#define WG_D7 WG_D6 ", %48, %49, %50, %51, %52, %53, %54, %55"
-#define WG_D8 WG_D7 ", %56, %57, %58, %59, %60, %61, %62, %63"
-#define WG_OUT1(M) M(0)
-#define WG_OUT2(M) WG_OUT1(M), M(8)
-#define WG_OUT3(M) WG_OUT2(M), M(16)
-#define WG_OUT4(M) WG_OUT3(M), M(24)
-#define WG_OUT5(M) WG_OUT4(M), M(32)
-#define WG_OUT6(M) WG_OUT5(M), M(40)
-#define WG_OUT7(M) WG_OUT6(M), M(48)
-#define WG_OUT8(M) WG_OUT7(M), M(56)
-#define WG_RS_ASM(K, N, A0, A1, A2, A3, B, P, OUT, SCALE_D)                \
-  asm volatile(                                                            \
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                     \
-      "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 "          \
-      "{" WG_D##K "}, "                                                    \
-      "{%" #A0 ", %" #A1 ", %" #A2 ", %" #A3 "}, %" #B ", p, 1, 1, 1;\n}\n" \
-      : WG_OUT##K(OUT)                                                     \
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(SCALE_D))
-#define WG_RS(K, N, A0, A1, A2, A3, B, P)                                  \
-  __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],              \
-      const uint32_t (&a)[4], uint64_t db) {                               \
-    WG_RS_ASM(K, N, A0, A1, A2, A3, B, P, WG_F8, 1);                       \
-  }                                                                        \
-  __device__ __forceinline__ void wgmma_rs_zero(float (&d)[N / 2],         \
-      const uint32_t (&a)[4], uint64_t db) {                               \
-    WG_RS_ASM(K, N, A0, A1, A2, A3, B, P, WG_Z8, 0);                       \
-  }
-WG_RS(1, 16, 8, 9, 10, 11, 12, 13)
-WG_RS(2, 32, 16, 17, 18, 19, 20, 21)
-WG_RS(3, 48, 24, 25, 26, 27, 28, 29)
-WG_RS(4, 64, 32, 33, 34, 35, 36, 37)
-WG_RS(5, 80, 40, 41, 42, 43, 44, 45)
-WG_RS(6, 96, 48, 49, 50, 51, 52, 53)
-WG_RS(7, 112, 56, 57, 58, 59, 60, 61)
-WG_RS(8, 128, 64, 65, 66, 67, 68, 69)
-#undef WG_RS
-#undef WG_RS_ASM
-#undef WG_D1
-#undef WG_D2
-#undef WG_D3
-#undef WG_D4
-#undef WG_D5
-#undef WG_D6
-#undef WG_D7
-#undef WG_D8
-#undef WG_OUT1
-#undef WG_OUT2
-#undef WG_OUT3
-#undef WG_OUT4
-#undef WG_OUT5
-#undef WG_OUT6
-#undef WG_OUT7
-#undef WG_OUT8
-#undef WG_F8
-#undef WG_Z8
 
 // Dynamic shared memory of a block: Q (DP/8 column chunks of 128 rows x 16
 // bytes), then the K ring and the V ring (DP/8 chunks of 64 rows x 16 bytes
@@ -624,16 +418,10 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
       const uint32_t k_addr = smem_u32(sk + s * L::kTileBytes);
       float sc[32];
       wg_fence();
-      wgmma_ss_n64_zero(sc, desc(q_addr, kBlockM * 16, 128),
-                        desc(k_addr, kBlockN * 16, 128));
-#pragma unroll
-      for (int ks = 1; ks < DP / 16; ++ks)
-        wgmma_ss_n64(sc, desc(q_addr + ks * 2 * kBlockM * 16, kBlockM * 16, 128),
-                     desc(k_addr + ks * 2 * kBlockN * 16, kBlockN * 16, 128));
+      wgmma_scores<DP>(sc, q_addr, kBlockM, k_addr, kBlockN);
       wg_commit();
       wg_wait_all();
-#pragma unroll
-      for (int j = 0; j < 32; ++j) pin(sc[j]);
+      pin_all(sc);
 
       // scale (log2 units) and mask: NEG_INF past Sk, above the causal
       // diagonal, outside the window; only tiles that need it are masked
@@ -674,16 +462,7 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
       // P as TERMS bf16 terms: hi = bf16(p), mid = bf16(p - hi), ...; the
       // S accumulator's layout is the A fragment's (4 registers per k16)
       uint32_t pa[TERMS][4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          float lo = sc[8 * kk + 2 * r], hi = sc[8 * kk + 2 * r + 1];
-#pragma unroll
-          for (int term = 0; term < TERMS; ++term)
-            pa[term][kk][r] = take_bf16x2(lo, hi);
-        }
-      }
+      split_terms(pa, sc);
 
       // the tile's P V = sum over terms of term V (keys kk * 16 .. + 15),
       // into a fresh accumulator, smallest terms first: the tensor cores'
@@ -705,8 +484,7 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
       }
       wg_commit();
       wg_wait_all();
-#pragma unroll
-      for (int j = 0; j < DP / 2; ++j) pin(pv[j]);
+      pin_all(pv);
 #pragma unroll
       for (int term = 0; term < TERMS; ++term)
 #pragma unroll
@@ -741,44 +519,6 @@ flash_fwd_kernel_tc(const __grid_constant__ CUtensorMap map_q,
       lse[static_cast<size_t>(bh) * Sq + rr] =
           l_row == 0.f ? kNegInf : (m[r] + log2f(l_row)) * kLn2;
   }
-}
-
-PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }
-  return fn;
-}
-
-// The (D, S, heads) bf16 tensor as a TMA map of (8, rows, 1) boxes: one box
-// is a 16-byte column chunk of `rows` rows, which lands in shared memory as
-// rows x 16 contiguous bytes, wgmma's no-swizzle core-matrix layout.
-bool make_map(CUtensorMap* map, const void* ptr, int d, int s, int heads,
-              int rows) {
-  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_fn();
-  if (encode == nullptr) return false;
-  cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(s),
-                        static_cast<cuuint64_t>(heads)};
-  cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                           static_cast<cuuint64_t>(s) * d * 2};
-  cuuint32_t box[3] = {8, static_cast<cuuint32_t>(rows), 1};
-  cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DP, int TERMS>

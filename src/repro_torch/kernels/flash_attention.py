@@ -1,15 +1,15 @@
 """Flash attention forward and backward: the CUDA C++ kernels' wrappers.
 
 Counterparts of ``repro.kernels.flash_attention.flash_attention_fwd``
-(``_fwd_kernel``, in ``csrc/flash_attention_fwd.cu``: bf16 with a head dim
-that is a multiple of 8 on the tensor cores, f32 and other bf16 head dims
-on the f32 FMA units) and
+(``_fwd_kernel``, in ``csrc/flash_attention_fwd.cu``) and
 ``flash_attention_bwd`` (``_dq_kernel`` and ``_dkv_kernel``, in
-``csrc/flash_attention_bwd.cu``).  The forward takes every form of the
-JAX kernel: non-causal (the DiT), causal and sliding-window masks with
-right-aligned query positions, and grouped-query attention (the language
-models).  So does the backward: the DiT trains through its non-causal
-form, the language models through its causal GQA form.  ``dk`` and ``dv``
+``csrc/flash_attention_bwd.cu``).  Each direction has two routes: bf16
+with a head dim that is a multiple of 8 runs on the tensor cores (wgmma
+fed by a TMA ring, P, and in the backward dS, written as bf16 terms so
+the products keep f32 precision); f32 and other bf16 head dims run on the
+f32 FMA units.  Both take every form of the JAX kernels: non-causal (the
+DiT), causal and sliding-window masks with right-aligned query positions,
+and grouped-query attention (the language models).  ``dk`` and ``dv``
 come back in the KV heads' layout, the group summed in f32 inside the
 kernel (JAX sums per-query-head partials in its wrapper).
 """
@@ -29,21 +29,25 @@ _FWD_SIGNATURE = {
     "flash_attention_fwd": ((_P,) * 5 + (_I,) * 7 + (_F, _I, _P), _I),
     "flash_attention_fwd_terms": ((_P,) * 5 + (_I,) * 7 + (_F, _I, _P), _I),
     "flash_attention_fwd_route": ((_I, _I), _I)}
-ROUTES = {1: "tc", 0: "simt"}      # the forward's kernels, by C route code
+ROUTES = {1: "tc", 0: "simt"}      # each direction's kernels, by C route code
 
 
-def _tc_terms() -> int:
-    """``kTcTerms`` of ``csrc/flash_attention_fwd.cu``, read from the source
-    (no build needed): the bf16 terms of P in the tensor-core kernel."""
-    src = (_build.CSRC / "flash_attention_fwd.cu").read_text()
-    return int(re.search(r"constexpr int kTcTerms = (\d+);", src).group(1))
+def _tc_terms(source: str, constant: str) -> int:
+    """A term count of a tensor-core kernel, read from ``csrc/<source>.cu``
+    (no build needed)."""
+    src = (_build.CSRC / f"{source}.cu").read_text()
+    return int(re.search(rf"constexpr int {constant} = (\d+);",
+                         src).group(1))
 
 
-TC_TERMS = _tc_terms()
+TC_TERMS = _tc_terms("flash_attention_fwd", "kTcTerms")        # P, forward
+BWD_TC_TERMS = _tc_terms("flash_attention_bwd", "kBwdTerms")   # P and dS
 
 _BWD_SIGNATURE = {
     "flash_attention_bwd_dq": ((_P,) * 7 + (_I,) * 7 + (_F, _I, _P), _I),
-    "flash_attention_bwd_dkv": ((_P,) * 8 + (_I,) * 7 + (_F, _I, _P), _I)}
+    "flash_attention_bwd_dkv": ((_P,) * 8 + (_I,) * 7 + (_F, _I, _P), _I),
+    "flash_attention_bwd_terms": ((_P,) * 9 + (_I,) * 7 + (_F, _I, _P), _I),
+    "flash_attention_bwd_route": ((_I, _I), _I)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 HEAD_DIM_MULTIPLE = 4
@@ -175,23 +179,9 @@ def flash_attention_fwd_terms(q: torch.Tensor, k: torch.Tensor,
     return o, lse
 
 
-def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                        *, causal: bool = False,
-                        window: Optional[int] = None,
-                        scale: Optional[float] = None):
-    """Gradients of flash attention: ``(dq (BH, Sq, D), dk, dv (BKV, Sk,
-    D))``, in q's dtype, with ``causal`` and ``window`` as the forward
-    took them.
-
-    q, o, do: (BH, Sq, D); k, v: (BKV, Sk, D) with BH a multiple of BKV;
-    lse: the forward's (BH, Sq) f32 logsumexp; all on one CUDA device.
-    ``delta = rowsum(dO * O)`` is a plain f32 reduction here, outside the
-    kernels, as the JAX version computes it outside its Pallas calls.
-    Launches the dq kernel and the dkv kernel once each, counted in
-    ``flash_attention_bwd_dq.launches`` and
-    ``flash_attention_bwd_dkv.launches``.
-    """
+def _bwd_args(q, k, v, o, lse, do, window, scale):
+    """Checked, contiguous operands of one backward, its scale and
+    ``delta = rowsum(dO * O)`` (f32)."""
     d, _ = _check(q, k, v, "flash attention backward")
     _check_window(window)
     if o.shape != q.shape or do.shape != q.shape:
@@ -209,39 +199,79 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = lse.contiguous()
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(d)
     delta = (do.float() * o.float()).sum(dim=-1)
+    return q, k, v, do, lse, delta, scale
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = False,
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None):
+    """Gradients of flash attention: ``(dq (BH, Sq, D), dk, dv (BKV, Sk,
+    D))``, in q's dtype, with ``causal`` and ``window`` as the forward
+    took them.
+
+    q, o, do: (BH, Sq, D); k, v: (BKV, Sk, D) with BH a multiple of BKV;
+    lse: the forward's (BH, Sq) f32 logsumexp; all on one CUDA device.
+    ``delta = rowsum(dO * O)`` is a plain f32 reduction here, outside the
+    kernels, as the JAX version computes it outside its Pallas calls.
+    Launches the dq kernel and the dkv kernel once each, counted in
+    ``flash_attention_bwd_dq.launches`` and
+    ``flash_attention_bwd_dkv.launches`` and by their route
+    (:func:`bwd_route`) in their ``route_launches``.
+    """
+    q, k, v, do, lse, delta, scale = _bwd_args(q, k, v, o, lse, do, window,
+                                               scale)
     mask = dict(causal=causal, window=window)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, **mask)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, **mask)
     return dq, dk, dv
 
 
+def bwd_route(dtype: torch.dtype, d: int) -> str:
+    """The kernels :func:`flash_attention_bwd` launches for ``dtype`` and
+    head dim ``d``: ``"tc"`` (tensor cores: bf16, ``d % 8 == 0``) or
+    ``"simt"`` (f32 FMA units), as the C entry points decide."""
+    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURE)
+    return ROUTES[lib.flash_attention_bwd_route(_DTYPES[dtype], d)]
+
+
 def _launch(fn: str, args, q: torch.Tensor, k: torch.Tensor, scale: float,
-            causal: bool, window: Optional[int]) -> None:
+            causal: bool, window: Optional[int], mode: int,
+            tc: bool) -> None:
+    """One call of C function ``fn`` on ``args`` (tensors); ``mode`` is its
+    dtype code or, for the terms entry point, the term count; ``tc``: the
+    tensor-core route, whose TMA maps need 16-byte aligned operands."""
     bh, sq, d = q.shape
+    if tc:
+        args = [_aligned(t) if i < 6 else t for i, t in enumerate(args)]
     lib = _build.load("flash_attention_bwd", _BWD_SIGNATURE)
     with torch.cuda.device(q.device):
         code = getattr(lib, fn)(*(t.data_ptr() for t in args), bh, sq,
                                 k.shape[1], d, bh // k.shape[0], int(causal),
-                                window or 0, scale, _DTYPES[q.dtype],
-                                _stream(q.device))
+                                window or 0, scale, mode, _stream(q.device))
     _build.check(lib, code, fn)
+
+
+def _count(wrapper, route: str) -> None:
+    wrapper.launches += 1
+    wrapper.route_launches[route] += 1
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float, *,
                            causal: bool = False,
                            window: Optional[int] = None):
     """dq (BH, Sq, D) from contiguous, checked operands: one launch of the
-    dq kernel, counted in ``flash_attention_bwd_dq.launches``."""
-    bh, sq, _ = q.shape
+    dq kernel, counted in ``flash_attention_bwd_dq.launches`` and by
+    route."""
+    bh, sq, d = q.shape
     dq = torch.empty_like(q)
     if bh and sq:
+        route = bwd_route(q.dtype, d)
         _launch("flash_attention_bwd_dq", (q, k, v, do, lse, delta, dq), q, k,
-                scale, causal, window)
-        flash_attention_bwd_dq.launches += 1
+                scale, causal, window, _DTYPES[q.dtype], route == "tc")
+        _count(flash_attention_bwd_dq, route)
     return dq
-
-
-flash_attention_bwd_dq.launches = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float, *,
@@ -249,13 +279,42 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float, *,
                             window: Optional[int] = None):
     """(dk, dv), each (BKV, Sk, D) with the GQA group summed, from
     contiguous, checked operands: one launch of the dkv kernel, counted
-    in ``flash_attention_bwd_dkv.launches``."""
+    in ``flash_attention_bwd_dkv.launches`` and by route."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if k.shape[0] and k.shape[1]:     # with Sq == 0 the kernel stores zeros
+        route = bwd_route(q.dtype, q.shape[2])
         _launch("flash_attention_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
-                q, k, scale, causal, window)
-        flash_attention_bwd_dkv.launches += 1
+                q, k, scale, causal, window, _DTYPES[q.dtype], route == "tc")
+        _count(flash_attention_bwd_dkv, route)
     return dk, dv
 
 
-flash_attention_bwd_dkv.launches = 0
+for _wrapper in (flash_attention_bwd_dq, flash_attention_bwd_dkv):
+    _wrapper.launches = 0
+    _wrapper.route_launches = dict.fromkeys(ROUTES.values(), 0)
+
+
+def flash_attention_bwd_terms(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor,
+                              terms: int, *, causal: bool = False,
+                              window: Optional[int] = None,
+                              scale: Optional[float] = None):
+    """The tensor-core dq and dkv kernels with P and dS written as
+    ``terms`` bf16 terms, for bf16 operands with a head dim that is a
+    multiple of 8: :data:`BWD_TC_TERMS` is :func:`flash_attention_bwd`'s;
+    1 and 3 exist for head dims 65-80 and 113-128 only, as controls of the
+    numerics (P and dS rounded once to bf16 must miss the backward's
+    limit).  Returns ``(dq, dk, dv)`` as :func:`flash_attention_bwd`; no
+    model's path calls it, and it counts no launch."""
+    if q.dtype != torch.bfloat16 or q.shape[-1] % 8:
+        raise ValueError("the tensor-core kernels take bf16 operands with a "
+                         "head dim that is a multiple of 8")
+    q, k, v, do, lse, delta, scale = _bwd_args(q, k, v, o, lse, do, window,
+                                               scale)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.shape[0] and q.shape[1] and k.shape[1]:
+        _launch("flash_attention_bwd_terms",
+                (q, k, v, do, lse, delta, dq, dk, dv), q, k, scale, causal,
+                window, int(terms), True)
+    return dq, dk, dv

@@ -27,7 +27,10 @@ bf16 with a head dim that is a multiple of 8 the forward runs on the
 tensor cores (every ATTN_CASES and MASKED_CASES shape, by its route count),
 with P as three bf16 terms: within 1e-4 rel L2 of the plain version at a
 causal GQA shape and at the DiT's, where P rounded once to bf16 misses
-that limit.
+that limit.  So does the backward (dq and dkv), with P and dS as two bf16
+terms: dq and (dk, dv) within 1e-3 rel L2 of the plain backward
+(chip_smoke's ``BWD_MASKED_REL_L2``), where P and dS rounded once to bf16
+miss it; each output tile has one owner, so two runs are bitwise equal.
 """
 import numpy as np
 import pytest
@@ -673,3 +676,115 @@ def test_reduced_lm_grads_on_card_equal_plain_path(cuda, arch):
     for g, w in zip(got, want):
         rel = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
         assert rel <= 1e-4
+
+
+# the tensor-core backward (bf16, head dim a multiple of 8): rel L2 of dq
+# and of (dk, dv) against the plain backward, chip_smoke.BWD_MASKED_REL_L2
+TC_BWD_REL_L2 = 1e-3
+# (B, Hq, Hkv, Sq, Sk, D, mask): Sq past two tiles with group 4 at qwen3's
+# head dim (a head's rows start off a 16-byte boundary: Sq % 4 == 2), a
+# ragged window with group 4, ragged non-causal at the DiT's head dim, the
+# smallest head dim
+TC_BWD_CASES = [(1, 8, 2, 330, 330, 128, dict(causal=True)),
+                (2, 4, 1, 200, 333, 64, dict(causal=True, window=50)),
+                (1, 4, 4, 77, 100, 72, dict(causal=False)),
+                (1, 2, 2, 64, 64, 16, dict(causal=False))]
+# P and dS in bf16 terms at a causal GQA shape with qwen3-8b's head dim and
+# a non-causal one with the DiT's (72, padded to 80): one term reads about
+# 2.6e-3 and must miss TC_BWD_REL_L2
+BWD_TERMS_CASES = [(1, 8, 2, 512, 512, 128, dict(causal=True)),
+                   (1, 16, 16, 1024, 1024, 72, dict(causal=False))]
+
+
+def _bwd_inputs(cuda, case, dtype="bfloat16"):
+    """(B, H, S, D) q, k, v, dO; their (BH, S, D) views; the forward's o and
+    lse; and the plain backward's (dq, dk, dv) in the kernels' layout."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    b, hq, hkv, sq, sk, d, mask = case
+    q, k, v = _masked_qkv(cuda, case, dtype)
+    do = torch.from_numpy(_rand(9, (b, hq, sq, d))).to(cuda, DTYPES[dtype])
+    q3, do3 = (t.reshape(b * hq, sq, d) for t in (q, do))
+    k3, v3 = (t.reshape(b * hkv, sk, d) for t in (k, v))
+    o3, lse = flash_attention_fwd(q3, k3, v3, **mask)
+    want = ref.attention_bwd(q, k, v, o3.view(q.shape), lse.view(b, hq, sq),
+                             do, **mask)
+    want = [w.reshape(x.shape) for w, x in zip(want, (q3, k3, v3))]
+    return (q3, k3, v3, o3, lse, do3), want
+
+
+def _rel(got, want):
+    num = sum(float((g.float() - w.float()).square().sum())
+              for g, w in zip(got, want))
+    return (num / sum(float(w.float().square().sum()) for w in want)) ** 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TC_BWD_CASES, ids=str)
+def test_flash_bwd_tc_kernels_rel_l2_on_card(cuda, case):
+    """bf16 with a head dim that is a multiple of 8 launches the tensor-core
+    dq and dkv kernels (their route counts), within TC_BWD_REL_L2 of the
+    plain backward over dq and over (dk, dv)."""
+    from repro_torch.kernels import flash_attention as fa
+    args, want = _bwd_inputs(cuda, case)
+    assert fa.bwd_route(torch.bfloat16, case[5]) == "tc"
+    before = ops.route_counts()
+    dq, dk, dv = fa.flash_attention_bwd(*args, **case[-1])
+    torch.cuda.synchronize()
+    after = ops.route_counts()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[f"{name}_tc"] == before[f"{name}_tc"] + 1
+        assert after[f"{name}_simt"] == before[f"{name}_simt"]
+    assert _rel([dq], want[:1]) <= TC_BWD_REL_L2
+    assert _rel([dk, dv], want[1:]) <= TC_BWD_REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 36), ("float32", 64)])
+def test_flash_bwd_simt_route_on_card(cuda, dtype, d):
+    """f32, and bf16 with a head dim that is not a multiple of 8, take the
+    f32-FMA dq and dkv kernels (their route counts)."""
+    from repro_torch.kernels import flash_attention as fa
+    case = (1, 4, 2, 70, 90, d, dict(causal=True))
+    args, want = _bwd_inputs(cuda, case, dtype)
+    assert fa.bwd_route(DTYPES[dtype], d) == "simt"
+    before = ops.route_counts()
+    got = fa.flash_attention_bwd(*args, causal=True)
+    torch.cuda.synchronize()
+    after = ops.route_counts()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[f"{name}_simt"] == before[f"{name}_simt"] + 1
+        assert after[f"{name}_tc"] == before[f"{name}_tc"]
+    limit = TC_BWD_REL_L2 if dtype == "bfloat16" else GRAD_F32_TOL
+    assert _rel(got[:1], want[:1]) <= limit
+    assert _rel(got[1:], want[1:]) <= limit
+
+
+@pytest.mark.cuda
+def test_flash_bwd_tc_is_bitwise_deterministic_on_card(cuda):
+    """Two tensor-core backwards of one input (group 4, head dim 128: the
+    dkv kernel's two-pass form with its promoted sums) give the same bits:
+    each output tile has one owner and sums in a fixed order."""
+    from repro_torch.kernels import flash_attention as fa
+    args, _ = _bwd_inputs(cuda, TC_BWD_CASES[0])
+    first = fa.flash_attention_bwd(*args, causal=True)
+    second = fa.flash_attention_bwd(*args, causal=True)
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_TERMS_CASES, ids=str)
+def test_flash_bwd_tc_terms_control_on_card(cuda, case):
+    """The kernels' bf16 terms of P and dS meet TC_BWD_REL_L2 over dq and
+    over (dk, dv); P and dS rounded once to bf16 miss it on both (the
+    control), and the terms' entry point at the kernels' count is the main
+    one bitwise."""
+    from repro_torch.kernels import flash_attention as fa
+    args, want = _bwd_inputs(cuda, case)
+    rel = {}
+    for terms in (1, fa.BWD_TC_TERMS):
+        got = fa.flash_attention_bwd_terms(*args, terms, **case[-1])
+        rel[terms] = (_rel(got[:1], want[:1]), _rel(got[1:], want[1:]))
+    main = fa.flash_attention_bwd(*args, **case[-1])
+    assert all(torch.equal(a, b) for a, b in zip(got, main))
+    assert max(rel[fa.BWD_TC_TERMS]) <= TC_BWD_REL_L2 < min(rel[1]), rel

@@ -268,6 +268,76 @@ def test_tc_forward_numerics_model_against_jax_oracle(case):
     assert rel[TC_TERMS] <= TC_REL_L2 < rel[1], rel
 
 
+def _tc_backward_model(q, k, v, do, terms, *, causal, window=None):
+    """The tensor-core backward's arithmetic in plain PyTorch (bf16
+    operands): S and dP in f32 from the exact bf16 products, p = exp(s *
+    scale - lse) in f32 (0 where masked), ds = p (dp - delta) scale, then
+    P and dS each written as ``terms`` bf16 terms (hi = bf16(x), lo =
+    bf16(x - hi), ...) whose products with dO, Q and K are summed in f32;
+    dq, dk and dv (the group summed) rounded to bf16.  o and lse come from
+    the f32 forward, so only the terms differ from exact arithmetic."""
+    hq, sq, d = q.shape[1], q.shape[2], q.shape[3]
+    b, hkv, sk = k.shape[0], k.shape[1], k.shape[2]
+    group = hq // hkv
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    o, lse = ref.attention(qf, kf, vf, causal=causal, window=window)
+    kf = kf.repeat_interleave(group, dim=1)
+    vf = vf.repeat_interleave(group, dim=1)
+    scale = 1.0 / np.sqrt(d)
+    keep = ref._keep(sq, sk, causal, window, q.device)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    p = torch.where(keep, torch.exp(s * scale - lse[..., None]), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - (dof * o).sum(-1, keepdim=True)) * scale
+
+    def in_terms(x):
+        out, rest = torch.zeros_like(x), x
+        for _ in range(terms):
+            term = rest.bfloat16().float()
+            out, rest = out + term, rest - term
+        return out
+
+    p, ds = in_terms(p), in_terms(ds)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dk = dk.reshape(b, hkv, group, sk, d).sum(dim=2)
+    dv = dv.reshape(b, hkv, group, sk, d).sum(dim=2)
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+TC_BWD_REL_L2 = 1e-3      # chip_smoke.BWD_MASKED_REL_L2["bfloat16"]
+
+
+@pytest.mark.parametrize("case", TC_MODEL_CASES, ids=str)
+def test_tc_backward_numerics_model_against_jax_oracle(case):
+    """The premise of the tensor-core backward, on the CPU: with P and dS
+    as the kernels' ``BWD_TC_TERMS`` bf16 terms, dq and (dk, dv) (bf16)
+    are within 1e-3 rel L2 of the JAX oracle's gradients on the same bf16
+    inputs; with P and dS rounded once to bf16 both miss that limit (the
+    CPU half of chip_smoke's phase-3 control)."""
+    from repro_torch.kernels.flash_attention import BWD_TC_TERMS
+    b, hq, hkv, sq, sk, d, mask = case
+    (qt, qj), (kt, kj), (vt, vj), (dot, doj) = (
+        _both(_rand(i, (b, h, s, d)), "bfloat16")
+        for i, (h, s) in enumerate(((hq, sq), (hkv, sk), (hkv, sk),
+                                    (hq, sq))))
+    f32 = [jnp.asarray(x, jnp.float32) for x in (qj, kj, vj, doj)]
+    _, vjp = jax.vjp(lambda q, k, v: jref.attention(q, k, v, **mask),
+                     *f32[:3])
+    want = [_np(jnp.asarray(g, jnp.bfloat16)) for g in vjp(f32[3])]
+
+    def rel(got, ref_):
+        num = sum(float(np.sum((_np(g) - w) ** 2)) for g, w in zip(got, ref_))
+        return np.sqrt(num / sum(float(np.sum(w ** 2)) for w in ref_))
+
+    rels = {}
+    for terms in (1, BWD_TC_TERMS):
+        got = _tc_backward_model(qt, kt, vt, dot, terms, **mask)
+        rels[terms] = (rel(got[:1], want[:1]), rel(got[1:], want[1:]))
+    assert max(rels[BWD_TC_TERMS]) <= TC_BWD_REL_L2 < min(rels[1]), rels
+
+
 # --------------------------------------------------------------------------
 # fused DDIM update
 # --------------------------------------------------------------------------
@@ -546,13 +616,18 @@ def test_cpu_dispatch_launches_no_kernel():
                                    "rwkv6_wkv": 0,
                                    "rwkv6_wkv_bwd": 0}
     assert ops.route_counts() == {"flash_attention_fwd_tc": 0,
-                                  "flash_attention_fwd_simt": 0}
+                                  "flash_attention_fwd_simt": 0,
+                                  "flash_attention_bwd_dq_tc": 0,
+                                  "flash_attention_bwd_dq_simt": 0,
+                                  "flash_attention_bwd_dkv_tc": 0,
+                                  "flash_attention_bwd_dkv_simt": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_unported_forms():
     from repro_torch.kernels import elementwise, rwkv6_scan
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd, flash_attention_fwd, flash_attention_fwd_terms)
+        flash_attention_bwd, flash_attention_bwd_terms, flash_attention_fwd,
+        flash_attention_fwd_terms)
     x = torch.ones(2, 16, 8)
     with pytest.raises(ValueError, match="CUDA"):
         elementwise.ddim_fused(x, x, torch.tensor(0.5), torch.tensor(0.6))
@@ -575,6 +650,15 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_unported_forms():
                                   1, causal=True)
     with pytest.raises(ValueError, match="multiple of 8"):
         flash_attention_fwd_terms(x, x, x, 3)
+    lse2 = torch.zeros(2, 16)
+    xb = x.bfloat16()
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd_terms(xb, xb, xb, xb, lse2, xb, 1, causal=True)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention_bwd_terms(x, x, x, x, lse2, x, 2)
+    xd = torch.ones(2, 16, 12, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention_bwd_terms(xd, xd, xd, xd, lse2, xd, 2)
     r = x.reshape(1, 2, 16, 8)
     with pytest.raises(ValueError, match="CUDA"):
         rwkv6_scan.rwkv6_wkv(r, r, r, r, torch.ones(2, 8),
@@ -596,6 +680,32 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_unported_forms():
     with pytest.raises(ValueError, match="CUDA"):
         rwkv6_scan.rwkv6_wkv_bwd(r, r, r, r, torch.ones(2, 8),
                                  torch.zeros(1, 2, 1, 8, 8), r)
+
+
+def test_build_key_covers_the_shared_header(tmp_path, monkeypatch):
+    """Each source's library is keyed by its own text and by every header
+    in csrc/ (the flash kernels include sm90_tc.cuh): editing the header
+    changes both flash libraries' keys, so no stale library is loaded;
+    editing one source changes only its own key."""
+    import shutil
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    names = ("flash_attention_fwd", "flash_attention_bwd")
+    before = {n: _build._target(n) for n in names}
+    assert before == {n: _build._target(n) for n in names}
+    header = csrc / "sm90_tc.cuh"
+    assert all('#include "sm90_tc.cuh"' in (csrc / f"{n}.cu").read_text()
+               for n in names)
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _build._target(n) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    src = csrc / "flash_attention_bwd.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    edited = {n: _build._target(n) for n in names}
+    assert edited["flash_attention_bwd"] != after["flash_attention_bwd"]
+    assert edited["flash_attention_fwd"] == after["flash_attention_fwd"]
 
 
 def test_build_targets_sources_by_hash(monkeypatch):
