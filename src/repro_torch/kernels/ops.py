@@ -179,7 +179,8 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :class:`RWKV6WKV`; ``use_kernel=False`` is the plain
     :func:`ref.rwkv6_wkv`, differentiated by autograd.  The JAX wrapper's
     TPU tuning knobs (``chunk``, ``tuner``, ``plat``) have no counterpart:
-    the kernel streams all T steps in one block per batch x head."""
+    each of the kernel's blocks streams all T steps of its part of one
+    batch x head's state."""
     if state is None:
         b, h, _, dk = r.shape
         state = torch.zeros((b, h, dk, v.shape[-1]), dtype=torch.float32,

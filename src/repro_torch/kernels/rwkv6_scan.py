@@ -3,18 +3,27 @@ wrappers.
 
 The forward is the counterpart of
 ``repro.kernels.rwkv6_scan.rwkv6_wkv_pallas`` (TPU body ``_wkv_kernel``),
-in ``csrc/rwkv6_wkv.cu``: one block per batch x head carries the f32
-(Dk, Dv) state across all T steps, one thread per state column.  Like the
-JAX kernel it is the sequential recurrence (the chunked-parallel form's
-decay ratios overflow f32).  For a gradient it also writes the state at
-the start of every chunk of :func:`chunk` steps.
+in ``csrc/rwkv6_wkv.cu``: the f32 (Dk, Dv) state of a batch x head is
+split by columns over blocks of 32 columns, each of which carries its
+columns across all T steps.  Like the JAX kernel it is the sequential
+recurrence (the chunked-parallel form's decay ratios overflow f32).  For a
+gradient it also writes the state at the start of every chunk of
+:func:`chunk` steps.
 
 The backward has no Pallas counterpart: JAX differentiates its oracle
-(``repro.kernels.ops._wkv_bwd``).  Its kernel, in the same source, walks
-back chunk by chunk, recomputing each chunk's states from the forward's
-checkpoint, one thread per state row; ``du`` comes out as per-(batch,
-head) partials that :func:`rwkv6_wkv_bwd` sums over the batch in a fixed
-order, so two runs are bitwise equal.
+(``repro.kernels.ops._wkv_bwd``).  Its kernel, in the same source, splits
+the state by rows over 4 blocks of 16 rows per batch x head and walks back
+chunk by chunk, recomputing each chunk's states from the forward's
+checkpoint; each row block writes its part of ``dv`` as f32, and a second
+kernel sums the 4 parts in a fixed order and rounds ``dv`` once.  ``du``
+comes out as per-(batch, head) partials that
+:func:`rwkv6_wkv_bwd` sums over the batch in a fixed order, so two runs
+are bitwise equal.
+
+The kernels take head dims that are multiples of 8 (rows of 16 bytes or
+more, for their bulk copies) and 16-byte aligned operands: the wrappers
+pad other head dims with zeros and slice the results back, which changes
+no value (a zero row or column of r, k, v and the state stays zero).
 """
 from __future__ import annotations
 
@@ -27,12 +36,16 @@ from . import _build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURE = {"rwkv6_wkv_fwd": ((_P,) * 9 + (_I,) * 6 + (_P,), _I),
-              "rwkv6_wkv_bwd": ((_P,) * 15 + (_I,) * 7 + (_P,), _I),
-              "rwkv6_wkv_chunk": ((), _I)}
+              "rwkv6_wkv_bwd": ((_P,) * 15 + (_I,) * 6 + (_P,), _I),
+              "rwkv6_wkv_chunk": ((), _I),
+              "rwkv6_wkv_launch_info": ((_I,) * 4 + (ctypes.POINTER(_I),),
+                                        _I)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_DK = 64
 MAX_DV = 128
-MAX_DV_BWD = 64          # the backward keeps a row of S and of G per thread
+MAX_DV_BWD = 64          # the backward's row blocks hold whole rows
+_MULTIPLE = 8            # the kernels' head dims: multiples of 8
+_ROW_GROUPS = 4          # the backward's blocks of 16 state rows
 
 
 def _check(r, k, v, w, u, s0) -> None:
@@ -63,6 +76,46 @@ def _lib():
     return _build.load("rwkv6_wkv", _SIGNATURE)
 
 
+def _padded(n: int) -> int:
+    return -(-n // _MULTIPLE) * _MULTIPLE
+
+
+def _aligned(x: torch.Tensor, *_sizes: int) -> torch.Tensor:
+    """``x`` contiguous and 16-byte aligned (the bulk copies' rule)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _pad(x: torch.Tensor, *sizes: int) -> torch.Tensor:
+    """``x`` zero-padded at the end of its last ``len(sizes)`` dims to
+    ``sizes``, contiguous and 16-byte aligned."""
+    pads = []
+    for dim, size in zip(reversed(range(x.dim())), reversed(sizes)):
+        pads += [0, size - x.shape[dim]]
+    return _aligned(torch.nn.functional.pad(x, pads))
+
+
+def _cut(x: torch.Tensor, *sizes: int) -> torch.Tensor:
+    """Undo :func:`_pad`: the leading ``sizes`` of the last dims."""
+    index = (...,) + tuple(slice(0, n) for n in sizes)
+    return x[index].contiguous()
+
+
+def launch_info(backward: bool, dtype: torch.dtype, bh: int,
+                dv: int = 64) -> dict:
+    """How the forward (or backward) kernel is launched for ``bh`` batch x
+    heads and value dim ``dv``: grid, threads and shared bytes a block,
+    and the blocks an SM can hold (CUDA's occupancy calculator; for the
+    backward, of its first pass).  Needs the card."""
+    info = (ctypes.c_int * 5)()
+    lib = _lib()
+    code = lib.rwkv6_wkv_launch_info(int(backward), _DTYPES[dtype], bh,
+                                     _padded(dv), info)
+    _build.check(lib, code, "rwkv6_wkv_launch_info")
+    return dict(grid=(info[0], info[1]), threads=info[2],
+                shared_bytes=info[3], blocks_per_sm=info[4])
+
+
 def chunk() -> int:
     """Steps between two of the forward's state checkpoints (the
     kernel's ``kChunk``)."""
@@ -86,28 +139,35 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(r, k, v, w, u, s0)
     b, h, t, dk = r.shape
     dv = v.shape[-1]
-    r, k, v = r.contiguous(), k.contiguous(), v.contiguous()
-    w, u, s0 = (x.float().contiguous() for x in (w, u, s0))
-    out = torch.empty_like(v)
-    s_t = torch.empty((b, h, dk, dv), dtype=torch.float32, device=r.device)
-    ckpt = None
     if b == 0:
-        return out, s_t, ckpt
+        return (torch.empty_like(v), torch.empty(
+            (b, h, dk, dv), dtype=torch.float32, device=r.device), None)
+    pk, pv = _padded(dk), _padded(dv)
+    padded = (pk, pv) != (dk, dv)
+    prep = _pad if padded else _aligned
+    r, k, w = (prep(x, pk) for x in (r, k, w.float()))
+    v, u, s0 = prep(v, pv), prep(u.float(), pk), prep(s0.float(), pk, pv)
+    out = torch.empty_like(v)
+    s_t = torch.empty((b, h, pk, pv), dtype=torch.float32, device=r.device)
+    ckpt = None
     lib = _lib()
     if checkpoints:
         n_chunks = -(-t // lib.rwkv6_wkv_chunk())
-        ckpt = torch.empty((b, h, n_chunks, dk, dv), dtype=torch.float32,
+        ckpt = torch.empty((b, h, n_chunks, pk, pv), dtype=torch.float32,
                            device=r.device)
     with torch.cuda.device(r.device):
         code = lib.rwkv6_wkv_fwd(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), s0.data_ptr(), out.data_ptr(), s_t.data_ptr(),
             ckpt.data_ptr() if ckpt is not None else None,
-            b * h, t, h, dk, dv, _DTYPES[r.dtype],
+            b * h, t, h, pk, pv, _DTYPES[r.dtype],
             torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(lib, code, "rwkv6_wkv")
     rwkv6_wkv.launches += 1
-    return out, s_t, ckpt
+    if not padded:
+        return out, s_t, ckpt
+    return (_cut(out, dv), _cut(s_t, dk, dv),
+            None if ckpt is None else _cut(ckpt, dk, dv))
 
 
 rwkv6_wkv.launches = 0
@@ -146,31 +206,38 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                ((ds_t,) if ds_t is not None else ())):
         raise ValueError("rwkv6_wkv_bwd: all operands must be on one CUDA "
                          "device")
-    r, k, v = r.contiguous(), k.contiguous(), v.contiguous()
-    w, u, ckpt = (x.float().contiguous() for x in (w, u, ckpt))
-    dout = dout.to(r.dtype).contiguous()
+    pk, pv = _padded(dk), _padded(dv)
+    padded = (pk, pv) != (dk, dv)
+    prep = _pad if padded else _aligned
+    r, k, w = (prep(x, pk) for x in (r, k, w.float()))
+    v, dout = prep(v, pv), prep(dout.to(r.dtype), pv)
+    u, ckpt = prep(u.float(), pk), prep(ckpt.float(), pk, pv)
     if ds_t is not None:
-        ds_t = ds_t.float().contiguous()
+        ds_t = prep(ds_t.float(), pk, pv)
     dr, dk_, dv_ = torch.empty_like(r), torch.empty_like(k), \
         torch.empty_like(v)
     f32 = dict(dtype=torch.float32, device=r.device)
-    dw = torch.empty((b, h, t, dk), **f32)
-    du_part = torch.empty((b, h, dk), **f32)
-    ds0 = torch.empty((b, h, dk, dv), **f32)
-    n = 32 if max(dk, dv) <= 32 else 64
-    hist = torch.empty((b * h, lib.rwkv6_wkv_chunk(), n, n), **f32)
+    dw = torch.empty((b, h, t, pk), **f32)
+    du_part = torch.empty((b, h, pk), **f32)
+    ds0 = torch.empty((b, h, pk, pv), **f32)
+    dv_part = torch.empty((b * h, _ROW_GROUPS, t, pv), **f32)
     with torch.cuda.device(r.device):
         code = lib.rwkv6_wkv_bwd(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), ckpt.data_ptr(), dout.data_ptr(),
             ds_t.data_ptr() if ds_t is not None else None, dr.data_ptr(),
             dk_.data_ptr(), dv_.data_ptr(), dw.data_ptr(),
-            du_part.data_ptr(), ds0.data_ptr(), hist.data_ptr(), b * h, t, h,
-            dk, dv, n, _DTYPES[r.dtype],
+            du_part.data_ptr(), ds0.data_ptr(), dv_part.data_ptr(), b * h, t,
+            h, pk, pv,
+            _DTYPES[r.dtype],
             torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(lib, code, "rwkv6_wkv_bwd")
     rwkv6_wkv_bwd.launches += 1
-    return dr, dk_, dv_, dw, du_part.sum(dim=0), ds0
+    du = du_part.sum(dim=0)
+    if not padded:
+        return dr, dk_, dv_, dw, du, ds0
+    return (_cut(dr, dk), _cut(dk_, dk), _cut(dv_, dv), _cut(dw, dk),
+            _cut(du, dk), _cut(ds0, dk, dv))
 
 
 rwkv6_wkv_bwd.launches = 0

@@ -20,8 +20,10 @@ _PORT_KERNELS = (
     ("flash_fwd_kernel", "flash_attention_fwd (port)"),
     ("flash_bwd_dq_kernel", "flash_attention_bwd dq (port)"),
     ("flash_bwd_dkv_kernel", "flash_attention_bwd dkv (port)"),
-    ("wkv_fwd_kernel", "rwkv6_wkv (port)"),
-    ("wkv_bwd_kernel", "rwkv6_wkv_bwd (port)"),
+    # the WKV forward (wkv_fwd_colgroup_kernel), and the backward's two
+    # passes (wkv_bwd_rowgroup_kernel, wkv_bwd_dv_sum_kernel)
+    ("wkv_fwd_", "rwkv6_wkv (port)"),
+    ("wkv_bwd_", "rwkv6_wkv_bwd (port)"),
 )
 _GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass", "sm90_")
 GEMM = "gemm (cuBLAS)"

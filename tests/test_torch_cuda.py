@@ -463,9 +463,15 @@ def test_flash_fwd_refuses_no_keys_on_card(cuda, dtype, d):
     assert o.shape == (2, 0, d) and lse.shape == (2, 0)
     assert ops.route_counts() == before
 
-# (B, H, T, Dk, Dv): one decode token, a ragged T, rwkv6-1.6b's head dim
+# (B, H, T, Dk, Dv[, "clip"]): one decode token, a ragged T, rwkv6-1.6b's
+# head dim, smaller head dims; w over the model's whole clip [-8, 4]
+# (decays down to exp(-e^4), about 1.9e-24); B*H 3 (no multiple of the
+# kernels' column or row groups) with T 37 (no multiple of chunk()); head
+# dims that are no multiple of 8 (the wrappers pad them)
 WKV_CASES = [(4, 32, 1, 64, 64), (2, 3, 7, 64, 64), (2, 4, 300, 64, 64),
-             (1, 2, 40, 16, 16), (1, 1, 33, 8, 8)]
+             (1, 2, 40, 16, 16), (1, 1, 33, 8, 8),
+             (2, 4, 300, 64, 64, "clip"), (1, 3, 37, 64, 64),
+             (1, 3, 37, 12, 20)]
 
 
 @pytest.mark.cuda
@@ -477,14 +483,7 @@ def test_wkv_kernel_matches_plain_on_card(cuda, case, dtype):
     in another order: the f32 state agrees to 1e-4 over up to 300 steps,
     out to 1e-4 in f32 and one bf16 ulp (2e-2) in bf16; two runs are
     bitwise equal (one owner per state column, no atomics)."""
-    b, h, t, dk, dv = case
-    r, k = (torch.from_numpy(_rand(i, (b, h, t, dk)) * 0.5).to(
-        cuda, DTYPES[dtype]) for i in range(2))
-    v = torch.from_numpy(_rand(2, (b, h, t, dv)) * 0.5).to(cuda,
-                                                          DTYPES[dtype])
-    w = torch.from_numpy(_rand(3, (b, h, t, dk)) * 0.5 - 1.0).to(cuda)
-    u = torch.from_numpy(_rand(4, (h, dk)) * 0.3).to(cuda)
-    s0 = torch.from_numpy(_rand(5, (b, h, dk, dv)) * 0.2).to(cuda)
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, case, dtype)
     before = ops.launch_counts()["rwkv6_wkv"]
     out, s_t = ops.rwkv6_wkv(r, k, v, w, u, s0)
     torch.cuda.synchronize()
@@ -581,12 +580,16 @@ def test_flash_bwd_gqa_is_bitwise_deterministic_on_card(cuda):
 
 
 def _wkv_inputs(cuda, case, dtype, grad=False):
-    b, h, t, dk, dv = case
+    b, h, t, dk, dv = case[:5]
     r, k = (torch.from_numpy(_rand(i, (b, h, t, dk)) * 0.5).to(
         cuda, DTYPES[dtype]) for i in range(2))
     v = torch.from_numpy(_rand(2, (b, h, t, dv)) * 0.5).to(cuda,
                                                           DTYPES[dtype])
-    w = torch.from_numpy(_rand(3, (b, h, t, dk)) * 0.5 - 1.0).to(cuda)
+    if case[5:] == ("clip",):
+        w = torch.from_numpy(np.random.default_rng(3).uniform(
+            -8.0, 4.0, (b, h, t, dk)).astype(np.float32)).to(cuda)
+    else:
+        w = torch.from_numpy(_rand(3, (b, h, t, dk)) * 0.5 - 1.0).to(cuda)
     u = torch.from_numpy(_rand(4, (h, dk)) * 0.3).to(cuda)
     s0 = torch.from_numpy(_rand(5, (b, h, dk, dv)) * 0.2).to(cuda)
     return [x.requires_grad_(grad) for x in (r, k, v, w, u, s0)]
@@ -627,6 +630,30 @@ def test_wkv_bwd_kernel_matches_plain_on_card(cuda, case, dtype):
     again = grads()
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_wkv_bitwise_repeat_at_training_shape_on_card(cuda):
+    """At rwkv6-1.6b's training shape (2 x 32 heads, T 2048, head dim 64,
+    bf16) the forward with checkpoints and the backward give the same bits
+    twice: every sum has one owner and a fixed order, no atomics."""
+    from repro_torch.kernels import rwkv6_scan
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, (2, 32, 2048, 64, 64), "bfloat16")
+    dout = torch.from_numpy(_rand(7, tuple(v.shape))).to(cuda,
+                                                         torch.bfloat16)
+    ds_t = torch.from_numpy(_rand(8, tuple(s0.shape))).to(cuda)
+    runs = []
+    for _ in range(2):
+        out, s_t, ckpt = rwkv6_scan.rwkv6_wkv(r, k, v, w, u, s0,
+                                              checkpoints=True)
+        grads = rwkv6_scan.rwkv6_wkv_bwd(r, k, v, w, u, ckpt, dout, ds_t)
+        runs.append((out, s_t, ckpt) + tuple(grads))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                           else a.view(torch.int32),
+                           b.view(torch.int16) if b.dtype == torch.bfloat16
+                           else b.view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -574,6 +574,191 @@ def test_rwkv6_wkv_bwd_twin_bf16_and_zero_upstream_state():
         np.testing.assert_allclose(_np(g), _np(wj), atol=tol, rtol=tol)
 
 
+# A CPU model of the CUDA WKV kernels' numerics (csrc/rwkv6_wkv.cu), in
+# plain PyTorch: the forward's column blocks, each lane's rows in two
+# chains and the transpose-reduce over 8 lanes; the backward's row groups,
+# each chunk's states recomputed from the forward's checkpoint, the row sums
+# over 8 lanes, dv summed over a warp's rows, the block's warps and the row
+# groups in the kernel's fixed order.  f32 throughout; a fused multiply-add
+# of the kernel is a multiply and an add here.
+WKV_CHUNK = 16            # the kernels' chunk() (kChunk)
+# f32 against jax.vjp, other orders of summation: the model read 6e-8 to
+# 2e-7 over out, the final state and the six gradients
+WKV_MODEL_REL_L2 = 1e-6
+
+
+def _quads(lane):
+    """The 8 rows (forward) or columns (backward) a lane of 8 holds: quads
+    lane and 8 + lane of 64."""
+    return [4 * lane + m + (0 if m < 4 else 28) for m in range(8)]
+
+
+def _tree8(x, root):
+    """Lane ``root``'s total after the kernels' transpose-reduce over 8
+    lanes (rounds xor 4, 2, 1; x: (8, ...), one entry per lane)."""
+    def pair(a):
+        return x[a] + x[a ^ 4]
+    return (pair(root) + pair(root ^ 2)) + (pair(root ^ 1) + pair(root ^ 3))
+
+
+def _butterfly8(x):
+    """Lane 0's total after ``b += shfl_xor(b, 1); .. 2; .. 4``."""
+    return ((x[0] + x[1]) + (x[2] + x[3])) + ((x[4] + x[5]) + (x[6] + x[7]))
+
+
+def _chain(terms):
+    """A thread's running sum over its terms, in order."""
+    acc = terms[0]
+    for x in terms[1:]:
+        acc = acc + x
+    return acc
+
+
+def _wkv_fwd_model(r, k, v, w, u, s0):
+    """The forward kernel's arithmetic: r, k, w (BH, T, 64), v (BH, T, Dv),
+    u (BH, 64), s0 (BH, 64, Dv), f32.  Returns out, the final state and
+    the checkpoints (the state before every chunk)."""
+    bh, t, dk = r.shape
+    decay = torch.exp(-torch.exp(w))
+    ruk = (r * u[:, None] * k).reshape(bh, t, 8, 8)     # [.., thread, row]
+    b = _butterfly8(_chain(list(ruk.unbind(-1))).movedim(-1, 0))
+    rows = [torch.tensor(_quads(g)) for g in range(8)]
+    state, out, ckpts = s0.clone(), torch.empty_like(v), []
+    for step in range(t):
+        if step % WKV_CHUNK == 0:
+            ckpts.append(state.clone())
+        parts = []
+        for g in range(8):                 # lane g: its rows, two chains
+            prod = r[:, step, rows[g], None] * state[:, rows[g]]
+            parts.append(_chain(list(prod[:, 0::2].unbind(1)))
+                         + _chain(list(prod[:, 1::2].unbind(1))))
+        total = _tree8(torch.stack(parts), step % 8)
+        out[:, step] = total + v[:, step] * b[:, step, None]
+        state = (decay[:, step, :, None] * state
+                 + k[:, step, :, None] * v[:, step, None, :])
+    return out, state, ckpts
+
+
+def _wkv_bwd_model(r, k, v, w, u, ckpts, dout, ds_t, s_t=None):
+    """The backward kernel's arithmetic, from the forward's checkpoints.
+    With ``s_t`` (the final state) it is the control instead: S_{t-1}
+    recovered from S_t by dividing by the decay, no checkpoints.  Returns
+    dr, dk, dv, dw, ds0 (per batch x head) and du (BH, 64)."""
+    bh, t, dk = r.shape
+    dv_dim = v.shape[-1]
+    ew = torch.exp(w)
+    decay = torch.exp(-ew)
+    c = _butterfly8(_chain(list((v * dout).reshape(bh, t, 8, 8).unbind(-1)))
+                    .movedim(-1, 0))                    # (BH, T)
+    ruk = (r * u[:, None] * k).reshape(bh, t, 4, 8, 2)   # group, thread, row
+    bp = _butterfly8((ruk[..., 0] + ruk[..., 1]).movedim(-1, 0))
+    cols = [torch.tensor(_quads(q)) for q in range(8)]
+    # dv over a warp's 4 rows: column col ends in lane rs = root[col]
+    pos = torch.tensor([(col % 4) + 4 * (col >= 32) for col in range(64)])
+    root = ((pos >> 2) << 1) | ((pos >> 1) & 1)
+    order = [root, root ^ 2, root ^ 1, root ^ 3]
+    g = ds_t.clone()
+    dr, dk_, dw = (torch.empty_like(r) for _ in range(3))
+    dv = torch.empty_like(v)
+    du = torch.zeros(bh, dk)
+    n_chunks = -(-t // WKV_CHUNK)
+    state = None if s_t is None else s_t.clone()
+    for ci in reversed(range(n_chunks)):
+        t0 = ci * WKV_CHUNK
+        steps = range(t0, min(t, t0 + WKV_CHUNK))
+        if s_t is None:                    # recompute from the checkpoint
+            hist, s = [], ckpts[ci].clone()
+            for step in steps:
+                hist.append(s)
+                s = (decay[:, step, :, None] * s
+                     + k[:, step, :, None] * v[:, step, None, :])
+        for step in reversed(steps):
+            if s_t is None:
+                s_prev = hist[step - t0]
+            else:                          # the control: divide
+                s_prev = (state - k[:, step, :, None]
+                          * v[:, step, None, :]) / decay[:, step, :, None]
+                state = s_prev
+            o, vv = dout[:, step], v[:, step]
+            parts = [[_chain(list((a[:, :, cols[q]] * bvec[:, None, cols[q]]
+                                   if bvec is not None else
+                                   a[:, :, cols[q]] * s_prev[:, :, cols[q]])
+                                  .unbind(-1))) for q in range(8)]
+                     for a, bvec in ((s_prev, o), (g, vv), (g, None))]
+            tr, tk, tw = (_tree8(torch.stack(p), root_lane) for p, root_lane
+                          in zip(parts, (0, 2, 4)))
+            uc = u * c[:, step, None]
+            dr[:, step] = tr + uc * k[:, step]
+            dk_[:, step] = tk + uc * r[:, step]
+            dw[:, step] = -tw * decay[:, step] * ew[:, step]
+            du = du + r[:, step] * k[:, step] * c[:, step, None]
+            # dv: G k summed over each warp's 4 rows, the block's 4 warps,
+            # plus the group's part of b_t dout, then over the row groups
+            y = (g * k[:, step, :, None]).reshape(bh, 4, 4, 4, dv_dim)
+            pick = [torch.gather(y, 3, idx.expand(bh, 4, 4, 1, dv_dim))
+                    [:, :, :, 0] for idx in (o_.view(1, 1, 1, 1, -1)
+                                             for o_ in order)]
+            warp = (pick[0] + pick[1]) + (pick[2] + pick[3])  # (BH, 4, 4, Dv)
+            blk = (((warp[:, :, 0] + warp[:, :, 1]) + warp[:, :, 2])
+                   + warp[:, :, 3]) + bp[:, step, :, None] * o[:, None]
+            dv[:, step] = ((blk[:, 0] + blk[:, 1]) + blk[:, 2]) + blk[:, 3]
+            g = decay[:, step, :, None] * g + r[:, step, :, None] * o[:, None]
+    return dr, dk_, dv, dw, g, du
+
+
+def test_wkv_kernel_model_matches_jax_vjp_over_the_clip():
+    """The CUDA kernels' decomposition (column blocks and butterfly sums in
+    the forward; row groups, recompute from each chunk's checkpoint and dv
+    summed in the kernel's order in the backward) in f32 against JAX's
+    oracle and ``jax.vjp`` of it (JAX's ``ops._wkv_bwd``) at head dim 64,
+    T 37 (two whole chunks and a ragged one), w over the model's whole
+    clip [-8, 4]: every output and gradient within 1e-6 rel L2.  The
+    control, the same model recovering S_{t-1} by dividing S_t - k v^T by
+    the decay (down to exp(-e^4), about 1.9e-24), must miss that limit on
+    dr and dw, the gradients that read S_{t-1} (the division cancels and
+    overflows to non-finite values): that is why the kernel recomputes the
+    states."""
+    b, h, t, d = 1, 2, 37, 64
+    rng = np.random.default_rng(18)
+    r, k, v = (rng.standard_normal((b, h, t, d)).astype(np.float32) * 0.5
+               for _ in range(3))
+    w = rng.uniform(-8.0, 4.0, (b, h, t, d)).astype(np.float32)
+    u = rng.standard_normal((h, d)).astype(np.float32) * 0.3
+    s0 = rng.standard_normal((b, h, d, d)).astype(np.float32) * 0.2
+    dout = rng.standard_normal((b, h, t, d)).astype(np.float32)
+    ds_t = rng.standard_normal((b, h, d, d)).astype(np.float32) * 0.1
+    flat = [torch.from_numpy(x).reshape(b * h, *x.shape[2:])
+            for x in (r, k, v, w)]
+    uf = torch.from_numpy(u).repeat(b, 1)
+    s0f, doutf, dstf = (torch.from_numpy(x).reshape(b * h, *x.shape[2:])
+                        for x in (s0, dout, ds_t))
+    out, s_t, ckpts = _wkv_fwd_model(*flat, uf, s0f)
+    j = [jnp.asarray(x, jnp.float32) for x in (r, k, v, w, u, s0)]
+    (jout, js), vjp = jax.vjp(jref.rwkv6_wkv, *j)
+    want = vjp((jnp.asarray(dout), jnp.asarray(ds_t)))
+
+    def rel(a, want_j):
+        a, bb = _np(a).ravel(), _np(want_j).ravel()
+        return float(np.linalg.norm(a - bb) / np.linalg.norm(bb))
+
+    assert rel(out.reshape(b, h, t, d), jout) <= WKV_MODEL_REL_L2
+    assert rel(s_t.reshape(b, h, d, d), js) <= WKV_MODEL_REL_L2
+    assert len(ckpts) == -(-t // WKV_CHUNK)
+
+    def grads(**control):
+        dr, dk_, dv, dw, ds0, du = _wkv_bwd_model(*flat, uf, ckpts, doutf,
+                                                  dstf, **control)
+        shaped = [x.reshape(b, h, *x.shape[1:]) for x in (dr, dk_, dv, dw)]
+        return shaped + [du.reshape(b, h, d).sum(0),
+                         ds0.reshape(b, h, d, d)]
+
+    rels = [rel(g, wj) for g, wj in zip(grads(), want)]
+    assert max(rels) <= WKV_MODEL_REL_L2, rels
+    ctl = [rel(g, wj) for g, wj in zip(grads(s_t=s_t), want)]
+    assert not ctl[0] <= WKV_MODEL_REL_L2, ctl         # dr
+    assert not ctl[3] <= WKV_MODEL_REL_L2, ctl         # dw
+
+
 def test_rwkv6_wkv_op_carries_a_grad_fn_on_cpu():
     """``ops.rwkv6_wkv`` runs through ``RWKV6WKV`` (its gradient is the
     plain backward on the CPU); ``use_kernel=False`` is the plain scan

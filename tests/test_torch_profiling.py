@@ -25,6 +25,25 @@ def test_kernel_group(name, group):
     assert profiling.kernel_group(name) == group
 
 
+@pytest.mark.parametrize("name, group", [
+    ("void (anonymous namespace)::wkv_fwd_colgroup_kernel<__nv_bfloat16>("
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "float const*, float const*, float const*, __nv_bfloat16*, float*, "
+     "float*, int, int, int, int)", "rwkv6_wkv (port)"),
+    ("void (anonymous namespace)::wkv_bwd_rowgroup_kernel<__nv_bfloat16>("
+     "__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "float const*, float const*, float const*, __nv_bfloat16 const*, "
+     "float const*, __nv_bfloat16*, __nv_bfloat16*, float*, float*, float*, "
+     "float*, int, int, int, int)", "rwkv6_wkv_bwd (port)"),
+    ("void (anonymous namespace)::wkv_bwd_dv_sum_kernel<float>(float const*, "
+     "float*, int, int, unsigned long)", "rwkv6_wkv_bwd (port)"),
+])
+def test_kernel_group_wkv(name, group):
+    """The WKV forward and both passes of its backward (the row-group
+    kernel and the dv sum) land in the WKV groups, not under "other"."""
+    assert profiling.kernel_group(name) == group
+
+
 @pytest.mark.parametrize("name", [
     "void (anonymous namespace)::tc::flash_fwd_kernel_tc<128, 3>"
     "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, "
