@@ -29,9 +29,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    backward's rel L2 limit over dq and over (dk, dv) and run twice,
    bitwise equal; at the DiT's and qwen3-8b's shapes readings with P and
    dS in 1, 2 and 3 terms, where the 1-term control must miss that limit
-   while the kernels' 2 terms meet it), DDIM, the fused residual and
-   the fused update without it (``parareal_update``: f32 at the serving
-   shape, bf16, ragged; two runs bitwise equal); the forward's causal
+   while the kernels' 2 terms meet it), DDIM at the fine and coarse
+   steps' shapes and the fused residual (the corrector's shapes with
+   ``batch_dims`` 0, 1 and 2, a batch of 4, slices of 6993 f32 and of 7
+   bf16 elements), each run twice (bitwise equal) and on unaligned
+   copies of its operands (the kernels' scalar path: the same bits),
+   each with its device launches a call (must be 1) and device µs a
+   launch from one ``torch.profiler`` window and its host µs a call
+   (enqueue time), then each slice of a (4, 2, 64, 64, 4) batch run
+   alone (the same bits), and the fused update without the residual
+   (``parareal_update``: f32 at the serving shape, bf16, ragged; two runs
+   bitwise equal); the forward's causal
    grouped-query form at qwen3-8b's prefill shape, a ragged right-aligned
    causal case and the sliding-window form at hymba-1.5b's shape; the
    WKV kernel at rwkv6-1.6b's prefill shape, at its training shape with
@@ -113,7 +121,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    gradient at batch 1 x 2048 through the kernels against the plain
    attention's (whole, and over the q/k/v projections alone), with two
    broken backwards that must miss the limit (without the causal mask;
-   reading KV head ``bh % BKV``); the loss on a held-out batch falls;
+   reading KV head ``bh % BKV``); the mean loss over the 5 batches it
+   trained on falls by more than ``FIT_MARGIN``, and the same loop from
+   the same weights with the update reversed (the control) must not; the
+   held-out batch's loss is a reading;
 10. the same for ``rwkv6-1.6b`` whole through ``launch.train.build``: the
    WKV forward and backward 24 times a step.  The WKV backward on each
    layer's own inputs at T 2048 against ``ref.rwkv6_wkv_bwd``; after the
@@ -239,23 +250,29 @@ LM_LIMITS = {"qwen3-8b": (5e-2, 5e-2), "rwkv6-1.6b": (1e-3, 1e-3)}
 # steps rise to half of it): qwen3-8b at the launcher's default; rwkv6-
 # 1.6b at a third of it.  Its random-weight model is chaotic (phase 8):
 # scripts/torch_lm_probe_sweep.py reads its held-out loss flat over 5
-# steps at lr 3e-5 to 6e-4 and rising above (PERF.md), so its gate reads
+# steps at lr 3e-5 to 6e-4 and rising above (PERF.md); both gates read
 # the trained batches (FIT_MARGIN)
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 2048, 5
 LM_TRAIN_LR = {"qwen3-8b": 3e-4, "rwkv6-1.6b": 1e-4}
 LM_TRAIN_LAYERS = {"qwen3-8b": 8, "rwkv6-1.6b": None}
-# phase 10's gate (check 3): rwkv6-1.6b's loop must lower the mean loss
-# over the 5 batches it trains on by more than FIT_MARGIN, and the same
-# loop with the update reversed must not (check 5).  A held-out batch
-# cannot tell them apart (ROADMAP C11): each training batch holds
-# progressions over its own ranges of token ids, so training raises a
-# held-out batch's loss as it lowers its own.  On an H100, scripts/
-# torch_lm_probe_sweep.py --trained read a fall of 0.095-0.122 over 6
-# model seeds with the WKV kernels of this commit, 0.081-0.121 with the
-# ones before it and 0.110 with the plain scan (seed 0), and a rise of
-# 0.084-0.106 with the update reversed: the margin is about a third of
-# the smallest fall
-FIT_MARGIN = 0.03
+# phases 9-10's gate (check 3): the loop must lower the mean loss over the
+# 5 batches it trains on by more than FIT_MARGIN, and the same loop from
+# the same weights with the update reversed must not (check 5).  A
+# held-out batch cannot tell them apart (ROADMAP C11): each training batch
+# holds progressions over its own ranges of token ids, so training raises
+# a held-out batch's loss as it lowers its own.  On an H100, scripts/
+# torch_lm_probe_sweep.py --trained read, for rwkv6-1.6b, a fall of
+# 0.095-0.122 over 6 model seeds with the WKV kernels of row and column
+# blocks, 0.081-0.121 with the ones before them and 0.110 with the plain scan
+# (seed 0), and a rise of 0.084-0.106 with the update reversed; for
+# qwen3-8b (8 layers, lr 3e-4, seeds 0-5), a fall of 1.340-1.378 and a
+# rise of 1.348-1.386 reversed.  Each margin is about a third of the
+# smallest fall
+FIT_MARGIN = {"qwen3-8b": 0.45, "rwkv6-1.6b": 0.03}
+# phase 3's B1/B2 readings: the calls of one profiler window (device
+# launches per call, device time per launch) and the calls timed for the
+# host's enqueue time
+LAUNCH_WINDOW_CALLS, HOST_CALLS = 20, 200
 # phases 9-10: the steps of each busy-share window (ROADMAP C10), one
 # launcher log interval
 BUSY_STEPS = 10
@@ -1300,17 +1317,26 @@ def lm_train_phase(torch, ops, step_no, arch):
 
     t0 = time.perf_counter()
     layers = LM_TRAIN_LAYERS[arch]
-    if layers is None:
-        cfg, model, opt_state, step, _ = launch.build(
-            arch, lr=LM_TRAIN_LR[arch], total_steps=LM_TRAIN_STEPS,
-            device="cuda")
-    else:
+    lr = LM_TRAIN_LR[arch]
+
+    def cut_model():
         # launch.build's own calls, with the depth cut (the launcher has
         # no depth flag); the optimizer state comes after the checks
+        return tf.init_params(cfg, torch.Generator(device="cuda")
+                              .manual_seed(0), device="cuda", trainable=True)
+
+    def cut_step(model, lr):
+        return init_opt_state(dict(model.named_parameters())), \
+            make_train_step(cfg, AdamWConfig(lr=lr, schedule=warmup_cosine(
+                lr, max(10, LM_TRAIN_STEPS // 10), LM_TRAIN_STEPS)),
+                loss_kind="lm")
+
+    if layers is None:
+        cfg, model, opt_state, step, _ = launch.build(
+            arch, lr=lr, total_steps=LM_TRAIN_STEPS, device="cuda")
+    else:
         cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
-        model = tf.init_params(cfg, torch.Generator(device="cuda")
-                               .manual_seed(0), device="cuda",
-                               trainable=True)
+        model = cut_model()
         opt_state = step = None
     stream = make_stream(cfg, DataConfig(seed=SEED,
                                          global_batch=LM_TRAIN_BATCH,
@@ -1393,11 +1419,7 @@ def lm_train_phase(torch, ops, step_no, arch):
               f"(bf16), {line}", flush=True)
         check_grad_readings(readings, LM_GRAD_REL_L2[arch],
                             "the q/k/v projections", arch)
-        opt_state = init_opt_state(dict(model.named_parameters()))
-        lr = LM_TRAIN_LR[arch]
-        step = make_train_step(cfg, AdamWConfig(
-            lr=lr, schedule=warmup_cosine(lr, max(10, LM_TRAIN_STEPS // 10),
-                                          LM_TRAIN_STEPS)), loss_kind="lm")
+        opt_state, step = cut_step(model, lr)
 
     # the main path: train_loop over LM_TRAIN_STEPS batches; the probe is
     # a batch the loop does not train on
@@ -1408,8 +1430,7 @@ def lm_train_phase(torch, ops, step_no, arch):
             return lm_loss(cfg, model, probe)[0].item()
 
     before = probe_loss()
-    if cfg.block == "rwkv6":
-        fit_before = fit_loss(torch, cfg, model, stream)
+    fit_before = fit_loss(torch, cfg, model, stream)
     kernels = ((("rwkv6_wkv", "rwkv6_wkv_bwd") if cfg.block == "rwkv6"
                 else ("flash_attention_fwd",) + BWD_KERNELS))
     rows = []
@@ -1453,22 +1474,17 @@ def lm_train_phase(torch, ops, step_no, arch):
     if len(losses) != LM_TRAIN_STEPS or not all(map(math.isfinite, losses)):
         raise AssertionError(f"{arch}: train losses not finite: {losses}")
     after = probe_loss()
-    if cfg.block == "rwkv6":
-        fit_after = fit_loss(torch, cfg, model, stream)
-        print(f"  reading: held-out probe loss (batch {LM_TRAIN_STEPS} of the "
-              f"stream) {before:.6f} -> {after:.6f} (no check: ROADMAP C11)",
-              flush=True)
-        print(f"  3. loss over the {LM_TRAIN_STEPS} trained batches "
-              f"{fit_before:.6f} -> {fit_after:.6f} (must fall by more than "
-              f"{FIT_MARGIN})", flush=True)
-        if not fit_after < fit_before - FIT_MARGIN:
-            raise AssertionError(f"{arch}: the loss over the trained batches "
-                                 f"did not fall by {FIT_MARGIN}")
-    else:
-        print(f"  3. held-out probe loss (batch {LM_TRAIN_STEPS} of the "
-              f"stream) {before:.6f} -> {after:.6f}", flush=True)
-        if not after < before:
-            raise AssertionError(f"{arch}: the probe loss did not fall")
+    fit_after = fit_loss(torch, cfg, model, stream)
+    margin = FIT_MARGIN[arch]
+    print(f"  reading: held-out probe loss (batch {LM_TRAIN_STEPS} of the "
+          f"stream) {before:.6f} -> {after:.6f} (no check: ROADMAP C11)",
+          flush=True)
+    print(f"  3. loss over the {LM_TRAIN_STEPS} trained batches "
+          f"{fit_before:.6f} -> {fit_after:.6f} (must fall by more than "
+          f"{margin})", flush=True)
+    if not fit_after < fit_before - margin:
+        raise AssertionError(f"{arch}: the loss over the trained batches "
+                             f"did not fall by {margin}")
     profile_reading(torch, f"train step ({LM_TRAIN_BATCH} x {LM_TRAIN_SEQ})",
                     lambda: step(model, opt_state, batch0))
     busy_windows(torch, step, model, opt_state, stream, arch)
@@ -1515,32 +1531,37 @@ def lm_train_phase(torch, ops, step_no, arch):
     del model
     torch.cuda.empty_cache()
 
-    # 5. (rwkv6-1.6b) the control of check 3: the same loop from the same
-    # weights with the update reversed must not lower the loss over the
-    # trained batches by FIT_MARGIN
-    if cfg.block == "rwkv6":
+    # 5. the control of check 3: the same loop from the same weights with
+    # the update reversed must not lower the loss over the trained batches
+    # by the margin
+    if layers is None:
         cfg, model, opt_state, step, _ = launch.build(
-            arch, lr=-LM_TRAIN_LR[arch], total_steps=LM_TRAIN_STEPS,
-            device="cuda")
-        ctl_before = fit_loss(torch, cfg, model, stream)
-        model, _, _ = train_loop(
-            step, model, opt_state, stream, SEED + 1, NoCheckpoints(),
-            LoopConfig(total_steps=LM_TRAIN_STEPS, ckpt_every=LM_TRAIN_STEPS,
-                       log_every=LM_TRAIN_STEPS))
-        ctl_after = fit_loss(torch, cfg, model, stream)
-        print(f"  5. control of check 3, the update reversed (lr "
-              f"{-LM_TRAIN_LR[arch]}): loss over the trained batches "
-              f"{ctl_before:.6f} -> {ctl_after:.6f} (must not fall by "
-              f"{FIT_MARGIN})", flush=True)
-        if ctl_after < ctl_before - FIT_MARGIN:
-            raise AssertionError(f"{arch}: check 3's control passed it")
-        del model, opt_state, step
-        torch.cuda.empty_cache()
+            arch, lr=-lr, total_steps=LM_TRAIN_STEPS, device="cuda")
+    else:
+        model = cut_model()
+        opt_state, step = cut_step(model, -lr)
+    ctl_before = fit_loss(torch, cfg, model, stream)
+    model, _, _ = train_loop(
+        step, model, opt_state, stream, SEED + 1, NoCheckpoints(),
+        LoopConfig(total_steps=LM_TRAIN_STEPS, ckpt_every=LM_TRAIN_STEPS,
+                   log_every=LM_TRAIN_STEPS))
+    ctl_after = fit_loss(torch, cfg, model, stream)
+    print(f"  5. control of check 3, the update reversed (lr {-lr}): loss "
+          f"over the trained batches {ctl_before:.6f} -> {ctl_after:.6f} "
+          f"(must not fall by {margin})", flush=True)
+    if not abs(ctl_before - fit_before) <= 1e-3:
+        raise AssertionError(f"{arch}: the control did not start from the "
+                             f"trained loop's weights ({ctl_before} against "
+                             f"{fit_before})")
+    if ctl_after < ctl_before - margin:
+        raise AssertionError(f"{arch}: check 3's control passed it")
+    del model, opt_state, step
+    torch.cuda.empty_cache()
     return counts
 
 
 def fit_loss(torch, cfg, model, stream) -> float:
-    """The mean LM loss over the batches phase 10's loop trains on."""
+    """The mean LM loss over the batches phases 9-10's loops train on."""
     from repro_torch.train import lm_loss
     with torch.no_grad():
         return sum(lm_loss(cfg, model, stream.batch(i))[0].item()
@@ -1909,6 +1930,166 @@ def wkv_backward_cases(torch, ref, randn, cases):
                                  f"the plain backward")
 
 
+def launch_readings(torch, fn) -> dict:
+    """Phase 3's readings of one B1/B2 case: the device launches per call
+    and device microseconds per launch, from one ``torch.profiler`` window
+    of ``LAUNCH_WINDOW_CALLS`` calls (``profiling.device_launches``: every
+    device activity counts, kernels, copies, fills), and the host's
+    microseconds per call, as the time to enqueue ``HOST_CALLS`` calls with
+    no synchronise among them."""
+    from repro_torch.runtime.profiling import device_launches
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fn()
+    host_us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    by_name = device_launches(fn, LAUNCH_WINDOW_CALLS)
+    launches = sum(n for n, _ in by_name.values())
+    device_us = sum(us for _, us in by_name.values())
+    return dict(launches_per_call=launches / LAUNCH_WINDOW_CALLS,
+                device_us_per_launch=device_us / launches if launches
+                else None, host_us_per_call=host_us,
+                device_kernels=sorted(by_name))
+
+
+def print_readings(label, timing, reading, launches):
+    """Print one B1/B2 case's readings; with ``launches`` set, fail unless
+    each call made exactly that many device launches."""
+    per_call = reading["launches_per_call"]
+    dev_us = reading["device_us_per_launch"]
+    loop_us = timing["ms"] * 1e3
+    bound_by = ("host-bound: the card runs "
+                f"{dev_us * per_call:.2f} us of it" if dev_us is not None
+                and reading["host_us_per_call"] > dev_us * per_call
+                else "device-bound")
+    dev_txt = f"{dev_us:.2f}" if dev_us is not None else "none traced"
+    print(f"    {label}: loop {timing['ms']:.4f} ms a call ({bound_by}); "
+          f"device {dev_txt} us a launch, {per_call:g} device launches a "
+          f"call ({', '.join(k[:60] for k in reading['device_kernels'])}); "
+          f"host {reading['host_us_per_call']:.2f} us a call (enqueue), "
+          f"loop {loop_us:.2f} us", flush=True)
+    if launches is not None and per_call != launches:
+        raise AssertionError(f"{label}: {per_call} device launches a call, "
+                             f"not {launches}")
+
+
+def elementwise_cases(torch, ops, ref, randn, cases, launches=1):
+    """Phase 3's B2 (``ddim_fused``) and B1 (``parareal_update_residual``)
+    cases: each held against its plain version (DDIM within 2e-5 in f32,
+    the update bitwise, the residual at atol 0 and rtol 1e-5), run twice
+    (bitwise equal), timed with CUDA events and read by
+    :func:`launch_readings`; then B1's per-slice residuals of a
+    (4, 2, 64, 64, 4) batch against the slices run alone.  ``launches``: the
+    device launches a call must make (None reads them only, as
+    scripts/torch_elementwise_bench.py does for another checkout's
+    kernels, which also skips the check that the kernels' scalar path,
+    taken for unaligned operands, gives the 16-byte path's bits)."""
+    dev = torch.device("cuda")
+    # DDIM: the fine step's 10 folded latents (the main path's shape, first)
+    # and the coarse step's 2, per-row coefficients
+    print("  ddim_fused and parareal_update_residual (B2, B1):", flush=True)
+    for shape in [(BLOCKS * SAMPLES, 64, 64, 4), (SAMPLES, 64, 64, 4)]:
+        x, e = randn(shape), randn(shape)
+        a = torch.linspace(0.05, 0.6, shape[0], device=dev)
+        b = a + 0.3
+        got = ops.ddim_fused(x, e, a, b)
+        if not torch.equal(_bits(ops.ddim_fused(x, e, a, b)), _bits(got)):
+            raise AssertionError("ddim_fused: two runs differ")
+        b_ms, b_by = bound(nbytes(x, e, got, a, b), 10.0 * x.numel(),
+                           "float32")
+        timing = dict(ms=time_ms(lambda: ops.ddim_fused(x, e, a, b), 500),
+                      plain_ms=time_ms(lambda: ops.ddim_fused(
+                          x, e, a, b, use_kernel=False), 200),
+                      bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        label = f"ddim_fused float32 {shape} per-row"
+        cases["ddim_fused"].append(dict(check_case(
+            f"{label} (two runs bitwise)", got, ref.ddim_fused(x, e, a, b),
+            2e-5, 2e-5, timing), **launch_readings(
+                torch, lambda: ops.ddim_fused(x, e, a, b))))
+        print_readings(label, timing, cases["ddim_fused"][-1], launches)
+        if launches is not None:
+            xu, eu = (torch.empty(x.numel() + 1, device=dev)[1:].view(shape)
+                      .copy_(t) for t in (x, e))
+            if not torch.equal(_bits(ops.ddim_fused(xu, eu, a, b)),
+                               _bits(got)):
+                raise AssertionError("ddim_fused: the scalar path (unaligned "
+                                     "operands) differs from the 16-byte "
+                                     "path")
+
+    # fused update + residual: one corrector block (K=2 latents) per
+    # sample, plus the scalar and per-(block, sample) reductions; a batch of
+    # 4; ragged slices (6993 elements: the scalar path, a cluster of 2; 7
+    # elements in bf16: 3000 clusters of one block)
+    for nd, shape, dtype in [(1, (SAMPLES, 64, 64, 4), "float32"),
+                             (0, (SAMPLES, 64, 64, 4), "float32"),
+                             (2, (BLOCKS, SAMPLES, 64, 64, 4), "float32"),
+                             (1, (4, SAMPLES, 64, 64, 4), "float32"),
+                             (1, (3, 999, 7), "float32"),
+                             (2, (3, 1000, 7), "bfloat16")]:
+        tdt = getattr(torch, dtype)
+        y, c, p, o = (randn(shape, tdt) for _ in range(4))
+        out, resid = ops.parareal_update_residual(y, c, p, o, batch_dims=nd)
+        again = ops.parareal_update_residual(y, c, p, o, batch_dims=nd)
+        out_r, resid_r = ref.parareal_update_residual(y, c, p, o,
+                                                      batch_dims=nd)
+        if not torch.equal(_bits(out), _bits(out_r)):
+            raise AssertionError("parareal_update_residual: the update is "
+                                 "not bitwise equal to its plain version")
+        if not (torch.equal(_bits(again[0]), _bits(out))
+                and torch.equal(_bits(again[1]), _bits(resid))):
+            raise AssertionError("parareal_update_residual: two runs differ")
+        if launches is not None:
+            yu, cu, pu, ou = (torch.empty(t.numel() + 1, dtype=tdt,
+                                          device=dev)[1:].view(shape)
+                              .copy_(t) for t in (y, c, p, o))
+            su = ops.parareal_update_residual(yu, cu, pu, ou, batch_dims=nd)
+            if not (torch.equal(_bits(su[0]), _bits(out))
+                    and torch.equal(_bits(su[1]), _bits(resid))):
+                raise AssertionError("parareal_update_residual: the scalar "
+                                     "path (unaligned operands) differs "
+                                     "from the 16-byte path")
+        b_ms, b_by = bound(nbytes(y, c, p, o, out, resid),
+                           5.0 * y.numel(), "float32")
+        timing = dict(
+            ms=time_ms(lambda: ops.parareal_update_residual(
+                y, c, p, o, batch_dims=nd), 500),
+            plain_ms=time_ms(lambda: ops.parareal_update_residual(
+                y, c, p, o, batch_dims=nd, use_kernel=False), 200),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        label = f"parareal_update_residual {dtype} {shape} batch_dims={nd}"
+        cases["parareal_update_residual"].append(dict(check_case(
+            f"{label} (out bitwise, two runs bitwise)", resid, resid_r,
+            0.0, 1e-5, timing), **launch_readings(
+                torch, lambda: ops.parareal_update_residual(
+                    y, c, p, o, batch_dims=nd))))
+        print_readings(label, timing, cases["parareal_update_residual"][-1],
+                       launches)
+
+    # a slice's results do not depend on the batch around it
+    y, c, p, o = (randn((4, SAMPLES, 64, 64, 4)) for _ in range(4))
+    out, resid = ops.parareal_update_residual(y, c, p, o, batch_dims=1)
+    for k in range(y.shape[0]):
+        s = slice(k, k + 1)
+        out_k, resid_k = ops.parareal_update_residual(
+            y[s], c[s], p[s], o[s], batch_dims=1)
+        if not (torch.equal(_bits(out_k), _bits(out[s]))
+                and torch.equal(_bits(resid_k), _bits(resid[s]))):
+            raise AssertionError(f"parareal_update_residual: slice {k} "
+                                 f"alone differs from slice {k} of the batch")
+    print(f"  parareal_update_residual: each slice of a "
+          f"{tuple(y.shape)} batch (batch_dims=1) run alone: out and "
+          f"residual bitwise equal", flush=True)
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        with torch.cuda.device(dev):
+            pass
+    guard_us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    print(f"  reading: host cost of a torch.cuda.device guard {guard_us:.2f} "
+          f"us a call (the CUDA wrappers enter it only for a tensor on "
+          f"another card than the current one)", flush=True)
+
+
 def kernel_phase(torch, ops, ref):
     import torch.nn.functional as F
     from repro_torch.kernels import _build
@@ -1976,43 +2157,7 @@ def kernel_phase(torch, ops, ref):
     backward_cases(torch, ref, randn, cases)
     masked_backward_cases(torch, ref, randn, cases)
 
-    # DDIM: the fine step's 10 folded latents, per-row coefficients
-    x, e = randn((BLOCKS * SAMPLES, 64, 64, 4)), randn((BLOCKS * SAMPLES,
-                                                         64, 64, 4))
-    a = torch.linspace(0.05, 0.6, x.shape[0], device=dev)
-    b = a + 0.3
-    got = ops.ddim_fused(x, e, a, b)
-    b_ms, b_by = bound(nbytes(x, e, got, a, b), 10.0 * x.numel(), "float32")
-    timing = dict(ms=time_ms(lambda: ops.ddim_fused(x, e, a, b), 500),
-                  plain_ms=time_ms(lambda: ops.ddim_fused(
-                      x, e, a, b, use_kernel=False), 200),
-                  bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    cases["ddim_fused"].append(check_case(
-        f"ddim_fused float32 {tuple(x.shape)} per-row", got,
-        ref.ddim_fused(x, e, a, b), 2e-5, 2e-5, timing))
-
-    # fused update + residual: one corrector block (K=2 latents) per
-    # sample, plus the scalar and per-(block, sample) reductions
-    for nd, shape in [(1, (SAMPLES, 64, 64, 4)), (0, (SAMPLES, 64, 64, 4)),
-                      (2, (BLOCKS, SAMPLES, 64, 64, 4))]:
-        y, c, p, o = (randn(shape) for _ in range(4))
-        out, resid = ops.parareal_update_residual(y, c, p, o, batch_dims=nd)
-        out_r, resid_r = ref.parareal_update_residual(y, c, p, o,
-                                                      batch_dims=nd)
-        if not torch.equal(out, out_r):
-            raise AssertionError("parareal_update_residual: the update is "
-                                 "not bitwise equal to its plain version")
-        b_ms, b_by = bound(nbytes(y, c, p, o, out, resid),
-                           5.0 * y.numel(), "float32")
-        timing = dict(
-            ms=time_ms(lambda: ops.parareal_update_residual(
-                y, c, p, o, batch_dims=nd), 500),
-            plain_ms=time_ms(lambda: ops.parareal_update_residual(
-                y, c, p, o, batch_dims=nd, use_kernel=False), 200),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        cases["parareal_update_residual"].append(check_case(
-            f"parareal_update_residual float32 {shape} batch_dims={nd}",
-            resid, resid_r, 0.0, 1e-5, timing))
+    elementwise_cases(torch, ops, ref, randn, cases)
 
     # fused update without the residual (B4): one corrector block of the
     # serving engine's 2 slots in f32, the same in bf16, and a ragged size
@@ -2047,8 +2192,38 @@ def kernel_phase(torch, ops, ref):
     return cases
 
 
-def main() -> int:
+def dit_setup(torch):
+    """Phases 4-5's model and inputs: the full-width ``srds-dit-sd2`` DiT
+    from seeded random weights, its denoiser, the ``ddpm_linear`` schedule
+    of ``N_STEPS``, the DDIM solver, the blocks ``B`` of ``S`` steps,
+    ``x_init`` from ``SEED`` and the main path's ``SRDSConfig`` (``fixed``:
+    ``max_iters=B``).  Returns them, with ``cfg``, the JAX-layout ``tree``
+    and the seconds the model took to build, as a namespace."""
+    import types
+
     import numpy as np
+    import repro_torch.core as C
+    from repro_torch.configs import get_arch
+    from repro_torch.models import dit
+
+    cfg = get_arch("srds-dit-sd2")
+    t0 = time.perf_counter()
+    tree = dit.random_jax_tree(cfg, seed=SEED)
+    model = dit.load_jax_params(cfg, tree, device="cuda")
+    build_s = time.perf_counter() - t0
+    B, S = C.resolve_blocks(N_STEPS, BLOCKS)
+    x_init = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (SAMPLES, 64, 64, 4)).astype(np.float32)).cuda()
+    fixed = C.SRDSConfig(num_blocks=B, max_iters=B, fixed_iters=True,
+                         per_sample=True, tol=0.0)
+    return types.SimpleNamespace(
+        cfg=cfg, tree=tree, model=model, build_s=build_s,
+        model_fn=dit.make_denoiser(model),
+        sched=C.make_schedule("ddpm_linear", N_STEPS),
+        solver=C.SolverConfig("ddim"), B=B, S=S, x_init=x_init, fixed=fixed)
+
+
+def main() -> int:
     import torch
 
     # ---- 1. device -------------------------------------------------------
@@ -2083,23 +2258,18 @@ def main() -> int:
 
     # ---- 4. sampling -----------------------------------------------------
     import repro_torch.core as C
-    from repro_torch.configs import get_arch
     from repro_torch.models import dit
 
-    cfg = get_arch("srds-dit-sd2")
-    t0 = time.perf_counter()
-    tree = dit.random_jax_tree(cfg, seed=SEED)
-    model = dit.load_jax_params(cfg, tree, device="cuda")
+    setup = dit_setup(torch)
+    cfg, tree, model, model_fn = setup.cfg, setup.tree, setup.model, \
+        setup.model_fn
+    sched, solver, x_init = setup.sched, setup.solver, setup.x_init
+    B, S, fixed, build_s = setup.B, setup.S, setup.fixed, setup.build_s
+    del setup
     print(f"[4/10] srds-dit-sd2: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads}x{cfg.resolved_head_dim} heads, {cfg.dtype}, "
           f"{dit.param_count(model) / 1e6:.1f} M params, built in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    model_fn = dit.make_denoiser(model)
-    sched = C.make_schedule("ddpm_linear", N_STEPS)
-    solver = C.SolverConfig("ddim")
-    B, S = C.resolve_blocks(N_STEPS, BLOCKS)
-    x_init = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
-        (SAMPLES, 64, 64, 4)).astype(np.float32)).cuda()
+          f"{build_s:.1f} s", flush=True)
     layers = cfg.num_layers
 
     def run(label, fn, path=None):
@@ -2127,8 +2297,6 @@ def main() -> int:
         model_fn, sched, solver, x_init))
     expect(counts, N_STEPS, 0)
 
-    fixed = C.SRDSConfig(num_blocks=B, max_iters=B, fixed_iters=True,
-                         per_sample=True, tol=0.0)
     res, main_counts, _ = run("srds_sample max_iters=B (main path)",
                               lambda: C.srds_sample(model_fn, sched, solver,
                                                     x_init, fixed),
@@ -2203,10 +2371,10 @@ def main() -> int:
         "flash_attention_bwd_dkv": (
             "cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "src/repro/kernels/flash_attention.py:494"),
-        "ddim_fused": ("triton", "src/repro_torch/kernels/elementwise.py",
+        "ddim_fused": ("cuda", "src/repro_torch/kernels/csrc/elementwise.cu",
                        "src/repro/kernels/elementwise.py:34"),
         "parareal_update_residual": (
-            "triton", "src/repro_torch/kernels/elementwise.py",
+            "cuda", "src/repro_torch/kernels/csrc/elementwise.cu",
             "src/repro/kernels/elementwise.py:63"),
         "parareal_update": ("triton", "src/repro_torch/kernels/elementwise.py",
                             "src/repro/kernels/elementwise.py:110"),

@@ -192,12 +192,17 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def ddim_fused(x: torch.Tensor, eps: torch.Tensor, a, b, *,
                use_kernel: Optional[bool] = None) -> torch.Tensor:
-    """Fused DDIM update; ``a``/``b`` of shape () or per row ``(M,)``."""
+    """Fused DDIM update; ``a``/``b`` of shape () or per row ``(M,)``,
+    tensors or Python floats (a dense f32 tensor on x's device passes to
+    the kernel as it is)."""
     if not _kernel(x, use_kernel):
         return ref.ddim_fused(x, eps, a, b)
     f32 = dict(dtype=torch.float32, device=x.device)
-    return elementwise.ddim_fused(x, eps, torch.as_tensor(a, **f32),
-                                  torch.as_tensor(b, **f32))
+    if not isinstance(a, torch.Tensor):
+        a = torch.as_tensor(a, **f32)
+    if not isinstance(b, torch.Tensor):
+        b = torch.as_tensor(b, **f32)
+    return elementwise.ddim_fused(x, eps, a, b)
 
 
 def parareal_update_residual(y: torch.Tensor, cur: torch.Tensor,

@@ -4,8 +4,9 @@
 maps a name to the port's kernel that launched it (the flash backward's
 masked and grouped forms share the dq and dkv kernels' names), to cuBLAS,
 or to the rest (elementwise, norms, copies); ``device_ms_by_name`` sums a
-profile's device time per kernel name.  The port's only use is reading: nothing on a
-model's path calls this module.
+profile's device time per kernel name; ``device_launches`` counts the
+device launches of a function's calls.  The port's only use is reading:
+nothing on a model's path calls this module.
 """
 from __future__ import annotations
 
@@ -14,6 +15,11 @@ from collections import defaultdict
 # CUPTI reports a stall of the launch queue as an event of its own; it is
 # not a kernel and its time overlaps the kernels'
 NOT_KERNELS = ("Command Buffer Full",)
+# seconds the host waits at each end of a launch-counting window
+# (device_launches).  On an H100 the device's timestamps read up to about
+# 0.5 ms early in a window (scripts/torch_profiler_edges.py), and a window
+# without the pause lost launches now and then
+LAUNCH_EDGE_PAUSE_S = 0.02
 
 # (substring of the lower-cased kernel name, group), first match wins
 _PORT_KERNELS = (
@@ -24,6 +30,15 @@ _PORT_KERNELS = (
     # passes (wkv_bwd_rowgroup_kernel, wkv_bwd_dv_sum_kernel)
     ("wkv_fwd_", "rwkv6_wkv (port)"),
     ("wkv_bwd_", "rwkv6_wkv_bwd (port)"),
+    ("ddim_fused_kernel", "ddim_fused (port)"),
+    ("parareal_resid_cluster_kernel", "parareal_update_residual (port)"),
+)
+# B4's two Triton kernels, reported by their bare function names: matched
+# at the start of the name only, so that no library kernel whose name holds
+# the words lands in the port's group
+_PORT_PREFIXES = (
+    ("update_kernel", "parareal_update (port)"),
+    ("sum_partials_kernel", "parareal_update (port)"),
 )
 _GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass", "sm90_")
 GEMM = "gemm (cuBLAS)"
@@ -35,6 +50,9 @@ def kernel_group(name: str) -> str:
     low = name.lower()
     for mark, group in _PORT_KERNELS:
         if mark in low:
+            return group
+    for prefix, group in _PORT_PREFIXES:
+        if low.startswith(prefix):
             return group
     if any(mark in low for mark in _GEMM_MARKS):
         return GEMM
@@ -52,6 +70,35 @@ def device_ms_by_name(prof, reps: int = 1) -> dict:
             continue
         by_name[evt.key] += evt.self_device_time_total / 1e3 / reps
     return dict(by_name)
+
+
+def device_launches(fn, calls: int, pause_s: float = LAUNCH_EDGE_PAUSE_S
+                    ) -> dict:
+    """{kernel name: [launches, device µs]} of ``calls`` calls of ``fn``
+    under one ``torch.profiler`` window; every device activity counts
+    (kernels, copies, fills).  The card is idle and the host waits
+    ``pause_s`` seconds at both ends of the window, so that each launch of
+    the calls lies well inside it: the profiler keeps a device activity
+    only if its timestamps, taken on the card's clock, fall inside the
+    window, taken on the host's."""
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(pause_s)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(pause_s)
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and evt.key not in NOT_KERNELS:
+            out[evt.key] = [evt.count, evt.self_device_time_total]
+    return out
 
 
 def by_group(by_name: dict) -> dict:

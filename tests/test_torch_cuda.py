@@ -14,7 +14,10 @@ bf16 ulp (atol 4e-3, rtol 1e-2), while autograd through the plain bf16
 attention rounds at more places (2e-2); the fused residual update rounds
 the same f32 values once,
 so its output is bitwise equal and its sums agree to 1e-5 relative; so
-does the update without the residual (``parareal_update``).  SRDS on a
+does the update without the residual (``parareal_update``).  The CUDA
+DDIM and residual kernels also run bitwise equal twice and on their scalar
+path (unaligned operands) as on their 16-byte path; f16 DDIM outputs may
+differ by two f16 ulps (2e-3).  SRDS on a
 small f32 DiT with ``norm='l2_mean'``: the fused and plain updates add the
 same f32 values in the same order, so their samples agree to 1e-5 (the
 rest of the solve is shared), and the sample at the iteration cap equals
@@ -43,6 +46,7 @@ BF16_TOL = 2e-2
 GRAD_F32_TOL = 1e-4
 GRAD_BF16_ATOL, GRAD_BF16_RTOL = 4e-3, 1e-2
 SUM_RTOL = 1e-5
+F16_TOL = 2e-3        # two f16 ulps of values of order 1
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # (B, H, Sq, Sk, D): SD-v2's head dim 72, CIFAR's 64, ragged Sq and Sk
 ATTN_CASES = [(1, 2, 64, 64, 64), (2, 2, 48, 48, 72), (1, 3, 40, 77, 72),
@@ -205,6 +209,115 @@ def test_residual_kernel_slices_independent_of_batch_on_card(cuda):
         _, alone = ops.parareal_update_residual(y[s], c[s], p[s], o[s],
                                                 batch_dims=1)
         assert alone.item() == batch[k].item()
+
+
+EW_DTYPES = {"float32": (torch.float32, F32_TOL),
+             "bfloat16": (torch.bfloat16, BF16_TOL),
+             "float16": (torch.float16, F16_TOL)}
+
+
+def _unaligned(t):
+    """A copy of ``t`` whose data starts one element past a 16-byte
+    boundary: the CUDA elementwise kernels take their scalar path."""
+    u = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return u.view(t.shape).copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_row", [False, True], ids=["scalar", "per_row"])
+@pytest.mark.parametrize("dtype", sorted(EW_DTYPES))
+@pytest.mark.parametrize("shape", [(10, 64, 64, 4), (3, 1001), (5, 3, 7)],
+                         ids=str)
+def test_ddim_kernel_dtypes_and_coefficients_on_card(cuda, shape, dtype,
+                                                     per_row):
+    """B2 in f32, bf16 and f16, with one (a, b) or one per row, at the fine
+    step's shape and at lengths that are no multiple of the 16-byte vector
+    (a ragged tail, rows not of whole vectors): within the stated tolerance
+    of the plain version, two runs bitwise equal, and the scalar path
+    (unaligned operands) bitwise equal to the 16-byte path."""
+    tdt, tol = EW_DTYPES[dtype]
+    x, e = (torch.from_numpy(_rand(i, shape)).to(cuda, tdt) for i in (0, 1))
+    a = torch.linspace(0.05, 0.6, shape[0], device=cuda)
+    if not per_row:
+        a = a[1]
+    b = a + 0.3
+    out = ops.ddim_fused(x, e, a, b)
+    assert out.dtype == tdt and out.shape == x.shape
+    torch.testing.assert_close(out.float(), ref.ddim_fused(x, e, a, b).float(),
+                               atol=tol, rtol=tol)
+    assert torch.equal(ops.ddim_fused(x, e, a, b), out)
+    assert torch.equal(ops.ddim_fused(_unaligned(x), _unaligned(e), a, b),
+                       out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["strided", "broadcast", "float64"])
+def test_ddim_kernel_takes_any_coefficient_layout_on_card(cuda, form):
+    """Per-row coefficients that are not dense f32 on the card (a strided
+    view of a table, a 0-d value expanded to every row, f64) give the same
+    bits as dense f32 copies of them."""
+    shape = (10, 64, 64, 4)
+    x, e = (torch.from_numpy(_rand(i, shape)).to(cuda) for i in (0, 1))
+    table = torch.linspace(0.05, 0.9, 2 * shape[0], device=cuda)
+    a, b = {"strided": (table[::2], table[1::2]),
+            "broadcast": (torch.tensor(0.4, device=cuda).expand(shape[0]),
+                          torch.tensor(0.7, device=cuda).expand(shape[0])),
+            "float64": (table[:shape[0]].double(),
+                        table[shape[0]:].double())}[form]
+    dense = [c.float().contiguous() for c in (a, b)]
+    out = ops.ddim_fused(x, e, a, b)
+    assert torch.equal(out, ops.ddim_fused(x, e, *dense))
+    torch.testing.assert_close(out, ref.ddim_fused(x, e, *dense),
+                               atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(EW_DTYPES))
+@pytest.mark.parametrize("batch_dims,shape", [
+    (1, (2, 64, 64, 4)), (2, (5, 2, 64, 64, 4)), (0, (3, 1000, 7)),
+    (1, (3, 999, 7)), (2, (3, 1000, 7)), (1, (4, 2, 64, 64, 4))], ids=str)
+def test_residual_kernel_ragged_and_repeated_on_card(cuda, batch_dims, shape,
+                                                     dtype):
+    """B1 at the corrector's shapes and at ragged ones (slices of 6993 and
+    of 7 elements: the scalar path): the update bitwise equal to the plain
+    version, the residual within 1e-5 relative, two runs bitwise equal,
+    and the scalar path (unaligned operands) bitwise equal to the 16-byte
+    path, residual included (it keeps the summation order)."""
+    tdt = EW_DTYPES[dtype][0]
+    y, c, p, o = (torch.from_numpy(_rand(i, shape)).to(cuda, tdt)
+                  for i in range(4))
+    out, resid = ops.parareal_update_residual(y, c, p, o,
+                                              batch_dims=batch_dims)
+    out_r, resid_r = ref.parareal_update_residual(y, c, p, o,
+                                                  batch_dims=batch_dims)
+    torch.testing.assert_close(out, out_r, atol=0, rtol=0)
+    torch.testing.assert_close(resid, resid_r, atol=0, rtol=SUM_RTOL)
+    for args in ((y, c, p, o), tuple(map(_unaligned, (y, c, p, o)))):
+        out2, resid2 = ops.parareal_update_residual(*args,
+                                                    batch_dims=batch_dims)
+        assert torch.equal(out2, out) and torch.equal(resid2, resid)
+
+
+@pytest.mark.cuda
+def test_elementwise_kernels_one_launch_per_call_on_card(cuda):
+    """Each B1 or B2 call makes one device launch (kernels, copies and
+    fills all count), read from one torch.profiler window
+    (``profiling.device_launches``): a window that traced no device launch
+    fails."""
+    from repro_torch.runtime.profiling import device_launches
+    y, c, p, o = (torch.from_numpy(_rand(i, (5, 2, 64, 64, 4))).to(cuda)
+                  for i in range(4))
+    a = torch.linspace(0.05, 0.6, 5, device=cuda)
+    b = a + 0.3
+    calls = {"ddim_fused": lambda: ops.ddim_fused(y, c, a, b),
+             "parareal_update_residual": lambda: ops.parareal_update_residual(
+                 y, c, p, o, batch_dims=2)}
+    for name, fn in calls.items():
+        fn()
+        before = ops.launch_counts()[name]
+        device = device_launches(fn, 10)
+        assert ops.launch_counts()[name] - before == 10
+        assert sum(n for n, _ in device.values()) == 10, (name, device)
 
 
 @pytest.mark.cuda

@@ -456,6 +456,91 @@ def test_parareal_residual_slices_independent_of_batch():
         assert alone.item() == batch[k].item()
 
 
+# the CUDA kernels' launch geometry, computed in Python
+# (repro_torch.kernels.elementwise): every element has one owner, the
+# residual's cluster follows from the slice's length alone, and the 16-byte
+# path is taken only where the operands allow it
+
+def _ddim_owners(n, n_vec, vec, blocks, threads):
+    """How many times the DDIM kernel's threads write each element: thread
+    t < n_vec its vector t, thread n_vec + k element n_vec * vec + k."""
+    seen = np.zeros(n, np.int64)
+    for t in range(blocks * threads):
+        if t < n_vec:
+            seen[t * vec:(t + 1) * vec] += 1
+        elif n_vec * (vec - 1) + t < n:
+            seen[n_vec * (vec - 1) + t] += 1
+    return seen
+
+
+@pytest.mark.parametrize("n,n_row,per_row,vec,aligned,want_vec", [
+    (10 * 64 * 64 * 4, 64 * 64 * 4, True, 4, True, True),
+    (2 * 64 * 64 * 4, 64 * 64 * 4, True, 8, True, True),
+    (2 * 64 * 64 * 4, 64 * 64 * 4, True, 4, True, True),
+    (10 * 64 * 64 * 4, 64 * 64 * 4, False, 8, True, True),
+    (3 * 1001, 1001, True, 4, True, False),    # a row not of whole vectors
+    (3 * 1001, 1001, False, 4, True, True),    # scalar (a, b): a ragged tail
+    (3 * 1000, 1000, True, 8, False, False),   # unaligned operands
+    (7, 7, False, 8, True, False),             # shorter than one vector
+    (1, 1, False, 4, True, False)], ids=str)
+def test_ddim_geometry_covers_every_element_once(n, n_row, per_row, vec,
+                                                 aligned, want_vec):
+    from repro_torch.kernels import elementwise as ew
+    n_vec, blocks = ew.ddim_geometry(n, n_row, per_row, vec, aligned)
+    assert (n_vec > 0) == want_vec
+    assert n_vec == 0 or (aligned and (not per_row or n_row % vec == 0))
+    seen = _ddim_owners(n, n_vec, vec, blocks, ew.DDIM_THREADS)
+    assert (seen == 1).all()
+    # one vector (or element after them) per thread, no block without one
+    work = n_vec + n - n_vec * vec
+    assert (blocks - 1) * ew.DDIM_THREADS < work <= blocks * ew.DDIM_THREADS
+
+
+@pytest.mark.parametrize("vec", [4, 8])
+@pytest.mark.parametrize("n_slice", [1, 7, 999 * 7, 1000 * 7, 4096, 4097,
+                                     2 * 64 * 64 * 4, 64 * 64 * 4,
+                                     3 * 64 * 64 * 4 + 5, 10 ** 6], ids=str)
+def test_resid_geometry_depends_on_the_slice_alone(n_slice, vec):
+    from repro_torch.kernels import elementwise as ew
+    got = {ew.resid_geometry(n_slice, vec, aligned)[:3]
+           for aligned in (True, False)}
+    assert len(got) == 1                    # the path keeps the order
+    cluster, per_block, threads = got.pop()
+    assert 1 <= cluster <= ew.RESID_MAX_CLUSTER == 8
+    assert threads % 32 == 0 and 32 <= threads <= ew.RESID_THREADS
+    # the blocks' spans of groups of vec elements: each element one owner,
+    # no block of the cluster without work unless the slice is tiny
+    groups = -(-n_slice // vec)
+    spans = [(r * per_block, min(groups, (r + 1) * per_block))
+             for r in range(cluster)]
+    owned = sum(max(0, hi - lo) for lo, hi in spans)
+    assert owned == groups and spans[-1][1] == groups
+    assert all(hi > lo for lo, hi in spans)
+    assert ew.resid_geometry(n_slice, vec, True)[3] == (n_slice % vec == 0)
+    assert ew.resid_geometry(n_slice, vec, False)[3] is False
+
+
+def test_elementwise_alignment_and_cpu_refusal_before_the_build(monkeypatch):
+    """The 16-byte path needs every operand on a 16-byte boundary; the
+    CUDA wrappers check device, dtype and shape before they load (or
+    build) the library."""
+    from repro_torch.kernels import elementwise as ew
+    x = torch.zeros(64)
+    assert ew._aligned(x, x[4:]) and not ew._aligned(x, x[1:])
+    assert [ew.vector_width(t) for t in (torch.float32, torch.bfloat16,
+                                         torch.float16)] == [4, 8, 8]
+
+    def no_build():
+        raise AssertionError("the library was loaded before the checks")
+
+    monkeypatch.setattr(ew, "_lib", no_build)
+    y = torch.ones(2, 16, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ew.ddim_fused(y, y, torch.tensor(0.5), torch.tensor(0.6))
+    with pytest.raises(ValueError, match="CUDA"):
+        ew.parareal_update_residual(y, y, y, y, batch_dims=1)
+
+
 # --------------------------------------------------------------------------
 # rwkv6 wkv
 # --------------------------------------------------------------------------
@@ -898,8 +983,8 @@ def test_build_targets_sources_by_hash(monkeypatch):
     hash, inside the package's ignored build directory; without nvcc the
     build raises instead of falling back."""
     from repro_torch.kernels import _build
-    assert _build.sources() == ["flash_attention_bwd", "flash_attention_fwd",
-                                "rwkv6_wkv"]
+    assert _build.sources() == ["elementwise", "flash_attention_bwd",
+                                "flash_attention_fwd", "rwkv6_wkv"]
     target = _build._target("flash_attention_fwd")
     assert target.parent == _build.BUILD_DIR
     assert target.name.startswith("libflash_attention_fwd-")

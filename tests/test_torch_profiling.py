@@ -44,6 +44,34 @@ def test_kernel_group_wkv(name, group):
     assert profiling.kernel_group(name) == group
 
 
+@pytest.mark.parametrize("name, group", [
+    ("void (anonymous namespace)::ddim_fused_kernel<float>(float const*, "
+     "float const*, float const*, float const*, float*, long long, "
+     "long long, long long, int)", "ddim_fused (port)"),
+    ("void (anonymous namespace)::ddim_fused_kernel<__nv_bfloat16>(...)",
+     "ddim_fused (port)"),
+    ("void (anonymous namespace)::parareal_resid_cluster_kernel<float, "
+     "true>(float const*, float const*, float const*, float const*, float*, "
+     "float*, long long, long long)", "parareal_update_residual (port)"),
+    ("void (anonymous namespace)::parareal_resid_cluster_kernel<__half, "
+     "false>(...)", "parareal_update_residual (port)"),
+    ("update_kernel", "parareal_update (port)"),
+    ("sum_partials_kernel", "parareal_update (port)"),
+    # library kernels that hold the Triton kernels' words stay where they
+    # were: elementwise work, or cuBLAS
+    ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<"
+     "update_kernel_functor>", profiling.OTHER),
+    ("sm90_xmma_gemm_sum_partials_kernel_bf16", profiling.GEMM),
+])
+def test_kernel_group_elementwise(name, group):
+    """The DDIM and residual CUDA kernels and B4's Triton kernels have
+    groups of their own; none of their names holds a cuBLAS mark, so the
+    order in which the marks are tried does not decide their group."""
+    assert profiling.kernel_group(name) == group
+    if group.endswith("(port)"):
+        assert not any(m in name.lower() for m in profiling._GEMM_MARKS)
+
+
 @pytest.mark.parametrize("name", [
     "void (anonymous namespace)::tc::flash_fwd_kernel_tc<128, 3>"
     "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, "
@@ -115,3 +143,21 @@ def test_device_ms_by_group_sums_names_and_skips_host_events():
                                  "copy_kernel": 0.5})
     assert groups == {"flash_attention_fwd (port)": 1.5,
                       profiling.GEMM: 2.25, profiling.OTHER: 0.5}
+
+
+def test_device_launches_pauses_at_both_ends_and_counts_calls(monkeypatch):
+    """``device_launches`` calls ``fn`` the given number of times inside
+    one window, waits ``pause_s`` at each end with the card synchronised
+    around the calls, and reads device activity only: a CPU-only function
+    launches nothing."""
+    import time
+    syncs, calls = [], []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda: syncs.append(len(calls)))
+    x = torch.ones(64, 64)
+    t0 = time.perf_counter()
+    got = profiling.device_launches(lambda: calls.append((x @ x).sum()), 7,
+                                    pause_s=0.05)
+    assert time.perf_counter() - t0 >= 0.1
+    assert got == {}
+    assert len(calls) == 7 and syncs == [0, 7]
