@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card (compute capability 9.0), ``nvcc`` and ``triton``.
+Needs one CUDA card (compute capability 9.0) and ``nvcc``.
 Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. device: CUDA with capability (9, 0); prints the card's name and power
@@ -30,18 +30,19 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    bitwise equal; at the DiT's and qwen3-8b's shapes readings with P and
    dS in 1, 2 and 3 terms, where the 1-term control must miss that limit
    while the kernels' 2 terms meet it), DDIM at the fine and coarse
-   steps' shapes and the fused residual (the corrector's shapes with
+   steps' shapes, the fused residual (the corrector's shapes with
    ``batch_dims`` 0, 1 and 2, a batch of 4, slices of 6993 f32 and of 7
-   bf16 elements), each run twice (bitwise equal) and on unaligned
-   copies of its operands (the kernels' scalar path: the same bits),
-   each with its device launches a call (must be 1) and device µs a
-   launch from one ``torch.profiler`` window and its host µs a call
-   (enqueue time), then each slice of a (4, 2, 64, 64, 4) batch run
-   alone (the same bits), and the fused update without the residual
-   (``parareal_update``: f32 at the serving shape, bf16, ragged; two runs
-   bitwise equal); the forward's causal
-   grouped-query form at qwen3-8b's prefill shape, a ragged right-aligned
-   causal case and the sliding-window form at hymba-1.5b's shape; the
+   bf16 elements) and the fused update without the residual
+   (``parareal_update``: the serving shape, a ragged one and a batch of
+   blocks, each in f32 and bf16; the wall time of its first call), each
+   run twice (bitwise equal) and on unaligned copies of its operands (the
+   kernels' scalar path: the same bits), each with its device launches a
+   call (must be 1) and device µs a launch from one ``torch.profiler``
+   window and its host µs a call (enqueue time), and each slice of a
+   (4, 2, 64, 64, 4) batch of the residual run alone (the same bits); the
+   forward's causal grouped-query form at qwen3-8b's prefill shape, a
+   ragged right-aligned causal case and the sliding-window form at
+   hymba-1.5b's shape; the
    WKV kernel at rwkv6-1.6b's prefill shape, at its training shape with
    checkpoints, at T = 1, a ragged T and with w over the model's whole
    clip (two runs bitwise equal, every bf16 case held by rel L2, the
@@ -269,7 +270,7 @@ LM_TRAIN_LAYERS = {"qwen3-8b": 8, "rwkv6-1.6b": None}
 # rise of 1.348-1.386 reversed.  Each margin is about a third of the
 # smallest fall
 FIT_MARGIN = {"qwen3-8b": 0.45, "rwkv6-1.6b": 0.03}
-# phase 3's B1/B2 readings: the calls of one profiler window (device
+# phase 3's B1/B2/B4 readings: the calls of one profiler window (device
 # launches per call, device time per launch) and the calls timed for the
 # host's enqueue time
 LAUNCH_WINDOW_CALLS, HOST_CALLS = 20, 200
@@ -1931,7 +1932,7 @@ def wkv_backward_cases(torch, ref, randn, cases):
 
 
 def launch_readings(torch, fn) -> dict:
-    """Phase 3's readings of one B1/B2 case: the device launches per call
+    """Phase 3's readings of one B1/B2/B4 case: the device launches per call
     and device microseconds per launch, from one ``torch.profiler`` window
     of ``LAUNCH_WINDOW_CALLS`` calls (``profiling.device_launches``: every
     device activity counts, kernels, copies, fills), and the host's
@@ -1954,7 +1955,7 @@ def launch_readings(torch, fn) -> dict:
 
 
 def print_readings(label, timing, reading, launches):
-    """Print one B1/B2 case's readings; with ``launches`` set, fail unless
+    """Print one B1/B2/B4 case's readings; with ``launches`` set, fail unless
     each call made exactly that many device launches."""
     per_call = reading["launches_per_call"]
     dev_us = reading["device_us_per_launch"]
@@ -1974,13 +1975,20 @@ def print_readings(label, timing, reading, launches):
                              f"not {launches}")
 
 
+def unaligned_copy(torch, t):
+    """A copy of ``t`` whose data starts one element past a 16-byte
+    boundary: the elementwise kernels take their scalar path."""
+    u = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return u.view(t.shape).copy_(t)
+
+
 def elementwise_cases(torch, ops, ref, randn, cases, launches=1):
-    """Phase 3's B2 (``ddim_fused``) and B1 (``parareal_update_residual``)
-    cases: each held against its plain version (DDIM within 2e-5 in f32,
-    the update bitwise, the residual at atol 0 and rtol 1e-5), run twice
-    (bitwise equal), timed with CUDA events and read by
-    :func:`launch_readings`; then B1's per-slice residuals of a
-    (4, 2, 64, 64, 4) batch against the slices run alone.  ``launches``: the
+    """Phase 3's B2 (``ddim_fused``), B1 (``parareal_update_residual``)
+    and B4 (``parareal_update``) cases: each held against its plain
+    version (DDIM within 2e-5 in f32, the update bitwise, a residual at
+    atol 0 and rtol 1e-5), run twice (bitwise equal), timed with CUDA
+    events and read by :func:`launch_readings`; B1's per-slice residuals
+    of a (4, 2, 64, 64, 4) batch against the slices run alone.  ``launches``: the
     device launches a call must make (None reads them only, as
     scripts/torch_elementwise_bench.py does for another checkout's
     kernels, which also skips the check that the kernels' scalar path,
@@ -2009,8 +2017,7 @@ def elementwise_cases(torch, ops, ref, randn, cases, launches=1):
                 torch, lambda: ops.ddim_fused(x, e, a, b))))
         print_readings(label, timing, cases["ddim_fused"][-1], launches)
         if launches is not None:
-            xu, eu = (torch.empty(x.numel() + 1, device=dev)[1:].view(shape)
-                      .copy_(t) for t in (x, e))
+            xu, eu = (unaligned_copy(torch, t) for t in (x, e))
             if not torch.equal(_bits(ops.ddim_fused(xu, eu, a, b)),
                                _bits(got)):
                 raise AssertionError("ddim_fused: the scalar path (unaligned "
@@ -2040,9 +2047,7 @@ def elementwise_cases(torch, ops, ref, randn, cases, launches=1):
                 and torch.equal(_bits(again[1]), _bits(resid))):
             raise AssertionError("parareal_update_residual: two runs differ")
         if launches is not None:
-            yu, cu, pu, ou = (torch.empty(t.numel() + 1, dtype=tdt,
-                                          device=dev)[1:].view(shape)
-                              .copy_(t) for t in (y, c, p, o))
+            yu, cu, pu, ou = (unaligned_copy(torch, t) for t in (y, c, p, o))
             su = ops.parareal_update_residual(yu, cu, pu, ou, batch_dims=nd)
             if not (torch.equal(_bits(su[0]), _bits(out))
                     and torch.equal(_bits(su[1]), _bits(resid))):
@@ -2080,6 +2085,61 @@ def elementwise_cases(torch, ops, ref, randn, cases, launches=1):
     print(f"  parareal_update_residual: each slice of a "
           f"{tuple(y.shape)} batch (batch_dims=1) run alone: out and "
           f"residual bitwise equal", flush=True)
+
+    # the update without the residual (B4): one corrector block of the
+    # serving engine's 2 slots (the l2_mean run's shape, first), a ragged
+    # size and a batch of blocks, each in f32 and bf16; the first call is
+    # timed alone (a reading: the occupancy query and the geometry of a new
+    # configuration, no compiler)
+    print("  parareal_update (B4):", flush=True)
+    first_ms = None
+    for shape, dtype in [((SAMPLES, 64, 64, 4), "float32"),
+                         ((SAMPLES, 64, 64, 4), "bfloat16"),
+                         ((3, 1000, 7), "float32"),
+                         ((3, 1000, 7), "bfloat16"),
+                         ((BLOCKS, SAMPLES, 64, 64, 4), "float32"),
+                         ((BLOCKS, SAMPLES, 64, 64, 4), "bfloat16")]:
+        tdt = getattr(torch, dtype)
+        y, c, p = (randn(shape, tdt) for _ in range(3))
+        if first_ms is None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ops.parareal_update(y, c, p)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            print(f"    reading: the first parareal_update call here, "
+                  f"{dtype} {shape}: {first_ms:.3f} ms of wall time",
+                  flush=True)
+        out, resid = ops.parareal_update(y, c, p)
+        again = ops.parareal_update(y, c, p)
+        out_r, resid_r = ref.parareal_update(y, c, p)
+        if not torch.equal(_bits(out), _bits(out_r)):
+            raise AssertionError("parareal_update: the update is not bitwise "
+                                 "equal to its plain version")
+        if not (torch.equal(_bits(again[0]), _bits(out))
+                and torch.equal(_bits(again[1]), _bits(resid))):
+            raise AssertionError("parareal_update: two runs differ")
+        if launches is not None:
+            su = ops.parareal_update(*(unaligned_copy(torch, t)
+                                       for t in (y, c, p)))
+            if not (torch.equal(_bits(su[0]), _bits(out))
+                    and torch.equal(_bits(su[1]), _bits(resid))):
+                raise AssertionError("parareal_update: the scalar path "
+                                     "(unaligned operands) differs from the "
+                                     "16-byte path")
+        b_ms, b_by = bound(nbytes(y, c, p, out, resid), 5.0 * y.numel(),
+                           "float32")
+        timing = dict(
+            ms=time_ms(lambda: ops.parareal_update(y, c, p), 500),
+            plain_ms=time_ms(lambda: ops.parareal_update(
+                y, c, p, use_kernel=False), 200),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        label = f"parareal_update {dtype} {shape}"
+        cases["parareal_update"].append(dict(check_case(
+            f"{label} (out bitwise, two runs bitwise)", resid, resid_r, 0.0,
+            1e-5, timing), first_call_ms=first_ms, **launch_readings(
+                torch, lambda: ops.parareal_update(y, c, p))))
+        print_readings(label, timing, cases["parareal_update"][-1], launches)
     t0 = time.perf_counter()
     for _ in range(HOST_CALLS):
         with torch.cuda.device(dev):
@@ -2158,33 +2218,6 @@ def kernel_phase(torch, ops, ref):
     masked_backward_cases(torch, ref, randn, cases)
 
     elementwise_cases(torch, ops, ref, randn, cases)
-
-    # fused update without the residual (B4): one corrector block of the
-    # serving engine's 2 slots in f32, the same in bf16, and a ragged size
-    for shape, dtype in [((SAMPLES, 64, 64, 4), "float32"),
-                         ((SAMPLES, 64, 64, 4), "bfloat16"),
-                         ((3, 1000, 7), "float32")]:
-        tdt = getattr(torch, dtype)
-        y, c, p = (randn(shape, tdt) for _ in range(3))
-        out, resid = ops.parareal_update(y, c, p)
-        again = ops.parareal_update(y, c, p)
-        out_r, resid_r = ref.parareal_update(y, c, p)
-        if not torch.equal(out, out_r):
-            raise AssertionError("parareal_update: the update is not bitwise "
-                                 "equal to its plain version")
-        if not (torch.equal(_bits(again[0]), _bits(out))
-                and torch.equal(_bits(again[1]), _bits(resid))):
-            raise AssertionError("parareal_update: two runs differ")
-        b_ms, b_by = bound(nbytes(y, c, p, out, resid), 5.0 * y.numel(),
-                           "float32")
-        timing = dict(
-            ms=time_ms(lambda: ops.parareal_update(y, c, p), 500),
-            plain_ms=time_ms(lambda: ops.parareal_update(
-                y, c, p, use_kernel=False), 200),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        cases["parareal_update"].append(check_case(
-            f"parareal_update {dtype} {shape} (out bitwise, two runs "
-            f"bitwise)", resid, resid_r, 0.0, 1e-5, timing))
 
     wkv_readings(torch)
     wkv_cases(torch, ops, ref, randn, cases)
@@ -2376,7 +2409,8 @@ def main() -> int:
         "parareal_update_residual": (
             "cuda", "src/repro_torch/kernels/csrc/elementwise.cu",
             "src/repro/kernels/elementwise.py:63"),
-        "parareal_update": ("triton", "src/repro_torch/kernels/elementwise.py",
+        "parareal_update": ("cuda",
+                            "src/repro_torch/kernels/csrc/elementwise.cu",
                             "src/repro/kernels/elementwise.py:110"),
         "flash_attention_fwd_causal_gqa": (
             "cuda", "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The DDIM step and the fused update + residual alone on the card: phase
-3's B2 and B1 cases of ``chip_smoke.py``, without the rest of the run.
+"""The DDIM step and the fused updates, with and without the residual,
+alone on the card: phase 3's B2, B1 and B4 cases of ``chip_smoke.py``,
+without the rest of the run.
 
     python3 scripts/torch_elementwise_bench.py [--src DIR] [--end-to-end]
 
@@ -12,9 +13,11 @@ cases, inputs and limits as phase 3, each held against its plain version
 and run twice (bitwise equal), timed with CUDA events over 500 calls, with
 the device launches per call and device microseconds per launch from one
 ``torch.profiler`` window and the host's enqueue microseconds per call.
-A case that misses its limit raises, as in phase 3.  For the CUDA
-kernels (a tree whose ``elementwise`` has ``ddim_geometry``) it then
-reads where a call's host time goes (``host_breakdown``).
+A case that misses its limit raises, as in phase 3.  For a tree whose
+three kernels are all CUDA C++ it also holds each call to one device
+launch and the scalar path to the 16-byte path's bits, then reads where a
+call's host time goes (``host_breakdown``); an older tree's kernels are
+only read.
 
 ``--end-to-end`` first runs phases 4-5's paths through ``--src``'s
 package, before any kernel reading, so that both sides of a comparison
@@ -60,11 +63,21 @@ def host_breakdown(torch, ops, elementwise) -> None:
     resid_args = (x.data_ptr(), e.data_ptr(), p.data_ptr(), o.data_ptr(),
                   out.data_ptr(), resid.data_ptr(), x[0].numel(), per_block,
                   10, cluster, threads, 1, 0, stream)
+    resid0 = torch.empty((), device=dev)
+    b4_cluster, b4_per_block, b4_threads, _ = elementwise.resid_geometry(
+        x.numel(), 4, True)
+    update_args = (x.data_ptr(), e.data_ptr(), p.data_ptr(), out.data_ptr(),
+                   resid0.data_ptr(), x.numel(), b4_per_block, b4_cluster,
+                   b4_threads, 1, 0, stream)
     pieces = {
         "ops.ddim_fused (whole call)": lambda: ops.ddim_fused(x, e, a, b),
         "elementwise.ddim_fused": lambda: elementwise.ddim_fused(x, e, a, b),
         "ops.parareal_update_residual (whole call, batch_dims=1)":
             lambda: ops.parareal_update_residual(x, e, p, o, batch_dims=1),
+        "ops.parareal_update (whole call)":
+            lambda: ops.parareal_update(x, e, p),
+        "C parareal_update through ctypes (cluster launch included)":
+            lambda: lib.parareal_update(*update_args),
         "C ddim_fused through ctypes (launch included)":
             lambda: lib.ddim_fused(*ddim_args),
         "C parareal_update_residual through ctypes (cluster launch "
@@ -99,9 +112,8 @@ def end_to_end(torch, cs) -> None:
     import repro_torch.core as C
     from repro_torch.kernels import ops
     d = cs.dit_setup(torch)
-    # every kernel of the timed paths runs once first: a fresh process pays
-    # Triton's import and its launcher's build at its first Triton launch
-    # (B4 here; at the parent commit DDIM's) and not in any timed run
+    # every kernel of the timed paths runs once first, so that a tree whose
+    # B4 is a Triton kernel pays its JIT outside the timed runs
     ops.parareal_update(d.x_init, d.x_init, d.x_init)
     torch.cuda.synchronize()
     paths = {"sample_sequential": lambda: C.sample_sequential(
@@ -147,8 +159,10 @@ def main() -> int:
 
     if args.end_to_end:     # first, so that both sides start alike
         end_to_end(torch, cs)
-    ported = hasattr(elementwise, "ddim_geometry")
-    cases = {"ddim_fused": [], "parareal_update_residual": []}
+    ported = hasattr(elementwise, "ddim_geometry") and not hasattr(
+        elementwise, "_triton_kernels")
+    cases = {"ddim_fused": [], "parareal_update_residual": [],
+             "parareal_update": []}
     cs.elementwise_cases(torch, ops, ref, randn, cases,
                          launches=1 if ported else None)
     if ported:

@@ -1,5 +1,6 @@
 // The sampler's fused elementwise passes for Hopper (sm_90a): the DDIM step
-// and the Parareal update with its L1 residual, each one launch.
+// and the Parareal update with its L1 residual, with or without the
+// previous iterate, each one launch.
 //
 // ddim_fused_kernel replaces repro/kernels/elementwise.py::ddim_fused_pallas
 // (TPU body _ddim_kernel).  Per element, in f32, rounded once to the
@@ -18,8 +19,16 @@
 // y + cur - prev from f32, rounded once, and per slice of the preserved
 // leading axes the f32 sum of |out_f32 - old|.
 //
-// Bound.  Both move bytes and compute almost nothing: at the DiT's latents
-// ((10, 64, 64, 4) f32 for a fine DDIM step, (2, 64, 64, 4) for a
+// parareal_update_cluster_kernel replaces elementwise.py::
+// parareal_update_pallas (TPU body _parareal_kernel): the same out, and
+// the f32 sum of |cur - prev| over the whole tensor (the size of the
+// correction, which norm='l2_mean' and 'linf' runs compute but do not
+// gate on).  The TPU kernel writes one partial per (rows, 128) tile and
+// ops.py sums them; here the whole tensor is one slice of the residual's
+// cluster scheme below, so the sum is finished inside the one launch.
+//
+// Bound.  All three move bytes and compute almost nothing: at the DiT's
+// latents ((10, 64, 64, 4) f32 for a fine DDIM step, (2, 64, 64, 4) for a
 // corrector block) one call moves 0.2-2 MB, under a microsecond at 3.35
 // TB/s, so in practice the launch bounds them.  The design does what it can
 // about that: one launch per call (no second pass and no scratch tensor for
@@ -39,8 +48,8 @@
 // with the same arithmetic, so both paths give the same bits.
 // Every operation is rounded on its own, in the plain version's order.
 //
-// Residual: each slice is one thread-block cluster of up to 8 blocks (the
-// portable limit), launched with cudaLaunchKernelEx and the cluster
+// Residual (B1, and B4 with one slice): each slice is one thread-block
+// cluster of up to 8 blocks (the portable limit), launched with cudaLaunchKernelEx and the cluster
 // dimension as an attribute.  The cluster size, the blocks' spans and the
 // thread count depend on the slice's length alone (resid_geometry in
 // elementwise.py), so a slice's sum is bitwise the same whatever other
@@ -48,8 +57,8 @@
 // is 8 blocks of 1024 threads, one 16-byte group a thread: 4.1 us a launch
 // on an H100, against 4.4-9.5 us for fewer blocks or threads, whose
 // threads wait on one group's loads before the next's.  In a fixed order:
-//   1. each thread sums |out - old| over its groups of 16 bytes' worth of
-//      elements, element by element in index order (the scalar path, for
+//   1. each thread sums |out - old| (B4: |cur - prev|) over its groups of
+//      16 bytes' worth of elements, element by element in index order (the scalar path, for
 //      unaligned operands or a slice length that is no multiple of the
 //      vector, keeps that order, so it gives the vector path's bits);
 //   2. each warp by a shuffle tree (xor 16, 8, 4, 2, 1; lane 0's value),
@@ -61,7 +70,9 @@
 //   5. cluster.sync() again, so that no block exits while its shared
 //      memory is being read.
 // No float atomics, no partials tensor, no second launch: two runs are
-// bitwise equal.
+// bitwise equal.  One device body (update_cluster_body) serves both
+// kernels; each has its own __global__ entry and name, so a profile tells
+// them apart.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -196,19 +207,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One slice per cluster (grid: cluster size x slices, clusters along x).
-// Block r of a cluster owns groups r * per_block .. (r + 1) * per_block - 1
-// of its slice, a group being the N elements of one 16-byte vector (the
-// last one cut at n_slice); thread t walks groups t, t + blockDim.x, ...
-// kVector: the 16-byte path (operands aligned, n_slice a multiple of N).
-template <typename T, bool kVector>
-__global__ void __launch_bounds__(kResidMaxThreads)
-parareal_resid_cluster_kernel(const T* __restrict__ y,
-                              const T* __restrict__ cur,
-                              const T* __restrict__ prev,
-                              const T* __restrict__ old,
-                              T* __restrict__ out, float* __restrict__ resid,
-                              long long n_slice, long long per_block) {
+// The body of both cluster kernels.  One slice per cluster (grid: cluster
+// size x slices, clusters along x).  Block r of a cluster owns groups
+// r * per_block .. (r + 1) * per_block - 1 of its slice, a group being the
+// N elements of one 16-byte vector (the last one cut at n_slice); thread t
+// walks groups t, t + blockDim.x, ...  kVector: the 16-byte path (operands
+// aligned, n_slice a multiple of N).  kOld: the residual is |out - old|
+// (B1); otherwise it is |cur - prev| (B4), and old is never read.
+template <typename T, bool kVector, bool kOld>
+__device__ __forceinline__ void update_cluster_body(
+    const T* __restrict__ y, const T* __restrict__ cur,
+    const T* __restrict__ prev, const T* __restrict__ old,
+    T* __restrict__ out, float* __restrict__ resid, long long n_slice,
+    long long per_block) {
   using V = Vec<T>;
   __shared__ float warp_part[kResidMaxThreads / 32];
   __shared__ float block_part;
@@ -227,21 +238,24 @@ parareal_resid_cluster_kernel(const T* __restrict__ y,
       V::load(y + i, yv);
       V::load(cur + i, cv);
       V::load(prev + i, pv);
-      V::load(old + i, ov);
+      if constexpr (kOld) V::load(old + i, ov);
 #pragma unroll
       for (int j = 0; j < V::N; ++j) {
+        if constexpr (!kOld) acc += fabsf(cv[j] - pv[j]);
         yv[j] = __fsub_rn(__fadd_rn(yv[j], cv[j]), pv[j]);
-        acc += fabsf(yv[j] - ov[j]);
+        if constexpr (kOld) acc += fabsf(yv[j] - ov[j]);
       }
       V::store(out + i, yv);
     } else {
       const int m = (int)min((long long)V::N, base + n_slice - i);
       for (int j = 0; j < m; ++j) {
-        const float o = __fsub_rn(__fadd_rn(to_f32(y[i + j]),
-                                            to_f32(cur[i + j])),
-                                  to_f32(prev[i + j]));
+        const float c = to_f32(cur[i + j]), p = to_f32(prev[i + j]);
+        const float o = __fsub_rn(__fadd_rn(to_f32(y[i + j]), c), p);
         out[i + j] = from_f32<T>(o);
-        acc += fabsf(o - to_f32(old[i + j]));
+        if constexpr (kOld)
+          acc += fabsf(o - to_f32(old[i + j]));
+        else
+          acc += fabsf(c - p);
       }
     }
   }
@@ -262,6 +276,33 @@ parareal_resid_cluster_kernel(const T* __restrict__ y,
     resid[slice] = s;
   }
   cluster.sync();
+}
+
+// B1: per slice, out = y + cur - prev and resid[slice] = sum |out - old|.
+template <typename T, bool kVector>
+__global__ void __launch_bounds__(kResidMaxThreads)
+parareal_resid_cluster_kernel(const T* __restrict__ y,
+                              const T* __restrict__ cur,
+                              const T* __restrict__ prev,
+                              const T* __restrict__ old,
+                              T* __restrict__ out, float* __restrict__ resid,
+                              long long n_slice, long long per_block) {
+  update_cluster_body<T, kVector, true>(y, cur, prev, old, out, resid,
+                                        n_slice, per_block);
+}
+
+// B4: one cluster for the whole tensor of n elements, out = y + cur - prev
+// and resid[0] = sum |cur - prev|.  Its own entry, so that a profile keeps
+// it apart from B1.
+template <typename T, bool kVector>
+__global__ void __launch_bounds__(kResidMaxThreads)
+parareal_update_cluster_kernel(const T* __restrict__ y,
+                               const T* __restrict__ cur,
+                               const T* __restrict__ prev,
+                               T* __restrict__ out, float* __restrict__ resid,
+                               long long n, long long per_block) {
+  update_cluster_body<T, kVector, false>(y, cur, prev, nullptr, out, resid,
+                                         n, per_block);
 }
 
 template <typename T>
@@ -296,40 +337,65 @@ cudaLaunchConfig_t cluster_config(int cluster, int clusters, int threads,
   return cfg;
 }
 
+// One launch of a cluster kernel over `clusters` clusters of `cluster`
+// blocks of `threads` threads.
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster(Kernel kernel, int cluster, int clusters,
+                           int threads, cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(cluster, clusters, threads, stream, &attr);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_resid(const void* y, const void* c, const void* p,
                          const void* o, void* out, void* resid,
                          long long n_slice, long long per_block, int slices,
                          int cluster, int threads, bool vector,
                          cudaStream_t stream) {
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg =
-      cluster_config(cluster, slices, threads, stream, &attr);
-  const T* yt = static_cast<const T*>(y);
-  const T* ct = static_cast<const T*>(c);
-  const T* pt = static_cast<const T*>(p);
-  const T* ot = static_cast<const T*>(o);
-  T* outt = static_cast<T*>(out);
-  float* rt = static_cast<float*>(resid);
-  cudaError_t err = vector
-      ? cudaLaunchKernelEx(&cfg, parareal_resid_cluster_kernel<T, true>, yt,
-                           ct, pt, ot, outt, rt, n_slice, per_block)
-      : cudaLaunchKernelEx(&cfg, parareal_resid_cluster_kernel<T, false>, yt,
-                           ct, pt, ot, outt, rt, n_slice, per_block);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_cluster(vector ? &parareal_resid_cluster_kernel<T, true>
+                               : &parareal_resid_cluster_kernel<T, false>,
+                        cluster, slices, threads, stream,
+                        static_cast<const T*>(y), static_cast<const T*>(c),
+                        static_cast<const T*>(p), static_cast<const T*>(o),
+                        static_cast<T*>(out), static_cast<float*>(resid),
+                        n_slice, per_block);
 }
 
 template <typename T>
-cudaError_t max_clusters(bool vector, int cluster, int threads, int* out) {
+cudaError_t launch_update(const void* y, const void* c, const void* p,
+                          void* out, void* resid, long long n,
+                          long long per_block, int cluster, int threads,
+                          bool vector, cudaStream_t stream) {
+  return launch_cluster(vector ? &parareal_update_cluster_kernel<T, true>
+                               : &parareal_update_cluster_kernel<T, false>,
+                        cluster, 1, threads, stream,
+                        static_cast<const T*>(y), static_cast<const T*>(c),
+                        static_cast<const T*>(p), static_cast<T*>(out),
+                        static_cast<float*>(resid), n, per_block);
+}
+
+// The cluster kernel of B4 (update_only) or B1, on its vector path or not.
+template <typename T>
+const void* cluster_kernel(bool update_only, bool vector) {
+  if (update_only)
+    return vector ? (const void*)&parareal_update_cluster_kernel<T, true>
+                  : (const void*)&parareal_update_cluster_kernel<T, false>;
+  return vector ? (const void*)&parareal_resid_cluster_kernel<T, true>
+                : (const void*)&parareal_resid_cluster_kernel<T, false>;
+}
+
+template <typename T>
+cudaError_t max_clusters(bool update_only, bool vector, int cluster,
+                         int threads, int* out) {
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
       cluster_config(cluster, 1, threads, nullptr, &attr);
-  return vector
-      ? cudaOccupancyMaxActiveClusters(
-            out, parareal_resid_cluster_kernel<T, true>, &cfg)
-      : cudaOccupancyMaxActiveClusters(
-            out, parareal_resid_cluster_kernel<T, false>, &cfg);
+  return cudaOccupancyMaxActiveClusters(
+      out, cluster_kernel<T>(update_only, vector), &cfg);
 }
 
 bool resid_shape_ok(long long n_slice, long long per_block, int slices,
@@ -395,23 +461,51 @@ extern "C" int parareal_update_residual(const void* y, const void* c,
   return (int)err;
 }
 
-// How many clusters of `cluster` blocks of `threads` threads the residual
-// kernel (dtype, vector path) can hold at once on the current device
-// (cudaOccupancyMaxActiveClusters), into *out.  0 means the configuration
-// cannot launch.  Returns the query's CUDA error.
-extern "C" int parareal_resid_max_clusters(int dtype, int vector,
-                                           int cluster, int threads,
-                                           int* out) {
+// y, cur, prev, out: n elements of dtype (as above); resid: one f32, the
+// sum of |cur - prev| over all n.  One cluster for the whole tensor:
+// per_block, cluster and threads from the wrapper's resid_geometry(n);
+// vector: 1 when the four operands are 16-byte aligned and n is a multiple
+// of the vector.  Returns the launch's CUDA error.
+extern "C" int parareal_update(const void* y, const void* c, const void* p,
+                               void* out, void* resid, long long n,
+                               long long per_block, int cluster, int threads,
+                               int vector, int dtype, void* stream) {
+  if (!resid_shape_ok(n, per_block, 1, cluster, threads))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 1)
+    err = launch_update<__nv_bfloat16>(y, c, p, out, resid, n, per_block,
+                                       cluster, threads, vector != 0, s);
+  else if (dtype == 2)
+    err = launch_update<__half>(y, c, p, out, resid, n, per_block, cluster,
+                                threads, vector != 0, s);
+  else
+    err = launch_update<float>(y, c, p, out, resid, n, per_block, cluster,
+                               threads, vector != 0, s);
+  return (int)err;
+}
+
+// How many clusters of `cluster` blocks of `threads` threads a cluster
+// kernel (update_only: B4's, else B1's; dtype; vector path) can hold at
+// once on the current device (cudaOccupancyMaxActiveClusters), into *out.
+// 0 means the configuration cannot launch.  Returns the query's CUDA error.
+extern "C" int parareal_resid_max_clusters(int update_only, int dtype,
+                                           int vector, int cluster,
+                                           int threads, int* out) {
   if (cluster < 1 || cluster > kMaxCluster || threads < 32 ||
       threads > kResidMaxThreads)
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   if (dtype == 1)
-    err = max_clusters<__nv_bfloat16>(vector != 0, cluster, threads, out);
+    err = max_clusters<__nv_bfloat16>(update_only != 0, vector != 0, cluster,
+                                      threads, out);
   else if (dtype == 2)
-    err = max_clusters<__half>(vector != 0, cluster, threads, out);
+    err = max_clusters<__half>(update_only != 0, vector != 0, cluster,
+                               threads, out);
   else
-    err = max_clusters<float>(vector != 0, cluster, threads, out);
+    err = max_clusters<float>(update_only != 0, vector != 0, cluster,
+                              threads, out);
   return (int)err;
 }
 

@@ -1,58 +1,48 @@
 """Fused elementwise kernels for the sampler's inner loop.
 
-* :func:`ddim_fused` replaces ``repro.kernels.elementwise.ddim_fused_pallas``
-  (TPU body ``_ddim_kernel``) and :func:`parareal_update_residual` replaces
-  ``parareal_update_residual_pallas`` (``_parareal_resid_kernel``).  Both
-  are CUDA C++ for ``sm_90a`` in ``csrc/elementwise.cu``, one launch per
-  call behind a ``ctypes`` binding.
-* :func:`parareal_update` replaces ``parareal_update_pallas``
-  (``_parareal_kernel``) with two Triton kernels: the update, which writes
-  one f32 partial of ``|cur - prev|`` per tile, then a fixed-order sum of
-  the partials.
+:func:`ddim_fused` replaces ``repro.kernels.elementwise.ddim_fused_pallas``
+(TPU body ``_ddim_kernel``), :func:`parareal_update_residual` replaces
+``parareal_update_residual_pallas`` (``_parareal_resid_kernel``) and
+:func:`parareal_update` replaces ``parareal_update_pallas``
+(``_parareal_kernel``).  All three are CUDA C++ for ``sm_90a`` in
+``csrc/elementwise.cu``, one launch per call behind a ``ctypes`` binding.
 
 Each is one pass over flat contiguous tensors, bound by bytes (each input
 read once, the output written once): at the DiT's latents one call moves
 0.2-2 MB, under a microsecond of HBM time, so in practice the launch and
-the host's work per call bound it.  The CUDA kernels' design answers that:
-one launch (the residual's per-slice sum is reduced inside a thread-block
-cluster through distributed shared memory, with no second pass, no scratch
-tensor and no float atomics), 16-byte accesses where the operands allow,
-and a host path that checks, allocates the outputs and calls the C
-function, nothing more.  The launch geometry is computed here
-(:func:`ddim_geometry`, :func:`resid_geometry`), so the CPU tests reach it.
+the host's work per call bound it.  The kernels' design answers that: one
+launch (a residual is reduced inside a thread-block cluster through
+distributed shared memory, with no second pass, no scratch tensor and no
+float atomics), 16-byte accesses where the operands allow, and a host path
+that checks, allocates the outputs and calls the C function, nothing more.
+The launch geometry is computed here (:func:`ddim_geometry`,
+:func:`resid_geometry`), so the CPU tests reach it.
 
 Sums are taken in a fixed order, so two runs are bitwise equal and a
-slice's residual does not depend on the other slices in the batch.  Triton
-is imported, and the CUDA library built, inside the launching functions
-only, so the module imports on machines without either; the wrappers take
-CUDA tensors (the ops layer sends CPU tensors to
-:mod:`repro_torch.kernels.ref`).
+slice's residual does not depend on the other slices in the batch.  The
+CUDA library is built inside the launching functions only, so the module
+imports on machines without ``nvcc``; the wrappers take CUDA tensors (the
+ops layer sends CPU tensors to :mod:`repro_torch.kernels.ref`).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-import os
 from typing import Dict, Tuple
 
 import torch
 
 from . import _build
-from ._build import BUILD_DIR
 
-RESID_BLOCK = 1024       # elements per update tile (one partial each), B4
-PARTIALS_BLOCK = 128     # partials summed per step of the fixed-order sum
-PARTIALS_NUM_WARPS = 1
-NUM_WARPS = 4
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
 VECTOR_BYTES = 16        # one thread access of the CUDA kernels
 DDIM_THREADS = 256       # the DDIM grid gives each vector a thread
 # a block has up to RESID_THREADS threads, one 16-byte group each at the
 # corrector's shapes (the loads of a thread's groups would otherwise wait
-# for each other); a slice's cluster has one block per
-# RESID_SLICE_PER_BLOCK elements, up to RESID_MAX_CLUSTER
+# for each other); a slice's cluster (B4: the whole tensor's) has one block
+# per RESID_SLICE_PER_BLOCK elements, up to RESID_MAX_CLUSTER
 RESID_THREADS = 1024
 RESID_MAX_CLUSTER = 8    # the portable cluster size
 RESID_SLICE_PER_BLOCK = 4096
@@ -61,53 +51,15 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURE = {"ddim_fused": ((_P,) * 5 + (_L,) * 3 + (_I,) * 3 + (_P,), _I),
               "parareal_update_residual": ((_P,) * 6 + (_L,) * 2 + (_I,) * 5
                                            + (_P,), _I),
-              "parareal_resid_max_clusters": ((_I,) * 4
+              "parareal_update": ((_P,) * 5 + (_L,) * 2 + (_I,) * 4 + (_P,),
+                                  _I),
+              "parareal_resid_max_clusters": ((_I,) * 5
                                               + (ctypes.POINTER(_I),), _I)}
 _max_clusters: Dict[tuple, int] = {}
-_kernels: Dict[str, object] = {}
 
 
 def _lib() -> ctypes.CDLL:
     return _build.load("elementwise", _SIGNATURE)
-
-
-def _triton_kernels():
-    """JIT-define B4's kernels on first use (needs the ``triton``
-    package)."""
-    if _kernels:
-        return _kernels
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def update_kernel(y_ptr, c_ptr, p_ptr, o_ptr, part_ptr, n_total,
-                      BLOCK: tl.constexpr):
-        # program t: tile t of the flat tensor, one partial of |cur - prev|
-        t = tl.program_id(0)
-        offs = t.to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
-        mask = offs < n_total
-        y = tl.load(y_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        c = tl.load(c_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        p = tl.load(p_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        out = y + c - p
-        tl.store(o_ptr + offs, out.to(o_ptr.dtype.element_ty), mask=mask)
-        d = tl.where(mask, tl.abs(c - p), 0.0)
-        tl.store(part_ptr + t, tl.sum(d, axis=0))
-
-    @triton.jit
-    def sum_partials_kernel(part_ptr, out_ptr, tiles, BLOCK: tl.constexpr):
-        # one program per slice, walking its partials in a fixed order
-        s = tl.program_id(0)
-        acc = tl.zeros([BLOCK], dtype=tl.float32)
-        for t0 in range(0, tiles, BLOCK):
-            offs = t0 + tl.arange(0, BLOCK)
-            acc += tl.load(part_ptr + s.to(tl.int64) * tiles + offs,
-                           mask=offs < tiles, other=0.0)
-        tl.store(out_ptr + s, tl.sum(acc, axis=0))
-
-    _kernels.update(update=update_kernel, sum_partials=sum_partials_kernel)
-    return _kernels
 
 
 def _check(name: str, *ts: torch.Tensor) -> None:
@@ -226,23 +178,25 @@ def ddim_fused(x: torch.Tensor, eps: torch.Tensor, a: torch.Tensor,
 ddim_fused.launches = 0
 
 
-def _check_cluster_fits(lib, dev: torch.device, dtype: int, vector: bool,
-                        cluster: int, threads: int) -> None:
-    """Raise unless the card holds at least one such cluster at once
+def _check_cluster_fits(lib, fn: str, dev: torch.device, dtype: int,
+                        vector: bool, cluster: int, threads: int) -> None:
+    """Raise unless the card holds at least one such cluster of ``fn``'s
+    kernel (``parareal_update`` or ``parareal_update_residual``) at once
     (CUDA's occupancy calculator, asked once per configuration)."""
-    key = (dev.index, dtype, vector, cluster, threads)
+    update_only = fn == "parareal_update"
+    key = (dev.index, update_only, dtype, vector, cluster, threads)
     got = _max_clusters.get(key)
     if got is None:
         out = ctypes.c_int(0)
         with torch.cuda.device(dev):
-            code = lib.parareal_resid_max_clusters(dtype, vector, cluster,
-                                                   threads, ctypes.byref(out))
+            code = lib.parareal_resid_max_clusters(
+                update_only, dtype, vector, cluster, threads,
+                ctypes.byref(out))
         _build.check(lib, code, "parareal_resid_max_clusters")
         got = _max_clusters[key] = out.value
     if got == 0:
-        raise RuntimeError(f"parareal_update_residual: no cluster of "
-                           f"{cluster} blocks of {threads} threads fits on "
-                           f"{dev}")
+        raise RuntimeError(f"{fn}: no cluster of {cluster} blocks of "
+                           f"{threads} threads fits on {dev}")
 
 
 def parareal_update_residual(y: torch.Tensor, cur: torch.Tensor,
@@ -277,7 +231,8 @@ def parareal_update_residual(y: torch.Tensor, cur: torch.Tensor,
         n_slice, vector_width(y.dtype), _aligned(y, cur, prev, old, out))
     dtype = _DTYPES[y.dtype]
     lib = _lib()
-    _check_cluster_fits(lib, dev, dtype, vector, cluster, threads)
+    _check_cluster_fits(lib, "parareal_update_residual", dev, dtype, vector,
+                        cluster, threads)
     _call(lib, "parareal_update_residual", dev, y.data_ptr(),
           cur.data_ptr(), prev.data_ptr(), old.data_ptr(), out.data_ptr(),
           resid.data_ptr(), n_slice, per_block, slices, cluster, threads,
@@ -296,29 +251,33 @@ def parareal_update(y: torch.Tensor, cur: torch.Tensor, prev: torch.Tensor):
     """``out = y + cur - prev`` (rounded once from f32) and the f32 L1 sum
     ``|cur - prev|`` over the whole tensor, as a 0-d tensor.
 
-    Replaces ``repro.kernels.elementwise.parareal_update_pallas``
-    (``_parareal_kernel``).  One masked pass over the flat tensors writes
-    ``out`` and one partial per tile; the partials kernel sums them in a
-    fixed order.  Counts each call in ``parareal_update.launches``.
+    One launch of ``parareal_update_cluster_kernel``: the whole tensor is
+    one slice of :func:`parareal_update_residual`'s scheme (one
+    thread-block cluster, :func:`resid_geometry` of its length), whose
+    blocks write the update and reduce their spans; rank 0 sums the blocks'
+    partials from their shared memory in rank order.  No float atomics, so
+    two runs are bitwise equal.  Counts each call in
+    ``parareal_update.launches``.
     """
     _check("parareal_update", y, cur, prev)
-    y, cur, prev = (t.contiguous() for t in (y, cur, prev))
-    out = torch.empty_like(y)
+    dev = y.device
+    y, cur, prev = y.contiguous(), cur.contiguous(), prev.contiguous()
+    out = torch.empty(y.shape, dtype=y.dtype, device=dev)
     n = y.numel()
     if n == 0:
-        return out, torch.zeros((), dtype=torch.float32, device=y.device)
-    tiles = math.ceil(n / RESID_BLOCK)
-    partials = torch.empty((1, tiles), dtype=torch.float32, device=y.device)
-    resid = torch.empty((1,), dtype=torch.float32, device=y.device)
-    ks = _triton_kernels()
-    with torch.cuda.device(y.device):
-        ks["update"][(tiles,)](y, cur, prev, out, partials, n,
-                               BLOCK=RESID_BLOCK, num_warps=NUM_WARPS)
-        ks["sum_partials"][(1,)](partials, resid, tiles,
-                                 BLOCK=PARTIALS_BLOCK,
-                                 num_warps=PARTIALS_NUM_WARPS)
+        return out, torch.zeros((), dtype=torch.float32, device=dev)
+    resid = torch.empty((), dtype=torch.float32, device=dev)
+    cluster, per_block, threads, vector = resid_geometry(
+        n, vector_width(y.dtype), _aligned(y, cur, prev, out))
+    dtype = _DTYPES[y.dtype]
+    lib = _lib()
+    _check_cluster_fits(lib, "parareal_update", dev, dtype, vector, cluster,
+                        threads)
+    _call(lib, "parareal_update", dev, y.data_ptr(), cur.data_ptr(),
+          prev.data_ptr(), out.data_ptr(), resid.data_ptr(), n, per_block,
+          cluster, threads, vector, dtype)
     parareal_update.launches += 1
-    return out, resid.reshape(())
+    return out, resid
 
 
 parareal_update.launches = 0

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the kernels (twins of ``repro.kernels.ref``).
 
-Each function defines the semantics its CUDA/Triton kernel reproduces.
+Each function defines the semantics its CUDA kernel reproduces.
 The ops layer runs them for CPU tensors; ``chip_smoke.py`` holds every
 kernel against them on the card.  Where the JAX oracle and the JAX kernel
 disagree (the residual's rounding), the twin follows the kernel.

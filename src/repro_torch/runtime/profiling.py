@@ -32,13 +32,7 @@ _PORT_KERNELS = (
     ("wkv_bwd_", "rwkv6_wkv_bwd (port)"),
     ("ddim_fused_kernel", "ddim_fused (port)"),
     ("parareal_resid_cluster_kernel", "parareal_update_residual (port)"),
-)
-# B4's two Triton kernels, reported by their bare function names: matched
-# at the start of the name only, so that no library kernel whose name holds
-# the words lands in the port's group
-_PORT_PREFIXES = (
-    ("update_kernel", "parareal_update (port)"),
-    ("sum_partials_kernel", "parareal_update (port)"),
+    ("parareal_update_cluster_kernel", "parareal_update (port)"),
 )
 _GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass", "sm90_")
 GEMM = "gemm (cuBLAS)"
@@ -50,9 +44,6 @@ def kernel_group(name: str) -> str:
     low = name.lower()
     for mark, group in _PORT_KERNELS:
         if mark in low:
-            return group
-    for prefix, group in _PORT_PREFIXES:
-        if low.startswith(prefix):
             return group
     if any(mark in low for mark in _GEMM_MARKS):
         return GEMM

@@ -1,4 +1,4 @@
-"""The port's CUDA/Triton kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU.  The
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -14,9 +14,9 @@ bf16 ulp (atol 4e-3, rtol 1e-2), while autograd through the plain bf16
 attention rounds at more places (2e-2); the fused residual update rounds
 the same f32 values once,
 so its output is bitwise equal and its sums agree to 1e-5 relative; so
-does the update without the residual (``parareal_update``).  The CUDA
-DDIM and residual kernels also run bitwise equal twice and on their scalar
-path (unaligned operands) as on their 16-byte path; f16 DDIM outputs may
+does the update without the residual (``parareal_update``).  The DDIM,
+residual and update kernels also run bitwise equal twice and on their
+scalar path (unaligned operands) as on their 16-byte path; f16 DDIM outputs may
 differ by two f16 ulps (2e-3).  SRDS on a
 small f32 DiT with ``norm='l2_mean'``: the fused and plain updates add the
 same f32 values in the same order, so their samples agree to 1e-5 (the
@@ -62,7 +62,7 @@ def _rand(seed, shape):
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA (the kernels are built "
-                    "with nvcc/Triton for sm_90a)")
+                    "with nvcc for sm_90a)")
     return torch.device("cuda")
 
 
@@ -325,6 +325,11 @@ def test_elementwise_kernels_one_launch_per_call_on_card(cuda):
 @pytest.mark.parametrize("shape", [(2, 64, 64, 4), (5, 2, 64, 64, 4),
                                    (3, 1000, 7)], ids=str)
 def test_parareal_update_kernel_matches_plain_on_card(cuda, shape, dtype):
+    """B4: the update bitwise equal to the plain version, the sum within
+    1e-5 relative, two runs and the scalar path (unaligned operands)
+    bitwise equal, and one device launch a call (``profiling.
+    device_launches``)."""
+    from repro_torch.runtime.profiling import device_launches
     y, c, p = (torch.from_numpy(_rand(i, shape)).to(cuda, DTYPES[dtype])
                for i in range(3))
     before = ops.launch_counts()["parareal_update"]
@@ -334,8 +339,12 @@ def test_parareal_update_kernel_matches_plain_on_card(cuda, shape, dtype):
     out_r, resid_r = ref.parareal_update(y, c, p)
     torch.testing.assert_close(out, out_r, atol=0, rtol=0)
     torch.testing.assert_close(resid, resid_r, atol=0, rtol=SUM_RTOL)
-    out2, resid2 = ops.parareal_update(y, c, p)
-    assert torch.equal(out2, out) and torch.equal(resid2, resid)
+    for args in ((y, c, p), tuple(map(_unaligned, (y, c, p)))):
+        out2, resid2 = ops.parareal_update(*args)
+        assert torch.equal(out2, out) and torch.equal(resid2, resid)
+    device = device_launches(lambda: ops.parareal_update(y, c, p), 10)
+    assert sum(n for n, _ in device.values()) == 10, device
+    assert all("parareal_update_cluster_kernel" in k for k in device), device
 
 
 def _small_dit_fn(cuda):

@@ -3,7 +3,7 @@
 The same numpy inputs go through the JAX oracle (``repro.kernels.ref``),
 the JAX Pallas kernel in interpret mode (TPU family, as the JAX package's
 own tests run it on the CPU) and the port's plain version, which is what
-``repro_torch.kernels.ops`` runs for CPU tensors.  The CUDA/Triton
+``repro_torch.kernels.ops`` runs for CPU tensors.  The CUDA
 kernels themselves are held against the plain versions on the card by
 tests/test_torch_cuda.py and ``chip_smoke.py``.
 
@@ -520,6 +520,94 @@ def test_resid_geometry_depends_on_the_slice_alone(n_slice, vec):
     assert ew.resid_geometry(n_slice, vec, False)[3] is False
 
 
+def _warp_tree(v):
+    """The kernels' shuffle tree over the last axis of 32 lanes (xor 16, 8,
+    4, 2, 1), in f32; lane 0's value."""
+    lanes = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ off]
+    return v[..., 0]
+
+
+@pytest.mark.parametrize("vec", [4, 8])
+@pytest.mark.parametrize("n", [1, 7, 4096, 4097, 21000, 2 * 64 * 64 * 4,
+                               5 * 2 * 64 * 64 * 4, 3 * 64 * 64 * 4 + 5],
+                         ids=str)
+def test_update_geometry_covers_every_group_once(n, vec):
+    """B4 runs the whole tensor as one slice of the cluster scheme
+    (``resid_geometry(n)``): every 16-byte group of ``vec`` elements is
+    walked by exactly one thread, and the kernel's order of sums (each
+    thread's groups in index order, the warp and block trees, rank 0 over
+    the blocks in rank order), modelled in f32, lands within 1e-5 relative
+    of the plain version's sum."""
+    from repro_torch.kernels import elementwise as ew
+    cluster, per_block, threads, _ = ew.resid_geometry(n, vec, True)
+    groups = -(-n // vec)
+    seen = np.zeros(groups, np.int64)
+    for r in range(cluster):
+        hi = min(groups, (r + 1) * per_block)
+        for t in range(threads):
+            seen[r * per_block + t:hi:threads] += 1
+    assert (seen == 1).all()
+    # |cur - prev| laid out as (block, thread's k-th group, thread, element):
+    # zeros past the tensor's end add nothing to a sum of absolute values
+    d = np.abs(_rand(0, n) - _rand(1, n))
+    k = -(-per_block // threads)
+    x = np.zeros((cluster, k * threads * vec), np.float32)
+    for r in range(cluster):
+        span = d[r * per_block * vec:(r + 1) * per_block * vec]
+        x[r, :span.size] = span
+    x = x.reshape(cluster, k, threads, vec)
+    acc = np.zeros((cluster, threads), np.float32)
+    for i in range(k):
+        for j in range(vec):
+            acc = acc + x[:, i, :, j]
+    warps = _warp_tree(acc.reshape(cluster, threads // 32, 32))
+    lanes = np.zeros((cluster, 32), np.float32)
+    lanes[:, :warps.shape[1]] = warps
+    got = np.float32(0)
+    for block in _warp_tree(lanes):
+        got = np.float32(got + block)
+    want = ref.parareal_update(torch.zeros(n), torch.from_numpy(_rand(0, n)),
+                               torch.from_numpy(_rand(1, n)))[1]
+    np.testing.assert_allclose(got, want.numpy(), rtol=SUM_RTOL)
+
+
+@pytest.mark.parametrize("fn", ["ddim_fused", "parareal_update_residual",
+                                "parareal_update",
+                                "parareal_resid_max_clusters"])
+def test_elementwise_signatures_match_the_source(fn):
+    """Every C function the ``ctypes`` binding declares is an ``extern
+    "C"`` function of ``csrc/elementwise.cu`` with as many parameters as
+    the binding's argument types (the stream included)."""
+    import re
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import elementwise as ew
+    assert sorted(ew._SIGNATURE) == sorted(
+        ["ddim_fused", "parareal_update_residual", "parareal_update",
+         "parareal_resid_max_clusters"])
+    src = (_build.CSRC / "elementwise.cu").read_text()
+    found = re.findall(r'extern "C" int ' + fn + r'\(([^)]*)\)', src)
+    assert len(found) == 1, fn
+    argtypes, restype = ew._SIGNATURE[fn]
+    assert len(found[0].split(",")) == len(argtypes)
+
+
+def test_port_has_no_triton():
+    """Every kernel of the port is CUDA C++: no module of
+    ``repro_torch`` imports ``triton`` or defines a ``triton.jit``
+    kernel."""
+    import pathlib
+    import re
+    import repro_torch
+    root = pathlib.Path(repro_torch.__file__).parent
+    pattern = re.compile(r"^\s*(import triton|from triton|@triton\.jit)",
+                         re.MULTILINE)
+    offenders = [str(f.relative_to(root)) for f in root.rglob("*.py")
+                 if pattern.search(f.read_text())]
+    assert offenders == []
+
+
 def test_elementwise_alignment_and_cpu_refusal_before_the_build(monkeypatch):
     """The 16-byte path needs every operand on a 16-byte boundary; the
     CUDA wrappers check device, dtype and shape before they load (or
@@ -539,6 +627,8 @@ def test_elementwise_alignment_and_cpu_refusal_before_the_build(monkeypatch):
         ew.ddim_fused(y, y, torch.tensor(0.5), torch.tensor(0.6))
     with pytest.raises(ValueError, match="CUDA"):
         ew.parareal_update_residual(y, y, y, y, batch_dims=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        ew.parareal_update(y, y, y)
 
 
 # --------------------------------------------------------------------------

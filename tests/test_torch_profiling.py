@@ -55,16 +55,21 @@ def test_kernel_group_wkv(name, group):
      "float*, long long, long long)", "parareal_update_residual (port)"),
     ("void (anonymous namespace)::parareal_resid_cluster_kernel<__half, "
      "false>(...)", "parareal_update_residual (port)"),
-    ("update_kernel", "parareal_update (port)"),
-    ("sum_partials_kernel", "parareal_update (port)"),
-    # library kernels that hold the Triton kernels' words stay where they
-    # were: elementwise work, or cuBLAS
+    ("void (anonymous namespace)::parareal_update_cluster_kernel<float, "
+     "true>(float const*, float const*, float const*, float*, float*, "
+     "long long, long long)", "parareal_update (port)"),
+    ("void (anonymous namespace)::parareal_update_cluster_kernel<"
+     "__nv_bfloat16, false>(__nv_bfloat16 const*, __nv_bfloat16 const*, "
+     "__nv_bfloat16 const*, __nv_bfloat16*, float*, long long, long long)",
+     "parareal_update (port)"),
+    # library kernels whose names hold the words update_kernel or
+    # sum_partials_kernel stay where they were: elementwise work, or cuBLAS
     ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<"
      "update_kernel_functor>", profiling.OTHER),
     ("sm90_xmma_gemm_sum_partials_kernel_bf16", profiling.GEMM),
 ])
 def test_kernel_group_elementwise(name, group):
-    """The DDIM and residual CUDA kernels and B4's Triton kernels have
+    """The DDIM, residual and update CUDA kernels (B2, B1, B4) have
     groups of their own; none of their names holds a cuBLAS mark, so the
     order in which the marks are tried does not decide their group."""
     assert profiling.kernel_group(name) == group
