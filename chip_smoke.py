@@ -60,7 +60,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    reset just before and read just after), held against the sequential
    sample, then ``srds_sample`` with an early-exit ``tol``.  Launch counts
    must equal what the loop implies;
-5. serving: the same DiT behind ``repro_torch.serve``: a
+5. DDPM and ParaDiGMS on the same DiT, weights and schedule: the ``ddpm``
+   solver with frozen noise from ``DDPM_SEED`` (N=25, B=5, K=2):
+   ``sample_sequential``, then ``srds_sample`` at ``max_iters=B`` (launch
+   counts reset just before and read just after: flash 28 per eval, DDIM
+   never, the residual once per refined block) held against it within
+   ``SRDS_VS_SEQ_REL_L2``, with the same run from another noise seed as the
+   control that must miss it, and the native noise drawn twice for one
+   interval bitwise equal; then ParaDiGMS (window 25, K=1, DDIM) at a
+   tolerance near 0 (launch counts likewise: one DiT eval, so 28 flash
+   launches on the tensor-core route, and one DDIM launch a sweep) held
+   against ``sample_sequential`` of the same latent within the same limit,
+   with one sweep (``max_iters=1``) as the control; a reading of
+   ParaDiGMS at ``tol=1e-3``; and the headline line: the sequential
+   sampler's, SRDS's early-exit and ParaDiGMS's wall seconds, each with
+   its iterations and serial evals;
+6. serving: the same DiT behind ``repro_torch.serve``: a
    ``DiffusionSamplingEngine`` (N=25, B=5, 2 slots, default ``ExactPrefix``
    truncation, ``norm='l1_mean'``) driven by ``AsyncServeLoop`` on a
    ``MonotonicClock`` under FIFO, over a ``bursty_trace`` of 6 requests in
@@ -74,7 +89,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the two ``tol=0`` requests again with ``norm='l2_mean'``: the
    ``parareal_update`` kernel once per refined block, the residual kernel
    never, and samples equal to the first run's;
-6. training: the same DiT and weights through ``launch.train.build``:
+7. training: the same DiT and weights through ``launch.train.build``:
    the gradient of one ``diffusion_loss`` at batch 2 through the kernels
    against the plain attention's, whole and over the q, k and v
    projections alone; ``train_loop`` for 5 AdamW steps at
@@ -89,7 +104,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``delta`` term dropped, both readings must miss their limit.  Last,
    a reading (no check) of the probe loss over 5 steps at the launcher's
    default learning rate, which is why this phase trains at a tenth of it;
-7. LM serving: ``qwen3-8b`` at full width and depth (36 layers, d 4096,
+8. LM serving: ``qwen3-8b`` at full width and depth (36 layers, d 4096,
    32/8 heads of 128, 8.19 B parameters in bf16) with random weights
    drawn on the card from a seeded CUDA generator, behind
    ``repro_torch.serve.ServingEngine(batch_size=4)``: 4 requests with
@@ -102,7 +117,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``forward_train`` over the prompts plus the first tokens, and a control
    that must miss the first check (the same prefill with
    ``causal=False``);
-8. the same for ``rwkv6-1.6b`` (24 layers, d 2048, 1.60 B parameters):
+9. the same for ``rwkv6-1.6b`` (24 layers, d 2048, 1.60 B parameters):
    the WKV kernel 24 times per prefill and per decode step.  Its random
    bf16 model amplifies any change of rounding, so every layer's WKV
    launch in one bf16 prefill is first held against the plain scan on
@@ -110,7 +125,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the first check also holds the final WKV states, and the control
    (decode step 1 with the carried WKV state dropped) must miss the
    second;
-9. LM training: ``qwen3-8b`` at its published widths with 8 of its 36
+10. LM training: ``qwen3-8b`` at its published widths with 8 of its 36
    layers (2.79 B parameters, bf16, drawn on the card), built by
    ``launch.train.build``'s own calls with the depth cut; 5 AdamW steps
    through ``train_loop`` at batch 2 x 2048 from ``LMStream`` (launch
@@ -126,11 +141,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    trained on falls by more than ``FIT_MARGIN``, and the same loop from
    the same weights with the update reversed (the control) must not; the
    held-out batch's loss is a reading;
-10. the same for ``rwkv6-1.6b`` whole through ``launch.train.build``: the
+11. the same for ``rwkv6-1.6b`` whole through ``launch.train.build``: the
    WKV forward and backward 24 times a step.  The WKV backward on each
    layer's own inputs at T 2048 against ``ref.rwkv6_wkv_bwd``; after the
    steps, the gradient check on the trained weights in f32 at batch 1 x
-   256 (the random bf16 model amplifies rounding, phase 8) over their
+   256 (the random bf16 model amplifies rounding, phase 9) over their
    first 4 layers (over all 24 the random model's gradient is chaotic in
    f32 too: a reading), whole and over the decay LoRA leaves alone, with
    the backward's ``dd`` dropped as the control.  Its loop must lower the
@@ -139,10 +154,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    control) must not; the held-out batch's loss is a reading (ROADMAP
    C11: training on these batches raises it).
 
-Phases 4-7 and 9 also hold the flash kernels' launches on their main
+Phases 4-8 and 10 also hold the flash kernels' launches on their main
 paths, forward and backward, to their tensor-core route
 (``ops.route_counts``: every attention there is bf16 with head dim 72 or
-128; the backward runs in phases 6 and 9).  Phases 9 and 10 end with ROADMAP
+128; the backward runs in phases 7 and 10).  Phases 10 and 11 end with ROADMAP
 C10's reading: the busy share of 10 ``train_loop`` steps as the launcher
 runs them (``log_every=10``, pinned non-blocking batch copies) and as it
 ran before (``log_every=1``, pageable copies), each under the profiler
@@ -166,13 +181,19 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # f32: no tensor cores
 SEED = 0
 N_STEPS, BLOCKS, SAMPLES = 25, 5, 2
 EARLY_TOL = 1e-2
+# phase 5: the ddpm solver's native frozen-noise seed; ParaDiGMS's
+# tolerance for the run held against the sequential sample (near 0: its
+# mean-square test never passes, so every sweep slides one point and the
+# last lands on the sequential solve) and its reading's
+DDPM_SEED = 21
+PD_EXACT_TOL, PD_READ_TOL = 1e-9, 1e-3
 # srds at max_iters=B vs sequential: exact in exact arithmetic; here bf16
 # weights and activations (2^-8 relative per rounding) in GEMMs whose shape,
 # and so cuBLAS's kernel and summation order, depend on the batch (10
 # latents per fine step, 2 per sequential step) perturb every eval.  An
 # H100 run measured 1.05e-5; the limit keeps a margin of about 100x.
 SRDS_VS_SEQ_REL_L2 = 1e-3
-# phase 5: the serving engine's slots, and a bursty trace whose tiers
+# phase 6: the serving engine's slots, and a bursty trace whose tiers
 # draw (tol=0, tol=0, loose | loose, loose, loose) from this seed (checked)
 SERVE_SLOTS, SERVE_PERIOD, SERVE_TRACE_SEED = 2, 1.0, 75
 # the loose tier's tol, between the residuals of refinements 2 and 3 in
@@ -189,7 +210,7 @@ TRAIN_BATCH, TRAIN_STEPS, GRAD_BATCH = 8, 5, 2
 # a tenth of the launcher's default (LAUNCHER_LR): the random-weight DiT
 # (adaLN gates open in all 28 layers) is far rougher than the adaLN-zero
 # init, and Adam's first steps move every weight by about the step's lr.
-# Phase 5 ends with a reading of the held-out probe at LAUNCHER_LR: on an
+# Phase 7 ends with a reading of the held-out probe at LAUNCHER_LR: on an
 # H100 it went from 2.044 down to 0.569 after 3 steps, then up to 2.282
 # after 5; at TRAIN_LR it fell to 1.623.
 TRAIN_LR, LAUNCHER_LR = 3e-5, 3e-4
@@ -226,7 +247,7 @@ BWD_MASKED_REL_L2 = {"bfloat16": 1e-3, "float32": 1e-5}
 # same f32 recurrence summed in another order (dr, dk, dv then rounded
 # once to r's dtype)
 WKV_BWD_REL_L2 = {"bfloat16": 1e-2, "float32": 1e-4}
-# phases 7-8: 4 requests for ServingEngine(batch_size=4), token ids below
+# phases 8-9: 4 requests for ServingEngine(batch_size=4), token ids below
 # both vocabularies (rwkv6's 65,536), the same requests for both models
 LM_PROMPTS, LM_NEW, LM_TOKEN_IDS = (2048, 1536, 1024, 512), (32, 32, 16,
                                                             16), 65536
@@ -244,19 +265,19 @@ LM_PROMPTS, LM_NEW, LM_TOKEN_IDS = (2048, 1536, 1024, 512), (32, 32, 16,
 # (final WKV states) and 3.77e-5 (teacher forcing), and 1.35 for the
 # dropped-state control: the limit is 4x the largest reading.
 LM_LIMITS = {"qwen3-8b": (5e-2, 5e-2), "rwkv6-1.6b": (1e-3, 1e-3)}
-# phases 9-10: LM training at batch 2 x 2048 for 5 AdamW steps,
+# phases 10-11: LM training at batch 2 x 2048 for 5 AdamW steps,
 # qwen3-8b at its published widths with 8 of its 36 layers (2.79 B
 # parameters: 33.5 GB of weights, gradients and f32 moments; all 36 would
 # need 98 GB), rwkv6-1.6b whole (None).  The lr (the schedule's 5 warm-up
 # steps rise to half of it): qwen3-8b at the launcher's default; rwkv6-
-# 1.6b at a third of it.  Its random-weight model is chaotic (phase 8):
+# 1.6b at a third of it.  Its random-weight model is chaotic (phase 9):
 # scripts/torch_lm_probe_sweep.py reads its held-out loss flat over 5
 # steps at lr 3e-5 to 6e-4 and rising above (PERF.md); both gates read
 # the trained batches (FIT_MARGIN)
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 2048, 5
 LM_TRAIN_LR = {"qwen3-8b": 3e-4, "rwkv6-1.6b": 1e-4}
 LM_TRAIN_LAYERS = {"qwen3-8b": 8, "rwkv6-1.6b": None}
-# phases 9-10's gate (check 3): the loop must lower the mean loss over the
+# phases 10-11's gate (check 3): the loop must lower the mean loss over the
 # 5 batches it trains on by more than FIT_MARGIN, and the same loop from
 # the same weights with the update reversed must not (check 5).  A
 # held-out batch cannot tell them apart (ROADMAP C11): each training batch
@@ -274,7 +295,7 @@ FIT_MARGIN = {"qwen3-8b": 0.45, "rwkv6-1.6b": 0.03}
 # launches per call, device time per launch) and the calls timed for the
 # host's enqueue time
 LAUNCH_WINDOW_CALLS, HOST_CALLS = 20, 200
-# phases 9-10: the steps of each busy-share window (ROADMAP C10), one
+# phases 10-11: the steps of each busy-share window (ROADMAP C10), one
 # launcher log interval
 BUSY_STEPS = 10
 # the gradient checks: qwen3-8b in bf16 at batch 1 x 2048 (the plain
@@ -594,7 +615,7 @@ def gradient_check(torch, ops, model, images):
 
 
 def train_phase(torch, ops, cfg, tree):
-    """Phase 6; returns the launch counts of the ``train_loop`` run."""
+    """Phase 7; returns the launch counts of the ``train_loop`` run."""
     import math
     import shutil
     import tempfile
@@ -612,7 +633,7 @@ def train_phase(torch, ops, cfg, tree):
     stream = make_stream(cfg, DataConfig(seed=SEED,
                                          global_batch=TRAIN_BATCH),
                          device="cuda")
-    print(f"[6/10] training {cfg.name} through launch.train.build "
+    print(f"[7/11] training {cfg.name} through launch.train.build "
           f"({time.perf_counter() - t0:.1f} s), batch {TRAIN_BATCH}, "
           f"{stream.size}x{stream.size}x{stream.channels} images", flush=True)
     loop_seed = SEED + 1
@@ -730,7 +751,7 @@ def train_phase(torch, ops, cfg, tree):
 
 
 def serve_phase(torch, ops, C, model_fn, sched, solver, layers):
-    """Phase 5; returns the launch counts of the l1_mean run and of the
+    """Phase 6; returns the launch counts of the l1_mean run and of the
     l2_mean run."""
     import warnings
     import numpy as np
@@ -744,7 +765,7 @@ def serve_phase(torch, ops, C, model_fn, sched, solver, layers):
                                seed=SERVE_TRACE_SEED)
     if [r.tol for r in trace] != [0.0, 0.0] + [LOOSE_TOL] * 4:
         raise AssertionError(f"unexpected tiers {[r.tol for r in trace]}")
-    print(f"[5/10] serving: {len(trace)} requests in 2 bursts "
+    print(f"[6/11] serving: {len(trace)} requests in 2 bursts "
           f"{SERVE_PERIOD} s apart (tols {[r.tol for r in trace]}), "
           f"{SERVE_SLOTS} slots, N={N_STEPS}, B={B}, AsyncServeLoop on a "
           f"MonotonicClock, FIFO", flush=True)
@@ -989,7 +1010,7 @@ def nudged_prefill(torch, ops, tf, cfg, model, batch, layer):
 
 
 def lm_phase(torch, ops, step, arch, limits):
-    """Phases 7 and 8: ``arch`` at full width and depth with random
+    """Phases 8 and 9: ``arch`` at full width and depth with random
     weights from a seeded CUDA generator, serving 4 requests through
     ``repro_torch.serve.ServingEngine``; then the checks.  Returns the
     launch counts of the served run."""
@@ -1007,7 +1028,7 @@ def lm_phase(torch, ops, step, arch, limits):
         SEED), device="cuda")
     torch.cuda.synchronize()
     kernel = "rwkv6_wkv" if cfg.block == "rwkv6" else "flash_attention_fwd"
-    print(f"[{step}/10] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
+    print(f"[{step}/11] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}, "
           f"{tf.param_count(model) / 1e9:.3f} B params drawn on the card in "
@@ -1160,7 +1181,7 @@ def lm_phase(torch, ops, step, arch, limits):
 class NoCheckpoints:
     """A checkpointer for ``train_loop`` that keeps nothing.  The LM phases
     do not write their states (28 GB of parameters and moments for
-    qwen3-8b's 8 layers); phase 6 holds the DiT's checkpoint bitwise and
+    qwen3-8b's 8 layers); phase 7 holds the DiT's checkpoint bitwise and
     ``tests/test_torch_lm_train.py`` an LM restart-resume."""
 
     def latest_step(self):
@@ -1301,7 +1322,7 @@ def check_grad_readings(readings, limit, part, arch):
 
 
 def lm_train_phase(torch, ops, step_no, arch):
-    """Phases 9 and 10: ``arch`` trained for ``LM_TRAIN_STEPS`` AdamW steps
+    """Phases 10 and 11: ``arch`` trained for ``LM_TRAIN_STEPS`` AdamW steps
     at batch ``LM_TRAIN_BATCH`` x ``LM_TRAIN_SEQ`` through the kernels in
     both directions; the checks before and after.  Returns the launch
     counts of the ``train_loop`` run (the main path)."""
@@ -1345,7 +1366,7 @@ def lm_train_phase(torch, ops, step_no, arch):
                          device="cuda")
     torch.cuda.synchronize()
     n_params = tf.param_count(model)
-    print(f"[{step_no}/10] training {arch}: {cfg.num_layers} of "
+    print(f"[{step_no}/11] training {arch}: {cfg.num_layers} of "
           f"{get_arch(arch).num_layers} layers, d {cfg.d_model}, "
           f"{n_params / 1e9:.3f} B params ({cfg.dtype}, drawn on the card; "
           f"{time.perf_counter() - t0:.1f} s), batch {LM_TRAIN_BATCH} x "
@@ -1562,7 +1583,7 @@ def lm_train_phase(torch, ops, step_no, arch):
 
 
 def fit_loss(torch, cfg, model, stream) -> float:
-    """The mean LM loss over the batches phases 9-10's loops train on."""
+    """The mean LM loss over the batches phases 10-11's loops train on."""
     from repro_torch.train import lm_loss
     with torch.no_grad():
         return sum(lm_loss(cfg, model, stream.batch(i))[0].item()
@@ -2226,7 +2247,7 @@ def kernel_phase(torch, ops, ref):
 
 
 def dit_setup(torch):
-    """Phases 4-5's model and inputs: the full-width ``srds-dit-sd2`` DiT
+    """Phases 4-6's model and inputs: the full-width ``srds-dit-sd2`` DiT
     from seeded random weights, its denoiser, the ``ddpm_linear`` schedule
     of ``N_STEPS``, the DDIM solver, the blocks ``B`` of ``S`` steps,
     ``x_init`` from ``SEED`` and the main path's ``SRDSConfig`` (``fixed``:
@@ -2256,6 +2277,121 @@ def dit_setup(torch):
         solver=C.SolverConfig("ddim"), B=B, S=S, x_init=x_init, fixed=fixed)
 
 
+def ddpm_paradigms_phase(torch, C, run, setup, layers, head):
+    """Phase 5: the ``ddpm`` solver through SRDS and the ParaDiGMS
+    baseline on phase 4's DiT, schedule and latents (see the module
+    docstring).  ``run`` is phase 4's runner (launch counts reset just
+    before, read just after, the tensor-core route checked); ``head``
+    holds phase 4's sequential and early-exit readings for the headline.
+    Returns the launch counts of the DDPM-SRDS and ParaDiGMS runs."""
+    from repro_torch.core.solvers import frozen_noise
+
+    s = setup
+    n, B, S = N_STEPS, s.B, s.S
+
+    def expect(counts, evals, ddim, resid, label):
+        want = {"flash_attention_fwd": layers * evals,
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                "ddim_fused": ddim, "parareal_update_residual": resid,
+                "parareal_update": 0, "rwkv6_wkv": 0, "rwkv6_wkv_bwd": 0}
+        if counts != want:
+            raise AssertionError(f"{label}: launch counts {counts} != "
+                                 f"{want}")
+
+    print(f"[5/11] ddpm with frozen noise (seed {DDPM_SEED}) and ParaDiGMS "
+          f"on srds-dit-sd2, N={n}", flush=True)
+    # the native noise is a pure function of (seed, interval id)
+    iid = 3 * (n + 1) + 4
+    draws = [frozen_noise(DDPM_SEED, i, tuple(s.x_init.shape),
+                          torch.float32, s.x_init.device)
+             for i in (iid, iid, iid + 1)]
+    if not torch.equal(_bits(draws[0]), _bits(draws[1])) \
+            or torch.equal(draws[0], draws[2]):
+        raise AssertionError("the native ddpm noise is not a pure function "
+                             "of (seed, interval id)")
+    print(f"  native noise: interval {iid} drawn twice bitwise equal, "
+          f"interval {iid + 1} differs", flush=True)
+
+    ddpm = C.SolverConfig("ddpm", noise_seed=DDPM_SEED)
+    seq, counts, _ = run("ddpm sample_sequential", lambda: C.sample_sequential(
+        s.model_fn, s.sched, ddpm, s.x_init))
+    expect(counts, n, 0, 0, "ddpm sample_sequential")
+    res, ddpm_counts, _ = run(
+        "ddpm srds_sample max_iters=B",
+        lambda: C.srds_sample(s.model_fn, s.sched, ddpm, s.x_init, s.fixed),
+        "ddpm_srds")
+    p = int(res.iterations.max())
+    expect(ddpm_counts, B + p * (S + B), 0, p * B, "ddpm srds_sample")
+    if res.sample.shape != s.x_init.shape or not bool(
+            torch.isfinite(res.sample).all()):
+        raise AssertionError("ddpm srds sample is not finite or has the "
+                             "wrong shape")
+    rel = rel_l2([res.sample], [seq])
+    other = C.SolverConfig("ddpm", noise_seed=DDPM_SEED + 1)
+    ctrl, _, _ = run("control: ddpm srds_sample from another noise seed",
+                     lambda: C.srds_sample(s.model_fn, s.sched, other,
+                                           s.x_init, s.fixed))
+    rel_ctrl = rel_l2([ctrl.sample], [seq])
+    print(f"  ddpm srds vs sequential: rel L2 {rel:.3e} (limit "
+          f"{SRDS_VS_SEQ_REL_L2}); control (noise seed {DDPM_SEED + 1}) "
+          f"{rel_ctrl:.3e}, must miss it; iterations "
+          f"{res.iterations.tolist()}", flush=True)
+    if not rel <= SRDS_VS_SEQ_REL_L2:
+        raise AssertionError(f"ddpm srds at max_iters=B differs from the "
+                             f"sequential ddpm sample: rel L2 {rel}")
+    if not rel_ctrl > SRDS_VS_SEQ_REL_L2:
+        raise AssertionError(f"the ddpm control met the limit: rel L2 "
+                             f"{rel_ctrl}")
+
+    # ParaDiGMS: the window is the whole grid, one latent
+    x1 = s.x_init[:1]
+    seq1, counts, wall_seq1 = run("sample_sequential K=1",
+                                  lambda: C.sample_sequential(
+                                      s.model_fn, s.sched, s.solver, x1))
+    expect(counts, n, n, 0, "sample_sequential K=1")
+
+    def paradigms(tol, max_iters=10_000):
+        return C.paradigms_sample(s.model_fn, s.sched, s.solver, x1,
+                                  C.ParaDiGMSConfig(window=n, tol=tol,
+                                                    max_iters=max_iters))
+
+    pd, pd_counts, _ = run(f"paradigms tol={PD_EXACT_TOL}",
+                           lambda: paradigms(PD_EXACT_TOL), "paradigms")
+    expect(pd_counts, pd.iterations, pd.iterations, 0, "paradigms")
+    rel_pd = rel_l2([pd.sample], [seq1])
+    one, counts, _ = run("control: paradigms max_iters=1",
+                         lambda: paradigms(PD_EXACT_TOL, 1))
+    expect(counts, 1, 1, 0, "paradigms max_iters=1")
+    rel_one = rel_l2([one.sample], [seq1])
+    print(f"  paradigms vs sequential: rel L2 {rel_pd:.3e} (limit "
+          f"{SRDS_VS_SEQ_REL_L2}), {pd.iterations} sweeps, "
+          f"{pd.total_evals} evals; control (one sweep) {rel_one:.3e}, "
+          f"must miss it", flush=True)
+    if not bool(torch.isfinite(pd.sample).all()) \
+            or not rel_pd <= SRDS_VS_SEQ_REL_L2:
+        raise AssertionError(f"paradigms differs from the sequential "
+                             f"sample: rel L2 {rel_pd}")
+    if not rel_one > SRDS_VS_SEQ_REL_L2:
+        raise AssertionError(f"the paradigms control met the limit: rel "
+                             f"L2 {rel_one}")
+    pr, counts, wall_pd = run(f"paradigms tol={PD_READ_TOL}",
+                              lambda: paradigms(PD_READ_TOL))
+    expect(counts, pr.iterations, pr.iterations, 0, "paradigms reading")
+    st = C.paradigms_stats(pr, s.solver)
+    rel_pr = rel_l2([pr.sample], [seq1])
+    print(f"  paradigms tol={PD_READ_TOL}: {pr.iterations} sweeps, serial "
+          f"evals {st.serial_evals}, total evals {st.total_evals}, wall "
+          f"{wall_pd:.3f} s, rel L2 vs sequential {rel_pr:.3e}", flush=True)
+    print(f"  headline (N={n}): sequential {head['seq_wall']:.3f} s (K=2, "
+          f"{n} serial evals; K=1 {wall_seq1:.3f} s); srds tol={EARLY_TOL} "
+          f"{head['srds_wall']:.3f} s (K=2, iterations "
+          f"{head['srds_iters']}, serial evals {head['srds_serial']}); "
+          f"paradigms tol={PD_READ_TOL} {wall_pd:.3f} s (K=1, "
+          f"{pr.iterations} sweeps, serial evals {st.serial_evals})",
+          flush=True)
+    return ddpm_counts, pd_counts
+
+
 def main() -> int:
     import torch
 
@@ -2272,20 +2408,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/10] device: {smi} (torch {torch.__version__}, CUDA "
+    print(f"[1/11] device: {smi} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda})", flush=True)
 
     # ---- 2. build --------------------------------------------------------
     from repro_torch.kernels import _build, ops, ref
     secs = _build.build_all()
-    print(f"[2/10] build: {len(_build.sources())} CUDA source(s) in "
+    print(f"[2/11] build: {len(_build.sources())} CUDA source(s) in "
           f"{secs:.1f} s", flush=True)
     for name, log in _build.build_log.items():
         print(f"  nvcc {name}.cu:\n" + "\n".join(
             "    " + line for line in log.strip().splitlines()))
 
     # ---- 3. kernels against their plain versions -------------------------
-    print("[3/10] kernels vs plain versions (times on this card)",
+    print("[3/11] kernels vs plain versions (times on this card)",
           flush=True)
     cases = kernel_phase(torch, ops, ref)
 
@@ -2298,8 +2434,7 @@ def main() -> int:
         setup.model_fn
     sched, solver, x_init = setup.sched, setup.solver, setup.x_init
     B, S, fixed, build_s = setup.B, setup.S, setup.fixed, setup.build_s
-    del setup
-    print(f"[4/10] srds-dit-sd2: {cfg.num_layers} layers, d {cfg.d_model}, "
+    print(f"[4/11] srds-dit-sd2: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads}x{cfg.resolved_head_dim} heads, {cfg.dtype}, "
           f"{dit.param_count(model) / 1e6:.1f} M params, built in "
           f"{build_s:.1f} s", flush=True)
@@ -2326,8 +2461,9 @@ def main() -> int:
         if counts != want:
             raise AssertionError(f"launch counts {counts} != {want}")
 
-    seq, counts, _ = run("sample_sequential", lambda: C.sample_sequential(
-        model_fn, sched, solver, x_init))
+    seq, counts, seq_wall = run("sample_sequential",
+                                lambda: C.sample_sequential(
+                                    model_fn, sched, solver, x_init))
     expect(counts, N_STEPS, 0)
 
     res, main_counts, _ = run("srds_sample max_iters=B (main path)",
@@ -2359,7 +2495,7 @@ def main() -> int:
                              f"sequential sample: rel L2 {rel}")
 
     early = C.SRDSConfig(num_blocks=B, per_sample=True, tol=EARLY_TOL)
-    res2, counts, _ = run(f"srds_sample tol={EARLY_TOL}",
+    res2, counts, early_wall = run(f"srds_sample tol={EARLY_TOL}",
                           lambda: C.srds_sample(model_fn, sched, solver,
                                                 x_init, early))
     p2 = int(res2.iterations.max())
@@ -2372,26 +2508,34 @@ def main() -> int:
     if not bool(torch.isfinite(res2.sample).all()):
         raise AssertionError("early-exit srds sample is not finite")
 
-    # ---- 5. serving ------------------------------------------------------
+    # ---- 5. ddpm and ParaDiGMS -------------------------------------------
+    ddpm_counts, pd_counts = ddpm_paradigms_phase(
+        torch, C, run, setup, layers,
+        dict(seq_wall=seq_wall, srds_wall=early_wall,
+             srds_iters=res2.iterations.tolist(),
+             srds_serial=st2.serial_evals))
+    del setup
+
+    # ---- 6. serving ------------------------------------------------------
     serve_counts, serve_l2_counts = serve_phase(torch, ops, C, model_fn,
                                                 sched, solver, layers)
     del model, model_fn
     torch.cuda.empty_cache()
 
-    # ---- 6. training -----------------------------------------------------
+    # ---- 7. training -----------------------------------------------------
     train_counts = train_phase(torch, ops, cfg, tree)
     del tree
     torch.cuda.empty_cache()
 
-    # ---- 7-8. LM serving -------------------------------------------------
+    # ---- 8-9. LM serving -------------------------------------------------
     lm_counts = {}
-    for step, arch in ((7, "qwen3-8b"), (8, "rwkv6-1.6b")):
+    for step, arch in ((8, "qwen3-8b"), (9, "rwkv6-1.6b")):
         lm_counts[arch] = lm_phase(torch, ops, step, arch, LM_LIMITS[arch])
         torch.cuda.empty_cache()
 
-    # ---- 9-10. LM training -----------------------------------------------
+    # ---- 10-11. LM training -----------------------------------------------
     lm_train_counts = {}
-    for step, arch in ((9, "qwen3-8b"), (10, "rwkv6-1.6b")):
+    for step, arch in ((10, "qwen3-8b"), (11, "rwkv6-1.6b")):
         lm_train_counts[arch] = lm_train_phase(torch, ops, step, arch)
         torch.cuda.empty_cache()
 
@@ -2444,6 +2588,8 @@ def main() -> int:
         first = cases[name][0]            # the main path's shape
         counter = name.replace("_causal_gqa", "")
         by_path = {"srds_sample": main_counts[counter],
+                   "ddpm_srds": ddpm_counts[counter],
+                   "paradigms": pd_counts[counter],
                    "serve": serve_counts[counter],
                    "serve_l2_mean": serve_l2_counts[counter],
                    "train_loop": train_counts[counter],

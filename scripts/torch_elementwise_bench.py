@@ -19,7 +19,7 @@ launch and the scalar path to the 16-byte path's bits, then reads where a
 call's host time goes (``host_breakdown``); an older tree's kernels are
 only read.
 
-``--end-to-end`` first runs phases 4-5's paths through ``--src``'s
+``--end-to-end`` first runs phases 4 and 6's paths through ``--src``'s
 package, before any kernel reading, so that both sides of a comparison
 start alike: ``chip_smoke.dit_setup``'s model, inputs and settings (the
 full-width ``srds-dit-sd2`` DiT), ``sample_sequential`` and
@@ -107,7 +107,7 @@ def host_breakdown(torch, ops, elementwise) -> None:
 
 
 def end_to_end(torch, cs) -> None:
-    """Phases 4-5's wall times for this ``--src``: see the module
+    """Phases 4 and 6's wall times for this ``--src``: see the module
     docstring."""
     import repro_torch.core as C
     from repro_torch.kernels import ops

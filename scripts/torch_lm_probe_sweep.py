@@ -9,11 +9,11 @@ LM training phases and their held-out gates.
 
 For each model seed and learning rate it builds the arch as
 ``launch.train.build`` does (``init_params`` on the card from the seed,
-trainable; ``--layers`` cuts the depth, as phase 9 cuts qwen3-8b to 8),
+trainable; ``--layers`` cuts the depth, as phase 10 cuts qwen3-8b to 8),
 takes ``--steps`` AdamW steps on ``LMStream`` batches 0.. (batch 2 x
 2048, the launcher's warm-up schedule) and prints, before and after every
 step, the mean loss over ``--probes`` held-out batches (``--steps``
-onwards) and the loss on the first of them alone (phase 10's probe).
+onwards) and the loss on the first of them alone (phase 11's probe).
 ``--trained`` reads the batches the steps train on (0..) instead.
 ``--f32`` trains the same weights in f32.  ``--negate`` also runs every
 setting with the update reversed (the lr negated): the control that a

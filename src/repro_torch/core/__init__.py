@@ -7,6 +7,8 @@ from .denoiser import Denoiser, as_denoiser
 from .engine import (IterationCost, SRDSConfig, SRDSResult, iteration_cost,
                      predicted_evals, prefix_frontier, resolve_blocks,
                      run_parareal, truncated_evals, windowed_evals)
+from .paradigms import (ParaDiGMSConfig, ParaDiGMSResult, paradigms_sample,
+                        paradigms_stats)
 from .parareal import srds_sample, srds_stats
 from .schedules import DiffusionSchedule, make_schedule
 from .sequential import SampleStats, sample_sequential, sequential_stats
@@ -23,4 +25,5 @@ __all__ = ["AccelState", "Accelerator", "AndersonAccel", "NoAccel",
            "SampleStats", "sample_sequential", "sequential_stats",
            "SolverConfig", "solve", "solver_names", "ExactPrefix",
            "FixedBudget", "FrontierPolicy", "ResidualWindow",
-           "resolve_policy"]
+           "resolve_policy", "ParaDiGMSConfig", "ParaDiGMSResult",
+           "paradigms_sample", "paradigms_stats"]

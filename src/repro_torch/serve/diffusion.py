@@ -47,6 +47,10 @@ accelerating ``accel`` trade exactness for evals or iterations.
 Request noise comes from ``noise_fn(seed, shape, dtype, device)``; the
 default draws from a ``torch.Generator`` seeded with the request's seed
 (not the JAX package's ``PRNGKey`` stream, which torch cannot reproduce).
+The stochastic ``ddpm`` solver needs ``allow_inexact=True``: its frozen
+noise is drawn per interval for the whole micro-batch, so a lane's
+realization depends on its batch (same distribution, not the
+single-request run's bits).
 Block and slot-batch sharding over a mesh (``mesh``, ``axis``,
 ``data_axis``) are ROADMAP A10 and raise ``NotImplementedError``.
 """
@@ -211,8 +215,10 @@ class CompletionRecord:
 
 
 def _solver_fp(solver: SolverConfig):
-    """Hashable fingerprint of a SolverConfig."""
-    return (solver.name, solver.use_fused_kernel)
+    """Hashable fingerprint of a SolverConfig: ``ddpm`` requests with
+    another ``eta`` or noise source never share a micro-batch."""
+    return (solver.name, solver.eta, solver.use_fused_kernel,
+            solver.noise_seed, solver.noise_fn)
 
 
 class _Slot:
@@ -491,8 +497,9 @@ class DiffusionSamplingEngine:
       num_blocks / max_iters / norm: SRDS knobs, as in ``SRDSConfig``.
       mesh / axis / data_axis: block and slot sharding (ROADMAP A10;
         raise ``NotImplementedError``).
-      allow_inexact: the opt-in for the stochastic ``ddpm`` solver
-        (ROADMAP A3: raises ``NotImplementedError`` until it is ported).
+      allow_inexact: the opt-in for the stochastic ``ddpm`` solver,
+        whose batch-shaped frozen noise gives distribution-level, not
+        lane-exact, results.
       sec_per_eval: virtual seconds per physical eval, and the cost
         model's per-eval price on either clock.
       dtype: the latents' dtype; the schedule runs in it too.
@@ -615,16 +622,13 @@ class DiffusionSamplingEngine:
             raise ValueError(f"unknown solver {solver.name!r}; "
                              f"have {solver_names()}")
         make_schedule(schedule, n)           # raises on an unknown family
-        if solver.name == "ddpm":
-            if not self.allow_inexact:
-                raise ValueError(
-                    "stochastic 'ddpm' solver draws batch-shaped noise, so "
-                    "per-request lane-exactness vs the single-request run "
-                    "is NOT guaranteed under micro-batching; construct the "
-                    "engine with allow_inexact=True to accept "
-                    "distribution-level (not bitwise) results.")
-            raise NotImplementedError("the ddpm solver is not ported yet "
-                                      "(ROADMAP A3)")
+        if solver.name == "ddpm" and not self.allow_inexact:
+            raise ValueError(
+                "stochastic 'ddpm' solver draws batch-shaped noise, so "
+                "per-request lane-exactness vs the single-request run is "
+                "NOT guaranteed under micro-batching; construct the engine "
+                "with allow_inexact=True to accept distribution-level "
+                "(not bitwise) results.")
         rid = self._next_rid
         self._next_rid += 1
         self._first_arrival = req.arrival_time \

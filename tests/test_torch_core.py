@@ -78,12 +78,13 @@ def test_schedules_equal_jax_exactly(kind, n):
     assert t.num_steps == j.num_steps == n
 
 
-@pytest.mark.parametrize("solver", ["ddim", "euler", "heun", "dpm2"])
+@pytest.mark.parametrize("solver", ["ddim", "euler", "heun", "dpm2", "ddpm"])
 @pytest.mark.parametrize("n", [16, 25, 36])
 def test_srds_at_cap_equals_sequential(solver, n):
-    """Prop 1 within the port: ``max_iters=B`` reproduces the serial solve."""
+    """Prop 1 within the port: ``max_iters=B`` reproduces the serial solve
+    (``ddpm`` with its native frozen noise, which other solvers ignore)."""
     _, sched = _scheds(n)
-    cfg = T.SolverConfig(solver)
+    cfg = T.SolverConfig(solver, noise_seed=5)
     x0 = torch.from_numpy(_x0())
     seq = T.sample_sequential(_torch_matmul, sched, cfg, x0)
     res = T.srds_sample(_torch_matmul, sched, cfg, x0, T.SRDSConfig(tol=0.0))
@@ -242,15 +243,17 @@ def test_eval_accounting_matches_jax():
 
 
 def test_unported_paths_raise_naming_their_roadmap_item():
-    """What is left unported (the ddpm solver, A3; block sharding,
-    straggler reuse and wavefront pricing, A10) raises and names its
-    ROADMAP item; the serving engine's ddpm and mesh options do too."""
+    """What is left unported (block sharding, straggler reuse and
+    wavefront pricing, A10) raises and names its ROADMAP item; so do the
+    serving engine's mesh options.  The ddpm solver (A3) is ported: it
+    runs, in the samplers and behind the engine's ``allow_inexact``."""
     from repro_torch.core import engine as teng
     from repro_torch.serve import DiffusionSamplingEngine, SampleRequest
     _, sched = _scheds(16)
     x0 = torch.from_numpy(_x0())
-    with pytest.raises(NotImplementedError, match="A3"):
-        T.sample_sequential(_torch_matmul, sched, T.SolverConfig("ddpm"), x0)
+    ddpm = T.SolverConfig("ddpm", noise_seed=0)
+    seq = T.sample_sequential(_torch_matmul, sched, ddpm, x0)
+    assert seq.shape == x0.shape and bool(torch.isfinite(seq).all())
     with pytest.raises(NotImplementedError, match="A10"):
         T.srds_sample(_torch_matmul, sched, T.SolverConfig("ddim"), x0,
                       T.SRDSConfig(block_sharding=object()))
@@ -265,9 +268,10 @@ def test_unported_paths_raise_naming_their_roadmap_item():
         with pytest.raises(NotImplementedError, match="A10"):
             DiffusionSamplingEngine(_torch_matmul, (8,), device="cpu", **kw)
     eng = DiffusionSamplingEngine(_torch_matmul, (8,), device="cpu",
-                                  allow_inexact=True)
-    with pytest.raises(NotImplementedError, match="A3"):
-        eng.submit(SampleRequest(seed=0, solver=T.SolverConfig("ddpm")))
+                                  allow_inexact=True, num_steps=16,
+                                  dtype=torch.float64)
+    rid = eng.submit(SampleRequest(seed=0, solver=ddpm))
+    assert np.isfinite(eng.drain()[rid].sample).all()
 
 
 # --------------------------------------------------------------------------

@@ -937,3 +937,85 @@ def test_flash_bwd_tc_terms_control_on_card(cuda, case):
     main = fa.flash_attention_bwd(*args, **case[-1])
     assert all(torch.equal(a, b) for a, b in zip(got, main))
     assert max(rel[fa.BWD_TC_TERMS]) <= TC_BWD_REL_L2 < min(rel[1]), rel
+
+
+def _toy_fn(device):
+    w = torch.from_numpy(_rand(31, (16, 16)) * 0.4).to(device)
+
+    def fn(x, t):
+        return torch.tanh(x @ w) * (0.4 + 3e-4 * t[:, None])
+
+    return fn
+
+
+@pytest.mark.cuda
+def test_ddpm_native_noise_deterministic_on_card(cuda):
+    """The native frozen noise on the card is a pure function of (seed,
+    interval id): drawn in either order, after other draws, it gives the
+    same bits; so a DDPM-SRDS run at its cap equals the sequential solve,
+    and a second run repeats the first bitwise."""
+    import repro_torch.core as C
+    from repro_torch.core.solvers import frozen_noise
+    shape = (3, 64, 64, 4)
+    a1 = frozen_noise(5, 17, shape, torch.float32, cuda)
+    b1 = frozen_noise(5, 18, shape, torch.float32, cuda)
+    b2 = frozen_noise(5, 18, shape, torch.float32, cuda)
+    a2 = frozen_noise(5, 17, shape, torch.float32, cuda)
+    assert torch.equal(a1, a2) and torch.equal(b1, b2)
+    assert not torch.equal(a1, b1)
+    fn = _toy_fn(cuda)
+    sched = C.make_schedule("ddpm_linear", 16)
+    solver = C.SolverConfig("ddpm", noise_seed=3)
+    x0 = torch.from_numpy(_rand(6, (2, 16))).to(cuda)
+    cfg = C.SRDSConfig(num_blocks=4, tol=0.0)
+    res = C.srds_sample(fn, sched, solver, x0, cfg)
+    again = C.srds_sample(fn, sched, solver, x0, cfg)
+    seq = C.sample_sequential(fn, sched, solver, x0)
+    assert torch.equal(res.sample, again.sample)
+    torch.testing.assert_close(res.sample, seq, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_paradigms_one_ddim_launch_per_sweep_on_card(cuda):
+    """A toy ParaDiGMS run steps its whole window in one batch: one DDIM
+    kernel launch a sweep, and the sample matches the CPU run's."""
+    import repro_torch.core as C
+    fn = _toy_fn(cuda)
+    sched = C.make_schedule("ddpm_linear", 40)
+    x0 = torch.from_numpy(_rand(7, (2, 16)))
+    cfg = C.ParaDiGMSConfig(window=16, tol=1e-3)
+    ops.reset_launch_counts()
+    res = C.paradigms_sample(fn, sched, C.SolverConfig("ddim"), x0.to(cuda),
+                             cfg)
+    counts = ops.launch_counts()
+    assert counts["ddim_fused"] == res.iterations > 1
+    cpu = C.paradigms_sample(_toy_fn("cpu"), sched, C.SolverConfig("ddim"),
+                             x0, cfg)
+    assert (res.iterations, res.total_evals) == (cpu.iterations,
+                                                 cpu.total_evals)
+    torch.testing.assert_close(res.sample.cpu(), cpu.sample, atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_default_solver_never_takes_plain_path_on_card(cuda, monkeypatch):
+    """With ``use_fused_kernel=None`` a CUDA tensor's DDIM step launches the
+    kernel: the plain update is never called, in the sequential solve, in
+    SRDS and in ParaDiGMS."""
+    import repro_torch.core as C
+    from repro_torch.core import solvers
+
+    def plain(*args):
+        raise AssertionError("the plain DDIM update ran on a CUDA tensor")
+
+    monkeypatch.setattr(solvers, "_ddim_update", plain)
+    fn = _toy_fn(cuda)
+    sched = C.make_schedule("ddpm_linear", 16)
+    solver = C.SolverConfig("ddim")
+    x0 = torch.from_numpy(_rand(8, (2, 16))).to(cuda)
+    ops.reset_launch_counts()
+    C.sample_sequential(fn, sched, solver, x0)
+    assert ops.launch_counts()["ddim_fused"] == 16
+    C.srds_sample(fn, sched, solver, x0, C.SRDSConfig(num_blocks=4))
+    pd = C.paradigms_sample(fn, sched, solver, x0, C.ParaDiGMSConfig())
+    assert ops.launch_counts()["ddim_fused"] > 16 + pd.iterations

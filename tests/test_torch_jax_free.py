@@ -49,6 +49,9 @@ def test_port_imports_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.serve.diffusion" in mods
     assert "repro_torch.core.accel" in mods
+    assert "repro_torch.core.paradigms" in mods
+    assert "repro_torch.benchmarks.check_counts" in mods
+    assert "repro_torch.benchmarks.table11_truncation" in mods
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", BLOCKER, *mods],
                           capture_output=True, text=True, env=env,

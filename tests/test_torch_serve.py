@@ -140,8 +140,9 @@ def test_simulate_matches_jax(policy, mode):
     assert te.stats() == je.stats()
     # the step functions are cached per quantized frontier, as JAX's
     # compiled programs are
+    from repro_torch.serve.diffusion import _solver_fp
     for key, (_, j_step, _, _) in je._programs.items():
-        t_step = te._programs[key[:3] + (("ddim", None),)][1]
+        t_step = te._programs[key[:3] + (_solver_fp(SolverConfig("ddim")),)][1]
         assert sorted(t_step.cache) == sorted(j_step.cache)
         assert sorted(t_step.windowed.cache) == \
             sorted(j_step.windowed.cache)
@@ -202,6 +203,11 @@ def test_engine_pairing_rule_and_submit_validation():
     eng = T.DiffusionSamplingEngine(_torch_model, (8,), device="cpu")
     with pytest.raises(ValueError, match="allow_inexact"):
         eng.submit(T.SampleRequest(seed=0, solver=SolverConfig("ddpm")))
+    inexact = T.DiffusionSamplingEngine(_torch_model, (8,), device="cpu",
+                                        allow_inexact=True, num_steps=16)
+    rid = inexact.submit(T.SampleRequest(
+        seed=0, solver=SolverConfig("ddpm", noise_seed=3)))
+    assert np.isfinite(inexact.drain()[rid].sample).all()
     with pytest.raises(ValueError, match="unknown solver"):
         eng.submit(T.SampleRequest(seed=0, solver=SolverConfig("nope")))
     with pytest.raises(ValueError):
