@@ -51,7 +51,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the backward's causal GQA form at qwen3-8b's training shape, its
    sliding-window form at hymba-1.5b's and a ragged causal f32 case; the
    WKV backward at rwkv6-1.6b's training shape, at T = 7, with w over the
-   whole clip and T = 300 in f32 (two runs bitwise equal);
+   whole clip and T = 300 in f32 (two runs bitwise equal); hymba-1.5b's
+   selective scan (f32, din 1600, 16 states) at its prefill shape (4 x
+   2048 from the zero state), at T = 1 and a ragged T from a nonzero
+   state (two runs bitwise equal, y and the final state held by rel L2;
+   the plain scan with D dropped, and with the state zeroed at T = 1, as
+   controls that must miss it; the bound counts its exponentials at the
+   SFUs' rate);
 4. sampling: the full-width, full-depth ``srds-dit-sd2`` DiT (28 layers,
    d 1152, 16 heads of 72, bf16) with weights drawn from a numpy seed
    (every leaf nonzero) and loaded through ``load_jax_params``; DDIM on
@@ -152,12 +158,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    mean loss over the 5 batches it trained on by more than ``FIT_MARGIN``,
    and the same loop from the same weights with the update reversed (the
    control) must not; the held-out batch's loss is a reading (ROADMAP
-   C11: training on these batches raises it).
+   C11: training on these batches raises it);
+12. LM serving: ``hymba-1.5b`` at full width and depth (32 layers, d
+   1600, 25/5 heads of 64, every layer sliding-window at 1024 beside a
+   selective SSM of 1600 x 16, 1.39 B parameters in bf16) drawn on the
+   card from a seeded CUDA generator, serving phases 8-9's 4 requests
+   (prompt ids drawn below its vocabulary of 32001) through
+   ``ServingEngine(batch_size=4)``: launch counts reset just before and
+   read just after, held exactly (the window flash forward 32 times per
+   prefill, all on the tensor-core route, never in a decode step; the
+   selective scan 32 times per prefill and per decode step); prefill
+   wall time, decode ms per step, tokens/s, peak memory and a profile of
+   one prefill and one decode step.  Every scan launch of one bf16
+   prefill and the decode step after it held against the plain twin on
+   that layer's own inputs; then, on the same weights in f32, the
+   prefill's last logits and final SSM states through the kernels against
+   the plain path, decode step 1 against ``forward_train`` over the
+   prompts plus the first tokens, and a control that must miss the first
+   check (the same prefill with ``window=None``).
 
-Phases 4-8 and 10 also hold the flash kernels' launches on their main
-paths, forward and backward, to their tensor-core route
-(``ops.route_counts``: every attention there is bf16 with head dim 72 or
-128; the backward runs in phases 7 and 10).  Phases 10 and 11 end with ROADMAP
+Phases 4-8, 10 and 12 also hold the flash kernels' launches on their
+main paths, forward and backward, to their tensor-core route
+(``ops.route_counts``: every attention there is bf16 with head dim 64,
+72 or 128; the backward runs in phases 7 and 10).  Phases 10 and 11 end with ROADMAP
 C10's reading: the busy share of 10 ``train_loop`` steps as the launcher
 runs them (``log_every=10``, pinned non-blocking batch copies) and as it
 ran before (``log_every=1``, pageable copies), each under the profiler
@@ -248,7 +271,9 @@ BWD_MASKED_REL_L2 = {"bfloat16": 1e-3, "float32": 1e-5}
 # once to r's dtype)
 WKV_BWD_REL_L2 = {"bfloat16": 1e-2, "float32": 1e-4}
 # phases 8-9: 4 requests for ServingEngine(batch_size=4), token ids below
-# both vocabularies (rwkv6's 65,536), the same requests for both models
+# both vocabularies (rwkv6's 65,536), the same requests for both models;
+# phase 12 serves the same prompt lengths and budgets with ids below
+# hymba-1.5b's vocabulary
 LM_PROMPTS, LM_NEW, LM_TOKEN_IDS = (2048, 1536, 1024, 512), (32, 32, 16,
                                                             16), 65536
 # (kernels vs plain prefill, teacher-forced decode) rel L2 limits.  qwen3-8b
@@ -265,6 +290,14 @@ LM_PROMPTS, LM_NEW, LM_TOKEN_IDS = (2048, 1536, 1024, 512), (32, 32, 16,
 # (final WKV states) and 3.77e-5 (teacher forcing), and 1.35 for the
 # dropped-state control: the limit is 4x the largest reading.
 LM_LIMITS = {"qwen3-8b": (5e-2, 5e-2), "rwkv6-1.6b": (1e-3, 1e-3)}
+# phase 12: hymba-1.5b's (kernels vs plain prefill, teacher-forced
+# decode) rel L2 limits, in f32 on the served weights (ROADMAP Rules: a
+# random bf16 model amplifies rounding).  An H100 run read 2.12e-4 (last
+# logits), 1.77e-4 (final SSM states) and 8.2e-6 (teacher forcing), and
+# 1.11 for the window=None control: over all 32 layers the random model
+# is not chaotic in f32, so no depth cut; the limit is about 5x the
+# largest reading, as rwkv6-1.6b's
+HYMBA_LIMITS = (1e-3, 1e-3)
 # phases 10-11: LM training at batch 2 x 2048 for 5 AdamW steps,
 # qwen3-8b at its published widths with 8 of its 36 layers (2.79 B
 # parameters: 33.5 GB of weights, gradients and f32 moments; all 36 would
@@ -316,6 +349,17 @@ QKV_LEAVES = (".attn.wq", ".attn.wk", ".attn.wv")
 DECAY_LEAVES = (".tmix.w_base", ".tmix.A_w", ".tmix.B_w")
 # the flash forward's launches by route on each main path (check_tc_route)
 ROUTES_BY_PATH = {}
+# the selective scan against its plain twin (phase 3 and phase 12's
+# layer check), f32: the same recurrence with the sum over the states in
+# another order; (atol, rtol) and a rel L2 limit over y and over h_T.  An
+# H100 run read 8.1e-8 to 8.4e-8 in phase 3 and at most 1.75e-7 on the
+# served model's layers (max abs err 1.1e-5 at T 2048), its controls 0.63
+# (D dropped) and 0.75 (h0 zeroed): the limit is about 6x the readings
+SCAN_TOL, SCAN_REL_L2 = 1e-4, 1e-6
+# the SFUs' rate for expf's ex2 (16 a clock an SM on compute capability
+# 9.0, CUDA C++ Programming Guide, arithmetic instruction throughput) at
+# the clock of the f32 peak above (67e12 / (132 SMs x 128 lanes x 2))
+SFU_PER_S = 132 * 16 * 1.98e9
 # the WKV kernel's final state against the plain scan's on one layer's
 # inputs: the same f32 recurrence summed in another order (an H100 run
 # measured at most 3.5e-8 over the 24 layers)
@@ -485,8 +529,8 @@ def bwd_terms_control(torch, fa, args, want, mask):
 def check_tc_route(ops, counts, label, path=None):
     """The flash kernels' launches of a main path (``counts``, read just
     after it), forward and the backward's dq and dkv, all went through the
-    tensor-core kernels: every attention of the DiT and of qwen3-8b is bf16
-    with a head dim that is a multiple of 8.  Keeps the route counts of
+    tensor-core kernels: every attention of the DiT, qwen3-8b and
+    hymba-1.5b is bf16 with a head dim that is a multiple of 8.  Keeps the route counts of
     ``path`` for the kernels' JSON line and returns them."""
     routes = ops.route_counts()
     if path is not None:
@@ -633,7 +677,7 @@ def train_phase(torch, ops, cfg, tree):
     stream = make_stream(cfg, DataConfig(seed=SEED,
                                          global_batch=TRAIN_BATCH),
                          device="cuda")
-    print(f"[7/11] training {cfg.name} through launch.train.build "
+    print(f"[7/12] training {cfg.name} through launch.train.build "
           f"({time.perf_counter() - t0:.1f} s), batch {TRAIN_BATCH}, "
           f"{stream.size}x{stream.size}x{stream.channels} images", flush=True)
     loop_seed = SEED + 1
@@ -765,7 +809,7 @@ def serve_phase(torch, ops, C, model_fn, sched, solver, layers):
                                seed=SERVE_TRACE_SEED)
     if [r.tol for r in trace] != [0.0, 0.0] + [LOOSE_TOL] * 4:
         raise AssertionError(f"unexpected tiers {[r.tol for r in trace]}")
-    print(f"[6/11] serving: {len(trace)} requests in 2 bursts "
+    print(f"[6/12] serving: {len(trace)} requests in 2 bursts "
           f"{SERVE_PERIOD} s apart (tols {[r.tol for r in trace]}), "
           f"{SERVE_SLOTS} slots, N={N_STEPS}, B={B}, AsyncServeLoop on a "
           f"MonotonicClock, FIFO", flush=True)
@@ -921,11 +965,12 @@ def profile_reading(torch, label, fn):
               sorted(groups.items(), key=lambda kv: -kv[1])), flush=True)
 
 
-def lm_requests(np):
-    """The LM phases' traffic: 4 prompts of random token ids (below both
-    vocabularies, from the seed) and their generation budgets."""
+def lm_requests(np, vocab=LM_TOKEN_IDS):
+    """The LM phases' traffic: 4 prompts of random token ids below
+    ``vocab`` (phases 8-9: below both of their vocabularies; phase 12:
+    below hymba-1.5b's), from the seed, and their generation budgets."""
     rng = np.random.default_rng(SEED)
-    return [(rng.integers(0, LM_TOKEN_IDS, n), m)
+    return [(rng.integers(0, vocab, n), m)
             for n, m in zip(LM_PROMPTS, LM_NEW)]
 
 
@@ -1009,33 +1054,15 @@ def nudged_prefill(torch, ops, tf, cfg, model, batch, layer):
     return logits
 
 
-def lm_phase(torch, ops, step, arch, limits):
-    """Phases 8 and 9: ``arch`` at full width and depth with random
-    weights from a seeded CUDA generator, serving 4 requests through
-    ``repro_torch.serve.ServingEngine``; then the checks.  Returns the
-    launch counts of the served run."""
-    import dataclasses
-    import numpy as np
-    import torch.nn.functional as F
-    from repro_torch.configs import get_arch
-    from repro_torch.models import transformer as tf
-    from repro_torch.models.rwkv6 import RWKVState
+def serve_lm(torch, ops, cfg, model, reqs, arch):
+    """The LM phases' main path: ``reqs`` through
+    ``ServingEngine(batch_size=len(reqs))``, launch counts reset just
+    before and read just after, each prefill and decode call timed with
+    its launches.  Checks every generation's length and ids and that every
+    flash forward took the tensor-core route; prints the wall, prefill
+    and decode times, tokens/s and peak memory.  Returns the run's launch
+    counts and its calls (kind, seconds, launches)."""
     from repro_torch.serve import Request, ServingEngine
-
-    cfg = get_arch(arch)
-    t0 = time.perf_counter()
-    model = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(
-        SEED), device="cuda")
-    torch.cuda.synchronize()
-    kernel = "rwkv6_wkv" if cfg.block == "rwkv6" else "flash_attention_fwd"
-    print(f"[{step}/11] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
-          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
-          f"{cfg.vocab_size}, {cfg.dtype}, "
-          f"{tf.param_count(model) / 1e9:.3f} B params drawn on the card in "
-          f"{time.perf_counter() - t0:.1f} s; serving {len(LM_PROMPTS)} "
-          f"requests (prompts {LM_PROMPTS}, max_new_tokens {LM_NEW})",
-          flush=True)
-    reqs = lm_requests(np)
     engine = ServingEngine(cfg, model, batch_size=len(reqs),
                            max_seq=max(LM_PROMPTS) + max(LM_NEW))
     calls = []
@@ -1074,20 +1101,61 @@ def lm_phase(torch, ops, step, arch, limits):
           f"{1e3 * min(decode_s):.2f}), {n_tok} tokens, "
           f"{n_tok / wall:.1f} tokens/s, peak memory {peak:.2f} GB; launches "
           f"{counts}, flash kernels by route {routes}", flush=True)
+    if [len(o) for o in outs] != [m for _, m in reqs] or not all(
+            0 <= x < cfg.vocab_size for o in outs for x in o):
+        raise AssertionError(f"{arch}: bad generations {outs}")
+    return counts, calls
+
+
+def check_launches(arch, counts, calls, per_call):
+    """The served run's launch counts, exactly: ``per_call`` maps a kernel
+    to its launches (per prefill, per decode step); every other count is
+    0, in the run and in each call."""
+    steps = len(calls) - 1
+    want = dict.fromkeys(counts, 0)
+    want.update({k: pre + dec * steps for k, (pre, dec) in per_call.items()})
+    bad = [c for c in calls if any(
+        c[2][k] != per_call.get(k, (0, 0))[c[0] == "decode"]
+        for k in c[2])]
+    if counts != want or bad:
+        raise AssertionError(f"{arch}: launch counts {counts} != {want} "
+                             f"(per prefill and decode step: {per_call}); "
+                             f"calls off it: {bad[:2]}")
+
+
+def lm_phase(torch, ops, step, arch, limits):
+    """Phases 8 and 9: ``arch`` at full width and depth with random
+    weights from a seeded CUDA generator, serving 4 requests through
+    ``repro_torch.serve.ServingEngine``; then the checks.  Returns the
+    launch counts of the served run."""
+    import dataclasses
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.rwkv6 import RWKVState
+
+    cfg = get_arch(arch)
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda")
+    torch.cuda.synchronize()
+    kernel = "rwkv6_wkv" if cfg.block == "rwkv6" else "flash_attention_fwd"
+    print(f"[{step}/12] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}, "
+          f"{tf.param_count(model) / 1e9:.3f} B params drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s; serving {len(LM_PROMPTS)} "
+          f"requests (prompts {LM_PROMPTS}, max_new_tokens {LM_NEW})",
+          flush=True)
+    reqs = lm_requests(np)
+    counts, calls = serve_lm(torch, ops, cfg, model, reqs, arch)
     print(f"  launches per call: prefill {calls[0][2][kernel]}, decode "
           f"{sorted(set(c[2][kernel] for c in calls[1:]))} ({kernel})",
           flush=True)
-    if [len(o) for o in outs] != list(LM_NEW) or not all(
-            0 <= x < cfg.vocab_size for o in outs for x in o):
-        raise AssertionError(f"{arch}: bad generations {outs}")
     per_decode = cfg.num_layers if kernel == "rwkv6_wkv" else 0
-    want = dict.fromkeys(counts, 0)
-    want[kernel] = cfg.num_layers + per_decode * len(decode_s)
-    if counts != want or calls[0][2][kernel] != cfg.num_layers or any(
-            c[2][kernel] != per_decode for c in calls[1:]):
-        raise AssertionError(f"{arch}: launch counts {counts} != {want} "
-                             f"({cfg.num_layers} per prefill, {per_decode} "
-                             f"per decode step)")
+    check_launches(arch, counts, calls, {kernel: (cfg.num_layers,
+                                                  per_decode)})
 
     # a reading and the checks, on the engine's left-padded batch
     plen = max(LM_PROMPTS)
@@ -1175,6 +1243,138 @@ def lm_phase(torch, ops, step, arch, limits):
     if not rel_c > lim:
         raise AssertionError(f"{arch}: {what} does not catch the control "
                              f"({ctl}): {rel_c}")
+    return counts
+
+
+def scan_layer_check(torch, ops, tf, cfg, model, batch):
+    """Every selective-scan launch of one prefill and of the decode step
+    after it held against the plain twin on the same inputs (each layer's
+    own xs, dt, B, C and state): y and h_T within SCAN_REL_L2 (rel L2);
+    the largest absolute difference is a reading."""
+    kernel_scan, errs = ops.selective_scan, []
+
+    def both(*args, use_kernel=None):
+        y, h_t = kernel_scan(*args)
+        y_r, h_r = kernel_scan(*args, use_kernel=False)
+        errs.append((args[0].shape[1], rel_l2([y], [y_r]),
+                     rel_l2([h_t], [h_r]),
+                     (y - y_r).abs().max().item()))
+        return y, h_t
+
+    ops.selective_scan = both
+    try:
+        logits, cache = tf.prefill(cfg, model, batch)
+        tf.decode_step(cfg, model, {"tokens": logits.argmax(-1)[:, None]},
+                       cache, batch["tokens"].shape[1])
+    finally:
+        ops.selective_scan = kernel_scan
+    worst = {t: tuple(max(e[i] for e in errs if e[0] == t)
+                      for i in (1, 2, 3)) for t in sorted({e[0] for e in errs})}
+    print(f"  1a. the selective scan on each of the {len(errs)} launches' "
+          f"own inputs (one prefill, one decode step) vs the plain twin: "
+          + "; ".join(f"T {t}: y rel L2 at most {ry:.3e}, h_T {rh:.3e}, y "
+                      f"max abs err {ea:.3e}"
+                      for t, (ry, rh, ea) in worst.items())
+          + f" (limit {SCAN_REL_L2})", flush=True)
+    if len(errs) != 2 * cfg.num_layers or not max(
+            max(w[:2]) for w in worst.values()) <= SCAN_REL_L2:
+        raise AssertionError(f"selective_scan differs from the plain twin "
+                             f"on the model's inputs: {worst}")
+
+
+def hymba_phase(torch, ops, step):
+    """Phase 12: hymba-1.5b at full width and depth with random bf16
+    weights from a seeded CUDA generator, serving 4 requests through
+    ``repro_torch.serve.ServingEngine``; then the checks.  Returns the
+    launch counts of the served run."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+
+    arch = "hymba-1.5b"
+    cfg = get_arch(arch)
+    t0 = time.perf_counter()
+    model = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        SEED), device="cuda")
+    torch.cuda.synchronize()
+    print(f"[{step}/12] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.resolved_head_dim}, window {cfg.window}, SSM {cfg.ssm_d_inner}"
+          f" x {cfg.ssm_state}, vocab {cfg.vocab_size}, {cfg.dtype}, "
+          f"{tf.param_count(model) / 1e9:.3f} B params drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s; serving {len(LM_PROMPTS)} "
+          f"requests (prompts {LM_PROMPTS}, max_new_tokens {LM_NEW}, ids "
+          f"below {cfg.vocab_size})", flush=True)
+    reqs = lm_requests(np, cfg.vocab_size)
+    counts, calls = serve_lm(torch, ops, cfg, model, reqs, arch)
+    kernels = ("flash_attention_fwd", "selective_scan")
+    print("  launches per call: prefill " + ", ".join(
+        f"{k} {calls[0][2][k]}" for k in kernels) + "; decode " + ", ".join(
+        f"{k} {sorted(set(c[2][k] for c in calls[1:]))}" for k in kernels),
+        flush=True)
+    layers = cfg.num_layers
+    check_launches(arch, counts, calls, {"flash_attention_fwd": (layers, 0),
+                                         "selective_scan": (layers, layers)})
+
+    # a reading and the checks, on the engine's left-padded batch
+    plen = max(LM_PROMPTS)
+    toks = torch.zeros((len(reqs), plen), dtype=torch.long)
+    for i, (p, _) in enumerate(reqs):
+        toks[i, plen - len(p):] = torch.from_numpy(p)
+    batch = {"tokens": toks.cuda()}
+    out = {}
+
+    def prefill():
+        out["logits"], out["cache"] = tf.prefill(cfg, model, batch)
+
+    profile_reading(torch, f"prefill ({len(reqs)} x {plen} tokens)",
+                    prefill)
+    first = {"tokens": out.pop("logits").argmax(-1)[:, None]}
+    cache = out.pop("cache")
+    profile_reading(torch, f"decode step (batch {len(reqs)})",
+                    lambda: tf.decode_step(cfg, model, first, cache, plen))
+    del cache
+    scan_layer_check(torch, ops, tf, cfg, model, batch)
+
+    # checks 1-3 in f32 on the same weights (a random bf16 model amplifies
+    # any change of rounding, ROADMAP Rules)
+    model.float()
+    lim_plain, lim_tf = HYMBA_LIMITS
+    logits, cache = tf.prefill(cfg, model, batch)
+    plain, plain_cache = tf.prefill(cfg, model, batch, use_kernel=False)
+    rel, rel_s = rel_l2([logits], [plain]), rel_l2([cache.ssm_h],
+                                                   [plain_cache.ssm_h])
+    print(f"  1. prefill last logits (f32), kernels vs plain: rel L2 "
+          f"{rel:.3e}; final SSM states rel L2 {rel_s:.3e} (limit "
+          f"{lim_plain} for both)", flush=True)
+    if not max(rel, rel_s) <= lim_plain:
+        raise AssertionError(f"{arch}: kernels and plain prefill differ: "
+                             f"{rel}, {rel_s}")
+    del plain_cache
+    tok = logits[:, :cfg.vocab_size].argmax(dim=-1)
+    step1, _ = tf.decode_step(cfg, model, {"tokens": tok[:, None]}, cache,
+                              plen)
+    full = tf.forward_train(cfg, model, {"tokens": torch.cat(
+        [batch["tokens"], tok[:, None]], dim=1)})[:, -1]
+    rel_tf = rel_l2([step1], [full])
+    print(f"  2. teacher forcing: decode step 1 vs forward_train over prompt "
+          f"+ first token: rel L2 {rel_tf:.3e} (limit {lim_tf}), argmax "
+          f"equal {bool(torch.equal(step1.argmax(-1), full.argmax(-1)))}",
+          flush=True)
+    if not rel_tf <= lim_tf:
+        raise AssertionError(f"{arch}: decode and the full forward differ: "
+                             f"{rel_tf}")
+    del cache, full
+    wrong, _ = tf.prefill(dataclasses.replace(cfg, window=None), model,
+                          batch)
+    rel_c = rel_l2([wrong], [plain])
+    print(f"  3. control, prefill with window=None (full causal attention): "
+          f"rel L2 {rel_c:.3e}, must miss check 1's limit {lim_plain}",
+          flush=True)
+    if not rel_c > lim_plain:
+        raise AssertionError(f"{arch}: check 1 does not catch the control "
+                             f"(window=None): {rel_c}")
     return counts
 
 
@@ -1366,7 +1566,7 @@ def lm_train_phase(torch, ops, step_no, arch):
                          device="cuda")
     torch.cuda.synchronize()
     n_params = tf.param_count(model)
-    print(f"[{step_no}/11] training {arch}: {cfg.num_layers} of "
+    print(f"[{step_no}/12] training {arch}: {cfg.num_layers} of "
           f"{get_arch(arch).num_layers} layers, d {cfg.d_model}, "
           f"{n_params / 1e9:.3f} B params ({cfg.dtype}, drawn on the card; "
           f"{time.perf_counter() - t0:.1f} s), batch {LM_TRAIN_BATCH} x "
@@ -1629,7 +1829,8 @@ def masked_flash_cases(torch, ops, ref, randn, cases):
         atol, rtol = MASKED_TOL[dtype]
         rel, rel_lim = rel_l2([got], [want]), MASKED_REL_L2[dtype]
         form = "causal" + (f" window={window}" if window else "")
-        cases["flash_attention_fwd_causal_gqa"].append(check_case(
+        cases["flash_attention_fwd_window" if window
+              else "flash_attention_fwd_causal_gqa"].append(check_case(
             f"flash_attention_fwd {form} {dtype} BH={b * hq} "
             f"BKV={b * hkv} Sq={sq} Sk={sk} D={d} ({route_label(fa, tdt, d)}"
             f"; rel L2 {rel:.3e}, limit {rel_lim})", got, want, atol, rtol,
@@ -1952,6 +2153,91 @@ def wkv_backward_cases(torch, ref, randn, cases):
                                  f"the plain backward")
 
 
+def scan_inputs(torch, randn, b, t, din, n, zero_h0):
+    """The selective scan's operands at the model's scales: ``xs`` the
+    second half of a (B, T, 2 din) tensor (the model's strided view), dt
+    = softplus(N(-2, 1)) (``b_dt`` -2), B and C ~ N(0, 1), a = -(1 .. n)
+    on every row (``A_log``'s init), D = 1, h0 zero or ~ N(0, 0.25)."""
+    xs = randn((b, t, 2 * din))[..., din:]
+    dt = torch.nn.functional.softplus(randn((b, t)) - 2.0)
+    a = -torch.linspace(1.0, float(n), n, device=xs.device).expand(
+        din, n).contiguous()
+    h0 = (torch.zeros((b, din, n), device=xs.device) if zero_h0
+          else randn((b, din, n)) * 0.5)
+    return [xs, dt, randn((b, t, n)), randn((b, t, n)), a,
+            torch.ones(din, device=xs.device), h0]
+
+
+def scan_bound(b, t, din, n, nbytes_):
+    """The least time of one scan: the larger of its bytes over HBM's rate
+    and its operations, the exponentials on the SFUs (``SFU_PER_S``) or
+    the f32 work (6 flops a state element and step: a dt, (dt x) b, the
+    FMA of the update, h c and the sum; 2 a channel and step for D x) on
+    the f32 units, whichever takes longer."""
+    t_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
+    elems = float(b) * t * din * n
+    t_ops = max(elems / SFU_PER_S,
+                (6.0 * elems + 2.0 * b * t * din) / PEAK_FLOPS["float32"]
+                ) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def scan_cases(torch, ops, randn, cases):
+    """Hymba's selective scan against its plain twin at the model's width
+    (din 1600, n 16, f32): the prefill shape (batch 4 x T 2048, from the
+    zero state), a decode step (T 1) and a ragged T (37: no multiple of
+    the kernel's 32-step chunks), both from a nonzero state; each run
+    twice and held bitwise equal, y and h_T within SCAN_TOL and SCAN_REL_L2
+    (rel L2).  Controls that must miss SCAN_REL_L2: the plain scan with D
+    dropped at the prefill shape, with h0 zeroed at T 1.  PyTorch has no
+    single call for the scan (``library_ms`` null)."""
+    from repro_torch.kernels import selective_scan as scan
+    lanes, channels, grid = scan.geometry(4, 1600, 16)
+    print(f"  selective scan at hymba-1.5b's width: grid {grid} of "
+          f"{scan.kernel_threads()} threads, {lanes} lanes a channel, "
+          f"{channels} channels a block", flush=True)
+    for b, t, din, n, zero_h0 in [(4, 2048, 1600, 16, True),
+                                  (4, 1, 1600, 16, False),
+                                  (4, 37, 1600, 16, False)]:
+        x = scan_inputs(torch, randn, b, t, din, n, zero_h0)
+
+        def kernel():
+            return ops.selective_scan(*x)
+
+        y, h_t = kernel()
+        again = kernel()
+        y_r, h_r = ops.selective_scan(*x, use_kernel=False)
+        if not all(torch.equal(a, c) for a, c in zip((y, h_t), again)):
+            raise AssertionError("selective_scan: two runs differ")
+        rel = max(rel_l2([y], [y_r]), rel_l2([h_t], [h_r]))
+        b_ms, b_by = scan_bound(b, t, din, n, nbytes(*x, y, h_t))
+        timing = dict(ms=time_ms(kernel, 20 if t >= 1024 else 200),
+                      plain_ms=time_ms(lambda: ops.selective_scan(
+                          *x, use_kernel=False), 2),
+                      bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        cases["selective_scan"].append(check_case(
+            f"selective_scan f32 B={b} T={t} din={din} n={n} "
+            f"({'zero' if zero_h0 else 'nonzero'} h0; y and h_T rel L2 "
+            f"{rel:.3e}, limit {SCAN_REL_L2}; two runs bitwise)",
+            torch.cat([y.flatten(), h_t.flatten()]),
+            torch.cat([y_r.flatten(), h_r.flatten()]), SCAN_TOL, SCAN_TOL,
+            timing))
+        if not rel <= SCAN_REL_L2:
+            raise AssertionError(f"selective_scan B={b} T={t}: rel L2 {rel} "
+                                 f"against the plain twin")
+        if zero_h0 or t == 1:
+            ctl = x[:5] + [torch.zeros_like(x[5]), x[6]] if zero_h0 \
+                else x[:6] + [torch.zeros_like(x[6])]
+            y_c, _ = ops.selective_scan(*ctl, use_kernel=False)
+            rel_c = rel_l2([y_c], [y_r])
+            print(f"    control, the plain scan with "
+                  f"{'D dropped' if zero_h0 else 'h0 zeroed'}: y rel L2 "
+                  f"{rel_c:.3e} (must miss {SCAN_REL_L2})", flush=True)
+            if not rel_c > SCAN_REL_L2:
+                raise AssertionError(f"scan control: rel L2 {rel_c} meets "
+                                     f"the limit {SCAN_REL_L2}")
+
+
 def launch_readings(torch, fn) -> dict:
     """Phase 3's readings of one B1/B2/B4 case: the device launches per call
     and device microseconds per launch, from one ``torch.profiler`` window
@@ -2199,7 +2485,8 @@ def kernel_phase(torch, ops, ref):
              "parareal_update_residual": [], "parareal_update": [],
              "flash_attention_fwd_causal_gqa": [], "rwkv6_wkv": [],
              "flash_attention_bwd_dq_causal_gqa": [],
-             "flash_attention_bwd_dkv_causal_gqa": [], "rwkv6_wkv_bwd": []}
+             "flash_attention_bwd_dkv_causal_gqa": [], "rwkv6_wkv_bwd": [],
+             "flash_attention_fwd_window": [], "selective_scan": []}
     # flash forward: SD-v2 fine and coarse batches (10 and 2 latents x 16
     # heads, S 1024, D 72) in bf16, CIFAR-width f32, and ragged Sq/Sk
     for bh, sq, sk, d, dtype in [(160, 1024, 1024, 72, "bfloat16"),
@@ -2243,6 +2530,7 @@ def kernel_phase(torch, ops, ref):
     wkv_readings(torch)
     wkv_cases(torch, ops, ref, randn, cases)
     wkv_backward_cases(torch, ref, randn, cases)
+    scan_cases(torch, ops, randn, cases)
     return cases
 
 
@@ -2290,15 +2578,14 @@ def ddpm_paradigms_phase(torch, C, run, setup, layers, head):
     n, B, S = N_STEPS, s.B, s.S
 
     def expect(counts, evals, ddim, resid, label):
-        want = {"flash_attention_fwd": layers * evals,
-                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-                "ddim_fused": ddim, "parareal_update_residual": resid,
-                "parareal_update": 0, "rwkv6_wkv": 0, "rwkv6_wkv_bwd": 0}
+        want = dict(dict.fromkeys(counts, 0),
+                    flash_attention_fwd=layers * evals, ddim_fused=ddim,
+                    parareal_update_residual=resid)
         if counts != want:
             raise AssertionError(f"{label}: launch counts {counts} != "
                                  f"{want}")
 
-    print(f"[5/11] ddpm with frozen noise (seed {DDPM_SEED}) and ParaDiGMS "
+    print(f"[5/12] ddpm with frozen noise (seed {DDPM_SEED}) and ParaDiGMS "
           f"on srds-dit-sd2, N={n}", flush=True)
     # the native noise is a pure function of (seed, interval id)
     iid = 3 * (n + 1) + 4
@@ -2408,20 +2695,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/11] device: {smi} (torch {torch.__version__}, CUDA "
+    print(f"[1/12] device: {smi} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda})", flush=True)
 
     # ---- 2. build --------------------------------------------------------
     from repro_torch.kernels import _build, ops, ref
     secs = _build.build_all()
-    print(f"[2/11] build: {len(_build.sources())} CUDA source(s) in "
+    print(f"[2/12] build: {len(_build.sources())} CUDA source(s) in "
           f"{secs:.1f} s", flush=True)
     for name, log in _build.build_log.items():
         print(f"  nvcc {name}.cu:\n" + "\n".join(
             "    " + line for line in log.strip().splitlines()))
 
     # ---- 3. kernels against their plain versions -------------------------
-    print("[3/11] kernels vs plain versions (times on this card)",
+    print("[3/12] kernels vs plain versions (times on this card)",
           flush=True)
     cases = kernel_phase(torch, ops, ref)
 
@@ -2434,7 +2721,7 @@ def main() -> int:
         setup.model_fn
     sched, solver, x_init = setup.sched, setup.solver, setup.x_init
     B, S, fixed, build_s = setup.B, setup.S, setup.fixed, setup.build_s
-    print(f"[4/11] srds-dit-sd2: {cfg.num_layers} layers, d {cfg.d_model}, "
+    print(f"[4/12] srds-dit-sd2: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads}x{cfg.resolved_head_dim} heads, {cfg.dtype}, "
           f"{dit.param_count(model) / 1e6:.1f} M params, built in "
           f"{build_s:.1f} s", flush=True)
@@ -2454,10 +2741,9 @@ def main() -> int:
         return out, counts, wall
 
     def expect(counts, ddim, resid):
-        want = {"flash_attention_fwd": layers * ddim,
-                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-                "ddim_fused": ddim, "parareal_update_residual": resid,
-                "parareal_update": 0, "rwkv6_wkv": 0, "rwkv6_wkv_bwd": 0}
+        want = dict(dict.fromkeys(counts, 0),
+                    flash_attention_fwd=layers * ddim, ddim_fused=ddim,
+                    parareal_update_residual=resid)
         if counts != want:
             raise AssertionError(f"launch counts {counts} != {want}")
 
@@ -2474,7 +2760,8 @@ def main() -> int:
     expect(main_counts, B + p * (S + B), p * B)
     if min(n for k, n in main_counts.items()
            if k not in BWD_KERNELS + ("parareal_update", "rwkv6_wkv",
-                                      "rwkv6_wkv_bwd")) == 0:
+                                      "rwkv6_wkv_bwd", "selective_scan")) \
+            == 0:
         raise AssertionError(f"a kernel never ran on the main path: "
                              f"{main_counts}")
     sample = res.sample
@@ -2539,6 +2826,10 @@ def main() -> int:
         lm_train_counts[arch] = lm_train_phase(torch, ops, step, arch)
         torch.cuda.empty_cache()
 
+    # ---- 12. hymba serving -------------------------------------------------
+    lm_counts["hymba-1.5b"] = hymba_phase(torch, ops, 12)
+    torch.cuda.empty_cache()
+
     sources = {"flash_attention_fwd": (
         "cuda", "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
         "src/repro/kernels/flash_attention.py:85"),
@@ -2568,14 +2859,21 @@ def main() -> int:
             "cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "src/repro/kernels/flash_attention.py:494"),
         "rwkv6_wkv_bwd": ("cuda", "src/repro_torch/kernels/csrc/rwkv6_wkv.cu",
-                          "src/repro/kernels/ops.py:199")}
+                          "src/repro/kernels/ops.py:199"),
+        "flash_attention_fwd_window": (
+            "cuda", "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
+            "src/repro/kernels/flash_attention.py:85"),
+        "selective_scan": (
+            "cuda", "src/repro_torch/kernels/csrc/selective_scan.cu",
+            "src/repro/models/hymba.py:55")}
     # a kernel's launches are those of its path: DiT training for the
     # backward, the l2_mean serving run for parareal_update, the served
     # qwen3-8b requests for the causal GQA forward (the same wrapper and
     # counter as the DiT's forward), the served rwkv6-1.6b requests for
     # WKV, qwen3-8b training for the backward's causal GQA form (the same
     # wrappers and counters as the DiT's backward), rwkv6-1.6b training
-    # for the WKV backward, DiT serving for the rest
+    # for the WKV backward, the served hymba-1.5b requests for the window
+    # forward and the selective scan, DiT serving for the rest
     path_of = dict.fromkeys(BWD_KERNELS, "train_loop")
     path_of["parareal_update"] = "serve_l2_mean"
     path_of["flash_attention_fwd_causal_gqa"] = "serve_qwen3-8b"
@@ -2583,10 +2881,12 @@ def main() -> int:
     path_of.update(dict.fromkeys((k + "_causal_gqa" for k in BWD_KERNELS),
                                  "train_qwen3-8b"))
     path_of["rwkv6_wkv_bwd"] = "train_rwkv6-1.6b"
+    path_of.update(dict.fromkeys(("flash_attention_fwd_window",
+                                  "selective_scan"), "serve_hymba-1.5b"))
     kernels = []
     for name, (route, source, replaces) in sources.items():
         first = cases[name][0]            # the main path's shape
-        counter = name.replace("_causal_gqa", "")
+        counter = name.replace("_causal_gqa", "").replace("_window", "")
         by_path = {"srds_sample": main_counts[counter],
                    "ddpm_srds": ddpm_counts[counter],
                    "paradigms": pd_counts[counter],

@@ -8,8 +8,8 @@ norms are RMSNorm and its MLP is GELU whatever the config says (the JAX
 DiT configs say ``norm="layernorm"``; the port's carry the same values so
 that a config compares equal to JAX's field for field).  The registry
 holds the DiT configs and the language models the port serves
-(``qwen3-8b``, ``rwkv6-1.6b``); any other name of the JAX package's zoo
-raises ``NotImplementedError`` naming ROADMAP A11."""
+(``qwen3-8b``, ``rwkv6-1.6b``, ``hymba-1.5b``); any other name of the JAX
+package's zoo raises ``NotImplementedError`` naming ROADMAP A11."""
 from __future__ import annotations
 
 import dataclasses
@@ -37,16 +37,20 @@ class ArchConfig:
     window: Optional[int] = None     # sliding-window attention size
     rope_theta: float = 10_000.0
     # block wiring
-    block: str = "attn_mlp"          # attn_mlp | rwkv6 (hymba: A11)
+    block: str = "attn_mlp"          # attn_mlp | rwkv6 | hymba
     norm: str = "rmsnorm"            # rmsnorm | layernorm
     act: str = "swiglu"              # swiglu | gelu
+    # SSM / RWKV
+    ssm_state: int = 0               # hymba per-head SSM state size
+    ssm_d_inner: int = 0             # hymba SSM inner width (0 -> d_model)
     rwkv_head_dim: int = 64
     # DiT specifics
     patch_size: int = 0
     in_channels: int = 0
     dtype: str = "bfloat16"
     source: str = ""
-    family: str = "dit"              # dit | dense | ssm (the JAX zoo's names)
+    family: str = "dit"              # dit | dense | ssm | hybrid (the JAX
+                                     # zoo's names)
 
     @property
     def resolved_head_dim(self) -> int:
@@ -73,7 +77,8 @@ class ArchConfig:
             self, name=self.name + "-reduced", num_layers=2, d_model=64,
             num_heads=max(2, min(4, self.num_heads)),
             num_kv_heads=max(1, min(2, self.num_kv_heads)), head_dim=16,
-            d_ff=128, vocab_size=256, rwkv_head_dim=16,
+            d_ff=128, vocab_size=256, ssm_state=min(self.ssm_state, 8),
+            ssm_d_inner=64 if self.block == "hymba" else 0, rwkv_head_dim=16,
             window=min(self.window, 32) if self.window else None,
             patch_size=min(self.patch_size, 2) if self.patch_size else 0,
             dtype="float32")
@@ -89,7 +94,7 @@ def register_arch(cfg: ArchConfig) -> ArchConfig:
 
 def get_arch(name: str) -> ArchConfig:
     # the config modules self-register
-    from . import qwen3_8b, rwkv6_1_6b, srds_dit  # noqa: F401
+    from . import hymba_1_5b, qwen3_8b, rwkv6_1_6b, srds_dit  # noqa: F401
     if name not in _ARCHS:
         raise NotImplementedError(
             f"{name!r} is not an arch of the port (have {sorted(_ARCHS)}); "

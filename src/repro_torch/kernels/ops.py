@@ -13,7 +13,8 @@ Each kernel wrapper carries a ``launches`` counter
 (``flash_attention_fwd.launches``, ``flash_attention_bwd_dq.launches``,
 ``flash_attention_bwd_dkv.launches``, ``ddim_fused.launches``,
 ``parareal_update_residual.launches``, ``parareal_update.launches``,
-``rwkv6_wkv.launches``, ``rwkv6_wkv_bwd.launches``) that
+``rwkv6_wkv.launches``, ``rwkv6_wkv_bwd.launches``,
+``selective_scan.launches``) that
 :func:`launch_counts` reads and :func:`reset_launch_counts` zeroes.  The
 flash forward and the backward's dq and dkv kernels also count their
 launches by route, the tensor-core kernel (bf16, head dim a multiple of
@@ -32,6 +33,7 @@ from typing import Dict, Optional
 import torch
 
 from . import elementwise, ref, rwkv6_scan
+from . import selective_scan as _scan
 from .flash_attention import (flash_attention_bwd, flash_attention_bwd_dkv,
                               flash_attention_bwd_dq, flash_attention_fwd)
 from .rwkv6_scan import rwkv6_wkv_bwd
@@ -43,7 +45,8 @@ _COUNTED = {"flash_attention_fwd": flash_attention_fwd,
             "parareal_update_residual": elementwise.parareal_update_residual,
             "parareal_update": elementwise.parareal_update,
             "rwkv6_wkv": rwkv6_scan.rwkv6_wkv,
-            "rwkv6_wkv_bwd": rwkv6_wkv_bwd}
+            "rwkv6_wkv_bwd": rwkv6_wkv_bwd,
+            "selective_scan": _scan.selective_scan}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -188,6 +191,30 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if use_kernel is False:
         return ref.rwkv6_wkv(r, k, v, w, u, state)
     return RWKV6WKV.apply(r, k, v, w, u, state)
+
+
+def selective_scan(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
+                   cc: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None, *,
+                   use_kernel: Optional[bool] = None):
+    """Hymba's selective scan: xs (B, T, din), dt (B, T), bb and cc (B, T,
+    n), a = -exp(A_log) (din, n), d (din,), h0 (B, din, n), zeros when
+    None; returns ``(y (B, T, din), h_T (B, din, n))`` in f32.  A CUDA
+    tensor launches the kernel (T = 1, a decode step, too); it has no
+    backward yet, so an operand that needs a gradient there raises.  The
+    plain :func:`ref.selective_scan` runs on the CPU, differentiated by
+    autograd, and for ``use_kernel=False``."""
+    if h0 is None:
+        h0 = torch.zeros((xs.shape[0], xs.shape[2], a.shape[-1]),
+                         dtype=torch.float32, device=xs.device)
+    if not _kernel(xs, use_kernel):
+        return ref.selective_scan(xs, dt, bb, cc, a, d, h0)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xs, dt, bb, cc, a, d, h0)):
+        raise NotImplementedError(
+            "the selective scan's backward kernel is not written: training "
+            "hymba waits for ROADMAP A11(a)'s training half")
+    return _scan.selective_scan(xs, dt, bb, cc, a, d, h0)
 
 
 def ddim_fused(x: torch.Tensor, eps: torch.Tensor, a, b, *,

@@ -177,6 +177,32 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             du.sum(dim=0), g)
 
 
+def selective_scan(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
+                   cc: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                   h0: torch.Tensor):
+    """Hymba's diagonal selective scan, the sequential f32 recurrence of
+    ``repro.models.hymba._ssm_scan`` without its projections.
+
+    xs: (B, T, din); dt: (B, T); bb, cc: (B, T, n); a = -exp(A_log):
+    (din, n); d: (din,); h0: (B, din, n); all taken in f32.  Per step, in
+    JAX's order:
+
+        h   = exp(a * dt_t) * h + (dt_t * x_t)[:, :, None] * b_t[:, None, :]
+        y_t = sum_n h * c_t + d * x_t
+
+    Returns ``(y (B, T, din) f32, h_T (B, din, n) f32)``."""
+    xf, dtf, bf, cf = (t.float() for t in (xs, dt, bb, cc))
+    af, df = a.float(), d.float()
+    h = h0.float()
+    ys = []
+    for i in range(xf.shape[1]):
+        x_t, dt_t = xf[:, i], dtf[:, i, None]                   # (B,din),(B,1)
+        decay = torch.exp(af[None] * dt_t[:, :, None])           # (B,din,n)
+        h = decay * h + (dt_t * x_t)[:, :, None] * bf[:, i, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, i]) + df * x_t)
+    return torch.stack(ys, dim=1), h
+
+
 def _rows(c, x: torch.Tensor) -> torch.Tensor:
     """A coefficient of shape () or (M,) as f32, broadcastable over x."""
     c = torch.as_tensor(c, dtype=torch.float32, device=x.device)

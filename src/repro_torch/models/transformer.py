@@ -1,13 +1,13 @@
 """The language-model backbone (counterpart of
 ``repro.models.transformer``) for dense attention+MLP blocks
-(``block="attn_mlp"``, no MoE) and RWKV6 blocks (``block="rwkv6"``).
-Hymba and MoE blocks wait for ROADMAP A11.
+(``block="attn_mlp"``, no MoE), RWKV6 blocks (``block="rwkv6"``) and Hymba
+blocks (``block="hymba"``).  MoE blocks wait for ROADMAP A11(b).
 
 :class:`TransformerLM` holds the parameters: one :class:`ParamTree` per
 layer (JAX stacks them on a leading layer axis for ``jax.lax.scan``; the
 port loops over layers), with the JAX tree's leaf names, shapes and
-dtypes (norm scales, RWKV's ``w_base``/``u``/``gn_scale`` in f32, the rest
-in the config's dtype).  The parameters are frozen unless the caller asks
+dtypes (norm scales, RWKV's ``w_base``/``u``/``gn_scale`` and Hymba's SSM
+leaves but ``w_in``/``w_out`` in f32, the rest in the config's dtype).  The parameters are frozen unless the caller asks
 for ``trainable=True`` (``repro_torch.launch.train`` does); the serving
 functions run without autograd either way.
 
@@ -22,7 +22,17 @@ Modes, with the JAX semantics:
     updates the cache in place (JAX returns an updated copy).
 
 Caches: dense, ``(k, v)`` each ``(L, B, S, Hkv, D)`` with K after qk-norm
-and rope; RWKV6, an :class:`RWKVState` of per-layer stacks.
+and rope; RWKV6, an :class:`RWKVState` of per-layer stacks; Hymba, a
+:class:`HymbaCache` of per-layer stacks (``ring_pos`` ``(L, W)``).
+
+Hymba's prefill ring (ROADMAP C16).  :func:`prefill` always returns a ring
+of ``window`` slots in :func:`init_hymba_cache`'s layout: position ``p`` of
+the last ``min(S, window)`` in slot ``p % window``, ``ring_pos`` -1 in the
+slots no position filled.  For S >= window that is JAX's ring (its roll by
+``(S - window) % window``), and the tests hold it there.  For S < window
+JAX builds ``window`` positions over ``S`` slots and its own
+``decode_step`` fails on the shapes; the port decodes, and its tests hold
+that case against its own :func:`forward_train`.
 """
 from __future__ import annotations
 
@@ -35,13 +45,16 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from .dit import resolve_device
+from .hymba import HymbaCache, hymba_mix_decode, hymba_mix_full, \
+    init_hymba_cache
 from .layers import (apply_mlp, apply_norm, attention_decode, attention_full,
                      embed, unembed)
 from .rwkv6 import LORA_R, RWKVState, init_rwkv_state, rwkv_block
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-# a leaf: (path, shape, dtype, init); init is ("normal", std) or
-# ("fill", value), the JAX init's distribution for that leaf
+# a leaf: (path, shape, dtype, init); init is ("normal", std), ("fill",
+# value) or ("log_linspace", n) (log(1 .. n), the same on every row), the
+# JAX init's rule for that leaf
 Leaf = Tuple[str, tuple, torch.dtype, tuple]
 
 
@@ -80,7 +93,7 @@ def _leaves(cfg: ArchConfig) -> Tuple[List[Leaf], List[Leaf]]:
     """(top-level leaves, per-layer block leaves) of the JAX init
     (``repro.models.transformer.init_params`` at one model-parallel way):
     paths, shapes without the layer axis, dtypes and init rules."""
-    if cfg.block not in ("attn_mlp", "rwkv6"):
+    if cfg.block not in ("attn_mlp", "rwkv6", "hymba"):
         raise NotImplementedError(f"{cfg.block!r} blocks are not ported yet "
                                   f"(ROADMAP A11)")
     dt = _DTYPES[cfg.dtype]
@@ -123,6 +136,19 @@ def _leaves(cfg: ArchConfig) -> Tuple[List[Leaf], List[Leaf]]:
     if cfg.qk_norm:
         blk += _norm_leaves("attn/q_norm", hd, "rmsnorm")
         blk += _norm_leaves("attn/k_norm", hd, "rmsnorm")
+    if cfg.block == "hymba":
+        din, n = cfg.ssm_d_inner or d, cfg.ssm_state
+        f32, s_i = torch.float32, ("normal", din ** -0.5)
+        blk += [("ssm/w_in", (d, 2 * din), dt, ("normal", s_d)),
+                ("ssm/w_dt", (din, 1), f32, s_i),
+                ("ssm/b_dt", (1,), f32, ("fill", -2.0)),
+                ("ssm/w_B", (din, n), f32, s_i),
+                ("ssm/w_C", (din, n), f32, s_i),
+                ("ssm/A_log", (din, n), f32, ("log_linspace", n)),
+                ("ssm/D", (din,), f32, ("fill", 1.0)),
+                ("ssm/w_out", (din, d), dt, s_i)]
+        blk += _norm_leaves("n_attn", d, cfg.norm)
+        blk += _norm_leaves("n_ssm", d, cfg.norm)
     blk += [("mlp/w_up", (d, ff), dt, ("normal", s_d)),
             ("mlp/w_down", (ff, d), dt, ("normal", s_ff))]
     if cfg.act == "swiglu":
@@ -177,7 +203,8 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device="cuda", *, trainable: bool = False) -> TransformerLM:
     """A fresh LM with the JAX init's shapes, dtypes and scales (normal
     draws times 1/sqrt(fan_in), embeddings 0.02, unit norms, RWKV's
-    ``w_base`` -0.5, ``u`` 0.3 and zero token-shift mixes).  Each leaf is
+    ``w_base`` -0.5, ``u`` 0.3 and zero token-shift mixes, Hymba's
+    ``b_dt`` -2, ``D`` 1 and ``A_log`` log(1 .. n) on every row).  Each leaf is
     drawn on ``device`` in its own dtype from ``generator`` (a generator
     of that device): qwen3-8b's 8.2 B parameters never pass through host
     memory."""
@@ -185,6 +212,10 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     for param, _, _, (kind, value) in _targets(model):
         if kind == "normal":
             param.normal_(0.0, value, generator=generator)
+        elif kind == "log_linspace":
+            param.copy_(torch.log(torch.linspace(
+                1.0, float(value), value, device=param.device)).expand_as(
+                    param))
         else:
             param.fill_(value)
     return model
@@ -288,6 +319,15 @@ def forward_hidden(cfg: ArchConfig, model: TransformerLM, batch, *,
                                use_kernel=use_kernel)
             if return_cache:
                 caches.append(st)
+    elif cfg.block == "hymba":
+        kw = dict(_attn_kwargs(cfg), causal=cfg.causal)
+        for p in model.blocks:
+            fused, kv, h_fin = hymba_mix_full(p, norm(p["ln1"], x), kw, norm,
+                                              use_kernel=use_kernel)
+            x = x + fused
+            x = x + apply_mlp(p["mlp"], norm(p["ln2"], x), cfg.act)
+            if return_cache:
+                caches.append((*kv, h_fin))
     else:
         kw = _attn_kwargs(cfg)
         for p in model.blocks:
@@ -302,7 +342,29 @@ def forward_hidden(cfg: ArchConfig, model: TransformerLM, batch, *,
     if not return_cache:
         return x, None
     stacked = tuple(torch.stack(parts) for parts in zip(*caches))
+    if cfg.block == "hymba":
+        return x, _ring_from_prefill(cfg, *stacked)
     return x, RWKVState(*stacked) if cfg.block == "rwkv6" else stacked
+
+
+def _ring_from_prefill(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor,
+                       h_fin: torch.Tensor) -> HymbaCache:
+    """The Hymba cache after a prefill: per-layer K/V ``(L, B, S, Hkv, D)``
+    and SSM states, with the last ``min(S, window)`` positions in their
+    ring slots (ROADMAP C16: always ``window`` slots)."""
+    s = k.shape[2]
+    w = cfg.window or s
+    n, b = k.shape[:2]
+    ring = torch.zeros((n, b, w) + k.shape[3:], dtype=k.dtype,
+                       device=k.device)
+    k_ring, v_ring = ring, ring.clone()
+    ring_pos = torch.full((n, w), -1, dtype=torch.int32, device=k.device)
+    pos = torch.arange(max(0, s - w), s, device=k.device)
+    slots = pos % w
+    k_ring[:, :, slots] = k[:, :, pos]
+    v_ring[:, :, slots] = v[:, :, pos]
+    ring_pos[:, slots] = pos.to(torch.int32)
+    return HymbaCache(h_fin, k_ring, v_ring, ring_pos)
 
 
 def forward_train(cfg: ArchConfig, model: TransformerLM, batch, *,
@@ -315,7 +377,9 @@ def forward_train(cfg: ArchConfig, model: TransformerLM, batch, *,
 def make_dense_cache(cfg: ArchConfig, batch: int, seq_len: int,
                      device="cuda"):
     """An empty decode cache: zero K/V ``(L, B, seq_len, Hkv, D)`` in bf16
-    (JAX's default cache dtype), or RWKV6's zero state per layer."""
+    (JAX's default cache dtype), RWKV6's zero state per layer, or Hymba's
+    per layer (:func:`init_hymba_cache`: a ring of ``window`` slots, or
+    ``seq_len`` without a window, in the model's dtype, as JAX's)."""
     device = resolve_device(device)
     n = cfg.num_layers
     if cfg.block == "rwkv6":
@@ -323,6 +387,12 @@ def make_dense_cache(cfg: ArchConfig, batch: int, seq_len: int,
                              _DTYPES[cfg.dtype], device)
         return RWKVState(*(t.expand((n,) + t.shape).clone() for t in st))
     _, hkv = cfg.padded_heads(1)
+    if cfg.block == "hymba":
+        c = init_hymba_cache(batch, cfg.ssm_d_inner or cfg.d_model,
+                             cfg.ssm_state, cfg.window or seq_len, hkv,
+                             cfg.resolved_head_dim, _DTYPES[cfg.dtype],
+                             device)
+        return HymbaCache(*(t.expand((n,) + t.shape).clone() for t in c))
     shape = (n, batch, seq_len, hkv, cfg.resolved_head_dim)
     return (torch.zeros(shape, dtype=torch.bfloat16, device=device),
             torch.zeros(shape, dtype=torch.bfloat16, device=device))
@@ -354,6 +424,15 @@ def decode_step(cfg: ArchConfig, model: TransformerLM, token_batch, cache,
                                 use_kernel=use_kernel)
             for c, n in zip(cache, new):
                 c[layer].copy_(n)
+    elif cfg.block == "hymba":
+        kw = _attn_kwargs(cfg)
+        kw.pop("qk_norm")
+        for layer, p in enumerate(model.blocks):
+            c = HymbaCache(*(t[layer] for t in cache))
+            fused, _ = hymba_mix_decode(p, norm(p["ln1"], x), c, pos, **kw,
+                                        norm_fn=norm, use_kernel=use_kernel)
+            x = x + fused
+            x = x + apply_mlp(p["mlp"], norm(p["ln2"], x), cfg.act)
     else:
         kw = _attn_kwargs(cfg)
         k_c, v_c = cache

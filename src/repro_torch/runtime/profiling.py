@@ -33,6 +33,7 @@ _PORT_KERNELS = (
     ("ddim_fused_kernel", "ddim_fused (port)"),
     ("parareal_resid_cluster_kernel", "parareal_update_residual (port)"),
     ("parareal_update_cluster_kernel", "parareal_update (port)"),
+    ("selective_scan_fwd_kernel", "selective_scan (port)"),
 )
 _GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass", "sm90_")
 GEMM = "gemm (cuBLAS)"

@@ -9,6 +9,12 @@ functions are plain callables: PyTorch runs eagerly, so there is nothing
 to compile and no cache donation (the port's decode updates the cache in
 place).  One device-to-host fetch per step brings the batch's tokens to
 the host.
+
+Only a dense model's cache grows with the sequence and is padded after
+prefill to the prompt plus the generation budget.  RWKV6 carries fixed-size
+states, and Hymba its SSM states and a ring of ``window`` K/V slots
+(:func:`repro_torch.models.transformer.prefill` builds it at its full size
+whatever the prompt's length), so neither is padded, as in JAX.
 """
 from __future__ import annotations
 

@@ -34,6 +34,10 @@ that limit.  So does the backward (dq and dkv), with P and dS as two bf16
 terms: dq and (dk, dv) within 1e-3 rel L2 of the plain backward
 (chip_smoke's ``BWD_MASKED_REL_L2``), where P and dS rounded once to bf16
 miss it; each output tile has one owner, so two runs are bitwise equal.
+Hymba's selective scan (f32) agrees with its plain twin to 1e-4 (the sum
+over the states in another order) and runs bitwise equal twice; the twin
+with D dropped misses that limit, and a CUDA operand that needs a
+gradient raises (the scan has no backward kernel yet).
 """
 import numpy as np
 import pytest
@@ -621,10 +625,12 @@ def test_wkv_kernel_matches_plain_on_card(cuda, case, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen3-8b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "rwkv6-1.6b", "hymba-1.5b"])
 def test_reduced_lm_served_on_card_equals_cpu(cuda, arch):
     """The reduced LM (f32) served through the kernels on the card gives
-    the CPU run's tokens (the plain twins), on a ragged batch."""
+    the CPU run's tokens (the plain twins), on a ragged batch; hymba runs
+    the window flash forward once a layer in prefill and the selective
+    scan once a layer in prefill and in every decode step."""
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as tf
     from repro_torch.serve import Request, ServingEngine
@@ -640,10 +646,12 @@ def test_reduced_lm_served_on_card_equals_cpu(cuda, arch):
                         max_seq=64).generate(reqs)
     assert got == want
     counts = ops.launch_counts()
-    kernel = "rwkv6_wkv" if cfg.block == "rwkv6" else "flash_attention_fwd"
-    calls = 6 if kernel == "rwkv6_wkv" else 1    # prefill + 5 decode steps
-    assert counts[kernel] == cfg.num_layers * calls
-    assert sum(counts.values()) == counts[kernel]
+    layers = cfg.num_layers                 # prefill + 5 decode steps
+    want = {"attn_mlp": {"flash_attention_fwd": layers},
+            "rwkv6": {"rwkv6_wkv": 6 * layers},
+            "hymba": {"flash_attention_fwd": layers,
+                      "selective_scan": 6 * layers}}[cfg.block]
+    assert counts == dict(dict.fromkeys(counts, 0), **want)
 
 
 # the backward's masked and grouped forms, on MASKED_CASES' shapes plus
@@ -1019,3 +1027,78 @@ def test_default_solver_never_takes_plain_path_on_card(cuda, monkeypatch):
     C.srds_sample(fn, sched, solver, x0, C.SRDSConfig(num_blocks=4))
     pd = C.paradigms_sample(fn, sched, solver, x0, C.ParaDiGMSConfig())
     assert ops.launch_counts()["ddim_fused"] > 16 + pd.iterations
+
+
+# (B, T, din, n, strided xs): hymba's state size 16 with a ragged din (no
+# multiple of the 16 channels a block), a decode token, the reduced
+# model's 8 states, a long T over many staged chunks, n 5 (lanes past n
+# hold zero) and xs as the second half of a (B, T, 2 din) tensor, the
+# model's strided view
+SCAN_CASES = [(2, 9, 40, 16, False), (4, 1, 1600, 16, False),
+              (3, 37, 100, 8, True), (2, 300, 64, 16, True),
+              (1, 70, 33, 5, False), (2, 33, 1600, 16, True)]
+
+
+def _scan_inputs(cuda, case, grad=False):
+    b, t, din, n, strided = case
+    rng = np.random.default_rng(din + t)
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(cuda)
+
+    zx = rand(b, t, 2 * din)
+    xs = zx[..., din:] if strided else zx[..., din:].contiguous()
+    dt = torch.nn.functional.softplus(rand(b, t) - 1.0)
+    a = -torch.exp(rand(din, n, scale=0.5))
+    ins = [xs, dt, rand(b, t, n), rand(b, t, n), a, rand(din),
+           rand(b, din, n, scale=0.5)]
+    return [x.requires_grad_(grad) if grad and i == 0 else x
+            for i, x in enumerate(ins)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCAN_CASES, ids=str)
+def test_selective_scan_kernel_matches_plain_on_card(cuda, case):
+    """The selective scan against ``ref.selective_scan`` from a nonzero
+    state: the same f32 recurrence, the state sum over n taken in another
+    order, so y and h_T agree to 1e-4; one launch a call; two runs bitwise
+    equal (one owner per output, no atomics)."""
+    from repro_torch.kernels import selective_scan as scan
+    assert scan.kernel_threads() == scan.THREADS
+    x = _scan_inputs(cuda, case)
+    before = ops.launch_counts()["selective_scan"]
+    y, h_t = ops.selective_scan(*x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["selective_scan"] == before + 1
+    y_r, h_r = ops.selective_scan(*x, use_kernel=False)
+    assert ops.launch_counts()["selective_scan"] == before + 1
+    torch.testing.assert_close(y, y_r, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h_t, h_r, atol=1e-4, rtol=1e-4)
+    y2, h_t2 = ops.selective_scan(*x)
+    assert torch.equal(y2, y) and torch.equal(h_t2, h_t)
+
+
+@pytest.mark.cuda
+def test_selective_scan_kernel_control_on_card(cuda):
+    """The comparison can fail: the plain scan with D dropped misses the
+    1e-4 limit the kernel meets."""
+    x = _scan_inputs(cuda, SCAN_CASES[0])
+    y, _ = ops.selective_scan(*x)
+    no_d, _ = ops.selective_scan(*x[:5], torch.zeros_like(x[5]), x[6],
+                                 use_kernel=False)
+    assert not torch.allclose(y, no_d, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_selective_scan_refuses_a_gradient_on_card(cuda):
+    """No backward kernel yet: a CUDA operand that needs a gradient raises
+    before any launch, and never falls back to the plain scan."""
+    x = _scan_inputs(cuda, SCAN_CASES[0], grad=True)
+    before = ops.launch_counts()["selective_scan"]
+    with pytest.raises(NotImplementedError, match=r"A11\(a\)"):
+        ops.selective_scan(*x)
+    assert ops.launch_counts()["selective_scan"] == before
+    with torch.no_grad():
+        ops.selective_scan(*x)
+    assert ops.launch_counts()["selective_scan"] == before + 1

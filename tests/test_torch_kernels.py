@@ -967,6 +967,9 @@ def test_cpu_dispatch_launches_no_kernel():
     r = x.reshape(1, 2, 2, 8).requires_grad_()
     torch.autograd.grad(ops.rwkv6_wkv(r, r, r, r, torch.ones(2, 8))[0]
                         .sum(), r)
+    ops.selective_scan(x[None], x[:1, :4],
+                       x[None, :, :2], x[None, :, :2], -x.t()[:, :2],
+                       x[0], torch.zeros(1, 8, 2))
     assert ops.launch_counts() == {"flash_attention_fwd": 0,
                                    "flash_attention_bwd_dq": 0,
                                    "flash_attention_bwd_dkv": 0,
@@ -974,7 +977,8 @@ def test_cpu_dispatch_launches_no_kernel():
                                    "parareal_update_residual": 0,
                                    "parareal_update": 0,
                                    "rwkv6_wkv": 0,
-                                   "rwkv6_wkv_bwd": 0}
+                                   "rwkv6_wkv_bwd": 0,
+                                   "selective_scan": 0}
     assert ops.route_counts() == {"flash_attention_fwd_tc": 0,
                                   "flash_attention_fwd_simt": 0,
                                   "flash_attention_bwd_dq_tc": 0,
@@ -1074,7 +1078,8 @@ def test_build_targets_sources_by_hash(monkeypatch):
     build raises instead of falling back."""
     from repro_torch.kernels import _build
     assert _build.sources() == ["elementwise", "flash_attention_bwd",
-                                "flash_attention_fwd", "rwkv6_wkv"]
+                                "flash_attention_fwd", "rwkv6_wkv",
+                                "selective_scan"]
     target = _build._target("flash_attention_fwd")
     assert target.parent == _build.BUILD_DIR
     assert target.name.startswith("libflash_attention_fwd-")

@@ -95,7 +95,7 @@ def test_configs_match_jax_field_for_field(arch):
             assert tcfg.padded_heads(mp) == jcfg.padded_heads(mp)
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "stablelm-3b", "qwen3-14b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-32b", "stablelm-3b", "qwen3-14b"])
 def test_unported_zoo_names_raise_a11(arch):
     jget_arch(arch)                      # a real arch of the JAX zoo
     with pytest.raises(NotImplementedError, match="A11"):
@@ -445,6 +445,8 @@ def test_engine_refuses_what_does_not_fit():
         eng.generate([Request(prompt=[1] * 12, max_new_tokens=6)])
     with pytest.raises(ValueError, match="batch"):
         eng.generate([Request(prompt=[1], max_new_tokens=1)] * 3)
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
     with pytest.raises(NotImplementedError, match="A11"):
-        tf.TransformerLM(dataclasses.replace(cfg, block="hymba"),
-                         device="cpu")
+        make_train_step(get_arch("hymba-1.5b"), AdamWConfig(),
+                        loss_kind="lm")

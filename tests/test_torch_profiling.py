@@ -92,6 +92,18 @@ def test_kernel_group_tensor_core_forward(name):
     assert profiling.kernel_group(name) == "flash_attention_fwd (port)"
 
 
+@pytest.mark.parametrize("name", [
+    "void (anonymous namespace)::selective_scan_fwd_kernel<16>(float "
+    "const*, long long, long long, float const*, float const*, float "
+    "const*, float const*, float const*, float const*, float*, float*, "
+    "int, int, int)",
+    "void (anonymous namespace)::selective_scan_fwd_kernel<4>(...)"])
+def test_kernel_group_selective_scan(name):
+    """Hymba's selective scan (any lanes a channel) has a group of its
+    own, apart from the elementwise work around it."""
+    assert profiling.kernel_group(name) == "selective_scan (port)"
+
+
 @pytest.mark.parametrize("name, group", [
     ("void (anonymous namespace)::tc::flash_bwd_dq_kernel_tc<128, 2>("
      "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
