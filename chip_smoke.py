@@ -57,7 +57,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    state (two runs bitwise equal, y and the final state held by rel L2;
    the plain scan with D dropped, and with the state zeroed at T = 1, as
    controls that must miss it; the bound counts its exponentials at the
-   SFUs' rate);
+   SFUs' rate; its geometry, ptxas' registers and spills per instance,
+   and at each shape one device launch a call, device µs a launch and
+   host µs a call);
 4. sampling: the full-width, full-depth ``srds-dit-sd2`` DiT (28 layers,
    d 1152, 16 heads of 72, bf16) with weights drawn from a numpy seed
    (every leaf nonzero) and loaded through ``load_jax_params``; DDIM on
@@ -324,9 +326,13 @@ LM_TRAIN_LAYERS = {"qwen3-8b": 8, "rwkv6-1.6b": None}
 # rise of 1.348-1.386 reversed.  Each margin is about a third of the
 # smallest fall
 FIT_MARGIN = {"qwen3-8b": 0.45, "rwkv6-1.6b": 0.03}
-# phase 3's B1/B2/B4 readings: the calls of one profiler window (device
-# launches per call, device time per launch) and the calls timed for the
-# host's enqueue time
+# phase 3's B1/B2/B4 and scan readings: the calls of one profiler window
+# (launches per call, device time per launch) and the calls timed for the
+# host's enqueue time.  Launches are counted on the host: late in this
+# script the profiler recorded 19 of 20 scan kernels on the card in every
+# window, its 20 ms edge pauses notwithstanding, while the host made 20
+# launch calls; the card's records are held to the host's count within
+# one a window
 LAUNCH_WINDOW_CALLS, HOST_CALLS = 20, 200
 # phases 10-11: the steps of each busy-share window (ROADMAP C10), one
 # launcher log interval
@@ -2182,20 +2188,39 @@ def scan_bound(b, t, din, n, nbytes_):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def scan_cases(torch, ops, randn, cases):
+def scan_cases(torch, ops, randn, cases, launches=1):
     """Hymba's selective scan against its plain twin at the model's width
     (din 1600, n 16, f32): the prefill shape (batch 4 x T 2048, from the
     zero state), a decode step (T 1) and a ragged T (37: no multiple of
     the kernel's 32-step chunks), both from a nonzero state; each run
     twice and held bitwise equal, y and h_T within SCAN_TOL and SCAN_REL_L2
     (rel L2).  Controls that must miss SCAN_REL_L2: the plain scan with D
-    dropped at the prefill shape, with h0 zeroed at T 1.  PyTorch has no
-    single call for the scan (``library_ms`` null)."""
+    dropped at the prefill shape, with h0 zeroed at T 1.  Each shape is
+    read by :func:`launch_readings`: each call must make ``launches``
+    device launches (None: read only).  Prints the geometry
+    and, when this run built the library, ptxas' registers and spills per
+    kernel instance.  PyTorch has no single call for the scan
+    (``library_ms`` null)."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import selective_scan as scan
-    lanes, channels, grid = scan.geometry(4, 1600, 16)
-    print(f"  selective scan at hymba-1.5b's width: grid {grid} of "
-          f"{scan.kernel_threads()} threads, {lanes} lanes a channel, "
-          f"{channels} channels a block", flush=True)
+    geo = scan.geometry(4, 1600, 16)
+    if scan.kernel_chunk() != scan.CHUNK:
+        raise AssertionError(f"selective_scan: the kernel stages "
+                             f"{scan.kernel_chunk()} steps a chunk, the "
+                             f"wrapper {scan.CHUNK}")
+    print(f"  selective scan at hymba-1.5b's width: grid {geo.grid} of "
+          f"{geo.threads} threads, {geo.states} states a lane, {geo.lanes} "
+          f"lanes a channel, {geo.channels} channels a block, "
+          f"{scan.CHUNK} steps a chunk in {scan.STAGES} stages, decays by "
+          f"{'ex2.approx' if scan.kernel_exp2() else 'expf'}", flush=True)
+    log = _build.build_log.get("selective_scan")
+    readings = ptxas_readings(log, "selective_scan_fwd_kernel") if log \
+        else []
+    print("  ptxas, selective_scan_fwd_kernel<states a lane, lanes a "
+          "channel>: " + ("; ".join(
+              f"<{inst}> {regs} registers, spills {st}/{ld} bytes "
+              f"(stores/loads)" for inst, regs, st, ld in readings)
+              if readings else "not rebuilt in this run"), flush=True)
     for b, t, din, n, zero_h0 in [(4, 2048, 1600, 16, True),
                                   (4, 1, 1600, 16, False),
                                   (4, 37, 1600, 16, False)]:
@@ -2215,13 +2240,15 @@ def scan_cases(torch, ops, randn, cases):
                       plain_ms=time_ms(lambda: ops.selective_scan(
                           *x, use_kernel=False), 2),
                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        cases["selective_scan"].append(check_case(
-            f"selective_scan f32 B={b} T={t} din={din} n={n} "
-            f"({'zero' if zero_h0 else 'nonzero'} h0; y and h_T rel L2 "
-            f"{rel:.3e}, limit {SCAN_REL_L2}; two runs bitwise)",
-            torch.cat([y.flatten(), h_t.flatten()]),
-            torch.cat([y_r.flatten(), h_r.flatten()]), SCAN_TOL, SCAN_TOL,
-            timing))
+        label = (f"selective_scan f32 B={b} T={t} din={din} n={n} "
+                 f"({'zero' if zero_h0 else 'nonzero'} h0; y and h_T rel "
+                 f"L2 {rel:.3e}, limit {SCAN_REL_L2}; two runs bitwise)")
+        case = check_case(label, torch.cat([y.flatten(), h_t.flatten()]),
+                          torch.cat([y_r.flatten(), h_r.flatten()]),
+                          SCAN_TOL, SCAN_TOL, timing)
+        case.update(launch_readings(torch, kernel))
+        print_readings(f"selective_scan T={t}", timing, case, launches)
+        cases["selective_scan"].append(case)
         if not rel <= SCAN_REL_L2:
             raise AssertionError(f"selective_scan B={b} T={t}: rel L2 {rel} "
                                  f"against the plain twin")
@@ -2239,31 +2266,35 @@ def scan_cases(torch, ops, randn, cases):
 
 
 def launch_readings(torch, fn) -> dict:
-    """Phase 3's readings of one B1/B2/B4 case: the device launches per call
-    and device microseconds per launch, from one ``torch.profiler`` window
-    of ``LAUNCH_WINDOW_CALLS`` calls (``profiling.device_launches``: every
-    device activity counts, kernels, copies, fills), and the host's
-    microseconds per call, as the time to enqueue ``HOST_CALLS`` calls with
-    no synchronise among them."""
-    from repro_torch.runtime.profiling import device_launches
+    """Phase 3's readings of one B1/B2/B4 or scan case, from one
+    ``torch.profiler`` window of ``LAUNCH_WINDOW_CALLS`` calls
+    (``profiling.window_launches``): the launches per call, counted as the
+    host's calls that start a device activity (kernels, copies, fills),
+    the device activities the profiler recorded per call beside them, and
+    device microseconds per recorded activity; and the host's
+    microseconds per call, as the time to enqueue ``HOST_CALLS`` calls
+    with no synchronise among them."""
+    from repro_torch.runtime.profiling import window_launches
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(HOST_CALLS):
         fn()
     host_us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
-    by_name = device_launches(fn, LAUNCH_WINDOW_CALLS)
-    launches = sum(n for n, _ in by_name.values())
+    got = window_launches(fn, LAUNCH_WINDOW_CALLS)
+    by_name = got["device"]
+    recorded = sum(n for n, _ in by_name.values())
     device_us = sum(us for _, us in by_name.values())
-    return dict(launches_per_call=launches / LAUNCH_WINDOW_CALLS,
-                device_us_per_launch=device_us / launches if launches
+    return dict(launches_per_call=got["api"] / LAUNCH_WINDOW_CALLS,
+                recorded_per_call=recorded / LAUNCH_WINDOW_CALLS,
+                device_us_per_launch=device_us / recorded if recorded
                 else None, host_us_per_call=host_us,
                 device_kernels=sorted(by_name))
 
 
 def print_readings(label, timing, reading, launches):
-    """Print one B1/B2/B4 case's readings; with ``launches`` set, fail unless
-    each call made exactly that many device launches."""
+    """Print one B1/B2/B4 or scan case's readings; with ``launches`` set,
+    fail unless each call made exactly that many device launches."""
     per_call = reading["launches_per_call"]
     dev_us = reading["device_us_per_launch"]
     loop_us = timing["ms"] * 1e3
@@ -2274,12 +2305,17 @@ def print_readings(label, timing, reading, launches):
     dev_txt = f"{dev_us:.2f}" if dev_us is not None else "none traced"
     print(f"    {label}: loop {timing['ms']:.4f} ms a call ({bound_by}); "
           f"device {dev_txt} us a launch, {per_call:g} device launches a "
-          f"call ({', '.join(k[:60] for k in reading['device_kernels'])}); "
+          f"call ({reading['recorded_per_call']:g} recorded on the card: "
+          f"{', '.join(k[:60] for k in reading['device_kernels'])}); "
           f"host {reading['host_us_per_call']:.2f} us a call (enqueue), "
           f"loop {loop_us:.2f} us", flush=True)
-    if launches is not None and per_call != launches:
-        raise AssertionError(f"{label}: {per_call} device launches a call, "
-                             f"not {launches}")
+    if launches is not None and not (
+            per_call == launches
+            and launches - 1 / LAUNCH_WINDOW_CALLS
+            <= reading["recorded_per_call"] <= launches):
+        raise AssertionError(f"{label}: {per_call} device launches a call "
+                             f"({reading['recorded_per_call']} recorded on "
+                             f"the card), not {launches}")
 
 
 def unaligned_copy(torch, t):

@@ -48,7 +48,7 @@ def main() -> int:
         jmat = np.asarray(jax.jit(lambda a: a @ jnp.asarray(w1))(
             jnp.asarray(x)))
         jtanh = np.asarray(jax.jit(jnp.tanh)(jnp.asarray(x)))
-    tres = T.srds_sample(common.toy_denoiser(),
+    tres = T.srds_sample(common.toy_denoiser("cpu"),
                          T.make_schedule("ddpm_linear", 100),
                          T.SolverConfig("ddim"),
                          common.toy_array("x0_table11", "cpu"),
@@ -58,7 +58,7 @@ def main() -> int:
     for p, (a, b) in enumerate(zip(jhist, tres.delta_history.numpy())):
         print(f"{p + 1:10d}  {a:12.4e}  {b:13.4e}")
     tx = torch.from_numpy(x)
-    tm = common.toy_denoiser()(tx, torch.full((200,), 500.0)).numpy()
+    tm = common.toy_denoiser("cpu")(tx, torch.full((200,), 500.0)).numpy()
     tmat = (tx @ torch.from_numpy(w1)).numpy()
     print(f"outputs differing on the same f32 inputs: toy model "
           f"{np.mean(jm != tm):.3f}, tanh {np.mean(jtanh != torch.tanh(tx).numpy()):.3f}, "

@@ -1,18 +1,33 @@
 #!/usr/bin/env python3
 """Hymba's selective scan alone on the card: phase 3's scan checks of
-``chip_smoke.py``, then a reading of the kernel's inner step loop unrolled.
+``chip_smoke.py``, then a sweep over the kernel's geometry knobs.
 
-    python3 scripts/torch_scan_bench.py [--unroll 1 2 4 8]
+    python3 scripts/torch_scan_bench.py [--states 2 4 8]
+        [--channels 8 16 32 64] [--stages 2 4] [--against FILE ...]
 
-Runs ``chip_smoke.py``'s ``scan_cases`` (the same shapes, inputs, limits
-and controls as phase 3, each held against the plain twin, run twice and
-timed with CUDA events), then builds ``csrc/selective_scan.cu`` once for
-each ``--unroll`` factor with ``#pragma unroll <u>`` on its step loop
-(nvcc with the port's flags, into a temporary directory) and times each
-build at hymba-1.5b's prefill (4 x 2048) and decode (T 1) shapes, in the
-order 1, 2, .., 2, 1 in one process, each checked bitwise against the
-port's own kernel.  Prints ptxas' registers per build.  Needs one CUDA
-card and ``nvcc``.
+Runs ``chip_smoke.py``'s ``scan_cases`` (the same shapes, inputs, limits,
+controls and launch readings as phase 3), then, in one process:
+
+- the port's library (``_build``) and ``csrc/selective_scan.cu`` built
+  with the other exponential (``-DSCAN_EXP2``: ``ex2.approx`` of the
+  prescaled product, or ``expf``), nvcc with the port's flags into a
+  temporary directory; ptxas' registers and spills per instance of each;
+- each geometry of the sweep (states a lane x channels a block x stages,
+  ``selective_scan.geometry``'s knobs; the kernel has no cluster) through
+  the port's library, and the default geometry through the other build
+  and with every operand on the 4-byte ``cp.async`` route: each held
+  within ``SCAN_REL_L2`` of the plain twin at hymba-1.5b's prefill shape
+  (B 4, T 2048, din 1600, n 16) and at T 1, then timed at both with CUDA
+  events, in the order of the list and again in reverse, and at T 1 read
+  by ``chip_smoke.launch_readings`` (device launches a call, device µs a
+  launch, host µs a call), then a breakdown of a decode call's host time;
+- ``--against FILE ...``: other sources with the C interface of the
+  earlier kernel with a lane per (channel, state)
+  (``selective_scan_fwd(..., n, lanes, stream)``, run with its 16 lanes a
+  channel) or of this one (run at the default geometry), built the same
+  way and timed in the same turns.
+
+Needs one CUDA card and ``nvcc``.
 """
 import argparse
 import ctypes
@@ -20,29 +35,94 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LOOP = "    for (int t = 0; t < steps; ++t) {\n      const float dtt"
+HOST_REPS = 2000
+SHAPES = ((4, 2048, 1600, 16), (4, 1, 1600, 16))   # prefill, decode
+REPS = {2048: 50, 1: 500}
 
 
-def build(tmp, source, unroll, _build):
-    """Starts nvcc on ``source`` with the step loop unrolled ``unroll``
-    times; returns (library path, process)."""
-    if LOOP not in source:
-        raise RuntimeError("the scan's step loop is not where this script "
-                           "looks for it")
-    path = os.path.join(tmp, f"scan_u{unroll}.cu")
-    with open(path, "w") as f:
-        f.write(source.replace(LOOP, f"#pragma unroll {unroll}\n" + LOOP))
-    lib = os.path.join(tmp, f"libscan_u{unroll}.so")
+def start_build(tmp, source, tag, defines, _build):
+    """nvcc on ``source`` with ``-D`` ``defines``, into ``tmp``; returns
+    (library path, process)."""
+    lib = os.path.join(tmp, f"libscan_{tag}.so")
+    inc = str(_build.CSRC)                      # sm90_tc.cuh
     return lib, subprocess.Popen(
-        [_build.nvcc(), *_build.NVCC_FLAGS, "-o", lib, path],
+        [_build.nvcc(), *_build.NVCC_FLAGS, "-I", inc,
+         *(f"-D{d}" for d in defines), "-o", lib, source],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def finish_build(tag, path, proc, cs):
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc, {tag}:\n{log}")
+    print_ptxas(tag, log, cs)
+    return ctypes.CDLL(path)
+
+
+def print_ptxas(tag, log, cs):
+    readings = cs.ptxas_readings(log, "selective_scan_fwd_kernel")
+    print(f"  ptxas, {tag}: " + "; ".join(
+        f"<{inst}> {regs} registers, spills {st}/{ld}"
+        for inst, regs, st, ld in readings), flush=True)
+
+
+def host_breakdown(torch, ops, scan, _build, x) -> None:
+    """Where a decode call's host time goes: microseconds a call of each
+    piece of the wrapper's work, each repeated HOST_REPS times with no
+    synchronise among them (the C calls launch their kernel)."""
+    xs, dt, bb, cc, a, d, h0 = x
+    b, t, din = xs.shape
+    n = a.shape[-1]
+    y = torch.empty((b, t, din), device=xs.device)
+    h_t = torch.empty((b, din, n), device=xs.device)
+    geo = scan.geometry(b, din, n)
+    lib = scan._lib()
+    bits = scan.route((xs.data_ptr() % 16, dt.data_ptr() % 16,
+                       (bb.data_ptr() | cc.data_ptr()) % 16), b, t, din, n,
+                      geo.states * geo.lanes, xs.stride(0), xs.stride(1))
+    args = (xs.data_ptr(), xs.stride(0), xs.stride(1), dt.data_ptr(),
+            bb.data_ptr(), cc.data_ptr(), a.data_ptr(), d.data_ptr(),
+            h0.data_ptr(), y.data_ptr(), h_t.data_ptr(), b, t, din, n,
+            geo.states, geo.lanes, geo.channels, scan.STAGES, bits,
+            _build.stream(xs.device))
+    pieces = {
+        "ops.selective_scan (whole call)": lambda: ops.selective_scan(*x),
+        "selective_scan.selective_scan": lambda: scan.selective_scan(*x),
+        "selective_scan.launch (route, call)": lambda: scan.launch(
+            lib, *x, y, h_t, geo),
+        "C selective_scan_fwd through ctypes (launch included)":
+            lambda: lib.selective_scan_fwd(*args),
+        "selective_scan._check": lambda: scan._check(*x),
+        "six .contiguous() of contiguous operands": lambda: [
+            v.contiguous() for v in x[1:]],
+        "two torch.empty (y, h_T)": lambda: (
+            torch.empty((b, t, din), dtype=torch.float32, device=xs.device),
+            torch.empty((b, din, n), dtype=torch.float32,
+                        device=xs.device)),
+        "geometry (cached)": lambda: scan.geometry(b, din, n),
+    }
+    for label, fn in pieces.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_REPS):
+            fn()
+        us = (time.perf_counter() - t0) / HOST_REPS * 1e6
+        torch.cuda.synchronize()
+        print(f"  host, T {t}: {label}: {us:.2f} us", flush=True)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--unroll", type=int, nargs="+", default=[1, 2, 4, 8])
+    ap.add_argument("--states", type=int, nargs="+", default=[2, 4, 8])
+    ap.add_argument("--channels", type=int, nargs="+",
+                    default=[8, 16, 32, 64])
+    ap.add_argument("--stages", type=int, nargs="+", default=[2, 4])
+    ap.add_argument("--against", nargs="+", default=[],
+                    help="other selective_scan.cu sources to time beside")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import chip_smoke as cs                 # puts ROOT/src on the path
@@ -50,64 +130,116 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_scan_bench: needs a CUDA card", file=sys.stderr)
         return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import selective_scan as scan
 
     print(f"{cs.smi_line()}; torch {torch.__version__}", flush=True)
+    print(f"  build: {_build.build_all():.1f} s", flush=True)
+    if "selective_scan" in _build.build_log:
+        print_ptxas("the port's library", _build.build_log["selective_scan"],
+                    cs)
     g = torch.Generator(device="cuda").manual_seed(cs.SEED)
 
     def randn(shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
     cs.scan_cases(torch, ops, randn, {"selective_scan": []})
-    with open(os.path.join(ROOT, "src/repro_torch/kernels/csrc/"
-                                 "selective_scan.cu")) as f:
-        source = f.read()
-    libs = {}
+
+    port = scan._lib()
+    exp2 = scan.kernel_exp2()
+    source = str(_build.CSRC / "selective_scan.cu")
     with tempfile.TemporaryDirectory() as tmp:
-        started = {u: build(tmp, source, u, _build) for u in args.unroll}
-        for u, (path, proc) in started.items():
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc, unroll {u}:\n{log}")
-            regs = sorted({line.split("Used ")[1].split(",")[0]
-                           for line in log.splitlines() if "Used " in line})
-            print(f"  unroll {u}: ptxas {regs} (per lanes-a-channel "
-                  f"instance)", flush=True)
-            lib = ctypes.CDLL(path)
-            fn = lib.selective_scan_fwd
-            fn.argtypes = list(scan._SIGNATURE["selective_scan_fwd"][0])
-            fn.restype = ctypes.c_int
-            libs[u] = fn
-        for b, t, din, n in ((4, 2048, 1600, 16), (4, 1, 1600, 16)):
-            x = cs.scan_inputs(torch, randn, b, t, din, n, False)
-            want = scan.selective_scan(*x)
-            lanes, _, _ = scan.geometry(b, din, n)
+        other_tag = f"SCAN_EXP2={int(not exp2)}"
+        started = {other_tag: start_build(tmp, source, "other", [other_tag],
+                                          _build)}
+        for i, path in enumerate(args.against):
+            started[path] = start_build(tmp, os.path.abspath(path),
+                                        f"against{i}", [], _build)
+        built = {tag: finish_build(tag, *started[tag], cs) for tag in started}
+        for lib in built.values():
+            for fn, (argtypes, restype) in scan._SIGNATURE.items():
+                if hasattr(lib, fn):
+                    getattr(lib, fn).argtypes = list(argtypes)
+                    getattr(lib, fn).restype = restype
+            lib.cuda_error_string.argtypes = [ctypes.c_int]
+            lib.cuda_error_string.restype = ctypes.c_char_p
+        # (label, runner(x, y, h_t)) in the order they are timed
+        runs, seen = [], set()
+        for s in args.states:
+            for c in args.channels:
+                for st in args.stages:
+                    geo = scan.geometry(4, 1600, 16, s, c)
+                    if geo.threads > scan.MAX_THREADS or (geo, st) in seen:
+                        continue
+                    seen.add((geo, st))
+                    label = (f"{geo.states} states a lane, {geo.channels} "
+                             f"channels a block, {st} stages")
+                    runs.append((label, lambda x, y, h, geo=geo, st=st:
+                                 scan.launch(port, *x, y, h, geo, st)))
+        default = scan.geometry(4, 1600, 16)
+        runs.append(("default geometry, all operands by 4-byte cp.async",
+                     lambda x, y, h: scan.launch(port, *x, y, h, default,
+                                                 bits=0)))
+        runs.append((f"default geometry, {other_tag}", lambda x, y, h:
+                     scan.launch(built[other_tag], *x, y, h, default)))
+        for path in args.against:
+            old = built[path]
+            if hasattr(old, "selective_scan_chunk"):
+                runs.append((f"{path}, default geometry", lambda x, y, h,
+                             old=old: scan.launch(old, *x, y, h, default)))
+                continue
+            fn = old.selective_scan_fwd     # the earlier kernel's interface
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                           ctypes.c_longlong] + [ctypes.c_void_p] * 8 + \
+                [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
-            def run(u):
-                y = torch.empty((b, t, din), device="cuda")
-                h_t = torch.empty((b, din, n), device="cuda")
+            def lane_per_state(x, y, h, old=old, path=path):
                 xs = x[0]
-                code = libs[u](xs.data_ptr(), xs.stride(0), xs.stride(1),
-                               *(v.data_ptr() for v in x[1:]),
-                               y.data_ptr(), h_t.data_ptr(), b, t, din, n,
-                               lanes, torch.cuda.current_stream().cuda_stream)
-                if code != 0:
-                    raise RuntimeError(f"unroll {u}: CUDA error {code}")
-                return y, h_t
+                code = old.selective_scan_fwd(
+                    xs.data_ptr(), xs.stride(0), xs.stride(1),
+                    *(v.data_ptr() for v in x[1:]), y.data_ptr(),
+                    h.data_ptr(), xs.shape[0], xs.shape[1], xs.shape[2],
+                    x[4].shape[-1], 16,
+                    torch.cuda.current_stream().cuda_stream)
+                _build.check(old, code, path)
+            runs.append((f"{path} (a lane per (channel, state), 16 lanes "
+                         f"a channel)", lane_per_state))
 
-            times = {u: [] for u in libs}
-            for u in list(libs) + list(libs)[::-1]:
-                got = run(u)
-                if not all(torch.equal(a, c) for a, c in zip(got, want)):
-                    raise AssertionError(f"unroll {u} differs from the "
-                                         f"port's kernel")
-                times[u].append(cs.time_ms(lambda: run(u),
-                                           50 if t > 1 else 500))
-            for u, ms in times.items():
-                print(f"  T {t}: unroll {u}: " + ", ".join(
-                    f"{m:.4f}" for m in ms) + " ms (bitwise equal to the "
-                    "port's kernel)", flush=True)
+        for b, t, din, n in SHAPES:
+            x = cs.scan_inputs(torch, randn, b, t, din, n, t == 2048)
+            want = ops.selective_scan(*x, use_kernel=False)
+            y = torch.empty((b, t, din), device="cuda")
+            h_t = torch.empty((b, din, n), device="cuda")
+            times = {label: [] for label, _ in runs}
+            rels, readings = {}, {}
+            for label, run in runs:
+                run(x, y, h_t)
+                torch.cuda.synchronize()
+                rels[label] = max(cs.rel_l2([y], [want[0]]),
+                                  cs.rel_l2([h_t], [want[1]]))
+                if not rels[label] <= cs.SCAN_REL_L2:
+                    raise AssertionError(f"{label}, T {t}: rel L2 "
+                                         f"{rels[label]} against the twin")
+            for label, run in runs + runs[::-1]:
+                times[label].append(cs.time_ms(lambda: run(x, y, h_t),
+                                               REPS[t]))
+            if t == 1:
+                for label, run in runs:
+                    readings[label] = cs.launch_readings(
+                        torch, lambda: run(x, y, h_t))
+            for label, _ in runs:
+                r = readings.get(label)
+                dev = r and r["device_us_per_launch"]
+                extra = (f"; device {dev:.2f} us a launch" if dev
+                         else "; device: none traced") + (
+                    f", {r['launches_per_call']:g} launches a call, host "
+                    f"{r['host_us_per_call']:.2f} us a call") if r else ""
+                print(f"  T {t}: {label}: " + ", ".join(
+                    f"{m:.4f}" for m in times[label]) + f" ms (rel L2 "
+                    f"{rels[label]:.3e}{extra})", flush=True)
+            if t == 1:
+                host_breakdown(torch, ops, scan, _build, x)
     return 0
 
 

@@ -10,7 +10,8 @@ The toy weights and every toy emitter's ``x0`` come from
 ``jax.random``, which torch cannot reproduce, so they are committed (a
 CPU test redraws them with JAX and holds the file to them bitwise).
 
-Entry points run on the card unless ``--device cpu`` is given:
+Entry points run on the card unless ``--device cpu`` (on the command
+line) or ``device="cpu"`` (in Python) is given:
 
     PYTHONPATH=src python -m repro_torch.benchmarks.table11_truncation \\
         --device cpu --out BENCH_torch.json
@@ -65,10 +66,13 @@ def parser(doc: str) -> argparse.ArgumentParser:
     return ap
 
 
-def resolve_device(name: str) -> torch.device:
-    if name == "cuda" and not torch.cuda.is_available():
+def resolve_device(name) -> torch.device:
+    """``name`` (a string or a device) as a device: raises when it is the
+    card and CUDA is not available."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu")
-    return torch.device(name)
+    return dev
 
 
 def sync(device) -> None:
@@ -76,9 +80,10 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def toy_denoiser(device="cpu"):
+def toy_denoiser(device="cuda"):
     """The JAX emitters' smooth nonlinear eps model (``toy_denoiser()``:
     dim 16, seed 0): x (M, 16), t (M,)."""
+    device = resolve_device(device)
     w1, w2 = toy_array("toy_w1", device), toy_array("toy_w2", device)
 
     def model_fn(x, t):
@@ -89,11 +94,12 @@ def toy_denoiser(device="cpu"):
 
 
 def small_dit(name: str = "srds-dit-cifar", layers: int = 2, d: int = 64,
-              img: int = 16, seed: int = 0, device="cpu"):
+              img: int = 16, seed: int = 0, device="cuda"):
     """A tiny-but-real DiT denoiser (attention + adaLN) at the JAX
     emitters' widths, f32, its weights drawn from ``seed`` by numpy
     (``dit.random_jax_tree``).  Returns ``(model_fn, cfg, img)``."""
     from repro_torch.models import dit
+    device = resolve_device(device)
     cfg = dc.replace(get_arch(name), num_layers=layers, d_model=d,
                      num_heads=4, num_kv_heads=4, head_dim=d // 4,
                      d_ff=4 * d, patch_size=4, dtype="float32")
@@ -102,7 +108,7 @@ def small_dit(name: str = "srds-dit-cifar", layers: int = 2, d: int = 64,
     return dit.make_denoiser(model), cfg, img
 
 
-def timeit(fn: Callable, repeats: int = 3, device="cpu") -> float:
+def timeit(fn: Callable, repeats: int = 3, *, device) -> float:
     """Median wall seconds of ``fn()`` after one warm-up call, the device
     synchronized before and after each call."""
     fn()

@@ -31,7 +31,8 @@ def rows(model_fn, x0, n: int = N, blocks=BLOCKS, repeats: int = 3):
     return out
 
 
-def main(device="cpu"):
+def main(device="cuda"):
+    device = resolve_device(device)
     return rows(toy_denoiser(device), toy_array("x0_prop4", device))
 
 

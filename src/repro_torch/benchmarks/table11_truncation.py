@@ -32,7 +32,8 @@ SEED = 0
 TOLS = [0.0, 1e-5, 1e-3]     # exactness budget + two early-exit points
 
 
-def run_rows(n: int = N, tols=tuple(TOLS), device="cpu", repeats: int = 3):
+def run_rows(n: int = N, tols=tuple(TOLS), device="cuda", repeats: int = 3):
+    device = resolve_device(device)
     model_fn = toy_denoiser(device)
     x0 = toy_array("x0_table11", device)
     sched = make_schedule("ddpm_linear", n)
@@ -82,7 +83,8 @@ def run_rows(n: int = N, tols=tuple(TOLS), device="cpu", repeats: int = 3):
     return rows
 
 
-def main(out: str = None, n: int = N, device="cpu"):
+def main(out: str = None, n: int = N, device="cuda"):
+    device = resolve_device(device)
     rows = run_rows(n=n, device=device)
     # the acceptance bar: >= 25% fewer physical evals on the pinned
     # exactness-budget row (tol=0 runs to the cap)

@@ -33,7 +33,8 @@ WINDOW_TOLS = [1e-2, 1e-3, 1e-4]  # the approximation knob sweep
 
 
 def run_rows(n: int, max_iters=None, window_tols=tuple(WINDOW_TOLS),
-             device="cpu", repeats: int = 3):
+             device="cuda", repeats: int = 3):
+    device = resolve_device(device)
     model_fn = toy_denoiser(device)
     x0 = toy_array("x0_table12", device)
     sched = make_schedule("ddpm_linear", n)
@@ -96,7 +97,8 @@ def run_rows(n: int, max_iters=None, window_tols=tuple(WINDOW_TOLS),
     return rows
 
 
-def main(out: str = None, configs=None, device="cpu"):
+def main(out: str = None, configs=None, device="cuda"):
+    device = resolve_device(device)
     rows = []
     for cfg in (configs if configs is not None else CONFIGS):
         rows.extend(run_rows(device=device, **cfg))

@@ -39,9 +39,10 @@ TOLS = [(3.0, 5.0), (0.1, 1.0)]
 HEADLINE_SAVING_PCT = 25.0
 
 
-def slow_model(device="cpu"):
+def slow_model(device="cuda"):
     """The JAX emitter's ``slow_model()`` (AMP, FREQ, DIM pinned): x (M,
     16), t (M,)."""
+    device = resolve_device(device)
     w, ph, a = (toy_array(k, device) for k in ("slow_w", "slow_ph",
                                                 "slow_a"))
 
@@ -52,7 +53,8 @@ def slow_model(device="cpu"):
     return model_fn
 
 
-def run_rows(n: int = N, tols=tuple(TOLS), device="cpu", repeats: int = 3):
+def run_rows(n: int = N, tols=tuple(TOLS), device="cuda", repeats: int = 3):
+    device = resolve_device(device)
     model_fn = slow_model(device)
     sched = make_schedule("cosine", n).astype(np.float32)
     solver = SolverConfig("ddim")
@@ -117,7 +119,8 @@ def run_rows(n: int = N, tols=tuple(TOLS), device="cpu", repeats: int = 3):
     return rows
 
 
-def main(out: str = None, n: int = N, device="cpu"):
+def main(out: str = None, n: int = N, device="cuda"):
+    device = resolve_device(device)
     rows = run_rows(n=n, device=device)
     return merge_out(out, rows, "pinned_accel",
                      {"n": n, "dim": DIM, "seed": SEED, "amp": AMP,

@@ -47,7 +47,8 @@ def rows(models, n: int = N, blocks: int = BLOCKS, repeats: int = 3):
     return out
 
 
-def main(device="cpu"):
+def main(device="cuda"):
+    device = resolve_device(device)
     return rows([(name, small_dit(device=device, **kw)[0],
                   toy_array(x0, device)) for name, kw, x0 in MODELS])
 

@@ -57,7 +57,8 @@ def full_model(arch: str, seed: int, device):
     return dit.make_denoiser(model), torch.from_numpy(x0).to(device)
 
 
-def main(device="cpu", arch=None, seed: int = 0, repeats: int = 3):
+def main(device="cuda", arch=None, seed: int = 0, repeats: int = 3):
+    device = resolve_device(device)
     if arch is None:
         model_fn, _, _ = small_dit(layers=2, d=64, img=16, seed=3,
                                    device=device)

@@ -49,7 +49,8 @@ def rows(model_fn, x0, cases=tuple(CASES), tols=PD_TOLS, repeats: int = 3):
     return out
 
 
-def main(device="cpu"):
+def main(device="cuda"):
+    device = resolve_device(device)
     return rows(toy_denoiser(device), toy_array("x0_table4", device))
 
 

@@ -39,7 +39,8 @@ def rows(model_fn, x0, cases=tuple(CASES), noise_seed=NOISE_SEED,
     return out
 
 
-def main(device="cpu"):
+def main(device="cuda"):
+    device = resolve_device(device)
     return rows(toy_denoiser(device), toy_array("x0_table5", device))
 
 

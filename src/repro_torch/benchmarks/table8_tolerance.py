@@ -34,7 +34,8 @@ def rows(model_fn, x0, n: int = N, blocks: int = BLOCKS, taus=TAUS,
     return out
 
 
-def main(device="cpu"):
+def main(device="cuda"):
+    device = resolve_device(device)
     model_fn, _, _ = small_dit(layers=1, d=32, img=16, seed=5,
                                device=device)
     return rows(model_fn, toy_array("x0_table8", device))

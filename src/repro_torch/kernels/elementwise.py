@@ -119,26 +119,6 @@ def resid_geometry(n_slice: int, vec: int,
     return cluster, per_block, threads, aligned and n_slice % vec == 0
 
 
-def _stream(dev: torch.device) -> int:
-    """The raw handle of ``dev``'s current stream: the value of
-    ``torch.cuda.current_stream(dev).cuda_stream``, without building a
-    Stream object (0.1-0.3 against 3-7 µs a call on the H100's host,
-    scripts/torch_elementwise_bench.py)."""
-    return torch._C._cuda_getCurrentRawStream(dev.index)
-
-
-def _call(lib, fn: str, dev: torch.device, *args) -> None:
-    """Call ``lib.fn(*args, stream)`` on ``dev``'s current stream and raise
-    on its CUDA error.  Only a tensor on another card than the current one
-    needs the device switched for the launch."""
-    if dev.index == torch.cuda.current_device():
-        code = getattr(lib, fn)(*args, _stream(dev))
-    else:
-        with torch.cuda.device(dev):
-            code = getattr(lib, fn)(*args, _stream(dev))
-    _build.check(lib, code, fn)
-
-
 def ddim_fused(x: torch.Tensor, eps: torch.Tensor, a: torch.Tensor,
                b: torch.Tensor) -> torch.Tensor:
     """``sqrt(b)*(x - sqrt(1-a) eps)/sqrt(a) + sqrt(1-b) eps`` in f32,
@@ -168,7 +148,7 @@ def ddim_fused(x: torch.Tensor, eps: torch.Tensor, a: torch.Tensor,
     n_row = max(n // m, 1)
     n_vec, blocks = ddim_geometry(n, n_row, per_row, vector_width(x.dtype),
                                   _aligned(x, eps, out))
-    _call(_lib(), "ddim_fused", dev, x.data_ptr(), eps.data_ptr(),
+    _build.call(_lib(), "ddim_fused", dev, x.data_ptr(), eps.data_ptr(),
           a.data_ptr(), b.data_ptr(), out.data_ptr(), n, n_vec, n_row,
           1 if per_row else 0, blocks, _DTYPES[x.dtype])
     ddim_fused.launches += 1
@@ -233,7 +213,7 @@ def parareal_update_residual(y: torch.Tensor, cur: torch.Tensor,
     lib = _lib()
     _check_cluster_fits(lib, "parareal_update_residual", dev, dtype, vector,
                         cluster, threads)
-    _call(lib, "parareal_update_residual", dev, y.data_ptr(),
+    _build.call(lib, "parareal_update_residual", dev, y.data_ptr(),
           cur.data_ptr(), prev.data_ptr(), old.data_ptr(), out.data_ptr(),
           resid.data_ptr(), n_slice, per_block, slices, cluster, threads,
           vector, dtype)
@@ -273,7 +253,7 @@ def parareal_update(y: torch.Tensor, cur: torch.Tensor, prev: torch.Tensor):
     lib = _lib()
     _check_cluster_fits(lib, "parareal_update", dev, dtype, vector, cluster,
                         threads)
-    _call(lib, "parareal_update", dev, y.data_ptr(), cur.data_ptr(),
+    _build.call(lib, "parareal_update", dev, y.data_ptr(), cur.data_ptr(),
           prev.data_ptr(), out.data_ptr(), resid.data_ptr(), n, per_block,
           cluster, threads, vector, dtype)
     parareal_update.launches += 1

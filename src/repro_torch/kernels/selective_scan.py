@@ -4,55 +4,114 @@ The kernel (``csrc/selective_scan.cu``) replaces no Pallas kernel: the
 JAX model runs the recurrence as a ``jax.lax.scan`` inside
 ``repro.models.hymba._ssm_scan``, one device loop under XLA, which eager
 PyTorch could only run as a Python loop of small launches.  A lane owns
-one (channel, state) element of the f32 state and carries it through all
-T steps; a channel's lanes sum y_t by warp shuffles, and a block stages
-32 steps of the row's dt, B and C and of its channels' x in shared memory
-(see the source).  One launch a call, T = 1 (a decode step) included;
-two runs are bitwise equal.
+:data:`STATES_PER_LANE` states of one channel and carries them through
+all T steps in registers; a channel's lanes sum y by a transpose-reduce
+over groups of steps, and a block stages :data:`CHUNK` steps of the row's
+dt, B and C and of its channels' x in a ring of :data:`STAGES` stages,
+filled by a producer warp: dt, B and C by bulk copies and x by 16-byte
+copies where the operands are 16-byte aligned, by 4-byte copies where
+not (:func:`route`; see the source).  One launch a call,
+T = 1 (a decode step) included; two runs are bitwise equal.
 
 The launch geometry is computed here (:func:`geometry`), so the CPU tests
-reach it.  ``xs`` is read in place through its batch and time strides
-(the model's ``xs`` is the second half of the ``x @ w_in`` product, a
-strided view); its channel stride must be 1, or it is copied.  The other
-operands are made contiguous.  No gradient: a training path needs the
-scan's backward kernel (ROADMAP A11(a), training half).
+reach it; its knobs are the named constants below (ROADMAP C13: no tuner
+yet).  ``xs`` is read in place through its batch and time strides (the
+model's ``xs`` is the second half of the ``x @ w_in`` product, a strided
+view); its channel stride must be 1, or it is copied.  The other operands
+are made contiguous.  The host path checks, allocates ``y`` and ``h_T``
+and calls the C function on the current stream's raw handle
+(``_build.call``), nothing more: at T = 1 the call is host-bound.  No
+gradient: a training path needs the scan's backward kernel (ROADMAP
+A11(a), training half).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import _build
 
-THREADS = 256            # a block (the kernel's kThreads)
-MIN_LANES = 4            # lanes a channel at the least: at most 64 channels
+STATES_PER_LANE = 4      # a lane's states (n padded to a power of two)
+CHANNELS_PER_BLOCK = 16  # 64 threads at n 16: 400 blocks at B 4, din 1600
+CHUNK = 64               # steps staged a time (the kernel's kChunk)
+STAGES = 4               # the staging ring's depth
 MAX_STATE = 32           # a channel's lanes lie in one warp
+MAX_THREADS = 256        # a block's compute threads (kMaxConsumers)
+# (states a lane, lanes a channel) pairs the library is compiled for
+INSTANCES = ((1, 1), (2, 1), (4, 1), (4, 2), (4, 4), (4, 8), (2, 8), (8, 2))
+# route bits (the kernel's kBulkDt, kBulkBC, kVecX): dt, and B and C, by
+# cp.async.bulk; x by 16-byte cp.async; an operand without its bit by
+# 4-byte cp.async
+BULK_DT, BULK_BC, VEC_X = 1, 2, 4
+ALIGN = 16               # the copies' addresses and sizes
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURE = {"selective_scan_fwd": ((_P, _L, _L) + (_P,) * 8 + (_I,) * 5
+_SIGNATURE = {"selective_scan_fwd": ((_P, _L, _L) + (_P,) * 8 + (_I,) * 9
                                      + (_P,), _I),
-              "selective_scan_threads": ((), _I)}
+              "selective_scan_chunk": ((), _I),
+              "selective_scan_exp2": ((), _I)}
+
+
+class Geometry(NamedTuple):
+    states: int          # a lane's states (R)
+    lanes: int           # a channel's lanes (L); states * lanes >= n
+    channels: int        # a block's channels (C)
+    threads: int         # channels * lanes, and a producer warp beside
+    grid: tuple          # (ceil(din / channels), batch)
 
 
 def _lib() -> ctypes.CDLL:
     return _build.load("selective_scan", _SIGNATURE)
 
 
-def geometry(batch: int, din: int, n: int) -> Tuple[int, int, tuple]:
-    """``(lanes a channel, channels a block, grid)`` of the launch for
-    state size ``n``: lanes the power of two >= n (at least
-    :data:`MIN_LANES`), ``THREADS // lanes`` channels a block, grid
-    ``(ceil(din / channels), batch)``."""
+@functools.lru_cache(maxsize=256)
+def geometry(batch: int, din: int, n: int, states: int = STATES_PER_LANE,
+             channels: int = CHANNELS_PER_BLOCK) -> Geometry:
+    """The launch for state size ``n``: n padded to the power of two NP,
+    ``min(states, NP)`` states a lane, ``NP / states`` lanes a channel
+    (lanes of one warp, ``32 / lanes`` apart), ``channels`` channels a
+    block (at least a warp's worth), grid ``(ceil(din / channels),
+    batch)``, and a producer warp beside the ``threads``.  Lane ``q`` of
+    warp ``w`` of block ``(bx, by)`` owns channel ``bx * channels + w * (32
+    // lanes) + q % (32 // lanes)`` of batch row ``by`` and, in register
+    ``r``, state ``q // (32 // lanes) * states + r``; channels past din and
+    states past n are idle."""
     if not 1 <= n <= MAX_STATE:
         raise ValueError(f"the selective scan takes 1 <= n <= {MAX_STATE}, "
                          f"got {n}")
-    lanes = MIN_LANES
-    while lanes < n:
-        lanes *= 2
-    channels = THREADS // lanes
-    return lanes, channels, (-(-din // channels), batch)
+    padded = 1 << (n - 1).bit_length()
+    states = min(states, padded)
+    lanes = padded // states
+    channels = max(channels, 32 // lanes)
+    return Geometry(states, lanes, channels, channels * lanes,
+                    (-(-din // channels), batch))
+
+
+@functools.lru_cache(maxsize=256)
+def route(misaligned: tuple, batch: int, t: int, din: int, n: int,
+          padded: int, sxb: int, sxt: int) -> int:
+    """The route bits of a launch: dt, and B and C, by ``cp.async.bulk``
+    where every chunk of them starts on a 16-byte boundary and spans a
+    multiple of 16 bytes; x by 16-byte ``cp.async`` where every row of
+    a block's channels does; the others by 4-byte ``cp.async`` (a bulk
+    copy whose start is not aligned never lands).  ``misaligned``: the
+    data pointers of (xs, dt, bb | cc) modulo 16.  dt needs T % 4 == 0; B
+    and C need T n % 4 == 0 and n a power of two (the stage's rows are
+    ``padded`` wide); x needs din, and its strides, multiples of 4 (a
+    stride of a length-1 axis is never used)."""
+    px, pd, pbc = misaligned
+    bits = 0
+    if pd == 0 and t % 4 == 0:
+        bits |= BULK_DT
+    if pbc == 0 and (t * n) % 4 == 0 and n == padded:
+        bits |= BULK_BC
+    if (px == 0 and din % 4 == 0 and (sxb % 4 == 0 or batch == 1)
+            and (sxt % 4 == 0 or t == 1)):
+        bits |= VEC_X
+    return bits
 
 
 def _check(xs, dt, bb, cc, a, d, h0) -> None:
@@ -60,22 +119,50 @@ def _check(xs, dt, bb, cc, a, d, h0) -> None:
         raise ValueError(f"xs must be (B, T, din), got {tuple(xs.shape)}")
     b, t, din = xs.shape
     n = a.shape[-1]
-    want = {"dt": (b, t), "bb": (b, t, n), "cc": (b, t, n), "a": (din, n),
-            "d": (din,), "h0": (b, din, n)}
-    for name, x in (("dt", dt), ("bb", bb), ("cc", cc), ("a", a), ("d", d),
-                    ("h0", h0)):
-        if tuple(x.shape) != want[name]:
-            raise ValueError(f"{name} {tuple(x.shape)} does not fit xs "
-                             f"{tuple(xs.shape)}: want {want[name]}")
+    if (dt.shape != (b, t) or bb.shape != (b, t, n) or cc.shape != (b, t, n)
+            or a.shape != (din, n) or d.shape != (din,)
+            or h0.shape != (b, din, n)):
+        want = {"dt": (b, t), "bb": (b, t, n), "cc": (b, t, n),
+                "a": (din, n), "d": (din,), "h0": (b, din, n)}
+        for name, x in (("dt", dt), ("bb", bb), ("cc", cc), ("a", a),
+                        ("d", d), ("h0", h0)):
+            if tuple(x.shape) != want[name]:
+                raise ValueError(f"{name} {tuple(x.shape)} does not fit xs "
+                                 f"{tuple(xs.shape)}: want {want[name]}")
     ts = (xs, dt, bb, cc, a, d, h0)
-    if any(x.dtype != torch.float32 for x in ts):
+    f32 = torch.float32
+    if not (xs.dtype == f32 and dt.dtype == f32 and bb.dtype == f32
+            and cc.dtype == f32 and a.dtype == f32 and d.dtype == f32
+            and h0.dtype == f32):
         raise TypeError("the selective scan takes f32 operands, got "
                         + ", ".join(str(x.dtype) for x in ts))
-    if not (xs.is_cuda and all(x.device == xs.device for x in ts)):
+    dev = xs.get_device()
+    if not (xs.is_cuda and dt.get_device() == dev and bb.get_device() == dev
+            and cc.get_device() == dev and a.get_device() == dev
+            and d.get_device() == dev and h0.get_device() == dev):
         raise ValueError("selective_scan launches the CUDA kernel: all "
                          "operands must be on one CUDA device")
     if t < 1 or b < 1 or din < 1:
         raise ValueError(f"empty scan: B {b}, T {t}, din {din}")
+
+
+def launch(lib, xs, dt, bb, cc, a, d, h0, y, h_t, geo: Geometry,
+           stages: int = STAGES, bits: Optional[int] = None) -> None:
+    """One launch of ``lib``'s ``selective_scan_fwd`` (this source's or a
+    build of it with other knobs) into ``y`` and ``h_t`` with geometry
+    ``geo``; ``bits`` defaults to :func:`route` of the operands."""
+    b, t, din = xs.shape
+    n = a.shape[-1]
+    sxb, sxt = xs.stride(0), xs.stride(1)
+    px, pd, pb, pc = xs.data_ptr(), dt.data_ptr(), bb.data_ptr(), \
+        cc.data_ptr()
+    if bits is None:
+        bits = route((px % ALIGN, pd % ALIGN, (pb | pc) % ALIGN), b, t, din,
+                     n, geo.states * geo.lanes, sxb, sxt)
+    _build.call(lib, "selective_scan_fwd", xs.device, px, sxb, sxt, pd, pb,
+                pc, a.data_ptr(), d.data_ptr(), h0.data_ptr(), y.data_ptr(),
+                h_t.data_ptr(), b, t, din, n, geo.states, geo.lanes,
+                geo.channels, stages, bits)
 
 
 def selective_scan(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
@@ -89,20 +176,15 @@ def selective_scan(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
     _check(xs, dt, bb, cc, a, d, h0)
     b, t, din = xs.shape
     n = a.shape[-1]
-    lanes, _, _ = geometry(b, din, n)
+    geo = geometry(b, din, n)
     if xs.stride(-1) != 1:
         xs = xs.contiguous()
-    dt, bb, cc, a, d, h0 = (x.contiguous() for x in (dt, bb, cc, a, d, h0))
-    y = torch.empty((b, t, din), dtype=torch.float32, device=xs.device)
-    h_t = torch.empty((b, din, n), dtype=torch.float32, device=xs.device)
-    lib = _lib()
-    with torch.cuda.device(xs.device):
-        code = lib.selective_scan_fwd(
-            xs.data_ptr(), xs.stride(0), xs.stride(1), dt.data_ptr(),
-            bb.data_ptr(), cc.data_ptr(), a.data_ptr(), d.data_ptr(),
-            h0.data_ptr(), y.data_ptr(), h_t.data_ptr(), b, t, din, n, lanes,
-            torch.cuda.current_stream(xs.device).cuda_stream)
-    _build.check(lib, code, "selective_scan")
+    dt, bb, cc = dt.contiguous(), bb.contiguous(), cc.contiguous()
+    a, d, h0 = a.contiguous(), d.contiguous(), h0.contiguous()
+    dev = xs.device
+    y = torch.empty((b, t, din), dtype=torch.float32, device=dev)
+    h_t = torch.empty((b, din, n), dtype=torch.float32, device=dev)
+    launch(_lib(), xs, dt, bb, cc, a, d, h0, y, h_t, geo)
     selective_scan.launches += 1
     return y, h_t
 
@@ -110,7 +192,14 @@ def selective_scan(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
 selective_scan.launches = 0
 
 
-def kernel_threads() -> int:
-    """The kernel's block size as compiled (must equal :data:`THREADS`).
+def kernel_chunk() -> int:
+    """The kernel's steps a chunk as compiled (must equal :data:`CHUNK`).
     Needs the card."""
-    return _lib().selective_scan_threads()
+    return _lib().selective_scan_chunk()
+
+
+def kernel_exp2() -> bool:
+    """Whether the library computes its decays by ``ex2.approx`` of the
+    prescaled product (``SCAN_EXP2``) rather than by ``expf``.  Needs the
+    card."""
+    return bool(_lib().selective_scan_exp2())

@@ -4,8 +4,9 @@
 maps a name to the port's kernel that launched it (the flash backward's
 masked and grouped forms share the dq and dkv kernels' names), to cuBLAS,
 or to the rest (elementwise, norms, copies); ``device_ms_by_name`` sums a
-profile's device time per kernel name; ``device_launches`` counts the
-device launches of a function's calls.  The port's only use is reading:
+profile's device time per kernel name; ``window_launches`` and
+``device_launches`` count the launches of a function's calls.  The port's
+only use is reading:
 nothing on a model's path calls this module.
 """
 from __future__ import annotations
@@ -15,6 +16,10 @@ from collections import defaultdict
 # CUPTI reports a stall of the launch queue as an event of its own; it is
 # not a kernel and its time overlaps the kernels'
 NOT_KERNELS = ("Command Buffer Full",)
+# the CUDA runtime and driver calls that start a device activity (a
+# kernel, a copy or a fill), by the start of their names
+LAUNCH_APIS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy",
+               "cudaMemset", "cuMemset", "cudaGraphLaunch", "cuGraphLaunch")
 # seconds the host waits at each end of a launch-counting window
 # (device_launches).  On an H100 the device's timestamps read up to about
 # 0.5 ms early in a window (scripts/torch_profiler_edges.py), and a window
@@ -64,15 +69,19 @@ def device_ms_by_name(prof, reps: int = 1) -> dict:
     return dict(by_name)
 
 
-def device_launches(fn, calls: int, pause_s: float = LAUNCH_EDGE_PAUSE_S
+def window_launches(fn, calls: int, pause_s: float = LAUNCH_EDGE_PAUSE_S
                     ) -> dict:
-    """{kernel name: [launches, device µs]} of ``calls`` calls of ``fn``
-    under one ``torch.profiler`` window; every device activity counts
-    (kernels, copies, fills).  The card is idle and the host waits
-    ``pause_s`` seconds at both ends of the window, so that each launch of
-    the calls lies well inside it: the profiler keeps a device activity
-    only if its timestamps, taken on the card's clock, fall inside the
-    window, taken on the host's."""
+    """``calls`` calls of ``fn`` under one ``torch.profiler`` window:
+    ``{"device": {kernel name: [launches, device µs]}, "api": n}``, the
+    device activities (kernels, copies, fills) the profiler recorded and
+    the host's calls that start one (``LAUNCH_APIS``).  The card is idle
+    and the host waits ``pause_s`` seconds at both ends of the window, so
+    that each launch of the calls lies well inside it: the profiler keeps
+    a device activity only if its timestamps, taken on the card's clock,
+    fall inside the window, taken on the host's.  The host's count is the
+    one to hold a function to: on an H100 late in a long process, windows
+    of 20 scan calls recorded 19 device activities against 20 host
+    launches, with the edge pause (``chip_smoke.py`` phase 3)."""
     import time
 
     import torch
@@ -86,11 +95,22 @@ def device_launches(fn, calls: int, pause_s: float = LAUNCH_EDGE_PAUSE_S
             fn()
         torch.cuda.synchronize()
         time.sleep(pause_s)
-    out = {}
+    device = {}
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA and evt.key not in NOT_KERNELS:
-            out[evt.key] = [evt.count, evt.self_device_time_total]
-    return out
+            device[evt.key] = [evt.count, evt.self_device_time_total]
+    api = sum(1 for evt in prof.events()
+              if evt.device_type == DeviceType.CPU
+              and evt.name.startswith(LAUNCH_APIS))
+    return {"device": device, "api": api}
+
+
+def device_launches(fn, calls: int, pause_s: float = LAUNCH_EDGE_PAUSE_S
+                    ) -> dict:
+    """{kernel name: [launches, device µs]} of ``calls`` calls of ``fn``
+    under one ``torch.profiler`` window (:func:`window_launches`' device
+    activities)."""
+    return window_launches(fn, calls, pause_s)["device"]
 
 
 def by_group(by_name: dict) -> dict:

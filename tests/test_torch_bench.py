@@ -70,7 +70,8 @@ def test_table11_rows_equal_jax(x32):
               "serial_untruncated", "serial_truncated")
     tols = (0.0, 1e-3)
     want = j11.run_rows(n=36, tols=tols)
-    got = table11_truncation.run_rows(n=36, tols=tols, repeats=1)
+    got = table11_truncation.run_rows(n=36, tols=tols, device="cpu",
+                                      repeats=1)
     assert [_counts(r, fields) for r in got] == \
         [_counts(r, fields) for r in want]
     assert [r["name"] for r in got] == [r["name"] for r in want]
@@ -78,7 +79,8 @@ def test_table11_rows_equal_jax(x32):
 
 def test_table11_pinned_exactness_row():
     """The pinned N=100 config at tol=0: 714 against 1110 evals/sample."""
-    row, = table11_truncation.run_rows(tols=(0.0,), repeats=1)
+    row, = table11_truncation.run_rows(tols=(0.0,), device="cpu",
+                                       repeats=1)
     assert (row["iterations"], row["evals_truncated"],
             row["evals_untruncated"]) == (10, 714, 1110)
 
@@ -88,7 +90,8 @@ def test_table12_rows_equal_jax(x32):
               "evals_window")
     wtols = (1e-2, 1e-3)
     want = j12.run_rows(n=100, window_tols=wtols)
-    got = table12_window.run_rows(n=100, window_tols=wtols, repeats=1)
+    got = table12_window.run_rows(n=100, window_tols=wtols, device="cpu",
+                                  repeats=1)
     assert [_counts(r, fields) for r in got] == \
         [_counts(r, fields) for r in want]
 
@@ -114,7 +117,7 @@ def test_table13_rows_equal_jax(x32):
         want.append(dict(iters_plain=ip, iters_accel=ia,
                          evals_plain=J.predicted_evals(cost, ip),
                          evals_accel=J.predicted_evals(cost, ia)))
-    got = table13_accel.run_rows(n=n, tols=tols, repeats=1)
+    got = table13_accel.run_rows(n=n, tols=tols, device="cpu", repeats=1)
     assert [_counts(r, want[0]) for r in got] == want
     assert got[0]["headline_met"] == (got[0]["iters_saving_pct"] >= 25.0)
 
@@ -129,7 +132,7 @@ def test_table4_rows_equal_jax(x32):
     cases, tols = [(25, 5), (36, 6)], (1e-3, 1e-1)
     model_fn = jcommon.toy_denoiser()
     x0 = jax.random.normal(jax.random.PRNGKey(2), (1, 16))
-    got = table4_paradigms.rows(common.toy_denoiser(),
+    got = table4_paradigms.rows(common.toy_denoiser("cpu"),
                                 common.toy_array("x0_table4", "cpu"),
                                 cases=cases, tols=tols, repeats=1)
     for row, (n, b) in zip(got, cases):
@@ -161,7 +164,7 @@ def test_table5_rows_equal_jax(x32):
 
     model_fn = jcommon.toy_denoiser()
     x0 = jax.random.normal(jax.random.PRNGKey(3), (1, 16))
-    got = table5_solvers.rows(common.toy_denoiser(),
+    got = table5_solvers.rows(common.toy_denoiser("cpu"),
                               common.toy_array("x0_table5", "cpu"),
                               cases=cases, noise_fn=noise_fn, repeats=1)
     for row, (name, n) in zip(got, cases):
@@ -175,7 +178,7 @@ def test_prop4_rows_equal_jax(x32):
     n, blocks = 64, (4, 8, 16)
     model_fn = jcommon.toy_denoiser()
     x0 = jax.random.normal(jax.random.PRNGKey(5), (1, 16))
-    got = prop4_blocksize.rows(common.toy_denoiser(),
+    got = prop4_blocksize.rows(common.toy_denoiser("cpu"),
                                common.toy_array("x0_prop4", "cpu"), n=n,
                                blocks=blocks, repeats=1)
     for row, b in zip(got, blocks):
@@ -239,9 +242,9 @@ def test_emitters_write_torch_artifacts(tmp_path, capsys):
     """table11 writes a fresh artifact, table12 appends to it; rows carry
     the JAX emitters' names and the CSV line its three fields."""
     out = str(tmp_path / "B.json")
-    table11_truncation.main(out=out, n=36)
+    table11_truncation.main(out=out, n=36, device="cpu")
     rows = table12_window.run_rows(n=36, max_iters=None, window_tols=(1e-2,),
-                                   repeats=1)
+                                   device="cpu", repeats=1)
     common.merge_out(out, rows, "pinned_window", {"n": 36}, "cpu")
     with open(out) as f:
         payload = json.load(f)
@@ -323,3 +326,25 @@ def test_check_counts_cli_on_baseline(tmp_path):
     with open(only, "w") as f:
         json.dump(_artifact(keep), f)
     assert check_counts.main(["--current", cur, "--baseline", only]) == 0
+
+
+@pytest.mark.parametrize("entry", [
+    "common.toy_denoiser", "common.small_dit", "table13_accel.slow_model",
+    "table11_truncation.run_rows", "table12_window.run_rows",
+    "table13_accel.run_rows", "table1_pixel.main", "table2_sd.main",
+    "table4_paradigms.main", "table5_solvers.main", "table8_tolerance.main",
+    "table11_truncation.main", "table12_window.main", "table13_accel.main",
+    "prop4_blocksize.main"])
+def test_emitter_entry_points_default_to_the_card(entry, monkeypatch):
+    """Called without a device, every Python entry point of the emitters
+    asks for the card, and raises where CUDA is not available (never a
+    silent run on the CPU); ``device="cpu"`` is asked for explicitly, as
+    the tests above do."""
+    import inspect
+    module, name = entry.split(".")
+    fn = getattr(globals()[module], name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA is not available"):
+        fn() if name != "run_rows" or module != "table12_window" \
+            else fn(n=36)

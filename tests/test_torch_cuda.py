@@ -35,9 +35,10 @@ terms: dq and (dk, dv) within 1e-3 rel L2 of the plain backward
 (chip_smoke's ``BWD_MASKED_REL_L2``), where P and dS rounded once to bf16
 miss it; each output tile has one owner, so two runs are bitwise equal.
 Hymba's selective scan (f32) agrees with its plain twin to 1e-4 (the sum
-over the states in another order) and runs bitwise equal twice; the twin
-with D dropped misses that limit, and a CUDA operand that needs a
-gradient raises (the scan has no backward kernel yet).
+over the states in another order) and runs bitwise equal twice, and on
+its 4-byte copy route as on its bulk route; the twin with D dropped
+misses that limit, a call makes one device launch, and a CUDA operand
+that needs a gradient raises (the scan has no backward kernel yet).
 """
 import numpy as np
 import pytest
@@ -1029,14 +1030,18 @@ def test_default_solver_never_takes_plain_path_on_card(cuda, monkeypatch):
     assert ops.launch_counts()["ddim_fused"] > 16 + pd.iterations
 
 
-# (B, T, din, n, strided xs): hymba's state size 16 with a ragged din (no
-# multiple of the 16 channels a block), a decode token, the reduced
-# model's 8 states, a long T over many staged chunks, n 5 (lanes past n
-# hold zero) and xs as the second half of a (B, T, 2 din) tensor, the
-# model's strided view
+# (B, T, din, n, xs): hymba's state size 16 with a ragged din (no
+# multiple of the 32 channels a block), a decode token, the reduced
+# model's 8 states, a long T over many staged chunks, n 5 (states past n
+# hold zero; B and C by 4-byte copies), xs as the second half of a (B, T,
+# 2 din) tensor (True: the model's strided view), n 17 and n 32 (8 lanes a
+# channel), and xs one float off a 16-byte boundary ("unaligned": x by
+# 4-byte copies)
 SCAN_CASES = [(2, 9, 40, 16, False), (4, 1, 1600, 16, False),
               (3, 37, 100, 8, True), (2, 300, 64, 16, True),
-              (1, 70, 33, 5, False), (2, 33, 1600, 16, True)]
+              (1, 70, 33, 5, False), (2, 33, 1600, 16, True),
+              (2, 45, 40, 17, False), (2, 72, 96, 32, True),
+              (2, 40, 64, 16, "unaligned")]
 
 
 def _scan_inputs(cuda, case, grad=False):
@@ -1048,7 +1053,11 @@ def _scan_inputs(cuda, case, grad=False):
             np.float32)).to(cuda)
 
     zx = rand(b, t, 2 * din)
-    xs = zx[..., din:] if strided else zx[..., din:].contiguous()
+    if strided == "unaligned":
+        flat = torch.empty(b * t * din + 1, device=cuda)[1:]
+        xs = flat.view(b, t, din).copy_(zx[..., din:])
+    else:
+        xs = zx[..., din:] if strided else zx[..., din:].contiguous()
     dt = torch.nn.functional.softplus(rand(b, t) - 1.0)
     a = -torch.exp(rand(din, n, scale=0.5))
     ins = [xs, dt, rand(b, t, n), rand(b, t, n), a, rand(din),
@@ -1065,7 +1074,7 @@ def test_selective_scan_kernel_matches_plain_on_card(cuda, case):
     order, so y and h_T agree to 1e-4; one launch a call; two runs bitwise
     equal (one owner per output, no atomics)."""
     from repro_torch.kernels import selective_scan as scan
-    assert scan.kernel_threads() == scan.THREADS
+    assert scan.kernel_chunk() == scan.CHUNK
     x = _scan_inputs(cuda, case)
     before = ops.launch_counts()["selective_scan"]
     y, h_t = ops.selective_scan(*x)
@@ -1077,6 +1086,49 @@ def test_selective_scan_kernel_matches_plain_on_card(cuda, case):
     torch.testing.assert_close(h_t, h_r, atol=1e-4, rtol=1e-4)
     y2, h_t2 = ops.selective_scan(*x)
     assert torch.equal(y2, y) and torch.equal(h_t2, h_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [SCAN_CASES[3], SCAN_CASES[7]], ids=str)
+def test_selective_scan_routes_agree_bitwise_on_card(cuda, case):
+    """Operands that are all 16-byte aligned go by bulk (dt, B, C) and
+    16-byte (x) copies; the same launch with every operand forced onto the
+    4-byte cp.async route stages the same values, so y and h_T are bitwise
+    equal."""
+    from repro_torch.kernels import selective_scan as scan
+    x = _scan_inputs(cuda, case)
+    b, t, din = x[0].shape
+    n = x[4].shape[-1]
+    geo = scan.geometry(b, din, n)
+    outs = []
+    for bits in (None, 0):
+        y = torch.empty((b, t, din), device=cuda)
+        h_t = torch.empty((b, din, n), device=cuda)
+        scan.launch(scan._lib(), *x, y, h_t, geo, bits=bits)
+        outs.append((y, h_t))
+    torch.cuda.synchronize()
+    p = [v.data_ptr() for v in x[:4]]
+    assert scan.route((p[0] % 16, p[1] % 16, (p[2] | p[3]) % 16), b, t, din,
+                      n, geo.states * geo.lanes, x[0].stride(0),
+                      x[0].stride(1)) == (scan.BULK_DT | scan.BULK_BC
+                                          | scan.VEC_X)
+    assert all(torch.equal(u, v) for u, v in zip(*outs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [SCAN_CASES[1], SCAN_CASES[5]], ids=str)
+def test_selective_scan_one_device_launch_a_call_on_card(cuda, case):
+    """A call makes one device launch and nothing else on the card (no
+    copy, no fill): the host's launch calls over a profiler window of
+    calls, and the card's records of them (``profiling.window_launches``;
+    the profiler may drop one record a window, never add one)."""
+    from repro_torch.runtime.profiling import window_launches
+    x = _scan_inputs(cuda, case)
+    calls = 5
+    got = window_launches(lambda: ops.selective_scan(*x), calls)
+    assert got["api"] == calls, got
+    assert calls - 1 <= sum(k for k, _ in got["device"].values()) <= calls
+    assert all("selective_scan_fwd_kernel" in k for k in got["device"]), got
 
 
 @pytest.mark.cuda

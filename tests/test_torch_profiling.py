@@ -178,3 +178,20 @@ def test_device_launches_pauses_at_both_ends_and_counts_calls(monkeypatch):
     assert time.perf_counter() - t0 >= 0.1
     assert got == {}
     assert len(calls) == 7 and syncs == [0, 7]
+
+
+def test_window_launches_counts_host_launch_calls(monkeypatch):
+    """``window_launches`` returns the device activities and the host's
+    launch calls of one window: CPU work launches nothing on either side;
+    the host's count takes the runtime's and the driver's calls that start
+    a kernel, a copy or a fill, and no other call."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    x = torch.ones(16, 16)
+    got = profiling.window_launches(lambda: (x @ x).sum(), 3, pause_s=0.0)
+    assert got == {"device": {}, "api": 0}
+    for name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cudaMemcpyAsync", "cudaMemsetAsync", "cudaGraphLaunch"):
+        assert name.startswith(profiling.LAUNCH_APIS), name
+    for name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                 "cudaEventRecord", "cudaGetDevice", "aten::mm"):
+        assert not name.startswith(profiling.LAUNCH_APIS), name
