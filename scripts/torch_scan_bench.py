@@ -8,18 +8,19 @@
 Runs ``chip_smoke.py``'s ``scan_cases`` (the same shapes, inputs, limits,
 controls and launch readings as phase 3), then, in one process:
 
-- the port's library (``_build``) and ``csrc/selective_scan.cu`` built
-  with the other exponential (``-DSCAN_EXP2``: ``ex2.approx`` of the
-  prescaled product, or ``expf``), nvcc with the port's flags into a
-  temporary directory; ptxas' registers and spills per instance of each;
+- the port's library (``_build``), and ``csrc/selective_scan.cu`` built
+  with ``-DSCAN_SWEEP_INSTANCES`` (the sweep's (states, lanes) pairs that
+  the port does not compile), nvcc with the port's flags into a temporary
+  directory; ptxas' registers and spills per instance of each;
 - each geometry of the sweep (states a lane x channels a block x stages,
   ``selective_scan.geometry``'s knobs; the kernel has no cluster) through
-  the port's library, and the default geometry through the other build
-  and with every operand on the 4-byte ``cp.async`` route: each held
-  within ``SCAN_REL_L2`` of the plain twin at hymba-1.5b's prefill shape
-  (B 4, T 2048, din 1600, n 16) and at T 1, then timed at both with CUDA
-  events, in the order of the list and again in reverse, and at T 1 read
-  by ``chip_smoke.launch_readings`` (device launches a call, device µs a
+  the sweep's build, and the default geometry through the port's library
+  as it is and with every operand on the 4-byte ``cp.async`` route: each
+  held within ``SCAN_REL_L2`` of the plain twin at hymba-1.5b's width (din
+  1600, n 16) at B 4 x T 2048 (prefill), T 37 and T 1 (decode), and at
+  B 1 x T 2048 and T 1, then timed with CUDA events, in the order of the
+  list and again in reverse, and at T 37 and T 1 read by
+  ``chip_smoke.launch_readings`` (device launches a call, device µs a
   launch, host µs a call), then a breakdown of a decode call's host time;
 - ``--against FILE ...``: other sources with the C interface of the
   earlier kernel with a lane per (channel, state)
@@ -39,8 +40,11 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HOST_REPS = 2000
-SHAPES = ((4, 2048, 1600, 16), (4, 1, 1600, 16))   # prefill, decode
-REPS = {2048: 50, 1: 500}
+# (B, T, din, n): the served batch's prefill, a ragged T and a decode
+# step, then batch 1
+SHAPES = ((4, 2048, 1600, 16), (4, 37, 1600, 16), (4, 1, 1600, 16),
+          (1, 2048, 1600, 16), (1, 1, 1600, 16))
+REPS = {2048: 50, 37: 200, 1: 500}
 
 
 def start_build(tmp, source, tag, defines, _build):
@@ -147,11 +151,10 @@ def main() -> int:
     cs.scan_cases(torch, ops, randn, {"selective_scan": []})
 
     port = scan._lib()
-    exp2 = scan.kernel_exp2()
     source = str(_build.CSRC / "selective_scan.cu")
     with tempfile.TemporaryDirectory() as tmp:
-        other_tag = f"SCAN_EXP2={int(not exp2)}"
-        started = {other_tag: start_build(tmp, source, "other", [other_tag],
+        sweep_tag = "SCAN_SWEEP_INSTANCES"
+        started = {sweep_tag: start_build(tmp, source, "sweep", [sweep_tag],
                                           _build)}
         for i, path in enumerate(args.against):
             started[path] = start_build(tmp, os.path.abspath(path),
@@ -164,6 +167,11 @@ def main() -> int:
                     getattr(lib, fn).restype = restype
             lib.cuda_error_string.argtypes = [ctypes.c_int]
             lib.cuda_error_string.restype = ctypes.c_char_p
+        sweep = built[sweep_tag]
+
+        def geo_of(x, *knobs):          # the launch at x's batch
+            return scan.geometry(x[0].shape[0], 1600, 16, *knobs)
+
         # (label, runner(x, y, h_t)) in the order they are timed
         runs, seen = [], set()
         for s in args.states:
@@ -175,19 +183,19 @@ def main() -> int:
                     seen.add((geo, st))
                     label = (f"{geo.states} states a lane, {geo.channels} "
                              f"channels a block, {st} stages")
-                    runs.append((label, lambda x, y, h, geo=geo, st=st:
-                                 scan.launch(port, *x, y, h, geo, st)))
-        default = scan.geometry(4, 1600, 16)
+                    runs.append((label, lambda x, y, h, s=s, c=c, st=st:
+                                 scan.launch(sweep, *x, y, h,
+                                             geo_of(x, s, c), st)))
+        runs.append(("the port's library, default geometry", lambda x, y, h:
+                     scan.launch(port, *x, y, h, geo_of(x))))
         runs.append(("default geometry, all operands by 4-byte cp.async",
-                     lambda x, y, h: scan.launch(port, *x, y, h, default,
+                     lambda x, y, h: scan.launch(port, *x, y, h, geo_of(x),
                                                  bits=0)))
-        runs.append((f"default geometry, {other_tag}", lambda x, y, h:
-                     scan.launch(built[other_tag], *x, y, h, default)))
         for path in args.against:
             old = built[path]
             if hasattr(old, "selective_scan_chunk"):
                 runs.append((f"{path}, default geometry", lambda x, y, h,
-                             old=old: scan.launch(old, *x, y, h, default)))
+                             old=old: scan.launch(old, *x, y, h, geo_of(x))))
                 continue
             fn = old.selective_scan_fwd     # the earlier kernel's interface
             fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
@@ -224,7 +232,7 @@ def main() -> int:
             for label, run in runs + runs[::-1]:
                 times[label].append(cs.time_ms(lambda: run(x, y, h_t),
                                                REPS[t]))
-            if t == 1:
+            if t < 64:      # one chunk: read on the device
                 for label, run in runs:
                     readings[label] = cs.launch_readings(
                         torch, lambda: run(x, y, h_t))
@@ -235,10 +243,10 @@ def main() -> int:
                          else "; device: none traced") + (
                     f", {r['launches_per_call']:g} launches a call, host "
                     f"{r['host_us_per_call']:.2f} us a call") if r else ""
-                print(f"  T {t}: {label}: " + ", ".join(
+                print(f"  B {b} T {t}: {label}: " + ", ".join(
                     f"{m:.4f}" for m in times[label]) + f" ms (rel L2 "
                     f"{rels[label]:.3e}{extra})", flush=True)
-            if t == 1:
+            if (b, t) == (4, 1):
                 host_breakdown(torch, ops, scan, _build, x)
     return 0
 

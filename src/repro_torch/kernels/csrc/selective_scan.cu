@@ -60,12 +60,12 @@
 //   depend on h: they are computed, and the group's operands read, while
 //   the group before runs its recurrence, which hides the SFU's and the
 //   shared loads' latency.
-// * An even grid.  Blocks of C channels (16: two compute warps at n 16)
-//   and a producer warp, grid (ceil(din / C), B): 400 blocks at hymba's
-//   prefill, three or four an SM, so every scheduler carries one or two
-//   compute warps.  In the sweep, blocks of 16 channels read 11% faster
-//   than of 32 and 4% slower than of 64, whose 25 blocks a batch row would
-//   leave most of the card idle below batch 4.
+// * The grid.  Blocks of C channels (64: eight compute warps at n 16) and
+//   a producer warp, grid (ceil(din / C), B): 100 blocks at hymba's
+//   prefill, one an SM, two compute warps a scheduler.  A warp's chain of
+//   steps sets the time more than the SMs filled: in the sweep blocks of
+//   64 channels read 4% faster than of 16 (400 blocks) and 15% faster
+//   than of 32 at B 4, and within 1% of 16 at B 1.
 // * Staging on an mbarrier ring, by a producer warp.  A block stages
 //   kChunk = 64 steps of dt, B, C and of its channels' x in shared memory,
 //   in S stages (4) with a full and an empty mbarrier each.  The producer
@@ -85,14 +85,14 @@
 //   the call), which L2 serves beside the x reads.
 // * Exponentials: the accurate expf of the rounded product a dt, as the
 //   twin computes it, so that the kernel's decays are the twin's bits.
-//   SCAN_EXP2 1 selects exp2 of the prescaled product, (a log2 e) dt, by
-//   ex2.approx.ftz (one SFU op and one multiply, where expf costs about 8
-//   f32 instructions beside its SFU op): about 1.8x faster at hymba's
-//   prefill shape, but a decay near 1 that differs from the twin's by an
-//   ulp moves h by that ulp over (1 - decay), and on the served model's
-//   layers y's rel L2 against the twin read 1.08e-6, over the 1e-6
-//   limit.  scripts/torch_scan_bench.py builds both; the build sets no
-//   fast-math flag.
+//   exp2 of the prescaled product by ex2.approx read 1.8x faster at the
+//   prefill shape, but a decay near 1 an ulp off the twin's moves h by
+//   that ulp over (1 - decay): on the served model's layers y's rel L2
+//   against the twin read 1.08e-6, over the 1e-6 limit (PERF.md).  The
+//   build sets no fast-math flag.
+// * A decode step (T 1) launches selective_scan_step_kernel instead:
+//   direct loads, no producer warp (below).  The staged kernel took
+//   3.6 us on the card there against the first design's 2.65.
 //
 // A ragged group at a chunk's end runs its dead steps with dt = 0: decay
 // exp(0) = 1 and (0 * x) b = 0 leave h unchanged, and their y is not
@@ -103,10 +103,6 @@
 
 #include "sm90_tc.cuh"
 
-#ifndef SCAN_EXP2
-#define SCAN_EXP2 0
-#endif
-
 namespace {
 
 using sm90::mbar_arrive;
@@ -115,11 +111,10 @@ using sm90::mbar_wait;
 using sm90::smem_u32;
 
 constexpr int kChunk = 64;          // steps staged a time
-constexpr int kMaxStages = 8;
+constexpr int kMaxStages = 4;
 // a block's compute threads (C L); the producer warp comes on top
 constexpr int kMaxConsumers = 256;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr float kLog2e = 1.4426950408889634f;
 // the wrapper's route bits: dt, B and C by cp.async.bulk, x by 16-byte
 // cp.async (the others by 4-byte cp.async)
 constexpr int kBulkDt = 1, kBulkBC = 2, kVecX = 4;
@@ -182,16 +177,6 @@ __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__device__ __forceinline__ float decay_of(float a_pre, float dt) {
-#if SCAN_EXP2
-  float y;          // a_pre = a log2(e); ex2(-0) = 1 exactly
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(a_pre * dt));
-  return y;
-#else
-  return expf(a_pre * dt);
-#endif
-}
-
 // R consecutive floats of shared memory (16-byte aligned when R >= 4).
 template <int R>
 __device__ __forceinline__ void load_states(const float* p, float (&v)[R]) {
@@ -242,7 +227,7 @@ template <int R, int L>
 __device__ __forceinline__ void prepare(Group<R, L>& g, const float* st,
                                         const Layout& lay, int C, int lc,
                                         int l, int t,
-                                        const float (&a_pre)[R]) {
+                                        const float (&av)[R]) {
 #pragma unroll
   for (int j = 0; j < L; ++j) {
     const float dtt = st[lay.dt + t + j];
@@ -253,7 +238,7 @@ __device__ __forceinline__ void prepare(Group<R, L>& g, const float* st,
     load_states<R>(st + lay.c + (t + j) * (R * L) + l * R, g.c[j]);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      g.d[j][r] = decay_of(a_pre[r], dtt);
+      g.d[j][r] = expf(av[r] * dtt);
       g.u[j][r] = dtx * bv[r];
     }
   }
@@ -296,18 +281,18 @@ __device__ __forceinline__ void store_if(float* p, float v, bool pred) {
 template <int R, int L, bool kWhole>
 __device__ __forceinline__ void scan_chunk(const float* st, const Layout& lay,
                                            int C, int lc, int l, int steps,
-                                           const float (&a_pre)[R],
+                                           const float (&av)[R],
                                            float (&h)[R], float d_c,
                                            bool ch_live, float* y_k,
                                            long long din) {
   const int end = kWhole ? kChunk : (steps + L - 1) / L * L;
   constexpr int kUnroll = kWhole ? kChunk / L : 1;
   Group<R, L> cur;
-  prepare(cur, st, lay, C, lc, l, 0, a_pre);
+  prepare(cur, st, lay, C, lc, l, 0, av);
 #pragma unroll kUnroll
   for (int t = 0; t < end; t += L) {
     Group<R, L> next;
-    prepare(next, st, lay, C, lc, l, min(t + L, end - L), a_pre);
+    prepare(next, st, lay, C, lc, l, min(t + L, end - L), av);
     const float yv = recur(cur, h, l, d_c);
     store_if(y_k + (t + l) * din, yv, ch_live && t + l < steps);
     cur = next;
@@ -342,16 +327,12 @@ selective_scan_fwd_kernel(const float* __restrict__ xs, long long sxb,
   const int cols = min(C, din - c0);        // the block's live channels
   const int chunks = (T + kChunk - 1) / kChunk;
 
-  float a_pre[R], h[R];
+  float av[R], h[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int s = l * R + r;
     const bool live = ch_live && s < n;
-#if SCAN_EXP2
-    a_pre[r] = live ? a[(long long)ch * n + s] * kLog2e : 0.f;
-#else
-    a_pre[r] = live ? a[(long long)ch * n + s] : 0.f;
-#endif
+    av[r] = live ? a[(long long)ch * n + s] : 0.f;
     h[r] = live ? h0[((long long)b * din + ch) * n + s] : 0.f;
   }
   const float d_c = ch_live ? dskip[ch] : 0.f;
@@ -445,15 +426,64 @@ selective_scan_fwd_kernel(const float* __restrict__ xs, long long sxb,
     const float* st = smem + s * lay.floats;
     float* y_k = y_ch + (long long)t0 * din;
     if (steps == kChunk)
-      scan_chunk<R, L, true>(st, lay, C, lc, l, kChunk, a_pre, h, d_c,
+      scan_chunk<R, L, true>(st, lay, C, lc, l, kChunk, av, h, d_c,
                              ch_live, y_k, din);
     else
-      scan_chunk<R, L, false>(st, lay, C, lc, l, steps, a_pre, h, d_c,
+      scan_chunk<R, L, false>(st, lay, C, lc, l, steps, av, h, d_c,
                               ch_live, y_k, din);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int s = l * R + r;
+    if (ch_live && s < n) hT[((long long)b * din + ch) * n + s] = h[r];
+  }
+}
+
+// A decode step (T 1): no producer warp, no staging, no mbarrier.  Each
+// lane loads its dt, x, b and c from global memory beside a and h0, and
+// the channel's lanes sum y by log2(L) shuffle rounds in the order of
+// transpose_sum's step 0, so it gives the staged kernel's bits.  A kernel
+// of its own: as a branch of the staged kernel it cost that kernel 13%
+// at the prefill shape (registers 106 -> 111; PERF.md).
+template <int R, int L>
+__global__ void __launch_bounds__(kMaxConsumers)
+selective_scan_step_kernel(const float* __restrict__ xs, long long sxb,
+                           const float* __restrict__ dt,
+                           const float* __restrict__ bb,
+                           const float* __restrict__ cc,
+                           const float* __restrict__ a,
+                           const float* __restrict__ dskip,
+                           const float* __restrict__ h0,
+                           float* __restrict__ y, float* __restrict__ hT,
+                           int din, int n, int C) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y;
+  const int l = lane / (32 / L);
+  const int ch = blockIdx.x * C + warp * (32 / L) + lane % (32 / L);
+  const bool ch_live = ch < din;
+  const float dtt = dt[b];
+  const float xv = ch_live ? xs[(long long)b * sxb + ch] : 0.f;
+  const float dtx = dtt * xv;
+  float h[R], acc = 0.f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int s = l * R + r;
+    const bool live = ch_live && s < n;
+    const float av = live ? a[(long long)ch * n + s] : 0.f;
+    const float hv = live ? h0[((long long)b * din + ch) * n + s] : 0.f;
+    const float bv = live ? bb[(long long)b * n + s] : 0.f;
+    const float cv = live ? cc[(long long)b * n + s] : 0.f;
+    h[r] = fmaf(expf(av * dtt), hv, dtx * bv);
+    acc = fmaf(h[r], cv, acc);
+  }
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1)
+    acc += __shfl_xor_sync(kFull, acc, o * (32 / L));
+  if (ch_live && l == 0)
+    y[(long long)b * din + ch] = acc + dskip[ch] * xv;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int s = l * R + r;
@@ -470,9 +500,15 @@ struct Args {
 
 template <int R, int L>
 cudaError_t launch(const Args& p, cudaStream_t stream) {
+  const dim3 grid((p.din + p.C - 1) / p.C, p.B);
+  if (p.T == 1) {
+    selective_scan_step_kernel<R, L><<<grid, p.C * L, 0, stream>>>(
+        p.xs, p.sxb, p.dt, p.bb, p.cc, p.a, p.dskip, p.h0, p.y, p.hT, p.din,
+        p.n, p.C);
+    return cudaGetLastError();
+  }
   const int threads = p.C * L + 32;          // and the producer warp
-  // no more stages than chunks: a decode step's one chunk takes a
-  // quarter of the shared memory, beside kernels that want it as L1
+  // no more stages than chunks
   const int stages = min(p.S, (p.T + kChunk - 1) / kChunk);
   const size_t smem = (size_t)stages * layout(p.C, R * L).floats * 4;
   if (smem > 48 * 1024) {       // above the default: asked once per card
@@ -488,7 +524,6 @@ cudaError_t launch(const Args& p, cudaStream_t stream) {
       granted[dev] = smem;
     }
   }
-  const dim3 grid((p.din + p.C - 1) / p.C, p.B);
   selective_scan_fwd_kernel<R, L><<<grid, threads, smem, stream>>>(
       p.xs, p.sxb, p.sxt, p.dt, p.bb, p.cc, p.a, p.dskip, p.h0, p.y, p.hT,
       p.T, p.din, p.n, p.C, stages, p.route);
@@ -498,13 +533,12 @@ cudaError_t launch(const Args& p, cudaStream_t stream) {
 }  // namespace
 
 extern "C" int selective_scan_chunk() { return kChunk; }
-extern "C" int selective_scan_exp2() { return SCAN_EXP2; }
 
 // xs strides in elements (its channel stride is 1); B, T, din >= 1; states
 // (R) and lanes (L) one of the compiled pairs below with 1 <= n <= R L;
 // channels (C) a multiple of 4 with C L a multiple of 32, at most 256
 // (a producer warp comes on top);
-// 1 <= stages <= 8; route: kBulkDt | kBulkBC | kVecX for the operands the
+// 1 <= stages <= 4; route: kBulkDt | kBulkBC | kVecX for the operands the
 // wrapper found aligned (kBulkBC needs n == R L).  Returns the launch's
 // CUDA error.
 extern "C" int selective_scan_fwd(const void* xs, long long sxb,
@@ -535,8 +569,10 @@ extern "C" int selective_scan_fwd(const void* xs, long long sxb,
     case 402: return (int)launch<4, 2>(p, st);
     case 404: return (int)launch<4, 4>(p, st);
     case 408: return (int)launch<4, 8>(p, st);
+#ifdef SCAN_SWEEP_INSTANCES     // scripts/torch_scan_bench.py's other knobs
     case 208: return (int)launch<2, 8>(p, st);    // n 16, 2 states a lane
     case 802: return (int)launch<8, 2>(p, st);    // n 16, 8 states a lane
+#endif
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,8 +10,10 @@ over groups of steps, and a block stages :data:`CHUNK` steps of the row's
 dt, B and C and of its channels' x in a ring of :data:`STAGES` stages,
 filled by a producer warp: dt, B and C by bulk copies and x by 16-byte
 copies where the operands are 16-byte aligned, by 4-byte copies where
-not (:func:`route`; see the source).  One launch a call,
-T = 1 (a decode step) included; two runs are bitwise equal.
+not (:func:`route`; see the source).  A decode step (T = 1) launches a
+kernel of its own (``selective_scan_step_kernel``, same geometry): no
+producer warp and no staging, each lane's operands loaded from global
+memory.  One launch a call; two runs are bitwise equal.
 
 The launch geometry is computed here (:func:`geometry`), so the CPU tests
 reach it; its knobs are the named constants below (ROADMAP C13: no tuner
@@ -35,13 +37,18 @@ import torch
 from . import _build
 
 STATES_PER_LANE = 4      # a lane's states (n padded to a power of two)
-CHANNELS_PER_BLOCK = 16  # 64 threads at n 16: 400 blocks at B 4, din 1600
+# a block's channels, at most MAX_THREADS / lanes: at hymba's width and
+# the served batch 4 (B 4 x T 2048) blocks of 64 read faster than of 16 or
+# 32 on an H100 (PERF.md, scripts/torch_scan_bench.py)
+CHANNELS_PER_BLOCK = 64
 CHUNK = 64               # steps staged a time (the kernel's kChunk)
-STAGES = 4               # the staging ring's depth
+STAGES = 4               # the staging ring's depth (kMaxStages)
 MAX_STATE = 32           # a channel's lanes lie in one warp
 MAX_THREADS = 256        # a block's compute threads (kMaxConsumers)
-# (states a lane, lanes a channel) pairs the library is compiled for
-INSTANCES = ((1, 1), (2, 1), (4, 1), (4, 2), (4, 4), (4, 8), (2, 8), (8, 2))
+# (states a lane, lanes a channel) pairs the library is compiled for: the
+# ones geometry() takes for n 1-32 (scripts/torch_scan_bench.py builds
+# its sweep's others into a library of its own)
+INSTANCES = ((1, 1), (2, 1), (4, 1), (4, 2), (4, 4), (4, 8))
 # route bits (the kernel's kBulkDt, kBulkBC, kVecX): dt, and B and C, by
 # cp.async.bulk; x by 16-byte cp.async; an operand without its bit by
 # 4-byte cp.async
@@ -51,15 +58,14 @@ ALIGN = 16               # the copies' addresses and sizes
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURE = {"selective_scan_fwd": ((_P, _L, _L) + (_P,) * 8 + (_I,) * 9
                                      + (_P,), _I),
-              "selective_scan_chunk": ((), _I),
-              "selective_scan_exp2": ((), _I)}
+              "selective_scan_chunk": ((), _I)}
 
 
 class Geometry(NamedTuple):
     states: int          # a lane's states (R)
     lanes: int           # a channel's lanes (L); states * lanes >= n
     channels: int        # a block's channels (C)
-    threads: int         # channels * lanes, and a producer warp beside
+    threads: int         # channels * lanes (and a producer warp, T > 1)
     grid: tuple          # (ceil(din / channels), batch)
 
 
@@ -73,8 +79,9 @@ def geometry(batch: int, din: int, n: int, states: int = STATES_PER_LANE,
     """The launch for state size ``n``: n padded to the power of two NP,
     ``min(states, NP)`` states a lane, ``NP / states`` lanes a channel
     (lanes of one warp, ``32 / lanes`` apart), ``channels`` channels a
-    block (at least a warp's worth), grid ``(ceil(din / channels),
-    batch)``, and a producer warp beside the ``threads``.  Lane ``q`` of
+    block (at least a warp's worth, at most ``MAX_THREADS`` threads), grid
+    ``(ceil(din / channels), batch)``, and a producer warp beside the
+    ``threads`` when T > 1.  Lane ``q`` of
     warp ``w`` of block ``(bx, by)`` owns channel ``bx * channels + w * (32
     // lanes) + q % (32 // lanes)`` of batch row ``by`` and, in register
     ``r``, state ``q // (32 // lanes) * states + r``; channels past din and
@@ -85,7 +92,7 @@ def geometry(batch: int, din: int, n: int, states: int = STATES_PER_LANE,
     padded = 1 << (n - 1).bit_length()
     states = min(states, padded)
     lanes = padded // states
-    channels = max(channels, 32 // lanes)
+    channels = max(min(channels, MAX_THREADS // lanes), 32 // lanes)
     return Geometry(states, lanes, channels, channels * lanes,
                     (-(-din // channels), batch))
 
@@ -196,10 +203,3 @@ def kernel_chunk() -> int:
     """The kernel's steps a chunk as compiled (must equal :data:`CHUNK`).
     Needs the card."""
     return _lib().selective_scan_chunk()
-
-
-def kernel_exp2() -> bool:
-    """Whether the library computes its decays by ``ex2.approx`` of the
-    prescaled product (``SCAN_EXP2``) rather than by ``expf``.  Needs the
-    card."""
-    return bool(_lib().selective_scan_exp2())

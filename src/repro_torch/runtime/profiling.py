@@ -25,6 +25,9 @@ LAUNCH_APIS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy",
 # 0.5 ms early in a window (scripts/torch_profiler_edges.py), and a window
 # without the pause lost launches now and then
 LAUNCH_EDGE_PAUSE_S = 0.02
+# clock cycles of the kernel a launch-counting window starts with on a card
+# (window_launches)
+LEAD_CYCLES = 1000
 
 # (substring of the lower-cased kernel name, group), first match wins
 _PORT_KERNELS = (
@@ -38,7 +41,9 @@ _PORT_KERNELS = (
     ("ddim_fused_kernel", "ddim_fused (port)"),
     ("parareal_resid_cluster_kernel", "parareal_update_residual (port)"),
     ("parareal_update_cluster_kernel", "parareal_update (port)"),
-    ("selective_scan_fwd_kernel", "selective_scan (port)"),
+    # the staged kernel (selective_scan_fwd_kernel) and the decode step's
+    # (selective_scan_step_kernel)
+    ("selective_scan_", "selective_scan (port)"),
 )
 _GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass", "sm90_")
 GEMM = "gemm (cuBLAS)"
@@ -75,34 +80,42 @@ def window_launches(fn, calls: int, pause_s: float = LAUNCH_EDGE_PAUSE_S
     ``{"device": {kernel name: [launches, device µs]}, "api": n}``, the
     device activities (kernels, copies, fills) the profiler recorded and
     the host's calls that start one (``LAUNCH_APIS``).  The card is idle
-    and the host waits ``pause_s`` seconds at both ends of the window, so
-    that each launch of the calls lies well inside it: the profiler keeps
-    a device activity only if its timestamps, taken on the card's clock,
-    fall inside the window, taken on the host's.  The host's count is the
-    one to hold a function to: on an H100 late in a long process, windows
-    of 20 scan calls recorded 19 device activities against 20 host
-    launches, with the edge pause (``chip_smoke.py`` phase 3)."""
+    and the host waits ``pause_s`` seconds at both ends of the window.  On
+    a card the window starts with a lead kernel (``torch.cuda._sleep``),
+    whose call (the window's first) and record (by CUPTI's correlation id)
+    are left out of both counts: on an H100, from some point of a
+    long process on, the profiler kept no record of the first launch of
+    every window, whatever it launched (``scripts/torch_profiler_edges.py
+    --scan-late``; ROADMAP C12), and the lead kernel takes that loss."""
     import time
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    lead = torch.cuda.is_available()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(pause_s)
+        if lead:
+            torch.cuda._sleep(LEAD_CYCLES)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
         time.sleep(pause_s)
+    raw = prof.profiler.kineto_results.events()
+    launches = sorted((e.start_ns(), e.correlation_id()) for e in raw
+                      if e.device_type() == DeviceType.CPU
+                      and e.name().startswith(LAUNCH_APIS))
+    skip = {launches[0][1]} if lead and launches else set()
     device = {}
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA and evt.key not in NOT_KERNELS:
-            device[evt.key] = [evt.count, evt.self_device_time_total]
-    api = sum(1 for evt in prof.events()
-              if evt.device_type == DeviceType.CPU
-              and evt.name.startswith(LAUNCH_APIS))
-    return {"device": device, "api": api}
+    for e in raw:
+        if (e.device_type() == DeviceType.CUDA and e.name() not in NOT_KERNELS
+                and e.correlation_id() not in skip):
+            count, us = device.get(e.name(), (0, 0.0))
+            device[e.name()] = [count + 1,
+                                us + (e.end_ns() - e.start_ns()) / 1e3]
+    return {"device": device, "api": len(launches) - len(skip)}
 
 
 def device_launches(fn, calls: int, pause_s: float = LAUNCH_EDGE_PAUSE_S

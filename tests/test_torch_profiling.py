@@ -97,10 +97,12 @@ def test_kernel_group_tensor_core_forward(name):
     "const*, long long, long long, float const*, float const*, float "
     "const*, float const*, float const*, float const*, float*, float*, "
     "int, int, int)",
-    "void (anonymous namespace)::selective_scan_fwd_kernel<4>(...)"])
+    "void (anonymous namespace)::selective_scan_fwd_kernel<4>(...)",
+    "void (anonymous namespace)::selective_scan_step_kernel<4, 4>(...)"])
 def test_kernel_group_selective_scan(name):
-    """Hymba's selective scan (any lanes a channel) has a group of its
-    own, apart from the elementwise work around it."""
+    """Hymba's selective scan (any lanes a channel, the staged kernel and
+    the decode step's) has a group of its own, apart from the elementwise
+    work around it."""
     assert profiling.kernel_group(name) == "selective_scan (port)"
 
 
@@ -195,3 +197,24 @@ def test_window_launches_counts_host_launch_calls(monkeypatch):
     for name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                  "cudaEventRecord", "cudaGetDevice", "aten::mm"):
         assert not name.startswith(profiling.LAUNCH_APIS), name
+
+
+def test_window_launches_leads_with_a_kernel_of_its_own(monkeypatch):
+    """On a card the window starts with one ``torch.cuda._sleep`` launch
+    before the calls (the profiler may keep no record of a window's first
+    launch), and leaves it out of both counts; without a card there is no
+    lead launch."""
+    order = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "_sleep",
+                        lambda cycles: order.append(("lead", cycles)))
+    x = torch.ones(8, 8)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    got = profiling.window_launches(lambda: order.append((x @ x).sum()), 3,
+                                    pause_s=0.0)
+    assert order[0] == ("lead", profiling.LEAD_CYCLES) and len(order) == 4
+    assert got == {"device": {}, "api": 0}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    order.clear()
+    profiling.window_launches(lambda: order.append(1), 2, pause_s=0.0)
+    assert order == [1, 1]

@@ -70,17 +70,35 @@ def test_scan_geometry_gives_every_state_one_owner(n, din):
 
 def test_scan_geometry_at_hymba_width():
     """hymba-1.5b (din 1600, n 16) at batch 4: 4 states a lane, 4 lanes
-    a channel, blocks of 16 channels (64 compute threads), 400 blocks; the
-    sweep's other knobs map to compiled instances too."""
+    a channel, blocks of ``CHANNELS_PER_BLOCK`` channels; the bench's
+    sweep knobs (states a lane, channels a block) give every state one
+    owner too."""
     geo = scan.geometry(4, 1600, 16)
-    assert geo == scan.Geometry(4, 4, 16, 64, (100, 4))
+    c = scan.CHANNELS_PER_BLOCK
+    assert geo == scan.Geometry(4, 4, c, 4 * c, (-(-1600 // c), 4))
     for states in (2, 4, 8):
-        for channels in (8, 16, 32):
+        for channels in (8, 16, 32, 64):
             g = scan.geometry(4, 1600, 16, states, channels)
-            assert (g.states, g.lanes) in scan.INSTANCES
-            assert (_owners(4, 1600, 16, g) == 1).all()
+            if g.threads <= scan.MAX_THREADS:
+                assert (_owners(4, 1600, 16, g) == 1).all()
     with pytest.raises(ValueError, match="n <= 32"):
         scan.geometry(1, 8, 33)
+
+
+def test_scan_instances_are_the_ones_geometry_takes():
+    """The library compiles exactly the (states, lanes) pairs that the
+    default geometry takes for n 1-32; the sweep's others are built only
+    under ``SCAN_SWEEP_INSTANCES``, and the ring holds ``STAGES``."""
+    taken = {(g.states, g.lanes) for g in
+             (scan.geometry(1, 64, n) for n in range(1, scan.MAX_STATE + 1))}
+    assert taken == set(scan.INSTANCES)
+    src = (_build.CSRC / "selective_scan.cu").read_text()
+    body = src[src.index("switch (states * 100 + lanes)"):]
+    always, _, sweep = body.partition("#ifdef SCAN_SWEEP_INSTANCES")
+    compiled = set(re.findall(r"launch<(\d+), (\d+)>", always))
+    assert compiled == {(str(r), str(ln)) for r, ln in scan.INSTANCES}
+    assert "#endif" in sweep and re.search(r"launch<\d+, \d+>", sweep)
+    assert f"constexpr int kMaxStages = {scan.STAGES};" in src
 
 
 @pytest.mark.parametrize("case", [
@@ -114,16 +132,15 @@ def test_scan_route_takes_bulk_copies_only_where_aligned(case):
 # the binding
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("fn", ["selective_scan_fwd", "selective_scan_chunk",
-                                "selective_scan_exp2"])
+@pytest.mark.parametrize("fn", ["selective_scan_fwd", "selective_scan_chunk"])
 def test_scan_signatures_match_the_source(fn):
     """Every C function the ``ctypes`` binding declares is an ``extern
     "C"`` function of ``csrc/selective_scan.cu`` with as many parameters
     as the binding's argument types (the stream included); the source
     compiles every (states, lanes) pair of ``INSTANCES`` and its chunk and
     block limit are the wrapper's."""
-    assert sorted(scan._SIGNATURE) == sorted(
-        ["selective_scan_fwd", "selective_scan_chunk", "selective_scan_exp2"])
+    assert sorted(scan._SIGNATURE) == ["selective_scan_chunk",
+                                       "selective_scan_fwd"]
     src = (_build.CSRC / "selective_scan.cu").read_text()
     found = re.findall(r'extern "C" int ' + fn + r'\(([^)]*)\)', src)
     assert len(found) == 1, fn
