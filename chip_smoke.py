@@ -59,7 +59,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    controls that must miss it; the bound counts its exponentials at the
    SFUs' rate; its geometry, ptxas' registers and spills per instance,
    and at each shape one device launch a call, device µs a launch and
-   host µs a call);
+   host µs a call); the scan's forward with checkpoints at hymba's
+   training shape (2 x 2048), timed in turns with the forward without
+   them (y and h_T bitwise equal), and its backward (the backward kernel
+   and its sum) against ``ref.selective_scan_bwd`` at that shape, at a
+   ragged T from a nonzero state with a gradient on the final state and
+   with xs and dy off a 16-byte boundary (two runs bitwise equal, each
+   gradient held by rel L2, the twin fed dy a step late as the control
+   that must miss it on every gradient; the bound counts one pass of
+   exponentials; ptxas' registers and spills per instance, two device
+   launches a call);
 4. sampling: the full-width, full-depth ``srds-dit-sd2`` DiT (28 layers,
    d 1152, 16 heads of 72, bf16) with weights drawn from a numpy seed
    (every leaf nonzero) and loaded through ``load_jax_params``; DDIM on
@@ -177,12 +186,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    prefill's last logits and final SSM states through the kernels against
    the plain path, decode step 1 against ``forward_train`` over the
    prompts plus the first tokens, and a control that must miss the first
-   check (the same prefill with ``window=None``).
+   check (the same prefill with ``window=None``);
+13. LM training: ``hymba-1.5b`` whole (32 layers, bf16, drawn on the
+   card) through ``launch.train.build``, 5 AdamW steps through
+   ``train_loop`` at batch 2 x 2048 from ``LMStream``, as phases 10-11
+   (launch counts reset just before and read just after, exactly 32 a
+   step of: the window flash forward, on the tensor-core route, dq and
+   dkv in their window form, the scan's forward, every one writing
+   checkpoints, its backward and the backward's sum).  Checks: one
+   gradient of the training batch with every layer's window dq/dkv
+   against the plain backward on its own inputs, and the scan backward of
+   the first, a middle and the last layer against
+   ``ref.selective_scan_bwd`` on theirs; the loss over the trained
+   batches falls by more than ``FIT_MARGIN`` while the reversed update's
+   does not; on the trained weights in f32 at batch 1 x
+   ``HYMBA_GRAD_SEQ`` (past the window) a reading of the whole gradient
+   over all 32 layers through the kernels against the plain path's (it
+   depends on the trajectory there), and the check over the first
+   ``HYMBA_GRAD_LAYERS``, whole and over the dt and q/k/v leaves, with the
+   scan's ``ddt`` dropped and the flash backward without its window as
+   controls; a profile of one step (no C10 windows: on an H100 their
+   profiler took 291 s).
 
-Phases 4-8, 10 and 12 also hold the flash kernels' launches on their
+Phases 4-8, 10, 12 and 13 also hold the flash kernels' launches on their
 main paths, forward and backward, to their tensor-core route
 (``ops.route_counts``: every attention there is bf16 with head dim 64,
-72 or 128; the backward runs in phases 7 and 10).  Phases 10 and 11 end with ROADMAP
+72 or 128; the backward runs in phases 7, 10 and 13).  Phases 10 and 11
+end with ROADMAP
 C10's reading: the busy share of 10 ``train_loop`` steps as the launcher
 runs them (``log_every=10``, pinned non-blocking batch copies) and as it
 ran before (``log_every=1``, pageable copies), each under the profiler
@@ -310,8 +340,8 @@ HYMBA_LIMITS = (1e-3, 1e-3)
 # steps at lr 3e-5 to 6e-4 and rising above (PERF.md); both gates read
 # the trained batches (FIT_MARGIN)
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 2048, 5
-LM_TRAIN_LR = {"qwen3-8b": 3e-4, "rwkv6-1.6b": 1e-4}
-LM_TRAIN_LAYERS = {"qwen3-8b": 8, "rwkv6-1.6b": None}
+LM_TRAIN_LR = {"qwen3-8b": 3e-4, "rwkv6-1.6b": 1e-4, "hymba-1.5b": 3e-4}
+LM_TRAIN_LAYERS = {"qwen3-8b": 8, "rwkv6-1.6b": None, "hymba-1.5b": None}
 # phases 10-11's gate (check 3): the loop must lower the mean loss over the
 # 5 batches it trains on by more than FIT_MARGIN, and the same loop from
 # the same weights with the update reversed must not (check 5).  A
@@ -323,16 +353,19 @@ LM_TRAIN_LAYERS = {"qwen3-8b": 8, "rwkv6-1.6b": None}
 # blocks, 0.081-0.121 with the ones before them and 0.110 with the plain scan
 # (seed 0), and a rise of 0.084-0.106 with the update reversed; for
 # qwen3-8b (8 layers, lr 3e-4, seeds 0-5), a fall of 1.340-1.378 and a
-# rise of 1.348-1.386 reversed.  Each margin is about a third of the
-# smallest fall
-FIT_MARGIN = {"qwen3-8b": 0.45, "rwkv6-1.6b": 0.03}
+# rise of 1.348-1.386 reversed; for hymba-1.5b (32 layers, seed 0, batch
+# 0 alone) a fall of 0.581, 0.606 and 0.438 at lr 1e-4, 3e-4 and 1e-3 and
+# a rise of 0.568, 0.605 and 0.485 reversed, and phase 13 (lr 3e-4) a fall
+# of 0.689 over its 5 batches, 0.703 up reversed.  Each margin is about a
+# third of the smallest fall
+FIT_MARGIN = {"qwen3-8b": 0.45, "rwkv6-1.6b": 0.03, "hymba-1.5b": 0.2}
 # phase 3's B1/B2/B4 and scan readings: the calls of one profiler window
 # (launches per call, device time per launch) and the calls timed for the
 # host's enqueue time.  Launches are counted both as the host's launch
 # calls and as the card's records of them, and each must equal the
-# expected count (profiling.window_launches leads each window with a
-# kernel of its own: from the WKV cases of this phase on, the profiler
-# kept no record of a window's first launch)
+# expected count (profiling.window_launches leads each window with
+# LEAD_LAUNCHES kernels of its own: from the WKV cases of this phase on,
+# the profiler kept no record of a window's first 1-4 launches)
 LAUNCH_WINDOW_CALLS, HOST_CALLS = 20, 200
 # phases 10-11: the steps of each busy-share window (ROADMAP C10), one
 # launcher log interval
@@ -350,9 +383,29 @@ BUSY_STEPS = 10
 # order: at init, f32, kernels vs plain read 9.2e-7 at 1 layer, 1.3e-5 at
 # 4 and 7.7e-2 at 24 (0.91 after the 5 steps), so the check cuts the depth
 LM_GRAD_BATCH, LM_GRAD_SEQ_F32, LM_GRAD_LAYERS_F32 = 1, 256, 4
-LM_GRAD_REL_L2 = {"qwen3-8b": 5e-2, "rwkv6-1.6b": 1e-3}
+LM_GRAD_REL_L2 = {"qwen3-8b": 5e-2, "rwkv6-1.6b": 1e-3, "hymba-1.5b": 1e-3}
 QKV_LEAVES = (".attn.wq", ".attn.wk", ".attn.wv")
 DECAY_LEAVES = (".tmix.w_base", ".tmix.A_w", ".tmix.B_w")
+# phase 13: hymba-1.5b's gradient check, f32 on the trained weights at
+# batch 1 x HYMBA_GRAD_SEQ (past the window, so the window forms run; the
+# plain attention keeps (H, S, S) f32 intermediates and the plain scan a
+# graph of every step) over its first HYMBA_GRAD_LAYERS layers; its part:
+# the leaves whose gradient flows only through the scan's dt (ddt) and
+# the attention's q, k, v (the window backward).  Over all 32 layers the
+# reading depends on the trajectory, as rwkv6-1.6b's does: two H100 runs
+# whose backward summed in another order (blocks of 64 and 32 channels)
+# trained to weights reading 4.79e-5 and 9.18e-4, so the check cuts the
+# depth; over the first 4 layers a run read 1.35e-5, the ddt-dropped and
+# window-dropped controls 0.397 and 1.77e-2 (LM_GRAD_REL_L2 1e-3)
+HYMBA_GRAD_SEQ, HYMBA_GRAD_LAYERS = 1088, 4
+DT_LEAVES = (".ssm.w_dt", ".ssm.b_dt")
+# phase 13's check of the scan backward on the layers' own inputs: the
+# plain backward is a Python loop of ~30 launches a step (about a second a
+# layer at 2 x 2048), so the first, a middle and the last layer
+HYMBA_SCAN_CHECK_LAYERS = (0, 16, 31)
+# the scan's counters: the forward, the backward and the backward's sum
+SCAN_KERNELS = ("selective_scan", "selective_scan_bwd",
+                "selective_scan_bwd_sum")
 # the flash forward's launches by route on each main path (check_tc_route)
 ROUTES_BY_PATH = {}
 # the selective scan against its plain twin (phase 3 and phase 12's
@@ -362,6 +415,13 @@ ROUTES_BY_PATH = {}
 # served model's layers (max abs err 1.1e-5 at T 2048), its controls 0.63
 # (D dropped) and 0.75 (h0 zeroed): the limit is about 6x the readings
 SCAN_TOL, SCAN_REL_L2 = 1e-4, 1e-6
+# the scan's backward kernel against ref.selective_scan_bwd (phase 3 and
+# phase 13's layer check), f32, rel L2 per gradient: dB, dC and ddt sum
+# 1,600 channels, da and dD every step, in other orders than the twin's.
+# An H100 run read at most 1.2e-6 (da, which sums 2 x 2048 steps) in
+# phase 3 and 1.1e-6 on the trained model's layers, its control (dy a
+# step late) 1.4 and more: the limit is about 8x the readings
+SCAN_BWD_REL_L2 = 1e-5
 # the SFUs' rate for expf's ex2 (16 a clock an SM on compute capability
 # 9.0, CUDA C++ Programming Guide, arithmetic instruction throughput) at
 # the clock of the f32 peak above (67e12 / (132 SMs x 128 lanes x 2))
@@ -563,7 +623,7 @@ def ptxas_readings(log: str, kernel: str):
             if kernel not in name:
                 current = None
             else:               # integer template arguments, else the dtype
-                current = (",".join(re.findall(r"Li(\d+)E", name))
+                current = (",".join(re.findall(r"L[ib](\d+)E", name))
                            or ("bf16" if "bfloat16" in name else "f32"))
             spills = None
             continue
@@ -683,7 +743,7 @@ def train_phase(torch, ops, cfg, tree):
     stream = make_stream(cfg, DataConfig(seed=SEED,
                                          global_batch=TRAIN_BATCH),
                          device="cuda")
-    print(f"[7/12] training {cfg.name} through launch.train.build "
+    print(f"[7/13] training {cfg.name} through launch.train.build "
           f"({time.perf_counter() - t0:.1f} s), batch {TRAIN_BATCH}, "
           f"{stream.size}x{stream.size}x{stream.channels} images", flush=True)
     loop_seed = SEED + 1
@@ -815,7 +875,7 @@ def serve_phase(torch, ops, C, model_fn, sched, solver, layers):
                                seed=SERVE_TRACE_SEED)
     if [r.tol for r in trace] != [0.0, 0.0] + [LOOSE_TOL] * 4:
         raise AssertionError(f"unexpected tiers {[r.tol for r in trace]}")
-    print(f"[6/12] serving: {len(trace)} requests in 2 bursts "
+    print(f"[6/13] serving: {len(trace)} requests in 2 bursts "
           f"{SERVE_PERIOD} s apart (tols {[r.tol for r in trace]}), "
           f"{SERVE_SLOTS} slots, N={N_STEPS}, B={B}, AsyncServeLoop on a "
           f"MonotonicClock, FIFO", flush=True)
@@ -1147,7 +1207,7 @@ def lm_phase(torch, ops, step, arch, limits):
         SEED), device="cuda")
     torch.cuda.synchronize()
     kernel = "rwkv6_wkv" if cfg.block == "rwkv6" else "flash_attention_fwd"
-    print(f"[{step}/12] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
+    print(f"[{step}/13] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}, "
           f"{tf.param_count(model) / 1e9:.3f} B params drawn on the card in "
@@ -1304,7 +1364,7 @@ def hymba_phase(torch, ops, step):
     model = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(
         SEED), device="cuda")
     torch.cuda.synchronize()
-    print(f"[{step}/12] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
+    print(f"[{step}/13] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
           f"{cfg.resolved_head_dim}, window {cfg.window}, SSM {cfg.ssm_d_inner}"
           f" x {cfg.ssm_state}, vocab {cfg.vocab_size}, {cfg.dtype}, "
@@ -1572,7 +1632,7 @@ def lm_train_phase(torch, ops, step_no, arch):
                          device="cuda")
     torch.cuda.synchronize()
     n_params = tf.param_count(model)
-    print(f"[{step_no}/12] training {arch}: {cfg.num_layers} of "
+    print(f"[{step_no}/13] training {arch}: {cfg.num_layers} of "
           f"{get_arch(arch).num_layers} layers, d {cfg.d_model}, "
           f"{n_params / 1e9:.3f} B params ({cfg.dtype}, drawn on the card; "
           f"{time.perf_counter() - t0:.1f} s), batch {LM_TRAIN_BATCH} x "
@@ -1584,7 +1644,10 @@ def lm_train_phase(torch, ops, step_no, arch):
 
     # 1. the backward kernel on each layer's own inputs, captured from one
     # gradient of the training batch, against its plain version
-    if cfg.block == "rwkv6":
+    if cfg.block == "hymba":
+        batch0 = stream.batch(0)
+        hymba_layer_checks(torch, ops, ref, cfg, model, batch0)
+    elif cfg.block == "rwkv6":
         real_wkv_bwd = ops.rwkv6_wkv_bwd
 
         def checked(r, k, v, w, u, ckpt, dout, ds_t=None):
@@ -1610,29 +1673,31 @@ def lm_train_phase(torch, ops, step_no, arch):
         attr = "flash_attention_bwd"
         limit = BWD_MASKED_REL_L2["bfloat16"]
         what = "dq/dk/dv"
-    real = getattr(ops, attr)
-    setattr(ops, attr, checked)
-    try:
-        batch0 = stream.batch(0)
-        loss, _ = lm_loss(cfg, model, batch0)
-        torch.autograd.grad(loss, list(model.parameters()))
-    finally:
-        setattr(ops, attr, real)
-    worst = [max(e[i] for e in errs) for i in range(len(errs[0]))]
-    print(f"  1. {bwd_name.replace('_dkv', '')} on each of the {len(errs)} "
-          f"layers' own inputs (batch {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, "
-          f"bf16) vs the plain backward: rel L2 {what} at most "
-          + "/".join(f"{x:.2e}" for x in worst) + f" (limit {limit})",
-          flush=True)
-    if len(errs) != cfg.num_layers or not max(worst) <= limit:
-        raise AssertionError(f"{arch}: the backward kernel differs from its "
-                             f"plain version on the model's inputs: {worst}")
-    del loss
-    torch.cuda.empty_cache()
+    if cfg.block != "hymba":
+        real = getattr(ops, attr)
+        setattr(ops, attr, checked)
+        try:
+            batch0 = stream.batch(0)
+            loss, _ = lm_loss(cfg, model, batch0)
+            torch.autograd.grad(loss, list(model.parameters()))
+        finally:
+            setattr(ops, attr, real)
+        worst = [max(e[i] for e in errs) for i in range(len(errs[0]))]
+        print(f"  1. {bwd_name.replace('_dkv', '')} on each of the "
+              f"{len(errs)} layers' own inputs (batch {LM_TRAIN_BATCH} x "
+              f"{LM_TRAIN_SEQ}, bf16) vs the plain backward: rel L2 {what} "
+              f"at most " + "/".join(f"{x:.2e}" for x in worst)
+              + f" (limit {limit})", flush=True)
+        if len(errs) != cfg.num_layers or not max(worst) <= limit:
+            raise AssertionError(f"{arch}: the backward kernel differs from "
+                                 f"its plain version on the model's inputs: "
+                                 f"{worst}")
+        del loss
+        torch.cuda.empty_cache()
 
     # 2. (qwen3-8b, bf16) every parameter's gradient through the kernels
     # against the plain attention's, with two broken backwards
-    if cfg.block != "rwkv6":
+    if cfg.block not in ("rwkv6", "hymba"):
         small = {k: v[:LM_GRAD_BATCH] for k, v in batch0.items()}
         real_bwd = ops.flash_attention_bwd
         readings, line = grad_readings(
@@ -1659,8 +1724,9 @@ def lm_train_phase(torch, ops, step_no, arch):
 
     before = probe_loss()
     fit_before = fit_loss(torch, cfg, model, stream)
-    kernels = ((("rwkv6_wkv", "rwkv6_wkv_bwd") if cfg.block == "rwkv6"
-                else ("flash_attention_fwd",) + BWD_KERNELS))
+    kernels = {"rwkv6": ("rwkv6_wkv", "rwkv6_wkv_bwd"),
+               "hymba": ("flash_attention_fwd",) + BWD_KERNELS + SCAN_KERNELS
+               }.get(cfg.block, ("flash_attention_fwd",) + BWD_KERNELS)
     rows = []
 
     def timed_step(*args, **kw):
@@ -1680,7 +1746,9 @@ def lm_train_phase(torch, ops, step_no, arch):
               f"{m['lr']:.3e}, peak memory {rows[-1]['peak_gb']:.2f} GB, "
               f"launches {rows[-1]['launches']}", flush=True)
 
+    from repro_torch.kernels import selective_scan as scan
     ops.reset_launch_counts()
+    scan.selective_scan.checkpoint_launches = 0
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     model, opt_state, _ = train_loop(
@@ -1689,15 +1757,18 @@ def lm_train_phase(torch, ops, step_no, arch):
                    log_every=1), metrics_cb=log)
     loop_s = time.perf_counter() - t1
     counts = ops.launch_counts()
+    ckpt_launches = scan.selective_scan.checkpoint_launches
     routes = check_tc_route(ops, counts, f"{arch} train_loop",
                             f"train_{arch}")
     print(f"  train_loop ({LM_TRAIN_STEPS} steps, main path): {loop_s:.3f} "
-          f"s, launches {counts}, flash kernels by route {routes}",
-          flush=True)
+          f"s, launches {counts} (checkpointing scan forwards "
+          f"{ckpt_launches}), flash kernels by route {routes}", flush=True)
     want = dict.fromkeys(counts, 0)
     want.update(dict.fromkeys(kernels, cfg.num_layers * LM_TRAIN_STEPS))
-    if counts != want:
-        raise AssertionError(f"{arch}: launch counts {counts} != {want}")
+    if counts != want or ckpt_launches != want["selective_scan"]:
+        raise AssertionError(f"{arch}: launch counts {counts} != {want} "
+                             f"(checkpointing scan forwards "
+                             f"{ckpt_launches})")
     losses = [r["loss"] for r in rows]
     if len(losses) != LM_TRAIN_STEPS or not all(map(math.isfinite, losses)):
         raise AssertionError(f"{arch}: train losses not finite: {losses}")
@@ -1715,7 +1786,11 @@ def lm_train_phase(torch, ops, step_no, arch):
                              f"did not fall by {margin}")
     profile_reading(torch, f"train step ({LM_TRAIN_BATCH} x {LM_TRAIN_SEQ})",
                     lambda: step(model, opt_state, batch0))
-    busy_windows(torch, step, model, opt_state, stream, arch)
+    if cfg.block != "hymba":
+        # hymba's two windows took 148 and 143 s (the profiler's 10 steps
+        # of many small ops), a quarter of the run's time limit; its busy
+        # share is the step profile's above
+        busy_windows(torch, step, model, opt_state, stream, arch)
     del opt_state, step
     torch.cuda.empty_cache()
 
@@ -1756,6 +1831,8 @@ def lm_train_phase(torch, ops, step_no, arch):
         check_grad_readings(readings, LM_GRAD_REL_L2[arch],
                             "the decay leaves", arch)
         model = sub
+    elif cfg.block == "hymba":
+        hymba_grad_check(torch, ops, cfg, model, batch0)
     del model
     torch.cuda.empty_cache()
 
@@ -1786,6 +1863,121 @@ def lm_train_phase(torch, ops, step_no, arch):
     del model, opt_state, step
     torch.cuda.empty_cache()
     return counts
+
+
+def hymba_layer_checks(torch, ops, ref, cfg, model, batch):
+    """Phase 13's check 1: one gradient of the training batch (bf16, batch
+    2 x 2048) with every layer's window dq/dkv launch held against the
+    plain backward on its own inputs (rel L2 over dq and over (dk, dv),
+    ``BWD_MASKED_REL_L2``), and the scan backward of the layers in
+    ``HYMBA_SCAN_CHECK_LAYERS`` against ``ref.selective_scan_bwd`` on its
+    own inputs (from the forward's first checkpoint, the layer's h0), each
+    gradient within ``SCAN_BWD_REL_L2``."""
+    from repro_torch.train import lm_loss
+    real_bwd, real_scan_bwd = ops.flash_attention_bwd, ops.selective_scan_bwd
+    flash_errs, scan_errs, calls = [], {}, []
+
+    def flash_checked(q, k, v, o, lse, do, **mask):
+        got = real_bwd(q, k, v, o, lse, do, **mask)
+        want = ref.attention_bwd(q[None], k[None], v[None], o[None],
+                                 lse[None], do[None], **mask)
+        flash_errs.append((rel_l2(got[:1], [want[0][0]]),
+                           rel_l2(got[1:], [w[0] for w in want[1:]]),
+                           mask.get("window")))
+        return got
+
+    def scan_checked(xs, dt, bb, cc, a, d, ckpt, dy, dh_t=None):
+        got = real_scan_bwd(xs, dt, bb, cc, a, d, ckpt, dy, dh_t)
+        layer = cfg.num_layers - 1 - len(calls)     # the backward's order
+        calls.append(layer)
+        if layer in HYMBA_SCAN_CHECK_LAYERS:
+            want = ref.selective_scan_bwd(xs, dt, bb, cc, a, d, ckpt[:, 0],
+                                          dy, dh_t)
+            scan_errs[layer] = [rel_l2([g], [w]) for g, w in zip(got, want)]
+        return got
+
+    ops.flash_attention_bwd, ops.selective_scan_bwd = flash_checked, \
+        scan_checked
+    try:
+        loss, _ = lm_loss(cfg, model, batch)
+        torch.autograd.grad(loss, list(model.parameters()))
+    finally:
+        ops.flash_attention_bwd, ops.selective_scan_bwd = real_bwd, \
+            real_scan_bwd
+    del loss
+    torch.cuda.empty_cache()
+    lim = BWD_MASKED_REL_L2["bfloat16"]
+    worst = (max(e[0] for e in flash_errs), max(e[1] for e in flash_errs))
+    windows = sorted({e[2] for e in flash_errs}, key=str)
+    print(f"  1a. flash backward (window {windows}) on each of the "
+          f"{len(flash_errs)} layers' own inputs (batch {LM_TRAIN_BATCH} x "
+          f"{LM_TRAIN_SEQ}, bf16) vs the plain backward: rel L2 dq at most "
+          f"{worst[0]:.2e}, (dk, dv) {worst[1]:.2e} (limit {lim})",
+          flush=True)
+    print(f"  1b. scan backward on layers {sorted(scan_errs)} of "
+          f"{len(calls)} (the plain backward is a Python loop) vs "
+          f"ref.selective_scan_bwd on their own inputs: rel L2 "
+          "dx/ddt/db/dc/da/dD/dh0 " + "; ".join(
+              f"layer {k}: " + "/".join(f"{x:.1e}" for x in v)
+              for k, v in sorted(scan_errs.items()))
+          + f" (limit {SCAN_BWD_REL_L2})", flush=True)
+    if (len(flash_errs) != cfg.num_layers or windows != [cfg.window]
+            or not max(worst) <= lim):
+        raise AssertionError(f"hymba: the window flash backward differs from "
+                             f"the plain one on the model's inputs: {worst}, "
+                             f"windows {windows}")
+    if (len(calls) != cfg.num_layers
+            or sorted(scan_errs) != list(HYMBA_SCAN_CHECK_LAYERS)
+            or not max(max(v) for v in scan_errs.values())
+            <= SCAN_BWD_REL_L2):
+        raise AssertionError(f"hymba: the scan backward differs from the "
+                             f"twin on the model's inputs: {scan_errs}")
+
+
+def hymba_grad_check(torch, ops, cfg, model, batch):
+    """Phase 13's check 4: the trained weights in f32 at batch 1 x
+    ``HYMBA_GRAD_SEQ`` (past the window): a reading of the whole gradient
+    through the kernels against the plain path's over all layers, then the
+    check over the first ``HYMBA_GRAD_LAYERS`` layers, whole and over the
+    dt and q/k/v leaves, with two broken backwards as controls: the scan's
+    ``ddt`` dropped, and the flash backward without its window."""
+    import dataclasses
+    from repro_torch.models import transformer as tf
+    model.float()
+    small = {k: v[:1, :HYMBA_GRAD_SEQ] for k, v in batch.items()}
+    part = DT_LEAVES + QKV_LEAVES
+    readings, line = grad_readings(torch, ops, cfg, model, small, part, {})
+    rel, rel_part = readings["kernels"]
+    print(f"  4a. reading, all {cfg.num_layers} layers at batch 1 x "
+          f"{HYMBA_GRAD_SEQ} (f32 weights), {line}: gradient, kernels vs "
+          f"plain path, rel L2 {rel:.3e}, over the dt and q/k/v leaves "
+          f"{rel_part:.3e}", flush=True)
+    cut = dataclasses.replace(cfg, num_layers=HYMBA_GRAD_LAYERS,
+                              dtype="float32")
+    sub = tf.TransformerLM(cut, device="cuda", trainable=True)
+    with torch.no_grad():
+        trained = dict(model.named_parameters())
+        for name, p in sub.named_parameters():
+            p.copy_(trained[name])
+    del model, trained
+    torch.cuda.empty_cache()
+    real_scan_bwd, real_bwd = ops.selective_scan_bwd, ops.flash_attention_bwd
+
+    def no_ddt(*args):
+        g = list(real_scan_bwd(*args))
+        g[1] = torch.zeros_like(g[1])
+        return tuple(g)
+
+    readings, line = grad_readings(
+        torch, ops, cut, sub, small, part, {
+            "scan backward with ddt dropped": ("selective_scan_bwd", no_ddt),
+            "flash backward without the window": (
+                "flash_attention_bwd",
+                lambda *a, **m: real_bwd(*a, **dict(m, window=None)))})
+    print(f"  4. gradient of the first {HYMBA_GRAD_LAYERS} trained layers at "
+          f"batch 1 x {HYMBA_GRAD_SEQ} (f32 weights), {line}", flush=True)
+    check_grad_readings(readings, LM_GRAD_REL_L2["hymba-1.5b"],
+                        "the dt and q/k/v leaves", "hymba-1.5b")
 
 
 def fit_loss(torch, cfg, model, stream) -> float:
@@ -2077,7 +2269,8 @@ def masked_backward_cases(torch, ref, randn, cases):
                           bound_ms=b_ms, bound_by=b_by,
                           library_ms=library_ms)
             rel = bwd_rel_l2(torch, fn, got, ref_out, f"{name} {form}")
-            cases[name + "_causal_gqa"].append(check_case(
+            key = name + ("_window" if window else "_causal_gqa")
+            cases[key].append(check_case(
                 f"{name} {form} {dtype} BH={b * hq} BKV={b * hkv} Sq={sq} "
                 f"Sk={sk} D={d} ({route_label(fa, tdt, d, backward=True)}; "
                 f"rel L2 {rel:.3e}, limit {BWD_MASKED_REL_L2[dtype]}; two "
@@ -2264,16 +2457,165 @@ def scan_cases(torch, ops, randn, cases, launches=1):
                                      f"the limit {SCAN_REL_L2}")
 
 
+def scan_bwd_bound(b, t, din, n, nbytes_):
+    """The least time of one scan backward from the checkpoints: the larger
+    of its bytes (each input and output once) over HBM's rate and its
+    operations, one pass of the decays' exponentials on the SFUs
+    (``SFU_PER_S``: the states replayed from the checkpoints) or 16 f32
+    operations a state element and step (the replay's 2; G, db, dc, the
+    sum G b, e h, ddt's and da's terms and the carry g: 11; the sums over
+    channels 3) on the f32 units, whichever takes longer."""
+    t_bytes = nbytes_ / HBM_BYTES_PER_S * 1e3
+    elems = float(b) * t * din * n
+    t_ops = max(elems / SFU_PER_S,
+                16.0 * elems / PEAK_FLOPS["float32"]) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def scan_backward_cases(torch, ref, randn, cases):
+    """hymba-1.5b's scan backward (``selective_scan_bwd``: the backward
+    kernel and its sum) against ``ref.selective_scan_bwd`` at the model's
+    width (din 1600, n 16, f32): the training shape (batch 2 x T 2048 from
+    the zero state, no gradient on the final state, as in training), a
+    ragged T (37) from a nonzero state with a gradient on the final state,
+    and T 300 with xs and dy one float off a 16-byte boundary (their
+    4-byte copy route).  Each from the forward's checkpoints, run twice
+    and held bitwise equal, every gradient within SCAN_BWD_REL_L2 (rel L2);
+    the control, the twin fed dy a step late, must miss it on every
+    gradient.  Each case is read by :func:`launch_readings` (two device
+    launches a call: the kernel and its sum).  Before them the forward at
+    the training shape with and without its checkpoints, timed in turns
+    (the checkpointing case joins the scan's cases).  Prints ptxas'
+    registers and spills of the backward's instances.  No single PyTorch
+    call computes the backward (``library_ms`` null)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import selective_scan as scan
+    geo = scan.geometry(2, 1600, 16, channels=scan.BWD_CHANNELS_PER_BLOCK)
+    smem = scan._lib().selective_scan_bwd_smem(geo.states, geo.lanes,
+                                               geo.channels)
+    print(f"  scan backward at hymba-1.5b's training shape: grid "
+          f"{geo.grid} of {geo.threads} + 32 threads, {scan.CHUNK}-step "
+          f"chunks in {scan.BWD_STAGES} stages, states recomputed "
+          f"{scan.SUB} steps at a time, {scan.bwd_smem_bytes(geo)} B of "
+          f"shared memory a block (the kernel's own count {smem})",
+          flush=True)
+    if scan.bwd_smem_bytes(geo) != smem:
+        raise AssertionError("selective_scan_bwd: the wrapper's and the "
+                             "kernel's shared memory differ")
+    log = _build.build_log.get("selective_scan")
+    for kernel in ("selective_scan_bwd_kernel", "selective_scan_fwd_kernel"):
+        readings = ptxas_readings(log, kernel) if log else []
+        print(f"  ptxas, {kernel}<states a lane, lanes a channel"
+              + (", checkpoints" if "fwd" in kernel else "") + ">: " + (
+                  "; ".join(f"<{inst}> {regs} registers, spills {st}/{ld} "
+                            f"bytes (stores/loads)"
+                            for inst, regs, st, ld in readings)
+                  if readings else "not rebuilt in this run"), flush=True)
+
+    # the forward with and without checkpoints at the training shape
+    x = scan_inputs(torch, randn, 2, 2048, 1600, 16, True)
+
+    def fwd_ckpt():
+        return scan.selective_scan(*x, checkpoints=True)
+
+    def fwd_plain_kernel():
+        return scan.selective_scan(*x)
+
+    y, h_t, ckpt = fwd_ckpt()
+    y0, h0_, _ = fwd_plain_kernel()
+    if not (torch.equal(y, y0) and torch.equal(h_t, h0_)
+            and torch.equal(ckpt[:, -1], h_t)):
+        raise AssertionError("selective_scan: the checkpointing forward "
+                             "changed y or h_T, or its last checkpoint is "
+                             "not h_T")
+    turns = [time_ms(f, 20) for f in (fwd_plain_kernel, fwd_ckpt, fwd_ckpt,
+                                      fwd_plain_kernel)]
+    y_r, h_r = ref.selective_scan(*x)
+    rel = max(rel_l2([y], [y_r]), rel_l2([h_t], [h_r]))
+    b_ms, b_by = scan_bound(2, 2048, 1600, 16, nbytes(*x, y, h_t, ckpt))
+    timing = dict(ms=(turns[1] + turns[2]) / 2,
+                  plain_ms=time_ms(lambda: ref.selective_scan(*x), 1),
+                  bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    print(f"    forward at B 2 x T 2048, in turns (without, with, with, "
+          f"without checkpoints): " + ", ".join(f"{t:.4f}" for t in turns)
+          + " ms", flush=True)
+    cases["selective_scan"].append(check_case(
+        f"selective_scan f32 B=2 T=2048 din=1600 n=16 with checkpoints "
+        f"({tuple(ckpt.shape)}; y and h_T rel L2 {rel:.3e}, limit "
+        f"{SCAN_REL_L2}; y and h_T bitwise those without)",
+        torch.cat([y.flatten(), h_t.flatten()]),
+        torch.cat([y_r.flatten(), h_r.flatten()]), SCAN_TOL, SCAN_TOL,
+        timing))
+    if not rel <= SCAN_REL_L2:
+        raise AssertionError(f"checkpointing selective_scan: rel L2 {rel}")
+    del x, y, h_t, ckpt, y0, y_r
+
+    names = ("dx", "ddt", "db", "dc", "da", "dD", "dh0")
+    for b, t, zero_h0, with_dh, unaligned in [
+            (2, 2048, True, False, False), (2, 37, False, True, False),
+            (2, 300, False, True, True)]:
+        x = scan_inputs(torch, randn, b, t, 1600, 16, zero_h0)
+        dy = randn((b, t, 1600))
+        if unaligned:
+            x[0], dy = unaligned_copy(torch, x[0]), unaligned_copy(torch, dy)
+        dh_t = randn((b, 1600, 16)) if with_dh else None
+        _, _, ckpt = scan.selective_scan(*x, checkpoints=True)
+
+        def kernel():
+            return scan.selective_scan_bwd(*x[:6], ckpt, dy, dh_t)
+
+        def plain():
+            return ref.selective_scan_bwd(*x, dy, dh_t)
+
+        got, again, want = kernel(), kernel(), plain()
+        if not all(torch.equal(_bits(u), _bits(v))
+                   for u, v in zip(got, again)):
+            raise AssertionError("selective_scan_bwd: two runs differ")
+        rels = [rel_l2([g], [w]) for g, w in zip(got, want)]
+        late = torch.cat([torch.zeros_like(dy[:, :1]), dy[:, :-1]], dim=1)
+        ctl = ref.selective_scan_bwd(*x, late, dh_t)
+        rels_c = [rel_l2([g], [w]) for g, w in zip(got, ctl)]
+        b_ms, b_by = scan_bwd_bound(
+            b, t, 1600, 16, nbytes(*x[:6], ckpt, dy, *got)
+            + (nbytes(dh_t) if with_dh else 0))
+        timing = dict(ms=time_ms(kernel, 20 if t >= 1024 else 200),
+                      plain_ms=time_ms(plain, 1), bound_ms=b_ms,
+                      bound_by=b_by, library_ms=None)
+        label = (f"selective_scan_bwd f32 B={b} T={t} din=1600 n=16 "
+                 f"({'zero' if zero_h0 else 'nonzero'} h0, "
+                 f"{'with' if with_dh else 'no'} dh_T"
+                 + (", xs and dy unaligned" if unaligned else "")
+                 + "; rel L2 " + "/".join(names) + " " + "/".join(
+                     f"{r:.1e}" for r in rels) + f", limit {SCAN_BWD_REL_L2};"
+                 f" two runs bitwise)")
+        flat = [torch.cat([v.reshape(-1) for v in vs]) for vs in (got, want)]
+        case = check_case(label, *flat, 1e-3 * flat[1].abs().max().item(),
+                          1e-3, timing)
+        case.update(launch_readings(torch, kernel))
+        print_readings(f"selective_scan_bwd T={t}", timing, case, 2)
+        print(f"    control, the twin fed dy a step late: rel L2 "
+              + "/".join(f"{r:.1e}" for r in rels_c)
+              + f" (each must miss {SCAN_BWD_REL_L2})", flush=True)
+        cases["selective_scan_bwd"].append(case)
+        if not max(rels) <= SCAN_BWD_REL_L2:
+            raise AssertionError(f"selective_scan_bwd B={b} T={t}: rel L2 "
+                                 f"{rels} against the plain twin")
+        if not min(rels_c) > SCAN_BWD_REL_L2:
+            raise AssertionError(f"selective_scan_bwd control: rel L2 "
+                                 f"{rels_c} meets {SCAN_BWD_REL_L2}")
+
+
 def launch_readings(torch, fn) -> dict:
     """Phase 3's readings of one B1/B2/B4 or scan case, from one
     ``torch.profiler`` window of ``LAUNCH_WINDOW_CALLS`` calls
     (``profiling.window_launches``): the launches per call, counted as the
     host's calls that start a device activity (kernels, copies, fills),
-    the device activities the profiler recorded per call beside them, and
+    the device activities the profiler recorded per call beside them, the
+    lead's records lost and the places of the calls' launches with none, and
     device microseconds per recorded activity; and the host's
     microseconds per call, as the time to enqueue ``HOST_CALLS`` calls
     with no synchronise among them."""
-    from repro_torch.runtime.profiling import window_launches
+    from repro_torch.runtime.profiling import LEAD_LAUNCHES, window_launches
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2286,6 +2628,8 @@ def launch_readings(torch, fn) -> dict:
     device_us = sum(us for _, us in by_name.values())
     return dict(launches_per_call=got["api"] / LAUNCH_WINDOW_CALLS,
                 recorded_per_call=recorded / LAUNCH_WINDOW_CALLS,
+                lead_lost=(got["lead_lost"], LEAD_LAUNCHES),
+                missing=got["missing"],
                 device_us_per_launch=device_us / recorded if recorded
                 else None, host_us_per_call=host_us,
                 device_kernels=sorted(by_name))
@@ -2307,12 +2651,14 @@ def print_readings(label, timing, reading, launches):
           f"call ({reading['recorded_per_call']:g} recorded on the card: "
           f"{', '.join(k[:60] for k in reading['device_kernels'])}); "
           f"host {reading['host_us_per_call']:.2f} us a call (enqueue), "
-          f"loop {loop_us:.2f} us", flush=True)
+          f"loop {loop_us:.2f} us; the window's lead lost "
+          "%d of its %d records" % reading["lead_lost"], flush=True)
     if launches is not None and not (
             per_call == launches == reading["recorded_per_call"]):
         raise AssertionError(f"{label}: {per_call} device launches a call "
                              f"({reading['recorded_per_call']} recorded on "
-                             f"the card), not {launches}")
+                             f"the card; no record of the launches at "
+                             f"{reading['missing']}), not {launches}")
 
 
 def unaligned_copy(torch, t):
@@ -2519,7 +2865,9 @@ def kernel_phase(torch, ops, ref):
              "flash_attention_fwd_causal_gqa": [], "rwkv6_wkv": [],
              "flash_attention_bwd_dq_causal_gqa": [],
              "flash_attention_bwd_dkv_causal_gqa": [], "rwkv6_wkv_bwd": [],
-             "flash_attention_fwd_window": [], "selective_scan": []}
+             "flash_attention_fwd_window": [], "selective_scan": [],
+             "flash_attention_bwd_dq_window": [],
+             "flash_attention_bwd_dkv_window": [], "selective_scan_bwd": []}
     # flash forward: SD-v2 fine and coarse batches (10 and 2 latents x 16
     # heads, S 1024, D 72) in bf16, CIFAR-width f32, and ragged Sq/Sk
     for bh, sq, sk, d, dtype in [(160, 1024, 1024, 72, "bfloat16"),
@@ -2564,6 +2912,7 @@ def kernel_phase(torch, ops, ref):
     wkv_cases(torch, ops, ref, randn, cases)
     wkv_backward_cases(torch, ref, randn, cases)
     scan_cases(torch, ops, randn, cases)
+    scan_backward_cases(torch, ref, randn, cases)
     return cases
 
 
@@ -2618,7 +2967,7 @@ def ddpm_paradigms_phase(torch, C, run, setup, layers, head):
             raise AssertionError(f"{label}: launch counts {counts} != "
                                  f"{want}")
 
-    print(f"[5/12] ddpm with frozen noise (seed {DDPM_SEED}) and ParaDiGMS "
+    print(f"[5/13] ddpm with frozen noise (seed {DDPM_SEED}) and ParaDiGMS "
           f"on srds-dit-sd2, N={n}", flush=True)
     # the native noise is a pure function of (seed, interval id)
     iid = 3 * (n + 1) + 4
@@ -2728,20 +3077,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/12] device: {smi} (torch {torch.__version__}, CUDA "
+    print(f"[1/13] device: {smi} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda})", flush=True)
 
     # ---- 2. build --------------------------------------------------------
     from repro_torch.kernels import _build, ops, ref
     secs = _build.build_all()
-    print(f"[2/12] build: {len(_build.sources())} CUDA source(s) in "
+    print(f"[2/13] build: {len(_build.sources())} CUDA source(s) in "
           f"{secs:.1f} s", flush=True)
     for name, log in _build.build_log.items():
         print(f"  nvcc {name}.cu:\n" + "\n".join(
             "    " + line for line in log.strip().splitlines()))
 
     # ---- 3. kernels against their plain versions -------------------------
-    print("[3/12] kernels vs plain versions (times on this card)",
+    print("[3/13] kernels vs plain versions (times on this card)",
           flush=True)
     cases = kernel_phase(torch, ops, ref)
 
@@ -2754,7 +3103,7 @@ def main() -> int:
         setup.model_fn
     sched, solver, x_init = setup.sched, setup.solver, setup.x_init
     B, S, fixed, build_s = setup.B, setup.S, setup.fixed, setup.build_s
-    print(f"[4/12] srds-dit-sd2: {cfg.num_layers} layers, d {cfg.d_model}, "
+    print(f"[4/13] srds-dit-sd2: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads}x{cfg.resolved_head_dim} heads, {cfg.dtype}, "
           f"{dit.param_count(model) / 1e6:.1f} M params, built in "
           f"{build_s:.1f} s", flush=True)
@@ -2792,9 +3141,8 @@ def main() -> int:
     p = int(res.iterations.max())
     expect(main_counts, B + p * (S + B), p * B)
     if min(n for k, n in main_counts.items()
-           if k not in BWD_KERNELS + ("parareal_update", "rwkv6_wkv",
-                                      "rwkv6_wkv_bwd", "selective_scan")) \
-            == 0:
+           if k not in BWD_KERNELS + SCAN_KERNELS + (
+               "parareal_update", "rwkv6_wkv", "rwkv6_wkv_bwd")) == 0:
         raise AssertionError(f"a kernel never ran on the main path: "
                              f"{main_counts}")
     sample = res.sample
@@ -2863,6 +3211,11 @@ def main() -> int:
     lm_counts["hymba-1.5b"] = hymba_phase(torch, ops, 12)
     torch.cuda.empty_cache()
 
+    # ---- 13. hymba training -------------------------------------------------
+    lm_train_counts["hymba-1.5b"] = lm_train_phase(torch, ops, 13,
+                                                   "hymba-1.5b")
+    torch.cuda.empty_cache()
+
     sources = {"flash_attention_fwd": (
         "cuda", "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
         "src/repro/kernels/flash_attention.py:85"),
@@ -2898,6 +3251,15 @@ def main() -> int:
             "src/repro/kernels/flash_attention.py:85"),
         "selective_scan": (
             "cuda", "src/repro_torch/kernels/csrc/selective_scan.cu",
+            "src/repro/models/hymba.py:55"),
+        "flash_attention_bwd_dq_window": (
+            "cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention.py:453"),
+        "flash_attention_bwd_dkv_window": (
+            "cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention.py:494"),
+        "selective_scan_bwd": (
+            "cuda", "src/repro_torch/kernels/csrc/selective_scan.cu",
             "src/repro/models/hymba.py:55")}
     # a kernel's launches are those of its path: DiT training for the
     # backward, the l2_mean serving run for parareal_update, the served
@@ -2906,7 +3268,8 @@ def main() -> int:
     # WKV, qwen3-8b training for the backward's causal GQA form (the same
     # wrappers and counters as the DiT's backward), rwkv6-1.6b training
     # for the WKV backward, the served hymba-1.5b requests for the window
-    # forward and the selective scan, DiT serving for the rest
+    # forward and the selective scan, hymba-1.5b training for the window
+    # backward and the scan's backward, DiT serving for the rest
     path_of = dict.fromkeys(BWD_KERNELS, "train_loop")
     path_of["parareal_update"] = "serve_l2_mean"
     path_of["flash_attention_fwd_causal_gqa"] = "serve_qwen3-8b"
@@ -2916,6 +3279,9 @@ def main() -> int:
     path_of["rwkv6_wkv_bwd"] = "train_rwkv6-1.6b"
     path_of.update(dict.fromkeys(("flash_attention_fwd_window",
                                   "selective_scan"), "serve_hymba-1.5b"))
+    path_of.update(dict.fromkeys((k + "_window" for k in BWD_KERNELS),
+                                 "train_hymba-1.5b"))
+    path_of["selective_scan_bwd"] = "train_hymba-1.5b"
     kernels = []
     for name, (route, source, replaces) in sources.items():
         first = cases[name][0]            # the main path's shape
@@ -2933,6 +3299,9 @@ def main() -> int:
         extra = ({"tc_launches_by_path": {
             k: r[f"{counter}_tc"] for k, r in ROUTES_BY_PATH.items()}}
             if counter in ("flash_attention_fwd",) + BWD_KERNELS else {})
+        if name == "selective_scan_bwd":    # its second launch, the sum
+            extra["sum_launches"] = lm_train_counts["hymba-1.5b"][
+                "selective_scan_bwd_sum"]
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=by_path[path_of.get(name, "serve")],

@@ -5,6 +5,8 @@ edges, with and without ``profiling.device_launches``' pause.
 
     python3 scripts/torch_profiler_edges.py [--windows N]
     python3 scripts/torch_profiler_edges.py --scan-late
+    python3 scripts/torch_profiler_edges.py --scan-bwd-late [--repeats N]
+                                            [--lead N]
 
 Runs ``--windows`` profiler windows of 20 ``ddim_fused`` calls on the
 fine step's shape (10, 64, 64, 4) with no pause: for each window whose 20
@@ -14,6 +16,15 @@ negative value means the device's timestamps read early); and the windows
 that traced fewer kernels than calls.  Then as many windows through
 ``device_launches`` (its pause at both ends), counting those not of 20
 launches.
+
+``--scan-bwd-late`` runs phase 3's cases up to the scan's forward, then
+``chip_smoke.scan_backward_cases`` ``--repeats`` times, then ten times as
+many bare windows of the backward at the training shape, and logs every
+``profiling.window_launches`` window of them: the lead's launches with no
+device record, and the places of the calls' launches with none.  It
+prints every window that lacks a record of the calls' launches, and by
+case the windows, those short, and how many lead records each lost;
+``--lead`` sets ``profiling.LEAD_LAUNCHES`` for the run.
 
 ``--scan-late`` instead reads which launches of a window of selective-scan
 calls (hymba-1.5b's decode shape, and its prefill shape) have no device
@@ -136,13 +147,97 @@ def scan_late() -> int:
     return 0
 
 
+def scan_bwd_late(repeats: int, lead: int) -> int:
+    """``--scan-bwd-late``: see the module's docstring."""
+    from collections import defaultdict
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    import torch
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import selective_scan as scan
+    from repro_torch.runtime import profiling
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(cs.smi_line(), flush=True)
+    print(f"build {_build.build_all():.1f} s", flush=True)
+    if lead is not None:
+        profiling.LEAD_LAUNCHES = lead
+    print(f"lead launches a window: {profiling.LEAD_LAUNCHES}", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED)
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    log, failed = [], []
+    window = profiling.window_launches
+
+    def logged(fn, calls, pause_s=profiling.LAUNCH_EDGE_PAUSE_S):
+        got = window(fn, calls, pause_s)
+        log.append(dict(label="?", api=got["api"], lead_lost=got["lead_lost"],
+                        missing=got["missing"]))
+        return got
+
+    profiling.window_launches = logged
+    check = cs.print_readings
+
+    def print_readings(label, timing, reading, launches):
+        log[-1]["label"] = label
+        try:
+            check(label, timing, reading, launches)
+        except AssertionError as err:
+            failed.append(str(err))
+
+    cs.print_readings = print_readings
+    cases = defaultdict(list)
+    cs.masked_flash_cases(torch, ops, ref, randn, cases)
+    cs.backward_cases(torch, ref, randn, cases)
+    cs.masked_backward_cases(torch, ref, randn, cases)
+    cs.elementwise_cases(torch, ops, ref, randn, cases)
+    cs.wkv_readings(torch)
+    cs.wkv_cases(torch, ops, ref, randn, cases)
+    cs.wkv_backward_cases(torch, ref, randn, cases)
+    cs.scan_cases(torch, ops, randn, cases)
+    for r in range(repeats):
+        print(f"scan_backward_cases, round {r}", flush=True)
+        cs.scan_backward_cases(torch, ref, randn, defaultdict(list))
+    x = cs.scan_inputs(torch, randn, 2, 2048, 1600, 16, True)
+    dy = randn((2, 2048, 1600))
+    _, _, ckpt = scan.selective_scan(*x, checkpoints=True)
+
+    def bwd():
+        return scan.selective_scan_bwd(*x[:6], ckpt, dy, None)
+
+    bwd()
+    for _ in range(repeats * 10):
+        logged(bwd, cs.LAUNCH_WINDOW_CALLS)
+        log[-1]["label"] = "bare T=2048"
+    for w in log:
+        if w["missing"]:
+            print(f"  short window: {w}", flush=True)
+    by = defaultdict(lambda: [0, 0, defaultdict(int)])
+    for w in log:
+        by[w["label"]][0] += 1
+        by[w["label"]][1] += bool(w["missing"])
+        by[w["label"]][2][w["lead_lost"]] += 1
+    print(f"windows by case (all, short, {{lead records lost of "
+          f"{profiling.LEAD_LAUNCHES}: windows}}): " + "; ".join(
+              f"{k}: {n}, {s}, {dict(lost)}" for k, (n, s, lost)
+              in by.items()), flush=True)
+    print(f"checks failed: {len(failed)} {failed}", flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--windows", type=int, default=500)
     ap.add_argument("--scan-late", action="store_true")
+    ap.add_argument("--scan-bwd-late", action="store_true")
+    ap.add_argument("--repeats", type=int, default=10)
+    ap.add_argument("--lead", type=int, default=None)
     args = ap.parse_args()
     if args.scan_late:
         return scan_late()
+    if args.scan_bwd_late:
+        return scan_bwd_late(args.repeats, args.lead)
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
     from torch.autograd import DeviceType

@@ -4,6 +4,7 @@
 
     python3 scripts/torch_scan_bench.py [--states 2 4 8]
         [--channels 8 16 32 64] [--stages 2 4] [--against FILE ...]
+    python3 scripts/torch_scan_bench.py --backward [--bwd-channels 16 32 64]
 
 Runs ``chip_smoke.py``'s ``scan_cases`` (the same shapes, inputs, limits,
 controls and launch readings as phase 3), then, in one process:
@@ -27,6 +28,15 @@ controls and launch readings as phase 3), then, in one process:
   (``selective_scan_fwd(..., n, lanes, stream)``, run with its 16 lanes a
   channel) or of this one (run at the default geometry), built the same
   way and timed in the same turns.
+
+``--backward`` runs ``chip_smoke.py``'s ``scan_backward_cases`` instead
+(phase 3's backward cases: the checkpointing forward timed in turns with
+the plain one, the backward's limits, controls and launch readings), then
+times the backward (the kernel and its sum) with blocks of each of
+``--bwd-channels`` channels at hymba-1.5b's width from the zero state at
+B 2, 1 and 4 x T 2048, in the order of the list and again in reverse,
+each held within ``SCAN_BWD_REL_L2`` of ``ref.selective_scan_bwd`` on
+every gradient.
 
 Needs one CUDA card and ``nvcc``.
 """
@@ -119,6 +129,33 @@ def host_breakdown(torch, ops, scan, _build, x) -> None:
         print(f"  host, T {t}: {label}: {us:.2f} us", flush=True)
 
 
+def backward_sweep(torch, cs, randn, scan, ref, channels):
+    """The backward with blocks of each of ``channels`` channels at B 2, 1
+    and 4 x T 2048 (din 1600, n 16), each held to ``SCAN_BWD_REL_L2`` of
+    the twin on every gradient, timed in turns (the list, then reversed)."""
+    for b in (2, 1, 4):
+        x = cs.scan_inputs(torch, randn, b, 2048, 1600, 16, True)
+        dy = randn((b, 2048, 1600))
+        _, _, ckpt = scan.selective_scan(*x, checkpoints=True)
+        want = ref.selective_scan_bwd(*x, dy)
+        times = {c: [] for c in channels}
+        for c in channels:
+            got = scan.selective_scan_bwd(*x[:6], ckpt, dy, channels=c)
+            rels = [cs.rel_l2([g], [w]) for g, w in zip(got, want)]
+            if not max(rels) <= cs.SCAN_BWD_REL_L2:
+                raise AssertionError(f"backward, {c} channels a block, B "
+                                     f"{b}: rel L2 {rels}")
+        for c in channels + channels[::-1]:
+            times[c].append(cs.time_ms(lambda: scan.selective_scan_bwd(
+                *x[:6], ckpt, dy, channels=c), 20))
+        for c in channels:
+            geo = scan.geometry(b, 1600, 16, channels=c)
+            print(f"  backward B {b} T 2048: {c} channels a block (grid "
+                  f"{geo.grid}, {scan.bwd_smem_bytes(geo)} B shared): "
+                  + ", ".join(f"{m:.4f}" for m in times[c]) + " ms",
+                  flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--states", type=int, nargs="+", default=[2, 4, 8])
@@ -127,6 +164,11 @@ def main() -> int:
     ap.add_argument("--stages", type=int, nargs="+", default=[2, 4])
     ap.add_argument("--against", nargs="+", default=[],
                     help="other selective_scan.cu sources to time beside")
+    ap.add_argument("--backward", action="store_true",
+                    help="phase 3's backward cases and a sweep of the "
+                         "backward's channels a block")
+    ap.add_argument("--bwd-channels", type=int, nargs="+",
+                    default=[16, 32, 64])
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import chip_smoke as cs                 # puts ROOT/src on the path
@@ -148,6 +190,12 @@ def main() -> int:
     def randn(shape, dtype=torch.float32):
         return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
+    if args.backward:
+        from repro_torch.kernels import ref
+        cs.scan_backward_cases(torch, ref, randn, {"selective_scan": [],
+                                                   "selective_scan_bwd": []})
+        backward_sweep(torch, cs, randn, scan, ref, args.bwd_channels)
+        return 0
     cs.scan_cases(torch, ops, randn, {"selective_scan": []})
 
     port = scan._lib()

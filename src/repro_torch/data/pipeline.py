@@ -123,12 +123,12 @@ class LMStream:
 
 
 def make_stream(cfg: ArchConfig, data_cfg: DataConfig, device="cuda"):
-    """The arch's stream: images for the DiT, tokens for the dense and
-    RWKV language models."""
+    """The arch's stream: images for the DiT, tokens for the dense, RWKV
+    and hybrid (hymba) language models."""
     if cfg.family == "dit":
         return ImageStream(data_cfg, IMAGE_SIZES.get(cfg.name, 32),
                            cfg.in_channels, device)
-    if cfg.family in ("dense", "ssm"):
+    if cfg.family in ("dense", "ssm", "hybrid"):
         return LMStream(data_cfg, cfg.vocab_size, device)
     raise NotImplementedError(f"the {cfg.family} data streams (audio, "
                               f"vision) wait for those archs (ROADMAP A11)")

@@ -1,4 +1,5 @@
-// Hymba's diagonal selective scan, forward, for Hopper (sm_90a).
+// Hymba's diagonal selective scan, forward and backward, for Hopper
+// (sm_90a).  The backward is described where its kernels begin, below.
 //
 // It replaces no TPU kernel: the JAX model runs this recurrence as a
 // jax.lax.scan over the sequence (repro/models/hymba.py::_ssm_scan), which
@@ -13,7 +14,9 @@
 // strides (the model's xs is the second half of a (B, T, 2 din) product,
 // a strided view, read in place); dt: (B, T); bb, cc: (B, T, n); a =
 // -exp(A_log): (din, n); D: (din,); h0: (B, din, n); all f32 and, but xs,
-// contiguous.  Writes y (B, T, din) and the final state hT (B, din, n).
+// contiguous.  Writes y (B, T, din) and the final state hT (B, din, n),
+// and for a gradient (an instance of its own) the state at the start of
+// every chunk and the final one, ckpt (B, ceil(T / kChunk) + 1, din, n).
 // The projections that make dt, bb and cc stay outside, as the JAX model
 // computes them outside its scan.
 //
@@ -299,7 +302,10 @@ __device__ __forceinline__ void scan_chunk(const float* st, const Layout& lay,
   }
 }
 
-template <int R, int L>
+// kCkpt: also write the state at the start of every chunk, and the final
+// one, to ckpt (B, chunks + 1, din, n) for the backward; an instance of its
+// own, so that the served forward (kCkpt false) compiles as it did.
+template <int R, int L, bool kCkpt>
 __global__ void __launch_bounds__(kMaxConsumers + 32)
 selective_scan_fwd_kernel(const float* __restrict__ xs, long long sxb,
                           long long sxt, const float* __restrict__ dt,
@@ -309,7 +315,8 @@ selective_scan_fwd_kernel(const float* __restrict__ xs, long long sxb,
                           const float* __restrict__ dskip,
                           const float* __restrict__ h0,
                           float* __restrict__ y, float* __restrict__ hT,
-                          int T, int din, int n, int C, int S, int route) {
+                          float* __restrict__ ckpt, int T, int din, int n,
+                          int C, int S, int route) {
   constexpr int NP = R * L;
   extern __shared__ __align__(128) float smem[];
   __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
@@ -420,8 +427,18 @@ selective_scan_fwd_kernel(const float* __restrict__ xs, long long sxb,
   }
 
   float* y_ch = y + (long long)b * T * din + ch;
+  // the lane's states in checkpoint k: ck_ch[k * din * n + r]
+  float* ck_ch = kCkpt ? ckpt + ((long long)b * (chunks + 1) * din + ch) * n
+                             + l * R
+                       : nullptr;
+  const long long ck_step = (long long)din * n;
   for (int k = 0; k < chunks; ++k) {
     const int s = k % S, t0 = k * kChunk, steps = min(kChunk, T - t0);
+    if constexpr (kCkpt) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (ch_live && l * R + r < n) ck_ch[k * ck_step + r] = h[r];
+    }
     mbar_wait(&full[s], (k / S) & 1);
     const float* st = smem + s * lay.floats;
     float* y_k = y_ch + (long long)t0 * din;
@@ -438,7 +455,10 @@ selective_scan_fwd_kernel(const float* __restrict__ xs, long long sxb,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int s = l * R + r;
-    if (ch_live && s < n) hT[((long long)b * din + ch) * n + s] = h[r];
+    if (ch_live && s < n) {
+      hT[((long long)b * din + ch) * n + s] = h[r];
+      if constexpr (kCkpt) ck_ch[chunks * ck_step + r] = h[r];
+    }
   }
 }
 
@@ -491,43 +511,514 @@ selective_scan_step_kernel(const float* __restrict__ xs, long long sxb,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward.
+//
+// It replaces no TPU kernel either: JAX differentiates its jax.lax.scan.
+// With e_t = exp(a dt_t), h_t the state after step t, g_T = dhT and
+// G_t = g_t + dy_t c_t (din x n), walking t from T down to 1:
+//
+//   dc_t  = sum_d dy_t[d] h_t[d, :]        db_t = sum_d G_t dt_t x_t
+//   ddt_t = sum_{d,n} G_t (x_t b_t + a e_t h_{t-1})
+//   dx_t  = D dy_t + dt_t sum_n G_t b_t    da += G_t dt_t e_t h_{t-1}
+//   dD   += dy_t x_t                       g_{t-1} = e_t G_t,  dh0 = g_0
+//
+// (ref.selective_scan_bwd, its twin).  Lanes and states as the forward's:
+// a lane keeps R states of one channel (and their g, a and da) in
+// registers, L lanes a channel 32 / L lanes apart, blocks of C channels
+// (the wrapper's BWD_CHANNELS_PER_BLOCK) and a producer warp, grid
+// (ceil(din / C), B).  The block walks the chunks
+// of kChunk steps from the last to the first; the producer warp stages each
+// chunk's dt, B, C, x and dy on a ring of kBwdStages stages (the forward's
+// copy routes; dy by 16-byte cp.async where aligned).  In a chunk each
+// lane first replays the recurrence forward from the forward's checkpoint
+// of the chunk, by the forward's very operations (so the states are its
+// bits; no decay is divided out), keeping the state at the start of every
+// kSub steps in shared memory; then, from the last sub-chunk to the first,
+// it recomputes the sub-chunk's states and decays into registers and walks
+// back through them.  Each exponential is thus taken twice in the backward.
+//
+// Sums over channels.  dB_t, dC_t (n each) and ddt_t sum over all din
+// channels, which span the grid's blocks.  In a warp, a step's 2R values
+// of db and dc are reduce-scattered over the 32 / L lanes of its channels
+// by shuffles (2R - 2R / (32 / L) of them at n 16: 7), and ddt is summed
+// over the warp; each warp writes its sums of a sub-chunk to shared
+// memory, and after a barrier of the compute warps the block adds its
+// warps' sums in warp order and writes them as the block's partials,
+// (B, blocks, T, 2 NP + 1).  selective_scan_bwd_sum_kernel, a second
+// launch, adds the blocks' partials in block order, and da's and dD's
+// (B, din, n) and (B, din) partials over the batch in row order.  Every
+// sum has a fixed order: two runs are bitwise equal.  dx is summed over a
+// channel's L lanes by shuffles and written by its first lane.
+//
+// Bound.  At hymba-1.5b's training shape (B 2, T 2048, din 1600, n 16) the
+// backward reads xs, dy and the checkpoints and writes dx (26.2 MB each but
+// the checkpoints, 6.8 MB) and the partials (27 MB, read back once):
+// about 0.04 ms at 3.35 TB/s.  It takes 2 x 105 M exponentials (0.050 ms
+// on the SFUs) beside about 20 f32 operations a state element and step
+// (0.06 ms), and about 14 shuffles a warp and step on the shared-memory
+// pipe; chip_smoke.py phase 3 prints the bound from the operations it
+// counts.  A first design, right before fast: 0.61 ms there with blocks of
+// 32 channels (0.77 with 64), and about the same at B 1 and B 4, so each
+// block's chain of steps sets the time (PERF.md, torch_scan_bench.py
+// --backward).
+constexpr int kSub = 8;             // steps whose states a lane recomputes
+constexpr int kSubs = kChunk / kSub;
+constexpr int kBwdStages = 2;
+// route bit of dy (the forward's bits hold for dt, B, C and x)
+constexpr int kVecDy = 8;
+
+// One backward stage's arrays, offsets in floats (each a multiple of 4):
+// x and dy (kChunk, C), b and c (kChunk, NP), dt (kChunk).
+struct BwdLayout {
+  int x, dy, b, c, dt, floats;
+};
+__host__ __device__ __forceinline__ BwdLayout bwd_layout(int C, int NP) {
+  BwdLayout l;
+  l.x = 0;
+  l.dy = kChunk * C;
+  l.b = l.dy + kChunk * C;
+  l.c = l.b + kChunk * NP;
+  l.dt = l.c + kChunk * NP;
+  l.floats = l.dt + kChunk;
+  return l;
+}
+
+// The block's shared memory in floats: the stages, the warps' sums of two
+// sub-chunks (double-buffered), and the lanes' sub-chunk start states.
+__host__ __device__ __forceinline__ int bwd_smem_floats(int C, int L, int NP,
+                                                        int S) {
+  const int warps = C * L / 32;
+  return S * bwd_layout(C, NP).floats + 2 * warps * kSub * (2 * NP + 1)
+         + kSubs * C * L * (NP / L);
+}
+
+// The reduce-scatter of V values over the S = 32 / L lanes of a warp's
+// channels (lanes 0 .. S-1 apart by xor offsets below S; m = the lane's
+// channel in the warp): rounds of offset O from S / 2 down to 1; while
+// O >= the values held (Held), every value is summed with the partner's,
+// after that each round keeps half and adds the partner's copy of the
+// other half.  Leaves lane m with the totals of values m (V / S) .. + V / S
+// - 1 when S < V, else of value m % V.
+template <int V, int O, int Held>
+__device__ __forceinline__ void channel_round(float (&p)[V], int m) {
+  if constexpr (O > 0) {
+    if constexpr (O >= Held) {
+#pragma unroll
+      for (int k = 0; k < Held; ++k) p[k] += __shfl_xor_sync(kFull, p[k], O);
+      channel_round<V, O / 2, Held>(p, m);
+    } else {
+      constexpr int H = Held / 2;
+      const bool hi = m & O;
+#pragma unroll
+      for (int k = 0; k < H; ++k) {
+        const float keep = hi ? p[k + H] : p[k], send = hi ? p[k] : p[k + H];
+        p[k] = keep + __shfl_xor_sync(kFull, send, O);
+      }
+      channel_round<V, O / 2, H>(p, m);
+    }
+  }
+}
+
+template <int R, int L>
+__global__ void __launch_bounds__(kMaxConsumers + 32)
+selective_scan_bwd_kernel(const float* __restrict__ xs, long long sxb,
+                          long long sxt, const float* __restrict__ dt,
+                          const float* __restrict__ bb,
+                          const float* __restrict__ cc,
+                          const float* __restrict__ a,
+                          const float* __restrict__ dskip,
+                          const float* __restrict__ ckpt,
+                          const float* __restrict__ dy,
+                          const float* __restrict__ dhT,
+                          float* __restrict__ dx, float* __restrict__ dd_part,
+                          float* __restrict__ da_part,
+                          float* __restrict__ dh0,
+                          float* __restrict__ partial, int T, int din, int n,
+                          int C, int route) {
+  constexpr int NP = R * L, kSpread = 32 / L, V = 2 * R;
+  constexpr int kHeld = kSpread < V ? V / kSpread : 1;
+  constexpr int W = 2 * NP + 1;              // a step's partials
+  constexpr int S = kBwdStages;
+  extern __shared__ __align__(128) float smem[];
+  __shared__ __align__(8) uint64_t full[kBwdStages], empty[kBwdStages];
+
+  const BwdLayout lay = bwd_layout(C, NP);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int consumers = C * L / 32;         // the last warp stages
+  const int b = blockIdx.y, c0 = blockIdx.x * C, nbx = gridDim.x;
+  const int l = lane / kSpread, m = lane % kSpread;
+  const int lc = warp * kSpread + m;        // channel in the block
+  const int ch = c0 + lc;
+  const bool ch_live = ch < din;
+  const int cols = min(C, din - c0);
+  const int chunks = (T + kChunk - 1) / kChunk;
+  float* red = smem + S * lay.floats;       // [2][consumers][kSub][W]
+  float* hs = red + 2 * consumers * kSub * W;   // [kSubs][C L][R]
+
+  float av[R], g[R], da[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int s = l * R + r;
+    const bool live = ch_live && s < n;
+    av[r] = live ? a[(long long)ch * n + s] : 0.f;
+    g[r] = live && dhT ? dhT[((long long)b * din + ch) * n + s] : 0.f;
+    da[r] = 0.f;
+  }
+  const float d_c = ch_live ? dskip[ch] : 0.f;
+  float dd = 0.f;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], kFullArrivals);
+      mbar_init(&empty[s], consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (n != NP) {   // zeros in the padded state columns of every stage
+    float4* z = reinterpret_cast<float4*>(smem);
+    for (int i = tid; i < S * lay.floats / 4; i += blockDim.x)
+      z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncthreads();
+
+  const float* xs_b = xs + (long long)b * sxb + c0;
+  const float* dy_b = dy + (long long)b * T * din + c0;
+  const float* dt_b = dt + (long long)b * T;
+  const float* bb_b = bb + (long long)b * T * n;
+  const float* cc_b = cc + (long long)b * T * n;
+
+  // the producer warp: stage chunk k (in stage s)
+  auto fill = [&](int k, int s) {
+    const int t0 = k * kChunk, steps = min(kChunk, T - t0);
+    float* st = smem + s * lay.floats;
+    const uint32_t dt_bytes = (route & kBulkDt) ? steps * 4 : 0;
+    const uint32_t bc_bytes = (route & kBulkBC) ? steps * n * 4 : 0;
+    fence_async_shared();
+    if (lane == 0) expect_tx(&full[s], dt_bytes + 2 * bc_bytes);
+    __syncwarp();
+    if (dt_bytes) {
+      if (lane == 0) bulk_load(st + lay.dt, dt_b + t0, dt_bytes, &full[s]);
+    } else {
+      for (int i = lane; i < steps; i += 32)
+        cp_async4(st + lay.dt + i, dt_b + t0 + i);
+    }
+    if (bc_bytes) {
+      if (lane == 1)
+        bulk_load(st + lay.b, bb_b + (long long)t0 * n, bc_bytes, &full[s]);
+      if (lane == 2)
+        bulk_load(st + lay.c, cc_b + (long long)t0 * n, bc_bytes, &full[s]);
+    } else {
+      for (int i = lane; i < steps * n; i += 32) {
+        const int t = i / n, k2 = i % n;
+        cp_async4(st + lay.b + t * NP + k2,
+                  bb_b + (long long)(t0 + t) * n + k2);
+        cp_async4(st + lay.c + t * NP + k2,
+                  cc_b + (long long)(t0 + t) * n + k2);
+      }
+    }
+    if (route & kVecX) {
+      const int vec = cols / 4;
+      for (int i = lane; i < steps * vec; i += 32) {
+        const int t = i / vec, k2 = 4 * (i % vec);
+        cp_async16(st + lay.x + t * C + k2,
+                   xs_b + (long long)(t0 + t) * sxt + k2);
+      }
+    } else {
+      for (int i = lane; i < steps * cols; i += 32) {
+        const int t = i / cols, k2 = i % cols;
+        cp_async4(st + lay.x + t * C + k2,
+                  xs_b + (long long)(t0 + t) * sxt + k2);
+      }
+    }
+    if (route & kVecDy) {
+      const int vec = cols / 4;
+      for (int i = lane; i < steps * vec; i += 32) {
+        const int t = i / vec, k2 = 4 * (i % vec);
+        cp_async16(st + lay.dy + t * C + k2,
+                   dy_b + (long long)(t0 + t) * din + k2);
+      }
+    } else {
+      for (int i = lane; i < steps * cols; i += 32) {
+        const int t = i / cols, k2 = i % cols;
+        cp_async4(st + lay.dy + t * C + k2,
+                  dy_b + (long long)(t0 + t) * din + k2);
+      }
+    }
+    // a ragged sub-chunk's dead steps: dt = 0 and zeros for x, dy, b and c
+    // (decay 1, input 0: the state carries through them unchanged)
+    const int dead = (steps + kSub - 1) / kSub * kSub - steps;
+    const int row = 1 + 2 * C + 2 * NP;
+    for (int i = lane; i < dead * row; i += 32) {
+      const int t = steps + i % dead, k2 = i / dead;
+      st[k2 == 0 ? lay.dt + t
+         : k2 <= C ? lay.x + t * C + k2 - 1
+         : k2 <= 2 * C ? lay.dy + t * C + k2 - 1 - C
+         : k2 <= 2 * C + NP ? lay.b + t * NP + k2 - 1 - 2 * C
+                            : lay.c + t * NP + k2 - 1 - 2 * C - NP] = 0.f;
+    }
+    cp_async_arrive(&full[s]);
+    mbar_arrive(&full[s]);
+  };
+
+  if (warp == consumers) {                  // the producer warp
+    for (int j = 0; j < chunks; ++j) {
+      if (j >= S) mbar_wait(&empty[j % S], (j / S - 1) & 1);
+      fill(chunks - 1 - j, j % S);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  const long long ck_step = (long long)din * n;
+  const float* ck_ch = ckpt + ((long long)b * (chunks + 1) * din + ch) * n
+                       + l * R;
+  float* dx_ch = dx + (long long)b * T * din + ch;
+  float* part_b = partial + ((long long)b * nbx + blockIdx.x) * T * W;
+  float* my_hs = hs + tid * R;
+  const int hs_stride = C * L * R;
+  int buf = 0;
+  for (int j = 0; j < chunks; ++j) {
+    const int k = chunks - 1 - j, s = j % S;
+    const int t0 = k * kChunk, steps = min(kChunk, T - t0);
+    const int subs = (steps + kSub - 1) / kSub;
+    float h[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      h[r] = ch_live && l * R + r < n ? ck_ch[k * ck_step + r] : 0.f;
+    mbar_wait(&full[s], (j / S) & 1);
+    const float* st = smem + s * lay.floats;
+
+    // the replay: the state at the start of every sub-chunk
+    for (int q = 0; q < subs; ++q) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) my_hs[q * hs_stride + r] = h[r];
+#pragma unroll
+      for (int i = 0; i < kSub; ++i) {
+        const int t = q * kSub + i;
+        const float dtt = st[lay.dt + t];
+        const float dtx = dtt * st[lay.x + t * C + lc];
+        float bv[R];
+        load_states<R>(st + lay.b + t * NP + l * R, bv);
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          h[r] = fmaf(expf(av[r] * dtt), h[r], dtx * bv[r]);
+      }
+    }
+
+    // back through the sub-chunks
+    for (int q = subs - 1; q >= 0; --q) {
+      float hp[kSub + 1][R], e[kSub][R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) hp[0][r] = my_hs[q * hs_stride + r];
+#pragma unroll
+      for (int i = 0; i < kSub; ++i) {
+        const int t = q * kSub + i;
+        const float dtt = st[lay.dt + t];
+        const float dtx = dtt * st[lay.x + t * C + lc];
+        float bv[R];
+        load_states<R>(st + lay.b + t * NP + l * R, bv);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          e[i][r] = expf(av[r] * dtt);
+          hp[i + 1][r] = fmaf(e[i][r], hp[i][r], dtx * bv[r]);
+        }
+      }
+      float* red_w = red + (buf * consumers + warp) * kSub * W;
+#pragma unroll
+      for (int i = kSub - 1; i >= 0; --i) {
+        const int t = q * kSub + i;
+        const float dtt = st[lay.dt + t];
+        const float xv = ch_live ? st[lay.x + t * C + lc] : 0.f;
+        const float dyv = ch_live ? st[lay.dy + t * C + lc] : 0.f;
+        const float dtx = dtt * xv;
+        float bv[R], cv[R], p[V];
+        load_states<R>(st + lay.b + t * NP + l * R, bv);
+        load_states<R>(st + lay.c + t * NP + l * R, cv);
+        float gb = 0.f, pdt = 0.f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float G = fmaf(dyv, cv[r], g[r]);
+          const float ehp = e[i][r] * hp[i][r];
+          p[r] = G * dtx;                   // db
+          p[R + r] = dyv * hp[i + 1][r];    // dc
+          gb = fmaf(G, bv[r], gb);
+          pdt = fmaf(G, av[r] * ehp, pdt);
+          da[r] = fmaf(G * dtt, ehp, da[r]);
+          g[r] = e[i][r] * G;
+        }
+        pdt = fmaf(xv, gb, pdt);
+        dd = fmaf(dyv, xv, dd);
+        // dx: the channel's L lanes' sum of G b
+#pragma unroll
+        for (int o = kSpread; o < 32; o <<= 1)
+          gb += __shfl_xor_sync(kFull, gb, o);
+        store_if(dx_ch + (long long)(t0 + t) * din, fmaf(d_c, dyv, dtt * gb),
+                 ch_live && l == 0 && t < steps);
+        // db, dc: over the warp's channels; ddt: over the whole warp
+        channel_round<V, kSpread / 2, V>(p, m);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          pdt += __shfl_xor_sync(kFull, pdt, o);
+        float* red_t = red_w + i * W;
+        if (kSpread < V || m < V) {
+#pragma unroll
+          for (int u = 0; u < kHeld; ++u) {
+            const int v = (kSpread < V ? m * kHeld : m) + u;
+            red_t[v < R ? l * R + v : NP + l * R + v - R] = p[u];
+          }
+        }
+        if (lane == 0) red_t[2 * NP] = pdt;
+      }
+      // the block's sums of this sub-chunk, in warp order
+      asm volatile("bar.sync 1, %0;\n" ::"r"(consumers * 32) : "memory");
+      const float* red_b = red + buf * consumers * kSub * W;
+      const int t_q = t0 + q * kSub, live = min(kSub, steps - q * kSub);
+      for (int i = tid; i < live * W; i += consumers * 32) {
+        float sum = 0.f;
+        for (int w = 0; w < consumers; ++w) sum += red_b[w * kSub * W + i];
+        part_b[(long long)t_q * W + i] = sum;
+      }
+      buf ^= 1;
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int s = l * R + r;
+    if (ch_live && s < n) {
+      const long long i = ((long long)b * din + ch) * n + s;
+      dh0[i] = g[r];
+      da_part[i] = da[r];
+    }
+  }
+  if (ch_live && l == 0) dd_part[(long long)b * din + ch] = dd;
+}
+
+// The second pass: one thread an output.  dB, dC (B, T, n) and ddt (B, T)
+// add the blocks' partials (B, blocks, T, 2 NP + 1) in block order; da
+// (din, n) and dD (din) add the batch rows' partials in row order.
+__global__ void selective_scan_bwd_sum_kernel(
+    const float* __restrict__ partial, const float* __restrict__ da_part,
+    const float* __restrict__ dd_part, float* __restrict__ ddt,
+    float* __restrict__ dbb, float* __restrict__ dcc, float* __restrict__ da,
+    float* __restrict__ dd, int B, int T, int din, int n, int NP, int nbx) {
+  const int W = 2 * NP + 1, per_t = 2 * n + 1;
+  const long long steps = (long long)B * T * per_t;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < steps) {
+    const long long bt = i / per_t;
+    const int k = i % per_t, b = bt / T;
+    const int t = bt % T;
+    // the partial's column: db states, then dc states, then ddt
+    const int col = k < n ? k : k < 2 * n ? NP + k - n : 2 * NP;
+    const float* p = partial + ((long long)b * nbx * T + t) * W + col;
+    float sum = 0.f;
+    for (int x = 0; x < nbx; ++x) sum += p[(long long)x * T * W];
+    if (k < n) dbb[bt * n + k] = sum;
+    else if (k < 2 * n) dcc[bt * n + k - n] = sum;
+    else ddt[bt] = sum;
+    return;
+  }
+  const long long j = i - steps;
+  const long long per_b = (long long)din * n;
+  if (j < per_b) {
+    float sum = 0.f;
+    for (int b = 0; b < B; ++b) sum += da_part[b * per_b + j];
+    da[j] = sum;
+  } else if (j < per_b + din) {
+    const long long c = j - per_b;
+    float sum = 0.f;
+    for (int b = 0; b < B; ++b) sum += dd_part[b * din + c];
+    dd[c] = sum;
+  }
+}
+
+// Raises a kernel's dynamic shared memory limit once per card (above the
+// default 48 KB).
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem, size_t (&granted)[64]) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (granted[dev] < smem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    granted[dev] = smem;
+  }
+  return cudaSuccess;
+}
+
 struct Args {
   const float *xs, *dt, *bb, *cc, *a, *dskip, *h0;
   long long sxb, sxt;
-  float *y, *hT;
+  float *y, *hT, *ckpt;
   int B, T, din, n, C, S, route;
 };
 
+template <int R, int L, bool kCkpt>
+cudaError_t launch_fwd(const Args& p, cudaStream_t stream) {
+  static size_t granted[64] = {};
+  const dim3 grid((p.din + p.C - 1) / p.C, p.B);
+  const int threads = p.C * L + 32;          // and the producer warp
+  // no more stages than chunks
+  const int stages = min(p.S, (p.T + kChunk - 1) / kChunk);
+  const size_t smem = (size_t)stages * layout(p.C, R * L).floats * 4;
+  const cudaError_t e =
+      allow_smem(selective_scan_fwd_kernel<R, L, kCkpt>, smem, granted);
+  if (e != cudaSuccess) return e;
+  selective_scan_fwd_kernel<R, L, kCkpt><<<grid, threads, smem, stream>>>(
+      p.xs, p.sxb, p.sxt, p.dt, p.bb, p.cc, p.a, p.dskip, p.h0, p.y, p.hT,
+      p.ckpt, p.T, p.din, p.n, p.C, stages, p.route);
+  return cudaGetLastError();
+}
+
 template <int R, int L>
 cudaError_t launch(const Args& p, cudaStream_t stream) {
-  const dim3 grid((p.din + p.C - 1) / p.C, p.B);
+  if (p.ckpt) return launch_fwd<R, L, true>(p, stream);
   if (p.T == 1) {
+    const dim3 grid((p.din + p.C - 1) / p.C, p.B);
     selective_scan_step_kernel<R, L><<<grid, p.C * L, 0, stream>>>(
         p.xs, p.sxb, p.dt, p.bb, p.cc, p.a, p.dskip, p.h0, p.y, p.hT, p.din,
         p.n, p.C);
     return cudaGetLastError();
   }
-  const int threads = p.C * L + 32;          // and the producer warp
-  // no more stages than chunks
-  const int stages = min(p.S, (p.T + kChunk - 1) / kChunk);
-  const size_t smem = (size_t)stages * layout(p.C, R * L).floats * 4;
-  if (smem > 48 * 1024) {       // above the default: asked once per card
-    static size_t granted[64] = {};
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-    if (granted[dev] < smem) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          selective_scan_fwd_kernel<R, L>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return e;
-      granted[dev] = smem;
-    }
-  }
-  selective_scan_fwd_kernel<R, L><<<grid, threads, smem, stream>>>(
-      p.xs, p.sxb, p.sxt, p.dt, p.bb, p.cc, p.a, p.dskip, p.h0, p.y, p.hT,
-      p.T, p.din, p.n, p.C, stages, p.route);
+  return launch_fwd<R, L, false>(p, stream);
+}
+
+struct BwdArgs {
+  const float *xs, *dt, *bb, *cc, *a, *dskip, *ckpt, *dy, *dhT;
+  long long sxb, sxt;
+  float *dx, *dd_part, *da_part, *dh0, *partial;
+  int B, T, din, n, C, route;
+};
+
+template <int R, int L>
+cudaError_t launch_bwd(const BwdArgs& p, cudaStream_t stream) {
+  static size_t granted[64] = {};
+  const dim3 grid((p.din + p.C - 1) / p.C, p.B);
+  const int threads = p.C * L + 32;
+  const size_t smem = (size_t)bwd_smem_floats(p.C, L, R * L, kBwdStages) * 4;
+  const cudaError_t e =
+      allow_smem(selective_scan_bwd_kernel<R, L>, smem, granted);
+  if (e != cudaSuccess) return e;
+  selective_scan_bwd_kernel<R, L><<<grid, threads, smem, stream>>>(
+      p.xs, p.sxb, p.sxt, p.dt, p.bb, p.cc, p.a, p.dskip, p.ckpt, p.dy,
+      p.dhT, p.dx, p.dd_part, p.da_part, p.dh0, p.partial, p.T, p.din, p.n,
+      p.C, p.route);
   return cudaGetLastError();
+}
+
+bool bad_geometry(int B, int T, int din, int n, int states, int lanes,
+                  int channels) {
+  const int np = states * lanes;
+  return B < 1 || T < 1 || din < 1 || n < 1 || n > np || channels < 4 ||
+         channels % 4 != 0 || (channels * lanes) % 32 != 0 ||
+         channels * lanes > kMaxConsumers;
 }
 
 }  // namespace
@@ -539,28 +1030,25 @@ extern "C" int selective_scan_chunk() { return kChunk; }
 // channels (C) a multiple of 4 with C L a multiple of 32, at most 256
 // (a producer warp comes on top);
 // 1 <= stages <= 4; route: kBulkDt | kBulkBC | kVecX for the operands the
-// wrapper found aligned (kBulkBC needs n == R L).  Returns the launch's
+// wrapper found aligned (kBulkBC needs n == R L).  ckpt: null, or
+// (B, ceil(T / kChunk) + 1, din, n) for the state at the start of every
+// chunk and the final one (selective_scan_fwd_ckpt).  Returns the launch's
 // CUDA error.
-extern "C" int selective_scan_fwd(const void* xs, long long sxb,
-                                  long long sxt, const void* dt,
-                                  const void* bb, const void* cc,
-                                  const void* a, const void* dskip,
-                                  const void* h0, void* y, void* hT, int B,
-                                  int T, int din, int n, int states,
-                                  int lanes, int channels, int stages,
-                                  int route, void* stream) {
-  const int np = states * lanes;
-  if (B < 1 || T < 1 || din < 1 || n < 1 || n > np || channels < 4 ||
-      channels % 4 != 0 || (channels * lanes) % 32 != 0 ||
-      channels * lanes > kMaxConsumers || stages < 1 ||
-      stages > kMaxStages || ((route & kBulkBC) && n != np))
+static int fwd(const void* xs, long long sxb, long long sxt,
+               const void* dt, const void* bb, const void* cc, const void* a,
+               const void* dskip, const void* h0, void* y, void* hT,
+               void* ckpt, int B, int T, int din, int n, int states,
+               int lanes, int channels, int stages, int route, void* stream) {
+  if (bad_geometry(B, T, din, n, states, lanes, channels) || stages < 1 ||
+      stages > kMaxStages || ((route & kBulkBC) && n != states * lanes))
     return (int)cudaErrorInvalidValue;
   const Args p{static_cast<const float*>(xs), static_cast<const float*>(dt),
                static_cast<const float*>(bb), static_cast<const float*>(cc),
                static_cast<const float*>(a), static_cast<const float*>(dskip),
                static_cast<const float*>(h0), sxb, sxt,
-               static_cast<float*>(y), static_cast<float*>(hT), B, T, din, n,
-               channels, stages, route};
+               static_cast<float*>(y), static_cast<float*>(hT),
+               static_cast<float*>(ckpt), B, T, din, n, channels, stages,
+               route};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (states * 100 + lanes) {
     case 101: return (int)launch<1, 1>(p, st);
@@ -575,6 +1063,97 @@ extern "C" int selective_scan_fwd(const void* xs, long long sxb,
 #endif
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+extern "C" int selective_scan_fwd(const void* xs, long long sxb,
+                                  long long sxt, const void* dt,
+                                  const void* bb, const void* cc,
+                                  const void* a, const void* dskip,
+                                  const void* h0, void* y, void* hT, int B,
+                                  int T, int din, int n, int states,
+                                  int lanes, int channels, int stages,
+                                  int route, void* stream) {
+  return fwd(xs, sxb, sxt, dt, bb, cc, a, dskip, h0, y, hT, nullptr, B, T,
+             din, n, states, lanes, channels, stages, route, stream);
+}
+
+extern "C" int selective_scan_fwd_ckpt(const void* xs, long long sxb,
+                                       long long sxt, const void* dt,
+                                       const void* bb, const void* cc,
+                                       const void* a, const void* dskip,
+                                       const void* h0, void* y, void* hT,
+                                       void* ckpt, int B, int T, int din,
+                                       int n, int states, int lanes,
+                                       int channels, int stages, int route,
+                                       void* stream) {
+  if (!ckpt) return (int)cudaErrorInvalidValue;
+  return fwd(xs, sxb, sxt, dt, bb, cc, a, dskip, h0, y, hT, ckpt, B, T, din,
+             n, states, lanes, channels, stages, route, stream);
+}
+
+// The backward's first pass.  Operands as the forward's, with ckpt its
+// checkpoints, dy (B, T, din) contiguous, dhT (B, din, n) or null (zeros);
+// writes dx (B, T, din), dh0 and the partials: da_part (B, din, n),
+// dd_part (B, din) and partial (B, ceil(din / C), T, 2 R L + 1).  route:
+// the forward's bits and kVecDy.  The geometry's rules are the forward's.
+extern "C" int selective_scan_bwd(
+    const void* xs, long long sxb, long long sxt, const void* dt,
+    const void* bb, const void* cc, const void* a, const void* dskip,
+    const void* ckpt, const void* dy, const void* dhT, void* dx,
+    void* dd_part, void* da_part, void* dh0, void* partial, int B, int T,
+    int din, int n, int states, int lanes, int channels, int route,
+    void* stream) {
+  if (bad_geometry(B, T, din, n, states, lanes, channels) ||
+      ((route & kBulkBC) && n != states * lanes))
+    return (int)cudaErrorInvalidValue;
+  const BwdArgs p{
+      static_cast<const float*>(xs), static_cast<const float*>(dt),
+      static_cast<const float*>(bb), static_cast<const float*>(cc),
+      static_cast<const float*>(a), static_cast<const float*>(dskip),
+      static_cast<const float*>(ckpt), static_cast<const float*>(dy),
+      static_cast<const float*>(dhT), sxb, sxt, static_cast<float*>(dx),
+      static_cast<float*>(dd_part), static_cast<float*>(da_part),
+      static_cast<float*>(dh0), static_cast<float*>(partial), B, T, din, n,
+      channels, route};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (states * 100 + lanes) {
+    case 101: return (int)launch_bwd<1, 1>(p, st);
+    case 201: return (int)launch_bwd<2, 1>(p, st);
+    case 401: return (int)launch_bwd<4, 1>(p, st);
+    case 402: return (int)launch_bwd<4, 2>(p, st);
+    case 404: return (int)launch_bwd<4, 4>(p, st);
+    case 408: return (int)launch_bwd<4, 8>(p, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The backward's second pass (selective_scan_bwd_sum_kernel): np = R L and
+// blocks = ceil(din / C) of the first pass's launch.
+extern "C" int selective_scan_bwd_sum(const void* partial,
+                                      const void* da_part,
+                                      const void* dd_part, void* ddt,
+                                      void* dbb, void* dcc, void* da,
+                                      void* dd, int B, int T, int din, int n,
+                                      int np, int blocks, void* stream) {
+  if (B < 1 || T < 1 || din < 1 || n < 1 || n > np || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long outs = (long long)B * T * (2 * n + 1) + (long long)din * n
+                         + din;
+  const int threads = 256;
+  selective_scan_bwd_sum_kernel<<<(unsigned)((outs + threads - 1) / threads),
+                                  threads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(partial), static_cast<const float*>(da_part),
+      static_cast<const float*>(dd_part), static_cast<float*>(ddt),
+      static_cast<float*>(dbb), static_cast<float*>(dcc),
+      static_cast<float*>(da), static_cast<float*>(dd), B, T, din, n, np,
+      blocks);
+  return (int)cudaGetLastError();
+}
+
+// The backward's shared memory a block, in bytes, for the wrapper's check.
+extern "C" int selective_scan_bwd_smem(int states, int lanes, int channels) {
+  return bwd_smem_floats(channels, lanes, states * lanes, kBwdStages) * 4;
 }
 
 extern "C" const char* cuda_error_string(int code) {

@@ -14,17 +14,19 @@ Each kernel wrapper carries a ``launches`` counter
 ``flash_attention_bwd_dkv.launches``, ``ddim_fused.launches``,
 ``parareal_update_residual.launches``, ``parareal_update.launches``,
 ``rwkv6_wkv.launches``, ``rwkv6_wkv_bwd.launches``,
-``selective_scan.launches``) that
+``selective_scan.launches``, ``selective_scan_bwd.launches``,
+``selective_scan_bwd_sum.launches``) that
 :func:`launch_counts` reads and :func:`reset_launch_counts` zeroes.  The
 flash forward and the backward's dq and dkv kernels also count their
 launches by route, the tensor-core kernel (bf16, head dim a multiple of
 8) or the f32-FMA one (:func:`route_counts`).
 
-:func:`attention` and :func:`rwkv6_wkv` are differentiable: they run
-through :class:`FlashAttention` and :class:`RWKV6WKV`, the counterparts of
-``repro.kernels.ops._flash`` and ``_wkv`` (``jax.custom_vjp``s), whose
-backward is a kernel on a CUDA tensor and its plain version on a CPU
-tensor.
+:func:`attention`, :func:`rwkv6_wkv` and :func:`selective_scan` are
+differentiable: they run through :class:`FlashAttention`,
+:class:`RWKV6WKV` (the counterparts of ``repro.kernels.ops._flash`` and
+``_wkv``, ``jax.custom_vjp``s) and :class:`SelectiveScan` (JAX
+differentiates its ``jax.lax.scan``), whose backward is a kernel on a
+CUDA tensor and its plain version on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from . import selective_scan as _scan
 from .flash_attention import (flash_attention_bwd, flash_attention_bwd_dkv,
                               flash_attention_bwd_dq, flash_attention_fwd)
 from .rwkv6_scan import rwkv6_wkv_bwd
+from .selective_scan import selective_scan_bwd
 
 _COUNTED = {"flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd_dq": flash_attention_bwd_dq,
@@ -46,7 +49,9 @@ _COUNTED = {"flash_attention_fwd": flash_attention_fwd,
             "parareal_update": elementwise.parareal_update,
             "rwkv6_wkv": rwkv6_scan.rwkv6_wkv,
             "rwkv6_wkv_bwd": rwkv6_wkv_bwd,
-            "selective_scan": _scan.selective_scan}
+            "selective_scan": _scan.selective_scan,
+            "selective_scan_bwd": selective_scan_bwd,
+            "selective_scan_bwd_sum": _scan.selective_scan_bwd_sum}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -193,6 +198,36 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return RWKV6WKV.apply(r, k, v, w, u, state)
 
 
+class SelectiveScan(torch.autograd.Function):
+    """Hymba's selective scan with the kernels' forward and backward.
+
+    On a CUDA tensor the forward launches the scan kernel, writing its
+    state checkpoints only when an input needs a gradient, and the
+    backward launches the backward kernel (and its sum); on a CPU tensor
+    they run :func:`ref.selective_scan` and :func:`ref.selective_scan_bwd`.
+    Both outputs, ``y`` and the final state, take a gradient."""
+
+    @staticmethod
+    def forward(ctx, xs, dt, bb, cc, a, d, h0):
+        if xs.is_cuda:
+            y, h_t, ckpt = _scan.selective_scan(
+                xs, dt, bb, cc, a, d, h0,
+                checkpoints=any(ctx.needs_input_grad))
+            ctx.save_for_backward(xs, dt, bb, cc, a, d, ckpt)
+        else:
+            y, h_t = ref.selective_scan(xs, dt, bb, cc, a, d, h0)
+            ctx.save_for_backward(xs, dt, bb, cc, a, d, h0)
+        return y, h_t
+
+    @staticmethod
+    def backward(ctx, dy, dh_t):
+        xs, dt, bb, cc, a, d, saved = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(xs.shape, dtype=torch.float32, device=xs.device)
+        bwd = selective_scan_bwd if xs.is_cuda else ref.selective_scan_bwd
+        return bwd(xs, dt, bb, cc, a, d, saved, dy, dh_t)
+
+
 def selective_scan(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
                    cc: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
                    h0: Optional[torch.Tensor] = None, *,
@@ -200,21 +235,23 @@ def selective_scan(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
     """Hymba's selective scan: xs (B, T, din), dt (B, T), bb and cc (B, T,
     n), a = -exp(A_log) (din, n), d (din,), h0 (B, din, n), zeros when
     None; returns ``(y (B, T, din), h_T (B, din, n))`` in f32.  A CUDA
-    tensor launches the kernel (T = 1, a decode step, too); it has no
-    backward yet, so an operand that needs a gradient there raises.  The
-    plain :func:`ref.selective_scan` runs on the CPU, differentiated by
-    autograd, and for ``use_kernel=False``."""
+    tensor launches the kernel (T = 1, a decode step, too); where an
+    operand needs a gradient the call runs through :class:`SelectiveScan`
+    (the backward kernel on the card, the plain backward on the CPU), and
+    otherwise calls the kernel, or on the CPU the plain scan, directly.
+    ``use_kernel=False`` is the plain :func:`ref.selective_scan`,
+    differentiated by autograd."""
     if h0 is None:
         h0 = torch.zeros((xs.shape[0], xs.shape[2], a.shape[-1]),
                          dtype=torch.float32, device=xs.device)
-    if not _kernel(xs, use_kernel):
+    if use_kernel is False:
         return ref.selective_scan(xs, dt, bb, cc, a, d, h0)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xs, dt, bb, cc, a, d, h0)):
-        raise NotImplementedError(
-            "the selective scan's backward kernel is not written: training "
-            "hymba waits for ROADMAP A11(a)'s training half")
-    return _scan.selective_scan(xs, dt, bb, cc, a, d, h0)
+        return SelectiveScan.apply(xs, dt, bb, cc, a, d, h0)
+    if xs.is_cuda:
+        return _scan.selective_scan(xs, dt, bb, cc, a, d, h0)[:2]
+    return ref.selective_scan(xs, dt, bb, cc, a, d, h0)
 
 
 def ddim_fused(x: torch.Tensor, eps: torch.Tensor, a, b, *,

@@ -203,6 +203,71 @@ def selective_scan(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
     return torch.stack(ys, dim=1), h
 
 
+def selective_scan_bwd(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
+                       cc: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                       h0: torch.Tensor, dy: torch.Tensor,
+                       dh_t: Optional[torch.Tensor] = None, *,
+                       ckpt_every: int = 64):
+    """Gradients of :func:`selective_scan` by the backward kernel's
+    formula, a plain reverse scan in f32, in the kernel's chunked order:
+    the state at the start of every ``ckpt_every`` steps (the kernel's
+    chunk) is kept from one forward pass (the forward kernel's
+    checkpoints), and each chunk of that many steps, from
+    the last, replays its states forward from its checkpoint and then
+    walks back through them; no decay is ever divided out.  With
+    ``e_t = exp(a dt_t)``, ``h_t`` the state after step t (``h_{t-1}``
+    before it), ``g_T = dh_T`` (zeros when None) and
+
+        G_t   = g_t + dy_t[:, None] c_t[None, :]      (din, n) per row
+        dc_t  = sum_d dy_t[d] h_t[d, :]
+        dD    = sum_{b,t} dy_t x_t
+        dx_t  = D dy_t + dt_t sum_n G_t b_t
+        db_t  = sum_d G_t dt_t x_t
+        ddt_t = sum_{d,n} G_t (x_t b_t + a e_t h_{t-1})
+        da    = sum_{b,t} G_t dt_t e_t h_{t-1}
+        g_{t-1} = e_t G_t,        dh0 = g_0.
+
+    Shapes as :func:`selective_scan`; ``dy``: (B, T, din).  Returns
+    ``(dxs, ddt, dbb, dcc, da, dd, dh0)`` in f32, with the shapes of
+    ``xs, dt, bb, cc, a, d, h0``."""
+    xf, dtf, bf, cf, dyf = (t.float() for t in (xs, dt, bb, cc, dy))
+    af, df = a.float(), d.float()
+    t_len = xf.shape[1]
+    h = h0.float()
+    ckpts = []
+    for i in range(t_len):
+        if i % ckpt_every == 0:
+            ckpts.append(h)
+        h = (torch.exp(af[None] * dtf[:, i, None, None]) * h
+             + (dtf[:, i, None] * xf[:, i])[:, :, None] * bf[:, i, None, :])
+    g = torch.zeros_like(h) if dh_t is None else dh_t.float()
+    dx, ddt, db, dc = (torch.empty_like(v) for v in (xf, dtf, bf, cf))
+    da = torch.zeros_like(af)
+    for k in reversed(range(len(ckpts))):
+        t0, t1 = k * ckpt_every, min((k + 1) * ckpt_every, t_len)
+        hs = [ckpts[k]]                              # h_{t0-1} .. h_{t1-1}
+        for i in range(t0, t1):
+            decay = torch.exp(af[None] * dtf[:, i, None, None])
+            hs.append(decay * hs[-1] + (dtf[:, i, None] * xf[:, i])[:, :, None]
+                      * bf[:, i, None, :])
+        for i in reversed(range(t0, t1)):
+            h_prev, h_i = hs[i - t0], hs[i - t0 + 1]
+            dt_i, x_i, b_i, dy_i = dtf[:, i], xf[:, i], bf[:, i], dyf[:, i]
+            decay = torch.exp(af[None] * dt_i[:, None, None])
+            gg = g + dy_i[:, :, None] * cf[:, i, None, :]          # G_t
+            dc[:, i] = torch.einsum("bd,bdn->bn", dy_i, h_i)
+            dx[:, i] = df * dy_i + dt_i[:, None] * torch.einsum(
+                "bdn,bn->bd", gg, b_i)
+            db[:, i] = torch.einsum("bdn,bd->bn", gg, dt_i[:, None] * x_i)
+            ehp = decay * h_prev
+            ddt[:, i] = (gg * (x_i[:, :, None] * b_i[:, None, :]
+                               + af[None] * ehp)).sum(dim=(1, 2))
+            da = da + (gg * dt_i[:, None, None] * ehp).sum(dim=0)
+            g = decay * gg
+    dd = (dyf * xf).sum(dim=(0, 1))
+    return dx, ddt, db, dc, da, dd, g
+
+
 def _rows(c, x: torch.Tensor) -> torch.Tensor:
     """A coefficient of shape () or (M,) as f32, broadcastable over x."""
     c = torch.as_tensor(c, dtype=torch.float32, device=x.device)

@@ -22,9 +22,18 @@ model's ``xs`` is the second half of the ``x @ w_in`` product, a strided
 view); its channel stride must be 1, or it is copied.  The other operands
 are made contiguous.  The host path checks, allocates ``y`` and ``h_T``
 and calls the C function on the current stream's raw handle
-(``_build.call``), nothing more: at T = 1 the call is host-bound.  No
-gradient: a training path needs the scan's backward kernel (ROADMAP
-A11(a), training half).
+(``_build.call``), nothing more: at T = 1 the call is host-bound.
+
+For a gradient the forward also writes the f32 state at the start of every
+chunk and the final one (``checkpoints=True``, an instance of its own, so
+the served forward is unchanged), and :func:`selective_scan_bwd` launches
+the backward kernel on the same geometry: it walks the chunks from the
+last, replays each from its checkpoint (the state at the start of every
+:data:`SUB` steps kept in shared memory), walks back through each
+sub-chunk's recomputed states, and writes per-block partials of the sums
+over channels (dB, dC, ddt) and per-row partials of da and dD, which
+:func:`selective_scan_bwd_sum` (a second launch) adds in a fixed order, so
+two runs are bitwise equal.
 """
 from __future__ import annotations
 
@@ -54,10 +63,27 @@ INSTANCES = ((1, 1), (2, 1), (4, 1), (4, 2), (4, 4), (4, 8))
 # 4-byte cp.async
 BULK_DT, BULK_BC, VEC_X = 1, 2, 4
 ALIGN = 16               # the copies' addresses and sizes
+# the backward: steps a sub-chunk (kSub; a lane recomputes their states
+# into registers), the staging ring's depth (kBwdStages), dy's route bit
+# (kVecDy: 16-byte cp.async) and its channels a block: at hymba's width
+# and training batch (B 2 x T 2048) blocks of 32 read 0.612 ms against
+# 0.770 for 64, 0.780 for 16 and 0.863 for 8 on an H100 (B 1: 0.608
+# against 0.768; B 4: 0.806 against 0.773; PERF.md,
+# scripts/torch_scan_bench.py --backward)
+SUB = 8
+BWD_STAGES = 2
+VEC_DY = 8
+BWD_CHANNELS_PER_BLOCK = 32
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURE = {"selective_scan_fwd": ((_P, _L, _L) + (_P,) * 8 + (_I,) * 9
                                      + (_P,), _I),
+              "selective_scan_fwd_ckpt": ((_P, _L, _L) + (_P,) * 9
+                                          + (_I,) * 9 + (_P,), _I),
+              "selective_scan_bwd": ((_P, _L, _L) + (_P,) * 13 + (_I,) * 8
+                                     + (_P,), _I),
+              "selective_scan_bwd_sum": ((_P,) * 8 + (_I,) * 6 + (_P,), _I),
+              "selective_scan_bwd_smem": ((_I,) * 3, _I),
               "selective_scan_chunk": ((), _I)}
 
 
@@ -121,6 +147,48 @@ def route(misaligned: tuple, batch: int, t: int, din: int, n: int,
     return bits
 
 
+def checkpoint_shape(batch: int, t: int, din: int, n: int) -> tuple:
+    """The forward's checkpoints for the backward: the f32 state at the
+    start of every chunk of :data:`CHUNK` steps and the final one,
+    ``(B, ceil(T / CHUNK) + 1, din, n)``."""
+    return (batch, -(-t // CHUNK) + 1, din, n)
+
+
+def partial_shape(batch: int, t: int, din: int, n: int,
+                  channels: int = BWD_CHANNELS_PER_BLOCK) -> tuple:
+    """The backward's per-block partials of the sums over channels: ``(B,
+    blocks, T, 2 NP + 1)``, a step's dB and dC over the padded states
+    (NP) and ddt, for each of the ``ceil(din / channels)`` blocks of a
+    batch row."""
+    geo = geometry(batch, din, n, channels=channels)
+    return (batch, geo.grid[0], t, 2 * geo.states * geo.lanes + 1)
+
+
+def bwd_smem_bytes(geo: Geometry) -> int:
+    """The backward's dynamic shared memory a block: :data:`BWD_STAGES`
+    stages of x and dy (CHUNK x channels), B and C (CHUNK x NP) and dt
+    (CHUNK); the warps' sums of two sub-chunks, (2, warps, SUB, 2 NP + 1);
+    and the lanes' states at the start of each of a chunk's sub-chunks
+    (CHUNK / SUB, threads, states)."""
+    np_ = geo.states * geo.lanes
+    stage = 2 * CHUNK * geo.channels + 2 * CHUNK * np_ + CHUNK
+    sums = 2 * (geo.threads // 32) * SUB * (2 * np_ + 1)
+    starts = CHUNK // SUB * geo.threads * geo.states
+    return 4 * (BWD_STAGES * stage + sums + starts)
+
+
+def bwd_route(misaligned: tuple, batch: int, t: int, din: int, n: int,
+              padded: int, sxb: int, sxt: int) -> int:
+    """The backward's route bits: :func:`route`'s for (xs, dt, bb | cc),
+    the first three of ``misaligned``, and :data:`VEC_DY` for dy (its
+    pointer modulo 16, the fourth) where it is 16-byte aligned and din a
+    multiple of 4 (dy is contiguous)."""
+    bits = route(misaligned[:3], batch, t, din, n, padded, sxb, sxt)
+    if misaligned[3] == 0 and din % 4 == 0:
+        bits |= VEC_DY
+    return bits
+
+
 def _check(xs, dt, bb, cc, a, d, h0) -> None:
     if xs.dim() != 3:
         raise ValueError(f"xs must be (B, T, din), got {tuple(xs.shape)}")
@@ -154,10 +222,13 @@ def _check(xs, dt, bb, cc, a, d, h0) -> None:
 
 
 def launch(lib, xs, dt, bb, cc, a, d, h0, y, h_t, geo: Geometry,
-           stages: int = STAGES, bits: Optional[int] = None) -> None:
+           stages: int = STAGES, bits: Optional[int] = None,
+           ckpt: Optional[torch.Tensor] = None) -> None:
     """One launch of ``lib``'s ``selective_scan_fwd`` (this source's or a
     build of it with other knobs) into ``y`` and ``h_t`` with geometry
-    ``geo``; ``bits`` defaults to :func:`route` of the operands."""
+    ``geo``, or of ``selective_scan_fwd_ckpt`` when ``ckpt`` (of
+    :func:`checkpoint_shape`) is given; ``bits`` defaults to :func:`route`
+    of the operands."""
     b, t, din = xs.shape
     n = a.shape[-1]
     sxb, sxt = xs.stride(0), xs.stride(1)
@@ -166,20 +237,28 @@ def launch(lib, xs, dt, bb, cc, a, d, h0, y, h_t, geo: Geometry,
     if bits is None:
         bits = route((px % ALIGN, pd % ALIGN, (pb | pc) % ALIGN), b, t, din,
                      n, geo.states * geo.lanes, sxb, sxt)
-    _build.call(lib, "selective_scan_fwd", xs.device, px, sxb, sxt, pd, pb,
-                pc, a.data_ptr(), d.data_ptr(), h0.data_ptr(), y.data_ptr(),
-                h_t.data_ptr(), b, t, din, n, geo.states, geo.lanes,
-                geo.channels, stages, bits)
+    outs = (y.data_ptr(), h_t.data_ptr())
+    if ckpt is None:
+        fn = "selective_scan_fwd"
+    else:
+        fn, outs = "selective_scan_fwd_ckpt", outs + (ckpt.data_ptr(),)
+    _build.call(lib, fn, xs.device, px, sxb, sxt, pd, pb, pc, a.data_ptr(),
+                d.data_ptr(), h0.data_ptr(), *outs, b, t, din, n, geo.states,
+                geo.lanes, geo.channels, stages, bits)
 
 
 def selective_scan(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
                    cc: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
-                   h0: torch.Tensor):
+                   h0: torch.Tensor, *, checkpoints: bool = False):
     """xs: (B, T, din); dt: (B, T); bb, cc: (B, T, n); a: (din, n); d:
     (din,); h0: (B, din, n); all f32 on one CUDA device.  Returns ``(y
-    (B, T, din), h_T (B, din, n))``, both f32, with the semantics of
-    :func:`repro_torch.kernels.ref.selective_scan`.  Launches the kernel
-    once and counts it in ``selective_scan.launches``."""
+    (B, T, din), h_T (B, din, n), ckpt)``, y and h_T f32 with the semantics
+    of :func:`repro_torch.kernels.ref.selective_scan`; with
+    ``checkpoints``, ``ckpt`` is the f32 state at the start of every chunk
+    and the final one (:func:`checkpoint_shape`) for
+    :func:`selective_scan_bwd`, otherwise None.  Launches the kernel once
+    and counts it in ``selective_scan.launches`` (and, with checkpoints,
+    in ``selective_scan.checkpoint_launches``)."""
     _check(xs, dt, bb, cc, a, d, h0)
     b, t, din = xs.shape
     n = a.shape[-1]
@@ -191,12 +270,107 @@ def selective_scan(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
     dev = xs.device
     y = torch.empty((b, t, din), dtype=torch.float32, device=dev)
     h_t = torch.empty((b, din, n), dtype=torch.float32, device=dev)
-    launch(_lib(), xs, dt, bb, cc, a, d, h0, y, h_t, geo)
+    ckpt = (torch.empty(checkpoint_shape(b, t, din, n), dtype=torch.float32,
+                        device=dev) if checkpoints else None)
+    launch(_lib(), xs, dt, bb, cc, a, d, h0, y, h_t, geo, ckpt=ckpt)
     selective_scan.launches += 1
-    return y, h_t
+    if checkpoints:
+        selective_scan.checkpoint_launches += 1
+    return y, h_t, ckpt
 
 
 selective_scan.launches = 0
+selective_scan.checkpoint_launches = 0
+
+
+def selective_scan_bwd(xs: torch.Tensor, dt: torch.Tensor,
+                       bb: torch.Tensor, cc: torch.Tensor, a: torch.Tensor,
+                       d: torch.Tensor, ckpt: torch.Tensor, dy: torch.Tensor,
+                       dh_t: Optional[torch.Tensor] = None, *,
+                       channels: int = BWD_CHANNELS_PER_BLOCK):
+    """Gradients of :func:`selective_scan` from its inputs, its checkpoints
+    ``ckpt``, the gradient ``dy`` of y (B, T, din) and (optionally, zeros
+    when None) ``dh_t`` of the final state, all f32 on one CUDA device:
+    ``(dxs, ddt, dbb, dcc, da, dd, dh0)`` in f32 with the shapes of ``xs,
+    dt, bb, cc, a, d`` and h0, the semantics of
+    :func:`repro_torch.kernels.ref.selective_scan_bwd`.  Launches the
+    backward kernel with blocks of ``channels`` channels (counted in
+    ``selective_scan_bwd.launches``), then :func:`selective_scan_bwd_sum`."""
+    b, t, din = xs.shape
+    n = a.shape[-1]
+    if ckpt.shape != checkpoint_shape(b, t, din, n) or \
+            ckpt.dtype != torch.float32:
+        raise ValueError(f"ckpt must be the forward's f32 checkpoints "
+                         f"{checkpoint_shape(b, t, din, n)}, got "
+                         f"{ckpt.dtype} {tuple(ckpt.shape)}")
+    _check(xs, dt, bb, cc, a, d, ckpt[:, 0])
+    if dy.shape != (b, t, din) or dy.dtype != torch.float32 or \
+            dy.device != xs.device:
+        raise ValueError(f"dy must be f32 {(b, t, din)} on {xs.device}, got "
+                         f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    if dh_t is not None and (dh_t.shape != (b, din, n)
+                             or dh_t.dtype != torch.float32
+                             or dh_t.device != xs.device):
+        raise ValueError(f"dh_t must be f32 {(b, din, n)} on {xs.device}, "
+                         f"got {dh_t.dtype} {tuple(dh_t.shape)}")
+    geo = geometry(b, din, n, channels=channels)
+    if xs.stride(-1) != 1:
+        xs = xs.contiguous()
+    dt, bb, cc, a, d = (v.contiguous() for v in (dt, bb, cc, a, d))
+    ckpt, dy = ckpt.contiguous(), dy.contiguous()
+    if dh_t is not None:
+        dh_t = dh_t.contiguous()
+    f32 = dict(dtype=torch.float32, device=xs.device)
+    dx = torch.empty((b, t, din), **f32)
+    dd_part = torch.empty((b, din), **f32)
+    da_part = torch.empty((b, din, n), **f32)
+    dh0 = torch.empty((b, din, n), **f32)
+    partial = torch.empty(partial_shape(b, t, din, n, channels), **f32)
+    sxb, sxt = xs.stride(0), xs.stride(1)
+    ptrs = [v.data_ptr() for v in (xs, dt, bb, cc, dy)]
+    bits = bwd_route((ptrs[0] % ALIGN, ptrs[1] % ALIGN,
+                      (ptrs[2] | ptrs[3]) % ALIGN, ptrs[4] % ALIGN), b, t,
+                     din, n, geo.states * geo.lanes, sxb, sxt)
+    _build.call(_lib(), "selective_scan_bwd", xs.device, ptrs[0], sxb, sxt,
+                ptrs[1], ptrs[2], ptrs[3], a.data_ptr(), d.data_ptr(),
+                ckpt.data_ptr(), ptrs[4],
+                dh_t.data_ptr() if dh_t is not None else None,
+                dx.data_ptr(), dd_part.data_ptr(), da_part.data_ptr(),
+                dh0.data_ptr(), partial.data_ptr(), b, t, din, n,
+                geo.states, geo.lanes, geo.channels, bits)
+    selective_scan_bwd.launches += 1
+    ddt, dbb, dcc, da, dd = selective_scan_bwd_sum(partial, da_part, dd_part,
+                                                   n)
+    return dx, ddt, dbb, dcc, da, dd, dh0
+
+
+selective_scan_bwd.launches = 0
+
+
+def selective_scan_bwd_sum(partial: torch.Tensor, da_part: torch.Tensor,
+                           dd_part: torch.Tensor, n: int):
+    """The backward's second launch: ``partial`` (B, blocks, T, 2 NP + 1)
+    added over the blocks in block order into ``ddt`` (B, T), ``dbb`` and
+    ``dcc`` (B, T, n); ``da_part`` (B, din, n) and ``dd_part`` (B, din)
+    over the batch in row order into ``da`` and ``dd``.  Counted in
+    ``selective_scan_bwd_sum.launches``."""
+    b, blocks, t, width = partial.shape
+    din = dd_part.shape[1]
+    f32 = dict(dtype=torch.float32, device=partial.device)
+    ddt = torch.empty((b, t), **f32)
+    dbb = torch.empty((b, t, n), **f32)
+    dcc = torch.empty((b, t, n), **f32)
+    da = torch.empty((din, n), **f32)
+    dd = torch.empty((din,), **f32)
+    _build.call(_lib(), "selective_scan_bwd_sum", partial.device,
+                partial.data_ptr(), da_part.data_ptr(), dd_part.data_ptr(),
+                ddt.data_ptr(), dbb.data_ptr(), dcc.data_ptr(), da.data_ptr(),
+                dd.data_ptr(), b, t, din, n, (width - 1) // 2, blocks)
+    selective_scan_bwd_sum.launches += 1
+    return ddt, dbb, dcc, da, dd
+
+
+selective_scan_bwd_sum.launches = 0
 
 
 def kernel_chunk() -> int:

@@ -1,20 +1,22 @@
 """Training launcher: config -> model and optimizer state -> fault-tolerant
 loop (counterpart of ``repro.launch.train``), for the DiT and the language
-models the port has (``qwen3-8b``, ``rwkv6-1.6b``) on one device
-(``--mesh local``).  The pod meshes wait for the multi-device port
+models the port has (``qwen3-8b``, ``rwkv6-1.6b``, ``hymba-1.5b``) on one
+device (``--mesh local``).  The pod meshes wait for the multi-device port
 (ROADMAP A10).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch srds-dit-sd2 \\
         --steps 5 --batch 8
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \\
         --steps 5 --batch 2 --seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \\
+        --steps 5 --batch 2 --seq 2048
 
 run on the CUDA card; ``--device cpu`` (with ``--reduced``) runs on the
 CPU.  The language models train through the kernels in both directions
 (the JAX launcher builds its step with ``use_kernel=False``).  Without
 ``--ckpt`` the checkpoints go to a temporary directory that is deleted at
-exit; at full width one checkpoint is about 7 GB for the DiT and 16 GB
-for ``rwkv6-1.6b``.
+exit; at full width one checkpoint is about 7 GB for the DiT, 16 GB for
+``rwkv6-1.6b`` and 14 GB for ``hymba-1.5b``.
 """
 from __future__ import annotations
 

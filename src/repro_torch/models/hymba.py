@@ -5,14 +5,17 @@ global context.
 
 The SSM's recurrence runs through
 :func:`repro_torch.kernels.ops.selective_scan` (the CUDA kernel on the
-card, its plain twin on the CPU), in prefill and in every decode step; its
+card, its plain twin on the CPU), in prefill, in every decode step and in
+training, where ``SelectiveScan`` differentiates it (the scan's backward
+kernel on the card, ``ref.selective_scan_bwd`` on the CPU); its
 projections (``x @ w_in``, then ``dt``, ``B`` and ``C`` from ``xs``) are
 plain products outside it, as JAX computes them outside its
 ``jax.lax.scan``.  Dtypes follow the JAX lines: ``xs`` is cast to f32
 before the scan, ``w_dt``, ``b_dt``, ``w_B``, ``w_C``, ``A_log`` and ``D``
 are f32, and the gate is ``ys.to(x.dtype) * silu(z in f32).to(x.dtype)``.
 The full-sequence attention is the flash forward in its causal
-sliding-window form; decode attends over the ring with a plain masked
+sliding-window form (and, for a gradient, dq and dkv in that form); decode
+attends over the ring with a plain masked
 softmax, as JAX does (``hymba.py:117-128``).
 
 Decode state per layer, :class:`HymbaCache`: the SSM state and a ring KV

@@ -25,8 +25,11 @@ LAUNCH_APIS = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cuMemcpy",
 # 0.5 ms early in a window (scripts/torch_profiler_edges.py), and a window
 # without the pause lost launches now and then
 LAUNCH_EDGE_PAUSE_S = 0.02
-# clock cycles of the kernel a launch-counting window starts with on a card
-# (window_launches)
+# the kernels a launch-counting window starts with on a card, and the clock
+# cycles of each (window_launches).  On an H100, late in a long process the
+# profiler kept no record of a window's first 1-4 launches, more the later
+# (scripts/torch_profiler_edges.py --scan-bwd-late; ROADMAP C12)
+LEAD_LAUNCHES = 8
 LEAD_CYCLES = 1000
 
 # (substring of the lower-cased kernel name, group), first match wins
@@ -41,8 +44,11 @@ _PORT_KERNELS = (
     ("ddim_fused_kernel", "ddim_fused (port)"),
     ("parareal_resid_cluster_kernel", "parareal_update_residual (port)"),
     ("parareal_update_cluster_kernel", "parareal_update (port)"),
-    # the staged kernel (selective_scan_fwd_kernel) and the decode step's
-    # (selective_scan_step_kernel)
+    # the scan's backward and its sum (selective_scan_bwd_kernel,
+    # selective_scan_bwd_sum_kernel), before the forward's mark; the
+    # staged forward (selective_scan_fwd_kernel, with or without
+    # checkpoints) and the decode step's (selective_scan_step_kernel)
+    ("selective_scan_bwd", "selective_scan_bwd (port)"),
     ("selective_scan_", "selective_scan (port)"),
 )
 _GEMM_MARKS = ("gemm", "nvjet", "xmma", "cutlass", "sm90_")
@@ -77,45 +83,58 @@ def device_ms_by_name(prof, reps: int = 1) -> dict:
 def window_launches(fn, calls: int, pause_s: float = LAUNCH_EDGE_PAUSE_S
                     ) -> dict:
     """``calls`` calls of ``fn`` under one ``torch.profiler`` window:
-    ``{"device": {kernel name: [launches, device µs]}, "api": n}``, the
-    device activities (kernels, copies, fills) the profiler recorded and
-    the host's calls that start one (``LAUNCH_APIS``).  The card is idle
-    and the host waits ``pause_s`` seconds at both ends of the window.  On
-    a card the window starts with a lead kernel (``torch.cuda._sleep``),
-    whose call (the window's first) and record (by CUPTI's correlation id)
-    are left out of both counts: on an H100, from some point of a
-    long process on, the profiler kept no record of the first launch of
-    every window, whatever it launched (``scripts/torch_profiler_edges.py
-    --scan-late``; ROADMAP C12), and the lead kernel takes that loss."""
+    ``{"device": {kernel name: [launches, device µs]}, "api": n,
+    "lead_lost": k, "missing": [i, ...]}``, the device activities (kernels,
+    copies, fills) the profiler recorded and the host's calls that start
+    one (``LAUNCH_APIS``), the lead's launches with no record, and the
+    places (in launch order) of the calls' launches with no record.  The
+    card is idle and the host waits ``pause_s`` seconds at both ends of the
+    window.  On a card the window starts with ``LEAD_LAUNCHES`` lead kernels
+    (``torch.cuda._sleep``), a synchronize and another pause; their calls
+    (the window's first) and records (by CUPTI's correlation id) are left
+    out of ``device`` and ``api``: on an H100, from some point of a long
+    process on, the profiler kept no record of the first launches of every
+    window, one to four of them, whatever they launched
+    (``scripts/torch_profiler_edges.py --scan-late`` and
+    ``--scan-bwd-late``; ROADMAP C12), and the lead takes that loss."""
     import time
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    lead = torch.cuda.is_available()
+    lead = LEAD_LAUNCHES if torch.cuda.is_available() else 0
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         time.sleep(pause_s)
         if lead:
-            torch.cuda._sleep(LEAD_CYCLES)
+            for _ in range(lead):
+                torch.cuda._sleep(LEAD_CYCLES)
+            torch.cuda.synchronize()
+            time.sleep(pause_s)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
         time.sleep(pause_s)
     raw = prof.profiler.kineto_results.events()
-    launches = sorted((e.start_ns(), e.correlation_id()) for e in raw
-                      if e.device_type() == DeviceType.CPU
-                      and e.name().startswith(LAUNCH_APIS))
-    skip = {launches[0][1]} if lead and launches else set()
+    launches = [c for _, c in sorted(
+        (e.start_ns(), e.correlation_id()) for e in raw
+        if e.device_type() == DeviceType.CPU
+        and e.name().startswith(LAUNCH_APIS))]
+    skip = set(launches[:lead])
+    records = [e for e in raw if e.device_type() == DeviceType.CUDA
+               and e.name() not in NOT_KERNELS]
+    recorded = {e.correlation_id() for e in records}
     device = {}
-    for e in raw:
-        if (e.device_type() == DeviceType.CUDA and e.name() not in NOT_KERNELS
-                and e.correlation_id() not in skip):
+    for e in records:
+        if e.correlation_id() not in skip:
             count, us = device.get(e.name(), (0, 0.0))
             device[e.name()] = [count + 1,
                                 us + (e.end_ns() - e.start_ns()) / 1e3]
-    return {"device": device, "api": len(launches) - len(skip)}
+    return {"device": device, "api": len(launches) - len(skip),
+            "lead_lost": len(skip - recorded),
+            "missing": [i for i, c in enumerate(launches[len(skip):])
+                        if c not in recorded]}
 
 
 def device_launches(fn, calls: int, pause_s: float = LAUNCH_EDGE_PAUSE_S

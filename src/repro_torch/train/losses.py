@@ -92,9 +92,9 @@ def lm_loss(cfg, model, batch, *, use_kernel: Optional[bool] = None):
 
     ``batch["tokens"]`` and ``batch["labels"]``: (B, S) ints; position i
     predicts ``labels[i + 1]``, every position valid, the mean over them.
-    ``aux`` is 0 (no MoE).  ``use_kernel=False`` takes the plain attention
-    and WKV (a yardstick)."""
-    if not cfg.causal or cfg.family not in ("dense", "ssm"):
+    ``aux`` is 0 (no MoE).  ``use_kernel=False`` takes the plain attention,
+    WKV and selective scan (a yardstick)."""
+    if not cfg.causal or cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(f"the masked-unit (audio) and prefix "
                                   f"(VLM) LM losses wait for those archs "
                                   f"(ROADMAP A11); {cfg.name} is "

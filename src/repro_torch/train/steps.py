@@ -24,14 +24,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
     if (loss_kind == "diffusion") != (cfg.family == "dit"):
         raise ValueError(f"loss_kind {loss_kind!r} does not train a "
                          f"{cfg.family} arch")
-    if loss_kind == "lm" and cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"training {cfg.name} waits for ROADMAP A11(a)'s training half: "
-            f"the selective scan's backward kernel, and the hybrid family "
-            f"in the LM loss and data stream")
-    if loss_kind == "lm" and cfg.family not in ("dense", "ssm"):
-        raise NotImplementedError(f"training {cfg.family} archs waits for "
-                                  f"their blocks and losses (ROADMAP A11)")
+    if loss_kind == "lm" and cfg.family not in ("dense", "ssm", "hybrid"):
+        raise NotImplementedError(f"training {cfg.family} archs (audio, "
+                                  f"vision) waits for their blocks and "
+                                  f"losses (ROADMAP A11)")
 
     def loss_fn(model, batch, generator, t, eps):
         if loss_kind == "lm":

@@ -37,8 +37,12 @@ miss it; each output tile has one owner, so two runs are bitwise equal.
 Hymba's selective scan (f32) agrees with its plain twin to 1e-4 (the sum
 over the states in another order) and runs bitwise equal twice, and on
 its 4-byte copy route as on its bulk route; the twin with D dropped
-misses that limit, a call makes one device launch, and a CUDA operand
-that needs a gradient raises (the scan has no backward kernel yet).
+misses that limit, and a call makes one device launch.  Its backward
+kernel agrees with ``ref.selective_scan_bwd`` to 1e-4 relative L2 per
+gradient (the sums over channels, steps and states in other orders) and
+runs bitwise equal twice; the forward's checkpoints are the twin's states
+to 1e-4 and change neither y nor h_T; a CUDA operand that needs a gradient
+runs the backward kernel, never the plain scan.
 """
 import numpy as np
 import pytest
@@ -807,10 +811,11 @@ def test_wkv_forward_checkpoints_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen3-8b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["qwen3-8b", "rwkv6-1.6b", "hymba-1.5b"])
 def test_reduced_lm_grads_on_card_equal_plain_path(cuda, arch):
     """``lm_loss`` on the reduced LM (f32) through the kernels on the card
-    (the causal GQA flash backward, or the WKV backward) against the plain
+    (the causal GQA flash backward, the WKV backward, or hymba's window
+    flash backward and the scan's backward) against the plain
     path's: every parameter's gradient within 1e-4 relative L2, and the
     backward kernels launched once per layer."""
     from repro_torch.configs import get_arch
@@ -828,9 +833,10 @@ def test_reduced_lm_grads_on_card_equal_plain_path(cuda, arch):
     counts = ops.launch_counts()
     want = torch.autograd.grad(lm_loss(cfg, model, batch,
                                        use_kernel=False)[0], params)
-    bwd = ("rwkv6_wkv_bwd" if cfg.block == "rwkv6"
-           else "flash_attention_bwd_dkv")
-    assert counts[bwd] == cfg.num_layers
+    bwds = {"rwkv6": ("rwkv6_wkv_bwd",),
+            "hymba": ("flash_attention_bwd_dkv", "selective_scan_bwd")}.get(
+                cfg.block, ("flash_attention_bwd_dkv",))
+    assert all(counts[bwd] == cfg.num_layers for bwd in bwds), counts
     for g, w in zip(got, want):
         rel = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
         assert rel <= 1e-4
@@ -1144,15 +1150,146 @@ def test_selective_scan_kernel_control_on_card(cuda):
     assert not torch.allclose(y, no_d, atol=1e-4, rtol=1e-4)
 
 
+# the scan's backward kernel against ref.selective_scan_bwd: relative L2
+# per gradient (dB, dC and ddt sum 1,600 channels, da and dD every step,
+# each in another order than the twin's)
+SCAN_BWD_REL_L2 = 1e-4
+
+
+def _scan_grads(cuda, case, seed=1):
+    """The scan's operands (``_scan_inputs``), the forward's checkpoints,
+    and upstream gradients of y and of the final state."""
+    from repro_torch.kernels import selective_scan as scan
+    x = _scan_inputs(cuda, case)
+    b, t, din = x[0].shape
+    n = x[4].shape[-1]
+    rng = np.random.default_rng(seed)
+    dy = torch.from_numpy(rng.standard_normal((b, t, din)).astype(
+        np.float32)).to(cuda)
+    dh_t = torch.from_numpy(rng.standard_normal((b, din, n)).astype(
+        np.float32)).to(cuda)
+    _, _, ckpt = scan.selective_scan(*x, checkpoints=True)
+    return x, ckpt, dy, dh_t
+
+
 @pytest.mark.cuda
-def test_selective_scan_refuses_a_gradient_on_card(cuda):
-    """No backward kernel yet: a CUDA operand that needs a gradient raises
-    before any launch, and never falls back to the plain scan."""
-    x = _scan_inputs(cuda, SCAN_CASES[0], grad=True)
-    before = ops.launch_counts()["selective_scan"]
-    with pytest.raises(NotImplementedError, match=r"A11\(a\)"):
-        ops.selective_scan(*x)
-    assert ops.launch_counts()["selective_scan"] == before
-    with torch.no_grad():
-        ops.selective_scan(*x)
-    assert ops.launch_counts()["selective_scan"] == before + 1
+@pytest.mark.parametrize("case", SCAN_CASES, ids=str)
+def test_selective_scan_bwd_kernel_matches_twin_on_card(cuda, case):
+    """The backward kernel from the forward's checkpoints, with gradients
+    on y and on the final state, against ``ref.selective_scan_bwd`` from
+    h0: every gradient within SCAN_BWD_REL_L2; one launch of the kernel
+    and one of its sum a call; two runs bitwise equal."""
+    from repro_torch.kernels import selective_scan as scan
+    x, ckpt, dy, dh_t = _scan_grads(cuda, case)
+    before = ops.launch_counts()
+    got = scan.selective_scan_bwd(*x[:6], ckpt, dy, dh_t)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["selective_scan_bwd"] == before["selective_scan_bwd"] + 1
+    assert (after["selective_scan_bwd_sum"]
+            == before["selective_scan_bwd_sum"] + 1)
+    want = ref.selective_scan_bwd(*x, dy, dh_t)
+    for name, g, w in zip(("dx", "ddt", "db", "dc", "da", "dd", "dh0"), got,
+                          want):
+        assert g.shape == w.shape, name
+        rel = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+        assert rel <= SCAN_BWD_REL_L2, (name, rel)
+    again = scan.selective_scan_bwd(*x[:6], ckpt, dy, dh_t)
+    assert all(torch.equal(u, v) for u, v in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_selective_scan_bwd_kernel_control_on_card(cuda):
+    """The comparison can fail: the twin without the final state's
+    gradient misses the limit on dh0, ddt and da."""
+    from repro_torch.kernels import selective_scan as scan
+    x, ckpt, dy, dh_t = _scan_grads(cuda, SCAN_CASES[0])
+    got = scan.selective_scan_bwd(*x[:6], ckpt, dy, dh_t)
+    wrong = ref.selective_scan_bwd(*x, dy, None)
+    for i in (1, 4, 6):
+        rel = ((got[i] - wrong[i]).norm() / wrong[i].norm()).item()
+        assert rel > SCAN_BWD_REL_L2, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [SCAN_CASES[3], SCAN_CASES[6]], ids=str)
+def test_selective_scan_forward_checkpoints_on_card(cuda, case):
+    """With checkpoints the forward writes the state at the start of every
+    chunk (the twin's state there, to 1e-4) and the final one (h_T's
+    bits), and y and h_T are bitwise those of the call without."""
+    from repro_torch.kernels import selective_scan as scan
+    x = _scan_inputs(cuda, case)
+    b, t, din = x[0].shape
+    n = x[4].shape[-1]
+    y, h_t, ckpt = scan.selective_scan(*x, checkpoints=True)
+    y2, h_t2, none = scan.selective_scan(*x)
+    assert none is None and ckpt.shape == scan.checkpoint_shape(b, t, din, n)
+    assert torch.equal(y, y2) and torch.equal(h_t, h_t2)
+    assert torch.equal(ckpt[:, -1], h_t) and torch.equal(ckpt[:, 0], x[6])
+    for k in range(1, ckpt.shape[1] - 1):
+        _, h_k = ref.selective_scan(x[0][:, :k * scan.CHUNK],
+                                    x[1][:, :k * scan.CHUNK],
+                                    x[2][:, :k * scan.CHUNK],
+                                    x[3][:, :k * scan.CHUNK], *x[4:])
+        torch.testing.assert_close(ckpt[:, k], h_k, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_selective_scan_gradient_runs_the_backward_kernel_on_card(
+        cuda, monkeypatch):
+    """A CUDA operand that needs a gradient runs ``SelectiveScan``: one
+    checkpointing forward and, for ``backward``, one backward kernel and
+    one sum; the plain scan never runs.  The gradients equal autograd of
+    the plain scan within SCAN_BWD_REL_L2."""
+    from repro_torch.kernels import selective_scan as scan
+    x = [v.detach().clone().requires_grad_(i != 6)
+         for i, v in enumerate(_scan_inputs(cuda, SCAN_CASES[0]))]
+    y_w, h_w = ops.selective_scan(*x, use_kernel=False)
+    dy = torch.ones_like(y_w)
+    want = torch.autograd.grad((y_w * dy).sum() + h_w.sum(), x[:6])
+
+    def plain(*args):
+        raise AssertionError("the plain scan ran on a CUDA tensor")
+
+    monkeypatch.setattr(ref, "selective_scan", plain)
+    monkeypatch.setattr(ref, "selective_scan_bwd", plain)
+    before = ops.launch_counts()
+    ckpts = scan.selective_scan.checkpoint_launches
+    y, h_t = ops.selective_scan(*x)
+    assert y.grad_fn is not None and h_t.grad_fn is not None
+    got = torch.autograd.grad((y * dy).sum() + h_t.sum(), x[:6])
+    after = ops.launch_counts()
+    assert scan.selective_scan.checkpoint_launches == ckpts + 1
+    for k in ("selective_scan", "selective_scan_bwd",
+              "selective_scan_bwd_sum"):
+        assert after[k] == before[k] + 1, k
+    for g, w in zip(got, want):
+        rel = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+        assert rel <= SCAN_BWD_REL_L2
+
+
+@pytest.mark.cuda
+def test_hymba_mix_full_has_grad_fn_on_card(cuda):
+    """The reduced hymba's mixer on the card with trainable parameters:
+    its output and final SSM state carry a ``grad_fn`` (the window flash
+    forward and the scan both differentiable), and a backward launches the
+    window dq/dkv kernels and the scan's backward once each."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import hymba
+    from repro_torch.models import transformer as tf
+    cfg = get_arch("hymba-1.5b").reduced()
+    model = tf.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           device=cuda, trainable=True)
+    p = model.blocks[0]
+    x = torch.from_numpy(_rand(3, (2, 70, cfg.d_model))).to(cuda)
+    kw = dict(tf._attn_kwargs(cfg), causal=True)
+    ops.reset_launch_counts()
+    fused, _, h_fin = hymba.hymba_mix_full(p, x, kw, tf._norm(cfg))
+    assert fused.grad_fn is not None and h_fin.grad_fn is not None
+    torch.autograd.grad(fused.float().square().sum() + h_fin.sum(),
+                        list(p.parameters()), allow_unused=True)
+    counts = ops.launch_counts()
+    for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv", "selective_scan",
+              "selective_scan_bwd", "selective_scan_bwd_sum"):
+        assert counts[k] == 1, (k, counts)

@@ -452,7 +452,10 @@ def test_engine_logits_match_jax_at_every_step():
 
 
 def test_training_hymba_waits_for_a11a_training_half():
+    """A11(a)'s training half is in: the LM step builds for the full
+    hymba-1.5b config (``tests/test_torch_hymba_train.py`` holds its
+    loss, gradients and steps against JAX's)."""
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import make_train_step
-    with pytest.raises(NotImplementedError, match=r"A11\(a\)"):
-        make_train_step(get_arch(ARCH), AdamWConfig(), loss_kind="lm")
+    assert callable(make_train_step(get_arch(ARCH), AdamWConfig(),
+                                    loss_kind="lm"))

@@ -970,6 +970,10 @@ def test_cpu_dispatch_launches_no_kernel():
     ops.selective_scan(x[None], x[:1, :4],
                        x[None, :, :2], x[None, :, :2], -x.t()[:, :2],
                        x[0], torch.zeros(1, 8, 2))
+    xs = x[None].requires_grad_()
+    torch.autograd.grad(ops.selective_scan(
+        xs, x[:1, :4], x[None, :, :2], x[None, :, :2], -x.t()[:, :2], x[0],
+        torch.zeros(1, 8, 2))[0].sum(), xs)
     assert ops.launch_counts() == {"flash_attention_fwd": 0,
                                    "flash_attention_bwd_dq": 0,
                                    "flash_attention_bwd_dkv": 0,
@@ -978,7 +982,9 @@ def test_cpu_dispatch_launches_no_kernel():
                                    "parareal_update": 0,
                                    "rwkv6_wkv": 0,
                                    "rwkv6_wkv_bwd": 0,
-                                   "selective_scan": 0}
+                                   "selective_scan": 0,
+                                   "selective_scan_bwd": 0,
+                                   "selective_scan_bwd_sum": 0}
     assert ops.route_counts() == {"flash_attention_fwd_tc": 0,
                                   "flash_attention_fwd_simt": 0,
                                   "flash_attention_bwd_dq_tc": 0,

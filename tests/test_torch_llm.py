@@ -447,6 +447,9 @@ def test_engine_refuses_what_does_not_fit():
         eng.generate([Request(prompt=[1], max_new_tokens=1)] * 3)
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import make_train_step
+    # hymba-1.5b trains since A11(a)'s training half; the audio and
+    # vision families still wait for theirs
     with pytest.raises(NotImplementedError, match="A11"):
-        make_train_step(get_arch("hymba-1.5b"), AdamWConfig(),
-                        loss_kind="lm")
+        make_train_step(dataclasses.replace(get_arch("hymba-1.5b"),
+                                            family="audio"),
+                        AdamWConfig(), loss_kind="lm")

@@ -45,6 +45,22 @@ def test_kernel_group_wkv(name, group):
 
 
 @pytest.mark.parametrize("name, group", [
+    ("void (anonymous namespace)::selective_scan_fwd_kernel<4, 4, true>("
+     "...)", "selective_scan (port)"),
+    ("void (anonymous namespace)::selective_scan_bwd_kernel<4, 4>(float "
+     "const*, long long, long long, ...)", "selective_scan_bwd (port)"),
+    ("(anonymous namespace)::selective_scan_bwd_sum_kernel(float const*, "
+     "float const*, float const*, float*, float*, float*, float*, float*, "
+     "int, int, int, int, int, int)", "selective_scan_bwd (port)"),
+])
+def test_kernel_group_selective_scan_backward(name, group):
+    """The scan's checkpointing forward lands in the forward's group; the
+    backward and its sum in the backward's, not under the forward's or
+    "other"."""
+    assert profiling.kernel_group(name) == group
+
+
+@pytest.mark.parametrize("name, group", [
     ("void (anonymous namespace)::ddim_fused_kernel<float>(float const*, "
      "float const*, float const*, float const*, float*, long long, "
      "long long, long long, int)", "ddim_fused (port)"),
@@ -190,7 +206,7 @@ def test_window_launches_counts_host_launch_calls(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     x = torch.ones(16, 16)
     got = profiling.window_launches(lambda: (x @ x).sum(), 3, pause_s=0.0)
-    assert got == {"device": {}, "api": 0}
+    assert got == {"device": {}, "api": 0, "lead_lost": 0, "missing": []}
     for name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cudaMemcpyAsync", "cudaMemsetAsync", "cudaGraphLaunch"):
         assert name.startswith(profiling.LAUNCH_APIS), name
@@ -200,21 +216,26 @@ def test_window_launches_counts_host_launch_calls(monkeypatch):
 
 
 def test_window_launches_leads_with_a_kernel_of_its_own(monkeypatch):
-    """On a card the window starts with one ``torch.cuda._sleep`` launch
-    before the calls (the profiler may keep no record of a window's first
-    launch), and leaves it out of both counts; without a card there is no
-    lead launch."""
+    """On a card the window starts with ``LEAD_LAUNCHES`` launches of
+    ``torch.cuda._sleep`` and a synchronize before the calls (the profiler
+    may keep no record of a window's first launches), and leaves them out
+    of both counts; without a card there is no lead launch."""
     order = []
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda: order.append("sync"))
     monkeypatch.setattr(torch.cuda, "_sleep",
                         lambda cycles: order.append(("lead", cycles)))
     x = torch.ones(8, 8)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    got = profiling.window_launches(lambda: order.append((x @ x).sum()), 3,
+    got = profiling.window_launches(lambda: order.append("call"), 3,
                                     pause_s=0.0)
-    assert order[0] == ("lead", profiling.LEAD_CYCLES) and len(order) == 4
-    assert got == {"device": {}, "api": 0}
+    lead = [("lead", profiling.LEAD_CYCLES)] * profiling.LEAD_LAUNCHES
+    assert profiling.LEAD_LAUNCHES >= 4
+    first = order.index("call")
+    assert order[:first] == ["sync", *lead, "sync"]
+    assert [v for v in order[first:] if v != "sync"] == ["call"] * 3
+    assert got == {"device": {}, "api": 0, "lead_lost": 0, "missing": []}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     order.clear()
     profiling.window_launches(lambda: order.append(1), 2, pause_s=0.0)
-    assert order == [1, 1]
+    assert [v for v in order if v != "sync"] == [1, 1]

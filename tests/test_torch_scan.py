@@ -132,17 +132,23 @@ def test_scan_route_takes_bulk_copies_only_where_aligned(case):
 # the binding
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("fn", ["selective_scan_fwd", "selective_scan_chunk"])
+@pytest.mark.parametrize("fn", ["selective_scan_fwd", "selective_scan_chunk",
+                                "selective_scan_fwd_ckpt",
+                                "selective_scan_bwd",
+                                "selective_scan_bwd_sum",
+                                "selective_scan_bwd_smem"])
 def test_scan_signatures_match_the_source(fn):
     """Every C function the ``ctypes`` binding declares is an ``extern
     "C"`` function of ``csrc/selective_scan.cu`` with as many parameters
     as the binding's argument types (the stream included); the source
     compiles every (states, lanes) pair of ``INSTANCES`` and its chunk and
     block limit are the wrapper's."""
-    assert sorted(scan._SIGNATURE) == ["selective_scan_chunk",
-                                       "selective_scan_fwd"]
+    assert sorted(scan._SIGNATURE) == [
+        "selective_scan_bwd", "selective_scan_bwd_smem",
+        "selective_scan_bwd_sum", "selective_scan_chunk",
+        "selective_scan_fwd", "selective_scan_fwd_ckpt"]
     src = (_build.CSRC / "selective_scan.cu").read_text()
-    found = re.findall(r'extern "C" int ' + fn + r'\(([^)]*)\)', src)
+    found = re.findall(r'extern "C" int ' + fn + r'\(\s*([^)]*)\)', src)
     assert len(found) == 1, fn
     argtypes, _ = scan._SIGNATURE[fn]
     params = [p for p in found[0].split(",") if p.strip()]
@@ -155,6 +161,113 @@ def test_scan_signatures_match_the_source(fn):
                 kVecX=scan.VEC_X)
     assert ("constexpr int " + ", ".join(f"{k} = {v}" for k, v in
                                          bits.items()) + ";") in src
+
+
+def test_scan_backward_constants_match_the_source():
+    """The backward's sub-chunk, ring depth and dy route bit are the
+    kernel's, and it is compiled for every (states, lanes) pair of
+    ``INSTANCES``."""
+    src = (_build.CSRC / "selective_scan.cu").read_text()
+    assert f"constexpr int kSub = {scan.SUB};" in src
+    assert f"constexpr int kBwdStages = {scan.BWD_STAGES};" in src
+    assert f"constexpr int kVecDy = {scan.VEC_DY};" in src
+    assert scan.CHUNK % scan.SUB == 0
+    body = src[src.index('extern "C" int selective_scan_bwd('):]
+    body = body[:body.index("default:")]
+    assert set(re.findall(r"launch_bwd<(\d+), (\d+)>", body)) == {
+        (str(r), str(ln)) for r, ln in scan.INSTANCES}
+
+
+@pytest.mark.parametrize("b,t,din,n", [(2, 2048, 1600, 16), (4, 1, 1600, 16),
+                                       (1, 37, 33, 5), (3, 64, 40, 8),
+                                       (2, 65, 64, 32), (1, 130, 8, 1)])
+def test_scan_checkpoint_and_partial_shapes(b, t, din, n):
+    """The forward's checkpoints hold the state at the start of each chunk
+    and the final one; the backward's partials hold, for each block of a
+    batch row and each step, dB and dC over the padded states and ddt;
+    its shared memory fits a block (227 KB) at every state size, with
+    blocks of ``BWD_CHANNELS_PER_BLOCK`` channels and of the forward's."""
+    chunks = -(-t // scan.CHUNK)
+    assert scan.checkpoint_shape(b, t, din, n) == (b, chunks + 1, din, n)
+    geo = scan.geometry(b, din, n, channels=scan.BWD_CHANNELS_PER_BLOCK)
+    np_ = geo.states * geo.lanes
+    assert scan.partial_shape(b, t, din, n) == (b, geo.grid[0], t,
+                                                2 * np_ + 1)
+    smem = scan.bwd_smem_bytes(geo)
+    warps = geo.threads // 32
+    assert smem == 4 * (scan.BWD_STAGES * (2 * scan.CHUNK * geo.channels
+                                           + 2 * scan.CHUNK * np_
+                                           + scan.CHUNK)
+                        + 2 * warps * scan.SUB * (2 * np_ + 1)
+                        + scan.CHUNK // scan.SUB * geo.threads * geo.states)
+    assert smem <= 232448 and smem % 16 == 0
+    assert scan.bwd_smem_bytes(scan.geometry(b, din, n)) <= 232448
+    assert scan.partial_shape(b, t, din, n, scan.CHANNELS_PER_BLOCK)[1] == \
+        scan.geometry(b, din, n).grid[0]
+
+
+def test_scan_checkpoints_hold_the_twins_chunk_states():
+    """A model of the forward's checkpoints on the twin (the state after
+    every ``CHUNK`` steps, the first h0, the last h_T) replays, chunk by
+    chunk from each, the states of the whole scan: what the backward
+    kernel and ``ref.selective_scan_bwd`` rely on (states equal bitwise:
+    the same f32 operations from the same bits)."""
+    rng = np.random.default_rng(3)
+    b, t, din, n = 2, 2 * scan.CHUNK + 5, 6, 5
+    f = np.float32
+    xs = torch.from_numpy(rng.standard_normal((b, t, din)).astype(f))
+    dt = torch.from_numpy(np.log1p(np.exp(
+        rng.standard_normal((b, t)) - 1.0)).astype(f))
+    bb, cc = (torch.from_numpy(rng.standard_normal((b, t, n)).astype(f))
+              for _ in range(2))
+    a = torch.from_numpy((-np.exp(0.5 * rng.standard_normal((din, n))))
+                         .astype(f))
+    d = torch.from_numpy(rng.standard_normal(din).astype(f))
+    h0 = torch.from_numpy((0.5 * rng.standard_normal((b, din, n))).astype(f))
+    ckpt = [h0]
+    for k in range(0, t, scan.CHUNK):
+        end = min(k + scan.CHUNK, t)
+        ckpt.append(ref.selective_scan(xs[:, k:end], dt[:, k:end],
+                                       bb[:, k:end], cc[:, k:end], a, d,
+                                       ckpt[-1])[1])
+    assert len(ckpt) == scan.checkpoint_shape(b, t, din, n)[1]
+    _, h_t = ref.selective_scan(xs, dt, bb, cc, a, d, h0)
+    assert torch.equal(ckpt[-1], h_t)
+
+
+@pytest.mark.parametrize("case", [
+    # (pointer offsets xs, dt, bb|cc, dy; B, T, din, n, sxb, sxt) -> bits
+    ((0, 0, 0, 0), 2, 2048, 1600, 16, 2048 * 3200, 3200,
+     scan.BULK_DT | scan.BULK_BC | scan.VEC_X | scan.VEC_DY),  # training
+    ((4, 0, 0, 4), 2, 40, 64, 16, 40 * 64, 64,
+     scan.BULK_DT | scan.BULK_BC),                  # xs and dy one float off
+    ((0, 0, 0, 0), 1, 70, 33, 5, 70 * 33, 33, 0),   # din 33: 4-byte rows
+])
+def test_scan_backward_route(case):
+    """The backward's copies: the forward's route for xs, dt, B and C, and
+    dy by 16-byte copies only where it and its rows are 16-byte aligned."""
+    mis, b, t, din, n, sxb, sxt, want = case
+    padded = 1 << (n - 1).bit_length()
+    assert scan.bwd_route(mis, b, t, din, n, padded, sxb, sxt) == want
+
+
+def test_scan_bwd_refuses_bad_operands_before_the_build(monkeypatch):
+    """The backward's wrapper checks the checkpoints' and gradients' shapes
+    before it loads (or builds) the library."""
+    def no_build():
+        raise AssertionError("the library was loaded before the checks")
+
+    monkeypatch.setattr(scan, "_lib", no_build)
+    x = [torch.zeros(s) for s in ((2, 3, 8), (2, 3), (2, 3, 4), (2, 3, 4),
+                                  (8, 4), (8,))]
+    ckpt = torch.zeros(scan.checkpoint_shape(2, 3, 8, 4))
+    dy = torch.zeros(2, 3, 8)
+    before = scan.selective_scan_bwd.launches
+    with pytest.raises(ValueError, match="checkpoints"):
+        scan.selective_scan_bwd(*x, ckpt[:, :1], dy)
+    with pytest.raises(ValueError, match="CUDA"):
+        scan.selective_scan_bwd(*x, ckpt, dy)
+    assert scan.selective_scan_bwd.launches == before
 
 
 def test_scan_refuses_cpu_tensors_before_the_build(monkeypatch):
