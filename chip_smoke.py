@@ -61,14 +61,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and at each shape one device launch a call, device µs a launch and
    host µs a call); the scan's forward with checkpoints at hymba's
    training shape (2 x 2048), timed in turns with the forward without
-   them (y and h_T bitwise equal), and its backward (the backward kernel
-   and its sum) against ``ref.selective_scan_bwd`` at that shape, at a
-   ragged T from a nonzero state with a gradient on the final state and
-   with xs and dy off a 16-byte boundary (two runs bitwise equal, each
-   gradient held by rel L2, the twin fed dy a step late as the control
-   that must miss it on every gradient; the bound counts one pass of
-   exponentials; ptxas' registers and spills per instance, two device
-   launches a call);
+   them (y and h_T bitwise equal), and its backward (T cut into segments:
+   the replay of each, the walk back, and the sum) against
+   ``ref.selective_scan_bwd`` at the kernel's segment count at
+   that shape, at a ragged T from a nonzero state with a gradient on the
+   final state and with xs and dy off a 16-byte boundary (two runs
+   bitwise equal, each gradient held by rel L2, the twin fed dy a step
+   late as the control that must miss it on every gradient; the bound
+   counts one pass of exponentials; its geometry, the build's knobs,
+   ptxas' registers and spills per instance, three device launches a
+   call, each with its own device time, and the sum's bound);
 4. sampling: the full-width, full-depth ``srds-dit-sd2`` DiT (28 layers,
    d 1152, 16 heads of 72, bf16) with weights drawn from a numpy seed
    (every leaf nonzero) and loaded through ``load_jax_params``; DDIM on
@@ -197,16 +199,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    gradient of the training batch with every layer's window dq/dkv
    against the plain backward on its own inputs, and the scan backward of
    the first, a middle and the last layer against
-   ``ref.selective_scan_bwd`` on theirs; the loss over the trained
-   batches falls by more than ``FIT_MARGIN`` while the reversed update's
-   does not; on the trained weights in f32 at batch 1 x
-   ``HYMBA_GRAD_SEQ`` (past the window) a reading of the whole gradient
-   over all 32 layers through the kernels against the plain path's (it
-   depends on the trajectory there), and the check over the first
-   ``HYMBA_GRAD_LAYERS``, whole and over the dt and q/k/v leaves, with the
-   scan's ``ddt`` dropped and the flash backward without its window as
-   controls; a profile of one step (no C10 windows: on an H100 their
-   profiler took 291 s).
+   ``ref.selective_scan_bwd`` on theirs at the kernel's segment count;
+   the loss over the trained batches falls by more than ``FIT_MARGIN``
+   while the reversed update's does not; on the trained weights in f32
+   at batch 1 x ``HYMBA_GRAD_SEQ`` (past the window) a reading of the
+   whole gradient over all 32 layers through the kernels against the
+   plain path's (it depends on the trajectory there), and the check over
+   the first ``HYMBA_GRAD_LAYERS``, whole and over the dt and q/k/v
+   leaves, with the scan's ``ddt`` dropped and the flash backward without
+   its window as controls; a profile of one step (no C10 windows: on an
+   H100 their profiler took 291 s).
 
 Phases 4-8, 10, 12 and 13 also hold the flash kernels' launches on their
 main paths, forward and backward, to their tensor-core route
@@ -223,6 +225,7 @@ and power limit, and ``{"ok": true, "device": {...}}``.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -403,9 +406,10 @@ DT_LEAVES = (".ssm.w_dt", ".ssm.b_dt")
 # plain backward is a Python loop of ~30 launches a step (about a second a
 # layer at 2 x 2048), so the first, a middle and the last layer
 HYMBA_SCAN_CHECK_LAYERS = (0, 16, 31)
-# the scan's counters: the forward, the backward and the backward's sum
-SCAN_KERNELS = ("selective_scan", "selective_scan_bwd",
-                "selective_scan_bwd_sum")
+# the scan's counters: the forward, and the backward's three launches (the
+# replay of its segments, the walk back and the sum)
+SCAN_KERNELS = ("selective_scan", "selective_scan_bwd_replay",
+                "selective_scan_bwd", "selective_scan_bwd_sum")
 # the flash forward's launches by route on each main path (check_tc_route)
 ROUTES_BY_PATH = {}
 # the selective scan against its plain twin (phase 3 and phase 12's
@@ -422,6 +426,9 @@ SCAN_TOL, SCAN_REL_L2 = 1e-4, 1e-6
 # phase 3 and 1.1e-6 on the trained model's layers, its control (dy a
 # step late) 1.4 and more: the limit is about 8x the readings
 SCAN_BWD_REL_L2 = 1e-5
+# a device kernel's name without its namespace and parameters, as the
+# profiler records it: "void (anonymous namespace)::k<4, 4>(...)" -> k<4, 4>
+KERNEL_NAME = re.compile(r"(\w+(?:<[^>]*>)?)[(]")
 # the SFUs' rate for expf's ex2 (16 a clock an SM on compute capability
 # 9.0, CUDA C++ Programming Guide, arithmetic instruction throughput) at
 # the clock of the f32 peak above (67e12 / (132 SMs x 128 lanes x 2))
@@ -1891,8 +1898,10 @@ def hymba_layer_checks(torch, ops, ref, cfg, model, batch):
         layer = cfg.num_layers - 1 - len(calls)     # the backward's order
         calls.append(layer)
         if layer in HYMBA_SCAN_CHECK_LAYERS:
-            want = ref.selective_scan_bwd(xs, dt, bb, cc, a, d, ckpt[:, 0],
-                                          dy, dh_t)
+            from repro_torch.kernels import selective_scan as scan
+            want = ref.selective_scan_bwd(
+                xs, dt, bb, cc, a, d, ckpt[:, 0], dy, dh_t,
+                segments=scan.bwd_geometry(*xs.shape, a.shape[-1]).segments)
             scan_errs[layer] = [rel_l2([g], [w]) for g, w in zip(got, want)]
         return got
 
@@ -2482,28 +2491,38 @@ def scan_backward_cases(torch, ref, randn, cases):
     4-byte copy route).  Each from the forward's checkpoints, run twice
     and held bitwise equal, every gradient within SCAN_BWD_REL_L2 (rel L2);
     the control, the twin fed dy a step late, must miss it on every
-    gradient.  Each case is read by :func:`launch_readings` (two device
-    launches a call: the kernel and its sum).  Before them the forward at
+    gradient.  Each case is read by :func:`launch_readings` (three device
+    launches a call: the replay, the walk back and the sum, each with its
+    own device time).  Before them the forward at
     the training shape with and without its checkpoints, timed in turns
     (the checkpointing case joins the scan's cases).  Prints ptxas'
     registers and spills of the backward's instances.  No single PyTorch
     call computes the backward (``library_ms`` null)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import selective_scan as scan
-    geo = scan.geometry(2, 1600, 16, channels=scan.BWD_CHANNELS_PER_BLOCK)
+    geo = scan.bwd_geometry(2, 2048, 1600, 16)
     smem = scan._lib().selective_scan_bwd_smem(geo.states, geo.lanes,
                                                geo.channels)
+    knobs = scan.kernel_knobs()
+    want_knobs = {"sub": scan.SUB, "max_threads": scan.BWD_MAX_THREADS,
+                  "min_blocks": scan.BWD_MIN_BLOCKS,
+                  "replay_min_blocks": scan.BWD_REPLAY_MIN_BLOCKS}
     print(f"  scan backward at hymba-1.5b's training shape: grid "
-          f"{geo.grid} of {geo.threads} + 32 threads, {scan.CHUNK}-step "
+          f"{geo.grid} of {geo.threads} + 32 threads, {geo.segments} "
+          f"segments of {geo.segment_steps} steps, {scan.CHUNK}-step "
           f"chunks in {scan.BWD_STAGES} stages, states recomputed "
           f"{scan.SUB} steps at a time, {scan.bwd_smem_bytes(geo)} B of "
-          f"shared memory a block (the kernel's own count {smem})",
+          f"shared memory a block of the walk back (the kernel's own count "
+          f"{smem}), {scan.bwd_smem_bytes(geo, replay=True)} of the "
+          f"replay; the build's knobs {knobs}",
           flush=True)
-    if scan.bwd_smem_bytes(geo) != smem:
+    if scan.bwd_smem_bytes(geo) != smem or knobs != want_knobs:
         raise AssertionError("selective_scan_bwd: the wrapper's and the "
-                             "kernel's shared memory differ")
+                             "kernel's shared memory or knobs differ: "
+                             f"{knobs} against {want_knobs}")
     log = _build.build_log.get("selective_scan")
-    for kernel in ("selective_scan_bwd_kernel", "selective_scan_fwd_kernel"):
+    for kernel in ("selective_scan_bwd_replay_kernel",
+                   "selective_scan_bwd_kernel", "selective_scan_fwd_kernel"):
         readings = ptxas_readings(log, kernel) if log else []
         print(f"  ptxas, {kernel}<states a lane, lanes a channel"
               + (", checkpoints" if "fwd" in kernel else "") + ">: " + (
@@ -2560,12 +2579,13 @@ def scan_backward_cases(torch, ref, randn, cases):
             x[0], dy = unaligned_copy(torch, x[0]), unaligned_copy(torch, dy)
         dh_t = randn((b, 1600, 16)) if with_dh else None
         _, _, ckpt = scan.selective_scan(*x, checkpoints=True)
+        segments = scan.bwd_geometry(b, t, 1600, 16).segments
 
         def kernel():
             return scan.selective_scan_bwd(*x[:6], ckpt, dy, dh_t)
 
         def plain():
-            return ref.selective_scan_bwd(*x, dy, dh_t)
+            return ref.selective_scan_bwd(*x, dy, dh_t, segments=segments)
 
         got, again, want = kernel(), kernel(), plain()
         if not all(torch.equal(_bits(u), _bits(v))
@@ -2573,7 +2593,7 @@ def scan_backward_cases(torch, ref, randn, cases):
             raise AssertionError("selective_scan_bwd: two runs differ")
         rels = [rel_l2([g], [w]) for g, w in zip(got, want)]
         late = torch.cat([torch.zeros_like(dy[:, :1]), dy[:, :-1]], dim=1)
-        ctl = ref.selective_scan_bwd(*x, late, dh_t)
+        ctl = ref.selective_scan_bwd(*x, late, dh_t, segments=segments)
         rels_c = [rel_l2([g], [w]) for g, w in zip(got, ctl)]
         b_ms, b_by = scan_bwd_bound(
             b, t, 1600, 16, nbytes(*x[:6], ckpt, dy, *got)
@@ -2582,7 +2602,8 @@ def scan_backward_cases(torch, ref, randn, cases):
                       plain_ms=time_ms(plain, 1), bound_ms=b_ms,
                       bound_by=b_by, library_ms=None)
         label = (f"selective_scan_bwd f32 B={b} T={t} din=1600 n=16 "
-                 f"({'zero' if zero_h0 else 'nonzero'} h0, "
+                 f"({segments} segments, "
+                 f"{'zero' if zero_h0 else 'nonzero'} h0, "
                  f"{'with' if with_dh else 'no'} dh_T"
                  + (", xs and dy unaligned" if unaligned else "")
                  + "; rel L2 " + "/".join(names) + " " + "/".join(
@@ -2592,7 +2613,18 @@ def scan_backward_cases(torch, ref, randn, cases):
         case = check_case(label, *flat, 1e-3 * flat[1].abs().max().item(),
                           1e-3, timing)
         case.update(launch_readings(torch, kernel))
-        print_readings(f"selective_scan_bwd T={t}", timing, case, 2)
+        print_readings(f"selective_scan_bwd T={t}", timing, case, 3)
+        sum_geo = scan.bwd_geometry(b, t, 1600, 16)
+        sum_bytes = 4 * (b * sum_geo.grid[0] * t * 33 + b * t * 33
+                         + (b * sum_geo.segments + 1) * 1600 * 17)
+        case["sum_bound_ms"] = sum_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"    device us a launch by kernel: " + ", ".join(
+            f"{KERNEL_NAME.search(k).group(1)} {us:.2f}"
+            for k, us in sorted(case["device_us_by_kernel"].items()))
+              + f"; the sum's bound {case['sum_bound_ms'] * 1e3:.2f} us "
+              f"({sum_bytes / 1e6:.1f} MB: the partials read, dB, dC and "
+              f"ddt written, da's and dD's partials read and written)",
+              flush=True)
         print(f"    control, the twin fed dy a step late: rel L2 "
               + "/".join(f"{r:.1e}" for r in rels_c)
               + f" (each must miss {SCAN_BWD_REL_L2})", flush=True)
@@ -2628,6 +2660,8 @@ def launch_readings(torch, fn) -> dict:
     device_us = sum(us for _, us in by_name.values())
     return dict(launches_per_call=got["api"] / LAUNCH_WINDOW_CALLS,
                 recorded_per_call=recorded / LAUNCH_WINDOW_CALLS,
+                device_us_by_kernel={k: us / c for k, (c, us)
+                                     in by_name.items() if c},
                 lead_lost=(got["lead_lost"], LEAD_LAUNCHES),
                 missing=got["missing"],
                 device_us_per_launch=device_us / recorded if recorded
@@ -3299,9 +3333,10 @@ def main() -> int:
         extra = ({"tc_launches_by_path": {
             k: r[f"{counter}_tc"] for k, r in ROUTES_BY_PATH.items()}}
             if counter in ("flash_attention_fwd",) + BWD_KERNELS else {})
-        if name == "selective_scan_bwd":    # its second launch, the sum
-            extra["sum_launches"] = lm_train_counts["hymba-1.5b"][
-                "selective_scan_bwd_sum"]
+        if name == "selective_scan_bwd":    # its replay and its sum
+            for k in ("replay", "sum"):
+                extra[f"{k}_launches"] = lm_train_counts["hymba-1.5b"][
+                    f"selective_scan_bwd_{k}"]
         kernels.append(dict(
             name=name, route=route, source=source, replaces=replaces,
             launches=by_path[path_of.get(name, "serve")],

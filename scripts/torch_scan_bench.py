@@ -4,7 +4,8 @@
 
     python3 scripts/torch_scan_bench.py [--states 2 4 8]
         [--channels 8 16 32 64] [--stages 2 4] [--against FILE ...]
-    python3 scripts/torch_scan_bench.py --backward [--bwd-channels 16 32 64]
+    python3 scripts/torch_scan_bench.py --backward [--bwd-channels 16 32]
+        [--segment-chunks 4 8 16 32] [--against FILE ...]
 
 Runs ``chip_smoke.py``'s ``scan_cases`` (the same shapes, inputs, limits,
 controls and launch readings as phase 3), then, in one process:
@@ -31,12 +32,22 @@ controls and launch readings as phase 3), then, in one process:
 
 ``--backward`` runs ``chip_smoke.py``'s ``scan_backward_cases`` instead
 (phase 3's backward cases: the checkpointing forward timed in turns with
-the plain one, the backward's limits, controls and launch readings), then
-times the backward (the kernel and its sum) with blocks of each of
-``--bwd-channels`` channels at hymba-1.5b's width from the zero state at
-B 2, 1 and 4 x T 2048, in the order of the list and again in reverse,
-each held within ``SCAN_BWD_REL_L2`` of ``ref.selective_scan_bwd`` on
-every gradient.
+the plain one, the backward's limits, controls, launch readings and
+device time by kernel), then builds ``csrc/selective_scan.cu`` again with
+other values of its compile-time knobs (``BWD_BUILDS``: steps a
+sub-chunk, compute threads a block, blocks an SM of the register cap;
+ptxas' registers and spills of each) and times the backward (the kernel
+and its sum) at hymba-1.5b's width from the zero state at
+``BWD_SHAPES`` (B 2, 1 and 4 x T 2048, B 2 x T 37 and 300): the port's
+library with blocks of each of ``--bwd-channels`` channels and segments
+of each of ``--segment-chunks`` chunks at least
+(``selective_scan.bwd_geometry``'s knobs), each build at the default
+geometry (the wide build at 64 channels a block), and ``--against FILE
+...``: earlier sources with the C interface of the first backward (no
+segments, ``selective_scan_bwd(..., states, lanes, channels, route,
+stream)``, run with blocks of 32 channels), in the order of the list and
+again in reverse, each held first within ``SCAN_BWD_REL_L2`` of
+``ref.selective_scan_bwd`` at its own segment count on every gradient.
 
 Needs one CUDA card and ``nvcc``.
 """
@@ -76,9 +87,9 @@ def finish_build(tag, path, proc, cs):
     return ctypes.CDLL(path)
 
 
-def print_ptxas(tag, log, cs):
-    readings = cs.ptxas_readings(log, "selective_scan_fwd_kernel")
-    print(f"  ptxas, {tag}: " + "; ".join(
+def print_ptxas(tag, log, cs, kernel="selective_scan_fwd_kernel"):
+    readings = cs.ptxas_readings(log, kernel)
+    print(f"  ptxas, {tag}, {kernel}: " + "; ".join(
         f"<{inst}> {regs} registers, spills {st}/{ld}"
         for inst, regs, st, ld in readings), flush=True)
 
@@ -129,31 +140,155 @@ def host_breakdown(torch, ops, scan, _build, x) -> None:
         print(f"  host, T {t}: {label}: {us:.2f} us", flush=True)
 
 
-def backward_sweep(torch, cs, randn, scan, ref, channels):
-    """The backward with blocks of each of ``channels`` channels at B 2, 1
-    and 4 x T 2048 (din 1600, n 16), each held to ``SCAN_BWD_REL_L2`` of
-    the twin on every gradient, timed in turns (the list, then reversed)."""
-    for b in (2, 1, 4):
-        x = cs.scan_inputs(torch, randn, b, 2048, 1600, 16, True)
-        dy = randn((b, 2048, 1600))
-        _, _, ckpt = scan.selective_scan(*x, checkpoints=True)
-        want = ref.selective_scan_bwd(*x, dy)
-        times = {c: [] for c in channels}
-        for c in channels:
-            got = scan.selective_scan_bwd(*x[:6], ckpt, dy, channels=c)
-            rels = [cs.rel_l2([g], [w]) for g, w in zip(got, want)]
-            if not max(rels) <= cs.SCAN_BWD_REL_L2:
-                raise AssertionError(f"backward, {c} channels a block, B "
-                                     f"{b}: rel L2 {rels}")
-        for c in channels + channels[::-1]:
-            times[c].append(cs.time_ms(lambda: scan.selective_scan_bwd(
-                *x[:6], ckpt, dy, channels=c), 20))
-        for c in channels:
-            geo = scan.geometry(b, 1600, 16, channels=c)
-            print(f"  backward B {b} T 2048: {c} channels a block (grid "
-                  f"{geo.grid}, {scan.bwd_smem_bytes(geo)} B shared): "
-                  + ", ".join(f"{m:.4f}" for m in times[c]) + " ms",
-                  flush=True)
+# the backward's shapes (B, T) at din 1600, n 16: the training shape, then
+# batch 1 and 4, then phase 3's short T (one chunk, and five)
+BWD_SHAPES = ((2, 2048), (1, 2048), (4, 2048), (2, 37), (2, 300))
+# the backward's other builds: tag -> -D defines (SCAN_BWD_SUB, steps a
+# sub-chunk; SCAN_BWD_MAX_CONSUMERS, a block's compute threads;
+# SCAN_BWD_MIN_BLOCKS, blocks an SM the registers are capped for)
+BWD_BUILDS = {
+    "sub 8, 2 blocks an SM": ["SCAN_BWD_MIN_BLOCKS=2"],
+    "sub 4, 3 blocks an SM": ["SCAN_BWD_SUB=4", "SCAN_BWD_MIN_BLOCKS=3"],
+    "replay 3 blocks an SM": ["SCAN_BWD_REPLAY_MIN_BLOCKS=3"],
+    "wide: 256 threads, 1 block an SM": [
+        "SCAN_BWD_MAX_CONSUMERS=256", "SCAN_BWD_MIN_BLOCKS=1",
+        "SCAN_BWD_REPLAY_MIN_BLOCKS=1"],
+}
+
+
+def first_backward(torch, _build, scan, lib, x, ckpt, dy, channels=32):
+    """The first backward's two launches (no segments) from ``lib``, a
+    build of an earlier source with its C interface."""
+    xs = x[0]
+    b, t, din = xs.shape
+    n = x[4].shape[-1]
+    f32 = dict(dtype=torch.float32, device=xs.device)
+    blocks = -(-din // channels)
+    dx = torch.empty((b, t, din), **f32)
+    dd_part, da_part = torch.empty((b, din), **f32), \
+        torch.empty((b, din, n), **f32)
+    dh0 = torch.empty((b, din, n), **f32)
+    partial = torch.empty((b, blocks, t, 33), **f32)
+    ddt, dbb, dcc = (torch.empty(s, **f32) for s in ((b, t), (b, t, n),
+                                                     (b, t, n)))
+    da, dd = torch.empty((din, n), **f32), torch.empty((din,), **f32)
+    ptrs = [v.data_ptr() % scan.ALIGN for v in (xs, x[1], x[2], x[3], dy)]
+    bits = scan.bwd_route((ptrs[0], ptrs[1], ptrs[2] | ptrs[3], ptrs[4]), b,
+                          t, din, n, 16, xs.stride(0), xs.stride(1))
+    _build.call(lib, "selective_scan_bwd", xs.device, xs.data_ptr(),
+                xs.stride(0), xs.stride(1), *(v.data_ptr() for v in x[1:6]),
+                ckpt.data_ptr(), dy.data_ptr(), None, dx.data_ptr(),
+                dd_part.data_ptr(), da_part.data_ptr(), dh0.data_ptr(),
+                partial.data_ptr(), b, t, din, n, 4, 4, channels, bits)
+    _build.call(lib, "selective_scan_bwd_sum", xs.device, partial.data_ptr(),
+                da_part.data_ptr(), dd_part.data_ptr(), ddt.data_ptr(),
+                dbb.data_ptr(), dcc.data_ptr(), da.data_ptr(), dd.data_ptr(),
+                b, t, din, n, 16, blocks)
+    return dx, ddt, dbb, dcc, da, dd, dh0
+
+
+def backward_sweep(torch, cs, randn, scan, ref, _build, args):
+    """The backward's builds and geometries at ``BWD_SHAPES`` (din 1600, n
+    16), each held to ``SCAN_BWD_REL_L2`` of the twin at its segment count
+    on every gradient, timed in turns (the list, then reversed)."""
+    source = str(_build.CSRC / "selective_scan.cu")
+    with tempfile.TemporaryDirectory() as tmp:
+        started = {tag: start_build(tmp, source, f"bwd{i}", defines, _build)
+                   for i, (tag, defines) in enumerate(BWD_BUILDS.items())}
+        for i, path in enumerate(args.against):
+            started[path] = start_build(tmp, os.path.abspath(path),
+                                        f"against{i}", [], _build)
+        built = {}
+        for tag, (path, proc) in started.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc, {tag}:\n{log}")
+            for kernel in ("selective_scan_bwd_replay_kernel",
+                           "selective_scan_bwd_kernel"):
+                print_ptxas(tag, log, cs, kernel)
+            lib = ctypes.CDLL(path)
+            sigs = dict(scan._SIGNATURE) if tag in BWD_BUILDS else {
+                "selective_scan_bwd": ((ctypes.c_void_p, ctypes.c_longlong,
+                                        ctypes.c_longlong)
+                                       + (ctypes.c_void_p,) * 13
+                                       + (ctypes.c_int,) * 8
+                                       + (ctypes.c_void_p,), ctypes.c_int),
+                "selective_scan_bwd_sum": ((ctypes.c_void_p,) * 8
+                                           + (ctypes.c_int,) * 6
+                                           + (ctypes.c_void_p,),
+                                           ctypes.c_int)}
+            for fn, (argtypes, restype) in sigs.items():
+                if hasattr(lib, fn):
+                    getattr(lib, fn).argtypes = list(argtypes)
+                    getattr(lib, fn).restype = restype
+            lib.cuda_error_string.argtypes = [ctypes.c_int]
+            lib.cuda_error_string.restype = ctypes.c_char_p
+            built[tag] = lib
+
+        def port_run(c, sc):
+            return (lambda x, ck, dy: scan.selective_scan_bwd(
+                *x[:6], ck, dy, geo=scan.bwd_geometry(
+                    *x[0].shape, 16, c, sc))), \
+                lambda b, t: scan.bwd_geometry(b, t, 1600, 16, c, sc)
+
+        # (label, run(x, ckpt, dy), geometry(batch) or None, sub)
+        runs = []
+        for c in args.bwd_channels:
+            for sc in args.segment_chunks:
+                run, geo = port_run(c, sc)
+                runs.append((f"the port's library, {c} channels a block, "
+                             f"segments of {sc} chunks at least", run, geo,
+                             scan.SUB))
+        for tag, lib in built.items():
+            if tag not in BWD_BUILDS:
+                runs.append((f"{tag} (first backward, 32 channels a block)",
+                             lambda x, ck, dy, lib=lib: first_backward(
+                                 torch, _build, scan, lib, x, ck, dy), None,
+                             None))
+                continue
+            sub = lib.selective_scan_bwd_knobs(0)
+            wide = lib.selective_scan_bwd_knobs(1)
+            c = 64 if wide > scan.BWD_MAX_THREADS else \
+                scan.BWD_CHANNELS_PER_BLOCK
+
+            def geo_of(b, t, c=c, wide=wide):
+                return scan.bwd_geometry(b, t, 1600, 16, c,
+                                         scan.SEGMENT_CHUNKS, wide)
+            runs.append((f"{tag}, {c} channels a block",
+                         lambda x, ck, dy, lib=lib, g=geo_of:
+                         scan.selective_scan_bwd(
+                             *x[:6], ck, dy, geo=g(*x[0].shape[:2]),
+                             lib=lib), geo_of, sub))
+
+        for b, t in BWD_SHAPES:
+            x = cs.scan_inputs(torch, randn, b, t, 1600, 16, True)
+            dy = randn((b, t, 1600))
+            _, _, ckpt = scan.selective_scan(*x, checkpoints=True)
+            wants = {}
+            for label, run, geo_of, _ in runs:
+                segs = geo_of(b, t).segments if geo_of else 1
+                if segs not in wants:
+                    wants[segs] = ref.selective_scan_bwd(*x, dy,
+                                                         segments=segs)
+                got = run(x, ckpt, dy)
+                rels = [cs.rel_l2([g], [w]) for g, w in zip(got, wants[segs])]
+                if not max(rels) <= cs.SCAN_BWD_REL_L2:
+                    raise AssertionError(f"backward, {label}, B {b}: rel L2 "
+                                         f"{rels}")
+            del wants
+            times = {label: [] for label, *_ in runs}
+            for label, run, *_ in runs + runs[::-1]:
+                times[label].append(cs.time_ms(lambda: run(x, ckpt, dy),
+                                               20 if t >= 1024 else 100))
+            for label, _, geo_of, sub in runs:
+                geo = geo_of(b, t) if geo_of else None
+                shape = (f"grid {geo.grid}, "
+                         f"{geo.threads} + 32 threads, "
+                         f"{scan.bwd_smem_bytes(geo, sub)} B shared"
+                         if geo else f"grid (50, {b}), 160 threads")
+                print(f"  backward B {b} T {t}: {label} ({shape}): "
+                      + ", ".join(f"{m:.4f}" for m in times[label]) + " ms",
+                      flush=True)
 
 
 def main() -> int:
@@ -168,7 +303,9 @@ def main() -> int:
                     help="phase 3's backward cases and a sweep of the "
                          "backward's channels a block")
     ap.add_argument("--bwd-channels", type=int, nargs="+",
-                    default=[16, 32, 64])
+                    default=[16, 32])
+    ap.add_argument("--segment-chunks", type=int, nargs="+",
+                    default=[4, 8, 16, 32])
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import chip_smoke as cs                 # puts ROOT/src on the path
@@ -194,7 +331,7 @@ def main() -> int:
         from repro_torch.kernels import ref
         cs.scan_backward_cases(torch, ref, randn, {"selective_scan": [],
                                                    "selective_scan_bwd": []})
-        backward_sweep(torch, cs, randn, scan, ref, args.bwd_channels)
+        backward_sweep(torch, cs, randn, scan, ref, _build, args)
         return 0
     cs.scan_cases(torch, ops, randn, {"selective_scan": []})
 

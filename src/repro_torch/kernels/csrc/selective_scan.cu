@@ -198,6 +198,22 @@ __device__ __forceinline__ void load_states(const float* p, float (&v)[R]) {
   }
 }
 
+// R consecutive floats of global memory (16-byte aligned when R >= 4).
+template <int R>
+__device__ __forceinline__ void store_states(float* p, const float (&v)[R]) {
+  if constexpr (R % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < R; i += 4)
+      *reinterpret_cast<float4*>(p + i) =
+          make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+  } else if constexpr (R == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < R; ++i) p[i] = v[i];
+  }
+}
+
 // The L lanes of a channel (kSpread = 32 / L lanes apart: lane l of the
 // channel is warp lane l kSpread + its channel in the warp) each hold
 // p[j], their part of step j's sum, j < L; returns the L lanes' total of
@@ -526,17 +542,47 @@ selective_scan_step_kernel(const float* __restrict__ xs, long long sxb,
 // (ref.selective_scan_bwd, its twin).  Lanes and states as the forward's:
 // a lane keeps R states of one channel (and their g, a and da) in
 // registers, L lanes a channel 32 / L lanes apart, blocks of C channels
-// (the wrapper's BWD_CHANNELS_PER_BLOCK) and a producer warp, grid
-// (ceil(din / C), B).  The block walks the chunks
-// of kChunk steps from the last to the first; the producer warp stages each
-// chunk's dt, B, C, x and dy on a ring of kBwdStages stages (the forward's
-// copy routes; dy by 16-byte cp.async where aligned).  In a chunk each
-// lane first replays the recurrence forward from the forward's checkpoint
-// of the chunk, by the forward's very operations (so the states are its
-// bits; no decay is divided out), keeping the state at the start of every
-// kSub steps in shared memory; then, from the last sub-chunk to the first,
-// it recomputes the sub-chunk's states and decays into registers and walks
-// back through them.  Each exponential is thus taken twice in the backward.
+// (the wrapper's BWD_CHANNELS_PER_BLOCK) and a producer warp.
+//
+// Segments of T.  The first design walked all T steps in each of its
+// (ceil(din / C), B) blocks: 100 blocks of four compute warps at
+// hymba-1.5b's training shape, 32 SMs idle and one warp a scheduler, and
+// about the same time at B 1, 2 and 4 (0.61 ms), so each block's chain of
+// steps set the time.  Only g crosses T, and its recurrence is linear and
+// diagonal in the state and needs only dt, c and dy: over a segment,
+// g at its start is P g_in + g_loc, with P the product of the segment's
+// decays and g_loc its walk from a zero carry.  So T is cut into S
+// segments of whole chunks, each starting on one of the forward's
+// checkpoints (the wrapper's bwd_geometry), and two launches on the grid
+// (ceil(din / C), B, S) walk them:
+//   1. selective_scan_bwd_replay_kernel replays each segment's chunks from
+//      the first, from the forward's checkpoint, by the forward's very
+//      operations (so the states are its bits; no decay is divided out),
+//      stores the state at the start of every kSub steps in a scratch of
+//      device memory (starts), and sums, with the same decays, the
+//      segment's P and g_loc in forward form, P <- P e_t, g_loc <- g_loc
+//      + P dy_t c_t (the twin's backward walk g_loc <- e_t (g_loc + dy_t
+//      c_t) unrolled: the same terms), into carries;
+//   2. selective_scan_bwd_kernel folds the later segments' (P, g_loc) into
+//      its segment's carry, from the last, g = fma(P, g, g_loc) from
+//      g = dhT: the twin's order, so every segment starts from the carry a
+//      walk over the segments would give; and
+//   3. walks its segment's chunks from the last: from the last sub-chunk
+//      to the first, it recomputes the sub-chunk's states and decays into
+//      registers from the stored start and walks back through them.
+// Each exponential is thus taken twice, as in the first design, which
+// replayed each chunk before walking it back; the forward form of step 1
+// costs two multiplies and an FMA a state and step beside the replay.  In
+// each launch the producer warp stages the segment's chunks (dt, B, C, x
+// and dy, by the forward's copy routes; dy by 16-byte cp.async where
+// aligned) on a ring of kBwdStages stages, from the first (step 1) or the
+// last (step 3).  Two launches, and not one with the segments of a (channel
+// block, row) as the ranks of a thread-block cluster that exchange their
+// carries through distributed shared memory: that read 0.428-0.433 ms at
+// best at the training shape (6 ranks of 6 chunks), two launches 0.363
+// (16 segments of 2 chunks; a cluster holds at most 8 blocks), and the
+// replay, at 92 registers, runs 4 blocks an SM where the walk back runs 3
+// (PERF.md).
 //
 // Sums over channels.  dB_t, dC_t (n each) and ddt_t sum over all din
 // channels, which span the grid's blocks.  In a warp, a step's 2R values
@@ -545,26 +591,49 @@ selective_scan_step_kernel(const float* __restrict__ xs, long long sxb,
 // over the warp; each warp writes its sums of a sub-chunk to shared
 // memory, and after a barrier of the compute warps the block adds its
 // warps' sums in warp order and writes them as the block's partials,
-// (B, blocks, T, 2 NP + 1).  selective_scan_bwd_sum_kernel, a second
-// launch, adds the blocks' partials in block order, and da's and dD's
-// (B, din, n) and (B, din) partials over the batch in row order.  Every
-// sum has a fixed order: two runs are bitwise equal.  dx is summed over a
-// channel's L lanes by shuffles and written by its first lane.
+// (B, ceil(din / C), T, 2 NP + 1): each segment writes its own steps.
+// (ddt summed over a channel's lanes only, with the channels left to the
+// block's sum, read 11% slower.)  selective_scan_bwd_sum_kernel, a third
+// launch, adds the blocks' partials in block order, and da's and dD's (B,
+// S, din, n) and (B, S, din) partials over the rows and segments in row
+// order.  Every sum has a fixed order: two runs are bitwise equal.  dx is
+// summed over a channel's L lanes by shuffles and written by its first
+// lane.
 //
 // Bound.  At hymba-1.5b's training shape (B 2, T 2048, din 1600, n 16) the
 // backward reads xs, dy and the checkpoints and writes dx (26.2 MB each but
-// the checkpoints, 6.8 MB) and the partials (27 MB, read back once):
-// about 0.04 ms at 3.35 TB/s.  It takes 2 x 105 M exponentials (0.050 ms
-// on the SFUs) beside about 20 f32 operations a state element and step
-// (0.06 ms), and about 14 shuffles a warp and step on the shared-memory
-// pipe; chip_smoke.py phase 3 prints the bound from the operations it
-// counts.  A first design, right before fast: 0.61 ms there with blocks of
-// 32 channels (0.77 with 64), and about the same at B 1 and B 4, so each
-// block's chain of steps sets the time (PERF.md, torch_scan_bench.py
-// --backward).
-constexpr int kSub = 8;             // steps whose states a lane recomputes
+// the checkpoints, 6.8 MB), about 0.026 ms at 3.35 TB/s; it takes 105 M
+// exponentials (one pass of the decays, 0.025 ms on the SFUs) beside about
+// 16 f32 operations a state element and step (0.025 ms);
+// chip_smoke.py phase 3 prints the bound from the operations it counts.
+// The design spends two passes of exponentials, the starts (52 MB written
+// and read back, mostly in L2) and the partials (27 MB) on top.
+//
+// Registers.  A block's compute threads are at most kBwdMaxConsumers, and
+// the build caps the walk's registers for kBwdMinBlocks such blocks an SM
+// (with their producer warps), the replay's for kReplayMinBlocks: more
+// warps an SM to hide the latency of the exponentials, the shuffles and the
+// shared loads.  The knobs are macros, so that
+// scripts/torch_scan_bench.py --backward can build others.
+#ifndef SCAN_BWD_SUB
+#define SCAN_BWD_SUB 8
+#endif
+#ifndef SCAN_BWD_MAX_CONSUMERS
+#define SCAN_BWD_MAX_CONSUMERS 128
+#endif
+#ifndef SCAN_BWD_MIN_BLOCKS
+#define SCAN_BWD_MIN_BLOCKS 3
+#endif
+#ifndef SCAN_BWD_REPLAY_MIN_BLOCKS
+#define SCAN_BWD_REPLAY_MIN_BLOCKS 4
+#endif
+constexpr int kSub = SCAN_BWD_SUB;  // steps whose states a lane recomputes
 constexpr int kSubs = kChunk / kSub;
 constexpr int kBwdStages = 2;
+constexpr int kBwdMaxConsumers = SCAN_BWD_MAX_CONSUMERS;
+constexpr int kBwdMinBlocks = SCAN_BWD_MIN_BLOCKS;
+constexpr int kReplayMinBlocks = SCAN_BWD_REPLAY_MIN_BLOCKS;
+static_assert(kChunk % kSub == 0, "a chunk is whole sub-chunks");
 // route bit of dy (the forward's bits hold for dt, B, C and x)
 constexpr int kVecDy = 8;
 
@@ -584,13 +653,13 @@ __host__ __device__ __forceinline__ BwdLayout bwd_layout(int C, int NP) {
   return l;
 }
 
-// The block's shared memory in floats: the stages, the warps' sums of two
-// sub-chunks (double-buffered), and the lanes' sub-chunk start states.
+// A block's shared memory in floats: the stages, and for the walk back
+// the warps' sums of two sub-chunks (double-buffered).
 __host__ __device__ __forceinline__ int bwd_smem_floats(int C, int L, int NP,
-                                                        int S) {
+                                                        int S, bool replay) {
   const int warps = C * L / 32;
-  return S * bwd_layout(C, NP).floats + 2 * warps * kSub * (2 * NP + 1)
-         + kSubs * C * L * (NP / L);
+  return S * bwd_layout(C, NP).floats
+         + (replay ? 0 : 2 * warps * kSub * (2 * NP + 1));
 }
 
 // The reduce-scatter of V values over the S = 32 / L lanes of a warp's
@@ -620,22 +689,19 @@ __device__ __forceinline__ void channel_round(float (&p)[V], int m) {
   }
 }
 
-template <int R, int L>
-__global__ void __launch_bounds__(kMaxConsumers + 32)
-selective_scan_bwd_kernel(const float* __restrict__ xs, long long sxb,
-                          long long sxt, const float* __restrict__ dt,
-                          const float* __restrict__ bb,
-                          const float* __restrict__ cc,
-                          const float* __restrict__ a,
-                          const float* __restrict__ dskip,
-                          const float* __restrict__ ckpt,
-                          const float* __restrict__ dy,
-                          const float* __restrict__ dhT,
-                          float* __restrict__ dx, float* __restrict__ dd_part,
-                          float* __restrict__ da_part,
-                          float* __restrict__ dh0,
-                          float* __restrict__ partial, int T, int din, int n,
-                          int C, int route) {
+// The backward's operands, one struct for both of its kernels.
+struct BwdArgs {
+  const float *xs, *dt, *bb, *cc, *a, *dskip, *ckpt, *dy, *dhT;
+  long long sxb, sxt;
+  float *dx, *dd_part, *da_part, *dh0, *partial, *starts, *carries;
+  int B, T, din, n, C, seg_chunks, segments, route;
+};
+
+// The body of both backward kernels: kReplay, step 1 (the replay of the
+// segment and its carry); otherwise step 3 (the walk back).  Block (bx,
+// by, z): channels bx C .. of batch row by, segment z.
+template <int R, int L, bool kReplay>
+__device__ __forceinline__ void bwd_body(const BwdArgs& p) {
   constexpr int NP = R * L, kSpread = 32 / L, V = 2 * R;
   constexpr int kHeld = kSpread < V ? V / kSpread : 1;
   constexpr int W = 2 * NP + 1;              // a step's partials
@@ -643,30 +709,27 @@ selective_scan_bwd_kernel(const float* __restrict__ xs, long long sxb,
   extern __shared__ __align__(128) float smem[];
   __shared__ __align__(8) uint64_t full[kBwdStages], empty[kBwdStages];
 
+  const int T = p.T, din = p.din, n = p.n, C = p.C, route = p.route;
   const BwdLayout lay = bwd_layout(C, NP);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int consumers = C * L / 32;         // the last warp stages
   const int b = blockIdx.y, c0 = blockIdx.x * C, nbx = gridDim.x;
+  const int seg = blockIdx.z, segs = gridDim.z;
   const int l = lane / kSpread, m = lane % kSpread;
   const int lc = warp * kSpread + m;        // channel in the block
   const int ch = c0 + lc;
   const bool ch_live = ch < din;
   const int cols = min(C, din - c0);
   const int chunks = (T + kChunk - 1) / kChunk;
-  float* red = smem + S * lay.floats;       // [2][consumers][kSub][W]
-  float* hs = red + 2 * consumers * kSub * W;   // [kSubs][C L][R]
+  const int k_lo = seg * p.seg_chunks;
+  const int nck = min(chunks, k_lo + p.seg_chunks) - k_lo;  // its chunks
 
-  float av[R], g[R], da[R];
+  float av[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int s = l * R + r;
-    const bool live = ch_live && s < n;
-    av[r] = live ? a[(long long)ch * n + s] : 0.f;
-    g[r] = live && dhT ? dhT[((long long)b * din + ch) * n + s] : 0.f;
-    da[r] = 0.f;
+    av[r] = ch_live && s < n ? p.a[(long long)ch * n + s] : 0.f;
   }
-  const float d_c = ch_live ? dskip[ch] : 0.f;
-  float dd = 0.f;
 
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
@@ -675,236 +738,318 @@ selective_scan_bwd_kernel(const float* __restrict__ xs, long long sxb,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (n != NP) {   // zeros in the padded state columns of every stage
+  // zeros in the padded state columns and the dead channels' x and dy
+  // columns of every stage, which no copy writes: a dead lane's state,
+  // carry and sums stay zero
+  if (n != NP || cols < C) {
     float4* z = reinterpret_cast<float4*>(smem);
     for (int i = tid; i < S * lay.floats / 4; i += blockDim.x)
       z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   __syncthreads();
 
-  const float* xs_b = xs + (long long)b * sxb + c0;
-  const float* dy_b = dy + (long long)b * T * din + c0;
-  const float* dt_b = dt + (long long)b * T;
-  const float* bb_b = bb + (long long)b * T * n;
-  const float* cc_b = cc + (long long)b * T * n;
-
-  // the producer warp: stage chunk k (in stage s)
-  auto fill = [&](int k, int s) {
-    const int t0 = k * kChunk, steps = min(kChunk, T - t0);
-    float* st = smem + s * lay.floats;
-    const uint32_t dt_bytes = (route & kBulkDt) ? steps * 4 : 0;
-    const uint32_t bc_bytes = (route & kBulkBC) ? steps * n * 4 : 0;
-    fence_async_shared();
-    if (lane == 0) expect_tx(&full[s], dt_bytes + 2 * bc_bytes);
-    __syncwarp();
-    if (dt_bytes) {
-      if (lane == 0) bulk_load(st + lay.dt, dt_b + t0, dt_bytes, &full[s]);
-    } else {
-      for (int i = lane; i < steps; i += 32)
-        cp_async4(st + lay.dt + i, dt_b + t0 + i);
-    }
-    if (bc_bytes) {
-      if (lane == 1)
-        bulk_load(st + lay.b, bb_b + (long long)t0 * n, bc_bytes, &full[s]);
-      if (lane == 2)
-        bulk_load(st + lay.c, cc_b + (long long)t0 * n, bc_bytes, &full[s]);
-    } else {
-      for (int i = lane; i < steps * n; i += 32) {
-        const int t = i / n, k2 = i % n;
-        cp_async4(st + lay.b + t * NP + k2,
-                  bb_b + (long long)(t0 + t) * n + k2);
-        cp_async4(st + lay.c + t * NP + k2,
-                  cc_b + (long long)(t0 + t) * n + k2);
-      }
-    }
-    if (route & kVecX) {
-      const int vec = cols / 4;
-      for (int i = lane; i < steps * vec; i += 32) {
-        const int t = i / vec, k2 = 4 * (i % vec);
-        cp_async16(st + lay.x + t * C + k2,
-                   xs_b + (long long)(t0 + t) * sxt + k2);
-      }
-    } else {
-      for (int i = lane; i < steps * cols; i += 32) {
-        const int t = i / cols, k2 = i % cols;
-        cp_async4(st + lay.x + t * C + k2,
-                  xs_b + (long long)(t0 + t) * sxt + k2);
-      }
-    }
-    if (route & kVecDy) {
-      const int vec = cols / 4;
-      for (int i = lane; i < steps * vec; i += 32) {
-        const int t = i / vec, k2 = 4 * (i % vec);
-        cp_async16(st + lay.dy + t * C + k2,
-                   dy_b + (long long)(t0 + t) * din + k2);
-      }
-    } else {
-      for (int i = lane; i < steps * cols; i += 32) {
-        const int t = i / cols, k2 = i % cols;
-        cp_async4(st + lay.dy + t * C + k2,
-                  dy_b + (long long)(t0 + t) * din + k2);
-      }
-    }
-    // a ragged sub-chunk's dead steps: dt = 0 and zeros for x, dy, b and c
-    // (decay 1, input 0: the state carries through them unchanged)
-    const int dead = (steps + kSub - 1) / kSub * kSub - steps;
-    const int row = 1 + 2 * C + 2 * NP;
-    for (int i = lane; i < dead * row; i += 32) {
-      const int t = steps + i % dead, k2 = i / dead;
-      st[k2 == 0 ? lay.dt + t
-         : k2 <= C ? lay.x + t * C + k2 - 1
-         : k2 <= 2 * C ? lay.dy + t * C + k2 - 1 - C
-         : k2 <= 2 * C + NP ? lay.b + t * NP + k2 - 1 - 2 * C
-                            : lay.c + t * NP + k2 - 1 - 2 * C - NP] = 0.f;
-    }
-    cp_async_arrive(&full[s]);
-    mbar_arrive(&full[s]);
-  };
+  // the lane's start states: (seg_chunks, kSubs, C L, R) for the block
+  float* my_starts = p.starts + ((long long)(b * segs + seg) * nbx
+                                 + blockIdx.x) * p.seg_chunks * kSubs * C * L
+                                    * R
+                     + tid * R;
+  const int start_stride = C * L * R;       // a sub-chunk's, in floats
+  // the lane's carries: P and g_loc, each (B, segments, din, n)
+  const long long carry_half = (long long)p.B * segs * din * n;
+  const long long carry_at = ((long long)b * segs * din + ch) * n + l * R;
 
   if (warp == consumers) {                  // the producer warp
-    for (int j = 0; j < chunks; ++j) {
+    const float* xs_b = p.xs + (long long)b * p.sxb + c0;
+    const float* dy_b = p.dy + (long long)b * T * din + c0;
+    const float* dt_b = p.dt + (long long)b * T;
+    const float* bb_b = p.bb + (long long)b * T * n;
+    const float* cc_b = p.cc + (long long)b * T * n;
+    for (int j = 0; j < nck; ++j) {
       if (j >= S) mbar_wait(&empty[j % S], (j / S - 1) & 1);
-      fill(chunks - 1 - j, j % S);
+      // stage chunk k in stage s: step 1 from the first, step 3 the last
+      const int k = kReplay ? k_lo + j : k_lo + nck - 1 - j, s = j % S;
+      const int t0 = k * kChunk, steps = min(kChunk, T - t0);
+      float* st = smem + s * lay.floats;
+      const uint32_t dt_bytes = (route & kBulkDt) ? steps * 4 : 0;
+      const uint32_t bc_bytes = (route & kBulkBC) ? steps * n * 4 : 0;
+      fence_async_shared();
+      if (lane == 0) expect_tx(&full[s], dt_bytes + 2 * bc_bytes);
+      __syncwarp();
+      if (dt_bytes) {
+        if (lane == 0) bulk_load(st + lay.dt, dt_b + t0, dt_bytes, &full[s]);
+      } else {
+        for (int i = lane; i < steps; i += 32)
+          cp_async4(st + lay.dt + i, dt_b + t0 + i);
+      }
+      if (bc_bytes) {
+        if (lane == 1)
+          bulk_load(st + lay.b, bb_b + (long long)t0 * n, bc_bytes, &full[s]);
+        if (lane == 2)
+          bulk_load(st + lay.c, cc_b + (long long)t0 * n, bc_bytes, &full[s]);
+      } else {
+        for (int i = lane; i < steps * n; i += 32) {
+          const int t = i / n, k2 = i % n;
+          cp_async4(st + lay.b + t * NP + k2,
+                    bb_b + (long long)(t0 + t) * n + k2);
+          cp_async4(st + lay.c + t * NP + k2,
+                    cc_b + (long long)(t0 + t) * n + k2);
+        }
+      }
+      if (route & kVecX) {
+        const int vec = cols / 4;
+        for (int i = lane; i < steps * vec; i += 32) {
+          const int t = i / vec, k2 = 4 * (i % vec);
+          cp_async16(st + lay.x + t * C + k2,
+                     xs_b + (long long)(t0 + t) * p.sxt + k2);
+        }
+      } else {
+        for (int i = lane; i < steps * cols; i += 32) {
+          const int t = i / cols, k2 = i % cols;
+          cp_async4(st + lay.x + t * C + k2,
+                    xs_b + (long long)(t0 + t) * p.sxt + k2);
+        }
+      }
+      if (route & kVecDy) {
+        const int vec = cols / 4;
+        for (int i = lane; i < steps * vec; i += 32) {
+          const int t = i / vec, k2 = 4 * (i % vec);
+          cp_async16(st + lay.dy + t * C + k2,
+                     dy_b + (long long)(t0 + t) * din + k2);
+        }
+      } else {
+        for (int i = lane; i < steps * cols; i += 32) {
+          const int t = i / cols, k2 = i % cols;
+          cp_async4(st + lay.dy + t * C + k2,
+                    dy_b + (long long)(t0 + t) * din + k2);
+        }
+      }
+      // a ragged sub-chunk's dead steps: dt = 0 and zeros for x, dy, b and
+      // c (decay 1, input 0: the state and the carry pass through)
+      const int dead = (steps + kSub - 1) / kSub * kSub - steps;
+      const int row = 1 + 2 * C + 2 * NP;
+      for (int i = lane; i < dead * row; i += 32) {
+        const int t = steps + i % dead, k2 = i / dead;
+        st[k2 == 0 ? lay.dt + t
+           : k2 <= C ? lay.x + t * C + k2 - 1
+           : k2 <= 2 * C ? lay.dy + t * C + k2 - 1 - C
+           : k2 <= 2 * C + NP ? lay.b + t * NP + k2 - 1 - 2 * C
+                              : lay.c + t * NP + k2 - 1 - 2 * C - NP] = 0.f;
+      }
+      cp_async_arrive(&full[s]);
+      mbar_arrive(&full[s]);
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     return;
   }
 
-  const long long ck_step = (long long)din * n;
-  const float* ck_ch = ckpt + ((long long)b * (chunks + 1) * din + ch) * n
-                       + l * R;
-  float* dx_ch = dx + (long long)b * T * din + ch;
-  float* part_b = partial + ((long long)b * nbx + blockIdx.x) * T * W;
-  float* my_hs = hs + tid * R;
-  const int hs_stride = C * L * R;
-  int buf = 0;
-  for (int j = 0; j < chunks; ++j) {
-    const int k = chunks - 1 - j, s = j % S;
-    const int t0 = k * kChunk, steps = min(kChunk, T - t0);
-    const int subs = (steps + kSub - 1) / kSub;
-    float h[R];
+  if constexpr (kReplay) {
+    // step 1: the segment's chunks from the first, each replayed from its
+    // checkpoint, the state at the start of every sub-chunk stored; and
+    // the segment's decay product and local carry, in forward form
+    const long long ck_step = (long long)din * n;
+    const float* ck_ch = p.ckpt + ((long long)b * (chunks + 1) * din + ch) * n
+                         + l * R;
+    float gl[R], pr[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r)
-      h[r] = ch_live && l * R + r < n ? ck_ch[k * ck_step + r] : 0.f;
-    mbar_wait(&full[s], (j / S) & 1);
-    const float* st = smem + s * lay.floats;
-
-    // the replay: the state at the start of every sub-chunk
-    for (int q = 0; q < subs; ++q) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) my_hs[q * hs_stride + r] = h[r];
-#pragma unroll
-      for (int i = 0; i < kSub; ++i) {
-        const int t = q * kSub + i;
-        const float dtt = st[lay.dt + t];
-        const float dtx = dtt * st[lay.x + t * C + lc];
-        float bv[R];
-        load_states<R>(st + lay.b + t * NP + l * R, bv);
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-          h[r] = fmaf(expf(av[r] * dtt), h[r], dtx * bv[r]);
-      }
+    for (int r = 0; r < R; ++r) {
+      gl[r] = 0.f;
+      pr[r] = 1.f;
     }
-
-    // back through the sub-chunks
-    for (int q = subs - 1; q >= 0; --q) {
-      float hp[kSub + 1][R], e[kSub][R];
+    for (int j = 0; j < nck; ++j) {
+      const int k = k_lo + j, s = j % S;
+      const int subs = (min(kChunk, T - k * kChunk) + kSub - 1) / kSub;
+      float h[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) hp[0][r] = my_hs[q * hs_stride + r];
+      for (int r = 0; r < R; ++r)
+        h[r] = ch_live && l * R + r < n ? ck_ch[k * ck_step + r] : 0.f;
+      mbar_wait(&full[s], (j / S) & 1);
+      const float* st = smem + s * lay.floats;
+      for (int q = 0; q < subs; ++q) {
+        store_states<R>(my_starts + (j * kSubs + q) * start_stride, h);
 #pragma unroll
-      for (int i = 0; i < kSub; ++i) {
-        const int t = q * kSub + i;
-        const float dtt = st[lay.dt + t];
-        const float dtx = dtt * st[lay.x + t * C + lc];
-        float bv[R];
-        load_states<R>(st + lay.b + t * NP + l * R, bv);
+        for (int i = 0; i < kSub; ++i) {
+          const int t = q * kSub + i;
+          const float dtt = st[lay.dt + t];
+          const float dtx = dtt * st[lay.x + t * C + lc];
+          const float dyv = st[lay.dy + t * C + lc];
+          float bv[R], cv[R];
+          load_states<R>(st + lay.b + t * NP + l * R, bv);
+          load_states<R>(st + lay.c + t * NP + l * R, cv);
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          e[i][r] = expf(av[r] * dtt);
-          hp[i + 1][r] = fmaf(e[i][r], hp[i][r], dtx * bv[r]);
-        }
-      }
-      float* red_w = red + (buf * consumers + warp) * kSub * W;
-#pragma unroll
-      for (int i = kSub - 1; i >= 0; --i) {
-        const int t = q * kSub + i;
-        const float dtt = st[lay.dt + t];
-        const float xv = ch_live ? st[lay.x + t * C + lc] : 0.f;
-        const float dyv = ch_live ? st[lay.dy + t * C + lc] : 0.f;
-        const float dtx = dtt * xv;
-        float bv[R], cv[R], p[V];
-        load_states<R>(st + lay.b + t * NP + l * R, bv);
-        load_states<R>(st + lay.c + t * NP + l * R, cv);
-        float gb = 0.f, pdt = 0.f;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float G = fmaf(dyv, cv[r], g[r]);
-          const float ehp = e[i][r] * hp[i][r];
-          p[r] = G * dtx;                   // db
-          p[R + r] = dyv * hp[i + 1][r];    // dc
-          gb = fmaf(G, bv[r], gb);
-          pdt = fmaf(G, av[r] * ehp, pdt);
-          da[r] = fmaf(G * dtt, ehp, da[r]);
-          g[r] = e[i][r] * G;
-        }
-        pdt = fmaf(xv, gb, pdt);
-        dd = fmaf(dyv, xv, dd);
-        // dx: the channel's L lanes' sum of G b
-#pragma unroll
-        for (int o = kSpread; o < 32; o <<= 1)
-          gb += __shfl_xor_sync(kFull, gb, o);
-        store_if(dx_ch + (long long)(t0 + t) * din, fmaf(d_c, dyv, dtt * gb),
-                 ch_live && l == 0 && t < steps);
-        // db, dc: over the warp's channels; ddt: over the whole warp
-        channel_round<V, kSpread / 2, V>(p, m);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          pdt += __shfl_xor_sync(kFull, pdt, o);
-        float* red_t = red_w + i * W;
-        if (kSpread < V || m < V) {
-#pragma unroll
-          for (int u = 0; u < kHeld; ++u) {
-            const int v = (kSpread < V ? m * kHeld : m) + u;
-            red_t[v < R ? l * R + v : NP + l * R + v - R] = p[u];
+          for (int r = 0; r < R; ++r) {
+            const float e = expf(av[r] * dtt);
+            h[r] = fmaf(e, h[r], dtx * bv[r]);
+            pr[r] *= e;
+            gl[r] = fmaf(pr[r], dyv * cv[r], gl[r]);
           }
         }
-        if (lane == 0) red_t[2 * NP] = pdt;
       }
-      // the block's sums of this sub-chunk, in warp order
-      asm volatile("bar.sync 1, %0;\n" ::"r"(consumers * 32) : "memory");
-      const float* red_b = red + buf * consumers * kSub * W;
-      const int t_q = t0 + q * kSub, live = min(kSub, steps - q * kSub);
-      for (int i = tid; i < live * W; i += consumers * 32) {
-        float sum = 0.f;
-        for (int w = 0; w < consumers; ++w) sum += red_b[w * kSub * W + i];
-        part_b[(long long)t_q * W + i] = sum;
-      }
-      buf ^= 1;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
-  }
+    // the first segment's carry is read by no segment
+    if (seg > 0 && ch_live) {
+      float* pc = p.carries + carry_at + (long long)seg * din * n;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (l * R + r < n) {
+          pc[r] = pr[r];
+          pc[carry_half + r] = gl[r];
+        }
+      }
+    }
+  } else {
+    float* red = smem + S * lay.floats;     // [2][consumers][kSub][W]
+    // step 2: the carry into the segment, folded over the later segments
+    // from the last, g = fma(P, g, g_loc) from g = dhT: the twin's order
+    float g[R], da[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int s = l * R + r;
+      g[r] = ch_live && s < n && p.dhT
+                 ? p.dhT[((long long)b * din + ch) * n + s] : 0.f;
+      da[r] = 0.f;
+    }
+    if (ch_live) {
+#pragma unroll 4
+      for (int z = segs - 1; z > seg; --z) {
+        const float* pc = p.carries + carry_at + (long long)z * din * n;
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (l * R + r < n) g[r] = fmaf(pc[r], g[r], pc[carry_half + r]);
+      }
+    }
+    const float d_c = ch_live ? p.dskip[ch] : 0.f;
+    float dd = 0.f;
+
+    // step 3: the segment's chunks from the last
+    float* dx_ch = p.dx + (long long)b * T * din + ch;
+    float* part_b = p.partial + ((long long)b * nbx + blockIdx.x) * T * W;
+    int buf = 0;
+    for (int j = 0; j < nck; ++j) {
+      const int c = nck - 1 - j, k = k_lo + c, s = j % S;
+      const int t0 = k * kChunk, steps = min(kChunk, T - t0);
+      const int subs = (steps + kSub - 1) / kSub;
+      mbar_wait(&full[s], (j / S) & 1);
+      const float* st = smem + s * lay.floats;
+
+      // back through the sub-chunks, each recomputed from its start state
+      for (int q = subs - 1; q >= 0; --q) {
+        float hp[kSub + 1][R], e[kSub][R];
+        load_states<R>(my_starts + (c * kSubs + q) * start_stride, hp[0]);
+#pragma unroll
+        for (int i = 0; i < kSub; ++i) {
+          const int t = q * kSub + i;
+          const float dtt = st[lay.dt + t];
+          const float dtx = dtt * st[lay.x + t * C + lc];
+          float bv[R];
+          load_states<R>(st + lay.b + t * NP + l * R, bv);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            e[i][r] = expf(av[r] * dtt);
+            hp[i + 1][r] = fmaf(e[i][r], hp[i][r], dtx * bv[r]);
+          }
+        }
+        float* red_w = red + (buf * consumers + warp) * kSub * W;
+#pragma unroll
+        for (int i = kSub - 1; i >= 0; --i) {
+          const int t = q * kSub + i;
+          const float dtt = st[lay.dt + t];
+          const float xv = st[lay.x + t * C + lc];
+          const float dyv = st[lay.dy + t * C + lc];
+          const float dtx = dtt * xv;
+          float bv[R], cv[R], pv[V];
+          load_states<R>(st + lay.b + t * NP + l * R, bv);
+          load_states<R>(st + lay.c + t * NP + l * R, cv);
+          float gb = 0.f, pdt = 0.f;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float G = fmaf(dyv, cv[r], g[r]);
+            const float w = G * (e[i][r] * hp[i][r]);    // G e h_{t-1}
+            pv[r] = G * dtx;                  // db
+            pv[R + r] = dyv * hp[i + 1][r];   // dc
+            gb = fmaf(G, bv[r], gb);
+            pdt = fmaf(av[r], w, pdt);
+            da[r] = fmaf(dtt, w, da[r]);
+            g[r] = e[i][r] * G;
+          }
+          pdt = fmaf(xv, gb, pdt);
+          dd = fmaf(dyv, xv, dd);
+          // dx: the channel's L lanes' sum of G b
+#pragma unroll
+          for (int o = kSpread; o < 32; o <<= 1)
+            gb += __shfl_xor_sync(kFull, gb, o);
+          store_if(dx_ch + (long long)(t0 + t) * din,
+                   fmaf(d_c, dyv, dtt * gb), ch_live && l == 0 && t < steps);
+          // db, dc: over the warp's channels; ddt: over the whole warp
+          channel_round<V, kSpread / 2, V>(pv, m);
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            pdt += __shfl_xor_sync(kFull, pdt, o);
+          float* red_t = red_w + i * W;
+          if (kSpread < V || m < V) {
+#pragma unroll
+            for (int u = 0; u < kHeld; ++u) {
+              const int v = (kSpread < V ? m * kHeld : m) + u;
+              red_t[v < R ? l * R + v : NP + l * R + v - R] = pv[u];
+            }
+          }
+          if (lane == 0) red_t[2 * NP] = pdt;
+        }
+        // the block's sums of this sub-chunk, in warp order
+        asm volatile("bar.sync 1, %0;\n" ::"r"(consumers * 32) : "memory");
+        const float* red_b = red + buf * consumers * kSub * W;
+        const int t_q = t0 + q * kSub, live = min(kSub, steps - q * kSub);
+        for (int i = tid; i < live * W; i += consumers * 32) {
+          float sum = 0.f;
+          for (int w = 0; w < consumers; ++w) sum += red_b[w * kSub * W + i];
+          part_b[(long long)t_q * W + i] = sum;
+        }
+        buf ^= 1;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
 
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int s = l * R + r;
-    if (ch_live && s < n) {
-      const long long i = ((long long)b * din + ch) * n + s;
-      dh0[i] = g[r];
-      da_part[i] = da[r];
+    for (int r = 0; r < R; ++r) {
+      const int s = l * R + r;
+      if (ch_live && s < n) {
+        if (seg == 0) p.dh0[((long long)b * din + ch) * n + s] = g[r];
+        p.da_part[((long long)(b * segs + seg) * din + ch) * n + s] = da[r];
+      }
     }
+    if (ch_live && l == 0)
+      p.dd_part[(long long)(b * segs + seg) * din + ch] = dd;
   }
-  if (ch_live && l == 0) dd_part[(long long)b * din + ch] = dd;
+}
+
+// Step 1 of the backward: replays each segment, stores its start states and
+// its decay product and local carry.  Its registers are few: capped for 4
+// blocks an SM, the stages' shared memory allows that many.
+template <int R, int L>
+__global__ void __launch_bounds__(kBwdMaxConsumers + 32, kReplayMinBlocks)
+selective_scan_bwd_replay_kernel(const BwdArgs p) {
+  bwd_body<R, L, true>(p);
+}
+
+// Steps 2 and 3 of the backward: folds the carries and walks back.
+template <int R, int L>
+__global__ void __launch_bounds__(kBwdMaxConsumers + 32, kBwdMinBlocks)
+selective_scan_bwd_kernel(const BwdArgs p) {
+  bwd_body<R, L, false>(p);
 }
 
 // The second pass: one thread an output.  dB, dC (B, T, n) and ddt (B, T)
-// add the blocks' partials (B, blocks, T, 2 NP + 1) in block order; da
-// (din, n) and dD (din) add the batch rows' partials in row order.
+// add the channel blocks' partials (B, blocks, T, 2 NP + 1) in block
+// order; da (din, n) and dD (din) add the partials of the rows and
+// segments, (B, S, din, n) and (B, S, din), in row order.
 __global__ void selective_scan_bwd_sum_kernel(
     const float* __restrict__ partial, const float* __restrict__ da_part,
     const float* __restrict__ dd_part, float* __restrict__ ddt,
     float* __restrict__ dbb, float* __restrict__ dcc, float* __restrict__ da,
-    float* __restrict__ dd, int B, int T, int din, int n, int NP, int nbx) {
+    float* __restrict__ dd, int B, int T, int din, int n, int NP, int nbx,
+    int segs) {
   const int W = 2 * NP + 1, per_t = 2 * n + 1;
   const long long steps = (long long)B * T * per_t;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -924,14 +1069,15 @@ __global__ void selective_scan_bwd_sum_kernel(
   }
   const long long j = i - steps;
   const long long per_b = (long long)din * n;
+  const int rows = B * segs;
   if (j < per_b) {
     float sum = 0.f;
-    for (int b = 0; b < B; ++b) sum += da_part[b * per_b + j];
+    for (int r = 0; r < rows; ++r) sum += da_part[r * per_b + j];
     da[j] = sum;
   } else if (j < per_b + din) {
     const long long c = j - per_b;
     float sum = 0.f;
-    for (int b = 0; b < B; ++b) sum += dd_part[b * din + c];
+    for (int r = 0; r < rows; ++r) sum += dd_part[(long long)r * din + c];
     dd[c] = sum;
   }
 }
@@ -990,26 +1136,26 @@ cudaError_t launch(const Args& p, cudaStream_t stream) {
   return launch_fwd<R, L, false>(p, stream);
 }
 
-struct BwdArgs {
-  const float *xs, *dt, *bb, *cc, *a, *dskip, *ckpt, *dy, *dhT;
-  long long sxb, sxt;
-  float *dx, *dd_part, *da_part, *dh0, *partial;
-  int B, T, din, n, C, route;
-};
-
+// One launch of the replay (step 1) or of the walk back (steps 2 and 3):
+// grid (ceil(din / C), B, segments).
 template <int R, int L>
-cudaError_t launch_bwd(const BwdArgs& p, cudaStream_t stream) {
-  static size_t granted[64] = {};
-  const dim3 grid((p.din + p.C - 1) / p.C, p.B);
+cudaError_t launch_bwd(const BwdArgs& p, bool replay, cudaStream_t stream) {
+  static size_t granted_replay[64] = {}, granted_walk[64] = {};
+  const dim3 grid((p.din + p.C - 1) / p.C, p.B, p.segments);
   const int threads = p.C * L + 32;
-  const size_t smem = (size_t)bwd_smem_floats(p.C, L, R * L, kBwdStages) * 4;
-  const cudaError_t e =
-      allow_smem(selective_scan_bwd_kernel<R, L>, smem, granted);
-  if (e != cudaSuccess) return e;
-  selective_scan_bwd_kernel<R, L><<<grid, threads, smem, stream>>>(
-      p.xs, p.sxb, p.sxt, p.dt, p.bb, p.cc, p.a, p.dskip, p.ckpt, p.dy,
-      p.dhT, p.dx, p.dd_part, p.da_part, p.dh0, p.partial, p.T, p.din, p.n,
-      p.C, p.route);
+  const size_t smem =
+      (size_t)bwd_smem_floats(p.C, L, R * L, kBwdStages, replay) * 4;
+  cudaError_t e;
+  if (replay) {
+    e = allow_smem(selective_scan_bwd_replay_kernel<R, L>, smem,
+                   granted_replay);
+    if (e != cudaSuccess) return e;
+    selective_scan_bwd_replay_kernel<R, L><<<grid, threads, smem, stream>>>(p);
+  } else {
+    e = allow_smem(selective_scan_bwd_kernel<R, L>, smem, granted_walk);
+    if (e != cudaSuccess) return e;
+    selective_scan_bwd_kernel<R, L><<<grid, threads, smem, stream>>>(p);
+  }
   return cudaGetLastError();
 }
 
@@ -1091,51 +1237,105 @@ extern "C" int selective_scan_fwd_ckpt(const void* xs, long long sxb,
              n, states, lanes, channels, stages, route, stream);
 }
 
-// The backward's first pass.  Operands as the forward's, with ckpt its
-// checkpoints, dy (B, T, din) contiguous, dhT (B, din, n) or null (zeros);
-// writes dx (B, T, din), dh0 and the partials: da_part (B, din, n),
-// dd_part (B, din) and partial (B, ceil(din / C), T, 2 R L + 1).  route:
-// the forward's bits and kVecDy.  The geometry's rules are the forward's.
-extern "C" int selective_scan_bwd(
-    const void* xs, long long sxb, long long sxt, const void* dt,
-    const void* bb, const void* cc, const void* a, const void* dskip,
-    const void* ckpt, const void* dy, const void* dhT, void* dx,
-    void* dd_part, void* da_part, void* dh0, void* partial, int B, int T,
-    int din, int n, int states, int lanes, int channels, int route,
-    void* stream) {
-  if (bad_geometry(B, T, din, n, states, lanes, channels) ||
-      ((route & kBulkBC) && n != states * lanes))
+// One of the backward's two main launches, after the geometry's checks.
+static int bwd(const BwdArgs& p, int states, int lanes, bool replay,
+               void* stream) {
+  const int chunks = (p.T + kChunk - 1) / kChunk;
+  if (bad_geometry(p.B, p.T, p.din, p.n, states, lanes, p.C) ||
+      p.C * lanes > kBwdMaxConsumers || p.seg_chunks < 1 ||
+      p.segments != (chunks + p.seg_chunks - 1) / p.seg_chunks ||
+      ((p.route & kBulkBC) && p.n != states * lanes))
     return (int)cudaErrorInvalidValue;
-  const BwdArgs p{
-      static_cast<const float*>(xs), static_cast<const float*>(dt),
-      static_cast<const float*>(bb), static_cast<const float*>(cc),
-      static_cast<const float*>(a), static_cast<const float*>(dskip),
-      static_cast<const float*>(ckpt), static_cast<const float*>(dy),
-      static_cast<const float*>(dhT), sxb, sxt, static_cast<float*>(dx),
-      static_cast<float*>(dd_part), static_cast<float*>(da_part),
-      static_cast<float*>(dh0), static_cast<float*>(partial), B, T, din, n,
-      channels, route};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (states * 100 + lanes) {
-    case 101: return (int)launch_bwd<1, 1>(p, st);
-    case 201: return (int)launch_bwd<2, 1>(p, st);
-    case 401: return (int)launch_bwd<4, 1>(p, st);
-    case 402: return (int)launch_bwd<4, 2>(p, st);
-    case 404: return (int)launch_bwd<4, 4>(p, st);
-    case 408: return (int)launch_bwd<4, 8>(p, st);
+    case 101: return (int)launch_bwd<1, 1>(p, replay, st);
+    case 201: return (int)launch_bwd<2, 1>(p, replay, st);
+    case 401: return (int)launch_bwd<4, 1>(p, replay, st);
+    case 402: return (int)launch_bwd<4, 2>(p, replay, st);
+    case 404: return (int)launch_bwd<4, 4>(p, replay, st);
+    case 408: return (int)launch_bwd<4, 8>(p, replay, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The backward's second pass (selective_scan_bwd_sum_kernel): np = R L and
-// blocks = ceil(din / C) of the first pass's launch.
+// The backward's first launch (selective_scan_bwd_replay_kernel): step 1.
+// Operands as the forward's, with ckpt its checkpoints and dy (B, T, din)
+// contiguous; writes starts, each block's lanes' state at the start of
+// every kSub steps of its segment (B, segments, ceil(din / C), seg_chunks
+// kChunk / kSub, C L, R), and carries, the decay product and local carry
+// of each segment but the first, (2, B, segments, din, n).  route: the
+// forward's bits and kVecDy.  The geometry's rules are the forward's, with
+// C L at most kBwdMaxConsumers; T is cut into `segments` segments of
+// `seg_chunks` chunks (the last may hold fewer, none is empty).
+extern "C" int selective_scan_bwd_replay(
+    const void* xs, long long sxb, long long sxt, const void* dt,
+    const void* bb, const void* cc, const void* a, const void* ckpt,
+    const void* dy, void* starts, void* carries, int B, int T, int din,
+    int n, int states, int lanes, int channels, int seg_chunks, int segments,
+    int route, void* stream) {
+  BwdArgs p{};
+  p.xs = static_cast<const float*>(xs);
+  p.dt = static_cast<const float*>(dt);
+  p.bb = static_cast<const float*>(bb);
+  p.cc = static_cast<const float*>(cc);
+  p.a = static_cast<const float*>(a);
+  p.ckpt = static_cast<const float*>(ckpt);
+  p.dy = static_cast<const float*>(dy);
+  p.sxb = sxb;
+  p.sxt = sxt;
+  p.starts = static_cast<float*>(starts);
+  p.carries = static_cast<float*>(carries);
+  p.B = B; p.T = T; p.din = din; p.n = n; p.C = channels;
+  p.seg_chunks = seg_chunks; p.segments = segments; p.route = route;
+  return bwd(p, states, lanes, true, stream);
+}
+
+// The backward's second launch (selective_scan_bwd_kernel): steps 2 and 3
+// from the first launch's starts and carries, with dhT (B, din, n) or null
+// (zeros); writes dx (B, T, din), dh0 and the partials: da_part (B,
+// segments, din, n), dd_part (B, segments, din) and partial (B,
+// ceil(din / C), T, 2 R L + 1).  The geometry as the first launch's.
+extern "C" int selective_scan_bwd(
+    const void* xs, long long sxb, long long sxt, const void* dt,
+    const void* bb, const void* cc, const void* a, const void* dskip,
+    const void* dy, const void* dhT, const void* starts,
+    const void* carries, void* dx, void* dd_part, void* da_part, void* dh0,
+    void* partial, int B, int T, int din, int n, int states, int lanes,
+    int channels, int seg_chunks, int segments, int route, void* stream) {
+  BwdArgs p{};
+  p.xs = static_cast<const float*>(xs);
+  p.dt = static_cast<const float*>(dt);
+  p.bb = static_cast<const float*>(bb);
+  p.cc = static_cast<const float*>(cc);
+  p.a = static_cast<const float*>(a);
+  p.dskip = static_cast<const float*>(dskip);
+  p.dy = static_cast<const float*>(dy);
+  p.dhT = static_cast<const float*>(dhT);
+  p.sxb = sxb;
+  p.sxt = sxt;
+  p.starts = static_cast<float*>(const_cast<void*>(starts));
+  p.carries = static_cast<float*>(const_cast<void*>(carries));
+  p.dx = static_cast<float*>(dx);
+  p.dd_part = static_cast<float*>(dd_part);
+  p.da_part = static_cast<float*>(da_part);
+  p.dh0 = static_cast<float*>(dh0);
+  p.partial = static_cast<float*>(partial);
+  p.B = B; p.T = T; p.din = din; p.n = n; p.C = channels;
+  p.seg_chunks = seg_chunks; p.segments = segments; p.route = route;
+  return bwd(p, states, lanes, false, stream);
+}
+
+// The backward's second pass (selective_scan_bwd_sum_kernel): np = R L,
+// blocks = ceil(din / C) and segments of the first pass's launch.
 extern "C" int selective_scan_bwd_sum(const void* partial,
                                       const void* da_part,
                                       const void* dd_part, void* ddt,
                                       void* dbb, void* dcc, void* da,
                                       void* dd, int B, int T, int din, int n,
-                                      int np, int blocks, void* stream) {
-  if (B < 1 || T < 1 || din < 1 || n < 1 || n > np || blocks < 1)
+                                      int np, int blocks, int segments,
+                                      void* stream) {
+  if (B < 1 || T < 1 || din < 1 || n < 1 || n > np || blocks < 1 ||
+      segments < 1)
     return (int)cudaErrorInvalidValue;
   const long long outs = (long long)B * T * (2 * n + 1) + (long long)din * n
                          + din;
@@ -1147,13 +1347,22 @@ extern "C" int selective_scan_bwd_sum(const void* partial,
       static_cast<const float*>(dd_part), static_cast<float*>(ddt),
       static_cast<float*>(dbb), static_cast<float*>(dcc),
       static_cast<float*>(da), static_cast<float*>(dd), B, T, din, n, np,
-      blocks);
+      blocks, segments);
   return (int)cudaGetLastError();
 }
 
 // The backward's shared memory a block, in bytes, for the wrapper's check.
 extern "C" int selective_scan_bwd_smem(int states, int lanes, int channels) {
-  return bwd_smem_floats(channels, lanes, states * lanes, kBwdStages) * 4;
+  return bwd_smem_floats(channels, lanes, states * lanes, kBwdStages, false)
+         * 4;
+}
+
+// The backward's compile-time knobs as built (0: steps a sub-chunk, 1:
+// compute threads a block at most, 2 and 3: blocks an SM of the register
+// cap, the walk's and the replay's).
+extern "C" int selective_scan_bwd_knobs(int which) {
+  return which == 0 ? kSub : which == 1 ? kBwdMaxConsumers
+         : which == 2 ? kBwdMinBlocks : kReplayMinBlocks;
 }
 
 extern "C" const char* cuda_error_string(int code) {

@@ -14,8 +14,8 @@ Each kernel wrapper carries a ``launches`` counter
 ``flash_attention_bwd_dkv.launches``, ``ddim_fused.launches``,
 ``parareal_update_residual.launches``, ``parareal_update.launches``,
 ``rwkv6_wkv.launches``, ``rwkv6_wkv_bwd.launches``,
-``selective_scan.launches``, ``selective_scan_bwd.launches``,
-``selective_scan_bwd_sum.launches``) that
+``selective_scan.launches``, ``selective_scan_bwd_replay.launches``,
+``selective_scan_bwd.launches``, ``selective_scan_bwd_sum.launches``) that
 :func:`launch_counts` reads and :func:`reset_launch_counts` zeroes.  The
 flash forward and the backward's dq and dkv kernels also count their
 launches by route, the tensor-core kernel (bf16, head dim a multiple of
@@ -50,6 +50,7 @@ _COUNTED = {"flash_attention_fwd": flash_attention_fwd,
             "rwkv6_wkv": rwkv6_scan.rwkv6_wkv,
             "rwkv6_wkv_bwd": rwkv6_wkv_bwd,
             "selective_scan": _scan.selective_scan,
+            "selective_scan_bwd_replay": _scan.selective_scan_bwd_replay,
             "selective_scan_bwd": selective_scan_bwd,
             "selective_scan_bwd_sum": _scan.selective_scan_bwd_sum}
 

@@ -203,11 +203,31 @@ def selective_scan(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
     return torch.stack(ys, dim=1), h
 
 
+def _segment_carries(af, dtf, cf, dyf, g_t, bounds):
+    """The gradient ``g`` at the end of each segment of ``bounds`` ((t0,
+    t1) step ranges, in order), from the carries over the segments after
+    it: ``g_in(last) = g_t`` and ``g_in(s) = P(s+1) g_in(s+1) +
+    g_loc(s+1)``, folded from the last segment down, where a segment's
+    ``g_loc`` and ``P`` come from a walk of its steps from the last with a
+    zero carry, ``g_loc <- e_t (g_loc + dy_t c_t)``, ``P <- P e_t`` (the
+    kernel sums the same terms from the first step, ``P <- P e_t``,
+    ``g_loc <- g_loc + P dy_t c_t``)."""
+    carries = [g_t]
+    for t0, t1 in reversed(bounds[1:]):
+        g_loc, prod = torch.zeros_like(g_t), torch.ones_like(g_t)
+        for i in reversed(range(t0, t1)):
+            decay = torch.exp(af[None] * dtf[:, i, None, None])
+            g_loc = decay * (g_loc + dyf[:, i, :, None] * cf[:, i, None, :])
+            prod = prod * decay
+        carries.append(prod * carries[-1] + g_loc)
+    return carries[::-1]
+
+
 def selective_scan_bwd(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
                        cc: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
                        h0: torch.Tensor, dy: torch.Tensor,
                        dh_t: Optional[torch.Tensor] = None, *,
-                       ckpt_every: int = 64):
+                       ckpt_every: int = 64, segments: int = 1):
     """Gradients of :func:`selective_scan` by the backward kernel's
     formula, a plain reverse scan in f32, in the kernel's chunked order:
     the state at the start of every ``ckpt_every`` steps (the kernel's
@@ -227,6 +247,21 @@ def selective_scan_bwd(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
         da    = sum_{b,t} G_t dt_t e_t h_{t-1}
         g_{t-1} = e_t G_t,        dh0 = g_0.
 
+    ``segments``: the kernel's cut of T into segments of whole chunks,
+    ``ceil(chunks / segments)`` chunks each (the last may hold fewer, and
+    fewer segments may remain).  The recurrence of g is linear and
+    diagonal in the state, and needs only dt, c and dy: unrolled over a
+    segment of steps t0..t1 it is ``g_{t0-1} = P g_{t1} + g_loc`` with
+    ``P = prod_t e_t`` and ``g_loc`` the walk of the segment from a zero
+    carry.  So each segment but the first is first walked alone for its
+    ``P`` and ``g_loc``; the carries into the segments follow in a fixed
+    order from the last, ``g_in(last) = dh_T``, ``g_in(s) = P(s+1)
+    g_in(s+1) + g_loc(s+1)`` (:func:`_segment_carries`); then each
+    segment, from the last, runs the chunked walk above from its carry
+    (its own g at its start is not carried on: the next segment starts
+    from its ``g_in``), and dh0 is the first segment's.  ``segments=1``
+    is the single walk, bit for bit.
+
     Shapes as :func:`selective_scan`; ``dy``: (B, T, din).  Returns
     ``(dxs, ddt, dbb, dcc, da, dd, dh0)`` in f32, with the shapes of
     ``xs, dt, bb, cc, a, d, h0``."""
@@ -240,30 +275,38 @@ def selective_scan_bwd(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
             ckpts.append(h)
         h = (torch.exp(af[None] * dtf[:, i, None, None]) * h
              + (dtf[:, i, None] * xf[:, i])[:, :, None] * bf[:, i, None, :])
-    g = torch.zeros_like(h) if dh_t is None else dh_t.float()
+    g_t = torch.zeros_like(h) if dh_t is None else dh_t.float()
+    per = -(-len(ckpts) // max(1, segments))        # chunks a segment
+    firsts = range(0, len(ckpts), per)              # each one's first chunk
+    bounds = [(k * ckpt_every, min((k + per) * ckpt_every, t_len))
+              for k in firsts]
+    carries = _segment_carries(af, dtf, cf, dyf, g_t, bounds)
     dx, ddt, db, dc = (torch.empty_like(v) for v in (xf, dtf, bf, cf))
     da = torch.zeros_like(af)
-    for k in reversed(range(len(ckpts))):
-        t0, t1 = k * ckpt_every, min((k + 1) * ckpt_every, t_len)
-        hs = [ckpts[k]]                              # h_{t0-1} .. h_{t1-1}
-        for i in range(t0, t1):
-            decay = torch.exp(af[None] * dtf[:, i, None, None])
-            hs.append(decay * hs[-1] + (dtf[:, i, None] * xf[:, i])[:, :, None]
-                      * bf[:, i, None, :])
-        for i in reversed(range(t0, t1)):
-            h_prev, h_i = hs[i - t0], hs[i - t0 + 1]
-            dt_i, x_i, b_i, dy_i = dtf[:, i], xf[:, i], bf[:, i], dyf[:, i]
-            decay = torch.exp(af[None] * dt_i[:, None, None])
-            gg = g + dy_i[:, :, None] * cf[:, i, None, :]          # G_t
-            dc[:, i] = torch.einsum("bd,bdn->bn", dy_i, h_i)
-            dx[:, i] = df * dy_i + dt_i[:, None] * torch.einsum(
-                "bdn,bn->bd", gg, b_i)
-            db[:, i] = torch.einsum("bdn,bd->bn", gg, dt_i[:, None] * x_i)
-            ehp = decay * h_prev
-            ddt[:, i] = (gg * (x_i[:, :, None] * b_i[:, None, :]
-                               + af[None] * ehp)).sum(dim=(1, 2))
-            da = da + (gg * dt_i[:, None, None] * ehp).sum(dim=0)
-            g = decay * gg
+    for first, g in reversed(list(zip(firsts, carries))):
+        for k in reversed(range(first, min(first + per, len(ckpts)))):
+            t0, t1 = k * ckpt_every, min((k + 1) * ckpt_every, t_len)
+            hs = [ckpts[k]]                          # h_{t0-1} .. h_{t1-1}
+            for i in range(t0, t1):
+                decay = torch.exp(af[None] * dtf[:, i, None, None])
+                hs.append(decay * hs[-1] + (dtf[:, i, None] * xf[:, i])
+                          [:, :, None] * bf[:, i, None, :])
+            for i in reversed(range(t0, t1)):
+                h_prev, h_i = hs[i - t0], hs[i - t0 + 1]
+                dt_i, x_i, b_i, dy_i = dtf[:, i], xf[:, i], bf[:, i], \
+                    dyf[:, i]
+                decay = torch.exp(af[None] * dt_i[:, None, None])
+                gg = g + dy_i[:, :, None] * cf[:, i, None, :]      # G_t
+                dc[:, i] = torch.einsum("bd,bdn->bn", dy_i, h_i)
+                dx[:, i] = df * dy_i + dt_i[:, None] * torch.einsum(
+                    "bdn,bn->bd", gg, b_i)
+                db[:, i] = torch.einsum("bdn,bd->bn", gg,
+                                        dt_i[:, None] * x_i)
+                ehp = decay * h_prev
+                ddt[:, i] = (gg * (x_i[:, :, None] * b_i[:, None, :]
+                                   + af[None] * ehp)).sum(dim=(1, 2))
+                da = da + (gg * dt_i[:, None, None] * ehp).sum(dim=0)
+                g = decay * gg
     dd = (dyf * xf).sum(dim=(0, 1))
     return dx, ddt, db, dc, da, dd, g
 

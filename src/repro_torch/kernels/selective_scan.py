@@ -27,11 +27,16 @@ and calls the C function on the current stream's raw handle
 For a gradient the forward also writes the f32 state at the start of every
 chunk and the final one (``checkpoints=True``, an instance of its own, so
 the served forward is unchanged), and :func:`selective_scan_bwd` launches
-the backward kernel on the same geometry: it walks the chunks from the
-last, replays each from its checkpoint (the state at the start of every
-:data:`SUB` steps kept in shared memory), walks back through each
-sub-chunk's recomputed states, and writes per-block partials of the sums
-over channels (dB, dC, ddt) and per-row partials of da and dD, which
+the backward kernel on :func:`bwd_geometry`: T cut into segments of whole
+chunks, the segments of a (channel block, batch row) the ranks of a
+thread-block cluster.  Each rank replays its segment's chunks from their
+checkpoints, keeps the state at the start of every :data:`SUB` steps in a
+scratch (:func:`bwd_starts_shape`) and sums the product of its decays and
+its local carry; the ranks fold the later ones' through distributed shared
+memory into their own carry, and each then walks the chunks of its segment
+from the last, recomputing each sub-chunk's states from its start, and
+writes per-block partials of the sums over channels (dB, dC, ddt) and
+per-row and -segment partials of da and dD, which
 :func:`selective_scan_bwd_sum` (a second launch) adds in a fixed order, so
 two runs are bitwise equal.
 """
@@ -63,27 +68,42 @@ INSTANCES = ((1, 1), (2, 1), (4, 1), (4, 2), (4, 4), (4, 8))
 # 4-byte cp.async
 BULK_DT, BULK_BC, VEC_X = 1, 2, 4
 ALIGN = 16               # the copies' addresses and sizes
-# the backward: steps a sub-chunk (kSub; a lane recomputes their states
-# into registers), the staging ring's depth (kBwdStages), dy's route bit
-# (kVecDy: 16-byte cp.async) and its channels a block: at hymba's width
-# and training batch (B 2 x T 2048) blocks of 32 read 0.612 ms against
-# 0.770 for 64, 0.780 for 16 and 0.863 for 8 on an H100 (B 1: 0.608
-# against 0.768; B 4: 0.806 against 0.773; PERF.md,
+# the backward: steps a sub-chunk (SCAN_BWD_SUB; a lane recomputes their
+# states into registers), the staging ring's depth (kBwdStages), dy's route
+# bit (kVecDy: 16-byte cp.async), a block's compute threads
+# (SCAN_BWD_MAX_CONSUMERS) and the blocks an SM the walk's and the replay's
+# registers are capped for (SCAN_BWD_MIN_BLOCKS, SCAN_BWD_REPLAY_MIN_BLOCKS),
+# its channels a block, and the cut of T into segments: SEGMENT_CHUNKS
+# chunks a segment at least, at most MAX_SEGMENTS segments.  At hymba's
+# width and training shape (B 2 x T 2048) on an H100, in one process:
+# segments of 2 chunks (16 of them) read 0.363 ms against 0.381 for 1,
+# 0.390 for 4 and 0.379 for 6; 8 steps a sub-chunk capped for 3 blocks an
+# SM (128 registers, 24 bytes of spill loads) against 0.396 uncapped (152
+# registers, 2 blocks) and 0.45 for 4 steps; blocks of 32 channels against
+# 0.40 for 64; the replay's cap for 3 blocks within noise of 4 (PERF.md,
 # scripts/torch_scan_bench.py --backward)
 SUB = 8
 BWD_STAGES = 2
 VEC_DY = 8
+BWD_MAX_THREADS = 128
+BWD_MIN_BLOCKS = 3
+BWD_REPLAY_MIN_BLOCKS = 4
 BWD_CHANNELS_PER_BLOCK = 32
+SEGMENT_CHUNKS = 2
+MAX_SEGMENTS = 32
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURE = {"selective_scan_fwd": ((_P, _L, _L) + (_P,) * 8 + (_I,) * 9
                                      + (_P,), _I),
               "selective_scan_fwd_ckpt": ((_P, _L, _L) + (_P,) * 9
                                           + (_I,) * 9 + (_P,), _I),
-              "selective_scan_bwd": ((_P, _L, _L) + (_P,) * 13 + (_I,) * 8
+              "selective_scan_bwd_replay": ((_P, _L, _L) + (_P,) * 8
+                                            + (_I,) * 10 + (_P,), _I),
+              "selective_scan_bwd": ((_P, _L, _L) + (_P,) * 14 + (_I,) * 10
                                      + (_P,), _I),
-              "selective_scan_bwd_sum": ((_P,) * 8 + (_I,) * 6 + (_P,), _I),
+              "selective_scan_bwd_sum": ((_P,) * 8 + (_I,) * 7 + (_P,), _I),
               "selective_scan_bwd_smem": ((_I,) * 3, _I),
+              "selective_scan_bwd_knobs": ((_I,), _I),
               "selective_scan_chunk": ((), _I)}
 
 
@@ -93,6 +113,16 @@ class Geometry(NamedTuple):
     channels: int        # a block's channels (C)
     threads: int         # channels * lanes (and a producer warp, T > 1)
     grid: tuple          # (ceil(din / channels), batch)
+
+
+class BwdGeometry(NamedTuple):
+    states: int          # a lane's states (R)
+    lanes: int           # a channel's lanes (L)
+    channels: int        # a block's channels (C)
+    segments: int        # segments of T (S)
+    segment_steps: int   # steps a segment, a whole number of chunks
+    threads: int         # channels * lanes, and a producer warp on top
+    grid: tuple          # (ceil(din / channels), batch, segments)
 
 
 def _lib() -> ctypes.CDLL:
@@ -154,27 +184,61 @@ def checkpoint_shape(batch: int, t: int, din: int, n: int) -> tuple:
     return (batch, -(-t // CHUNK) + 1, din, n)
 
 
+@functools.lru_cache(maxsize=256)
+def bwd_geometry(batch: int, t: int, din: int, n: int,
+                 channels: int = BWD_CHANNELS_PER_BLOCK,
+                 segment_chunks: int = SEGMENT_CHUNKS,
+                 max_threads: int = BWD_MAX_THREADS) -> BwdGeometry:
+    """The backward's launch: lanes and states as :func:`geometry`'s, at
+    most ``max_threads`` compute threads a block (the build's
+    SCAN_BWD_MAX_CONSUMERS), and T cut into
+    segments of whole chunks of :data:`CHUNK` steps, so that each starts on
+    one of the forward's checkpoints: ``min(MAX_SEGMENTS, ceil(chunks /
+    segment_chunks))`` segments asked, ``ceil(chunks / asked)`` chunks
+    each (the last may hold fewer), ``ceil(chunks / that)`` segments
+    (``ref.selective_scan_bwd``'s cut for the same count).  Block ``(bx,
+    by, z)`` of both launches walks segment z of batch row by for
+    :func:`geometry`'s channels and states of block bx."""
+    lanes = geometry(1, 1, n).lanes
+    geo = geometry(batch, din, n, channels=min(channels,
+                                               max_threads // lanes))
+    chunks = -(-t // CHUNK)
+    asked = min(MAX_SEGMENTS, -(-chunks // max(1, segment_chunks)))
+    per = -(-chunks // asked)
+    segments = -(-chunks // per)
+    return BwdGeometry(geo.states, geo.lanes, geo.channels, segments,
+                       per * CHUNK, geo.threads,
+                       (geo.grid[0], batch, segments))
+
+
 def partial_shape(batch: int, t: int, din: int, n: int,
                   channels: int = BWD_CHANNELS_PER_BLOCK) -> tuple:
     """The backward's per-block partials of the sums over channels: ``(B,
     blocks, T, 2 NP + 1)``, a step's dB and dC over the padded states
-    (NP) and ddt, for each of the ``ceil(din / channels)`` blocks of a
-    batch row."""
-    geo = geometry(batch, din, n, channels=channels)
+    (NP) and ddt, for each of the ``ceil(din / channels)`` channel blocks
+    of a batch row (each segment writes its own steps)."""
+    geo = bwd_geometry(batch, t, din, n, channels)
     return (batch, geo.grid[0], t, 2 * geo.states * geo.lanes + 1)
 
 
-def bwd_smem_bytes(geo: Geometry) -> int:
+def bwd_smem_bytes(geo, sub: int = SUB, replay: bool = False) -> int:
     """The backward's dynamic shared memory a block: :data:`BWD_STAGES`
     stages of x and dy (CHUNK x channels), B and C (CHUNK x NP) and dt
-    (CHUNK); the warps' sums of two sub-chunks, (2, warps, SUB, 2 NP + 1);
-    and the lanes' states at the start of each of a chunk's sub-chunks
-    (CHUNK / SUB, threads, states)."""
+    (CHUNK); and, for the walk back (not the ``replay``), the warps' sums
+    of two sub-chunks, (2, warps, sub, 2 NP + 1)."""
     np_ = geo.states * geo.lanes
     stage = 2 * CHUNK * geo.channels + 2 * CHUNK * np_ + CHUNK
-    sums = 2 * (geo.threads // 32) * SUB * (2 * np_ + 1)
-    starts = CHUNK // SUB * geo.threads * geo.states
-    return 4 * (BWD_STAGES * stage + sums + starts)
+    sums = 0 if replay else 2 * (geo.threads // 32) * sub * (2 * np_ + 1)
+    return 4 * (BWD_STAGES * stage + sums)
+
+
+def bwd_starts_shape(geo, sub: int = SUB) -> tuple:
+    """The backward's scratch of start states: each block's lanes' state
+    at the start of every ``sub`` steps of its segment, written by the
+    replay (the first launch) and read back by the walk (the second),
+    ``(B, segments, blocks, segment_steps / sub, threads, states)``."""
+    return (geo.grid[1], geo.segments, geo.grid[0],
+            geo.segment_steps // sub, geo.threads, geo.states)
 
 
 def bwd_route(misaligned: tuple, batch: int, t: int, din: int, n: int,
@@ -287,15 +351,20 @@ def selective_scan_bwd(xs: torch.Tensor, dt: torch.Tensor,
                        bb: torch.Tensor, cc: torch.Tensor, a: torch.Tensor,
                        d: torch.Tensor, ckpt: torch.Tensor, dy: torch.Tensor,
                        dh_t: Optional[torch.Tensor] = None, *,
-                       channels: int = BWD_CHANNELS_PER_BLOCK):
+                       geo: Optional[BwdGeometry] = None,
+                       lib: Optional[ctypes.CDLL] = None):
     """Gradients of :func:`selective_scan` from its inputs, its checkpoints
     ``ckpt``, the gradient ``dy`` of y (B, T, din) and (optionally, zeros
     when None) ``dh_t`` of the final state, all f32 on one CUDA device:
     ``(dxs, ddt, dbb, dcc, da, dd, dh0)`` in f32 with the shapes of ``xs,
     dt, bb, cc, a, d`` and h0, the semantics of
-    :func:`repro_torch.kernels.ref.selective_scan_bwd`.  Launches the
-    backward kernel with blocks of ``channels`` channels (counted in
-    ``selective_scan_bwd.launches``), then :func:`selective_scan_bwd_sum`."""
+    :func:`repro_torch.kernels.ref.selective_scan_bwd` at
+    :func:`bwd_geometry`'s segment count.  Launches on that geometry the
+    replay (:func:`selective_scan_bwd_replay`), the walk back (counted in
+    ``selective_scan_bwd.launches``), then :func:`selective_scan_bwd_sum`:
+    three launches a call.  ``geo`` (another
+    :func:`bwd_geometry`) and ``lib`` (a build of this source with other
+    knobs) are the bench's sweep."""
     b, t, din = xs.shape
     n = a.shape[-1]
     if ckpt.shape != checkpoint_shape(b, t, din, n) or \
@@ -313,64 +382,114 @@ def selective_scan_bwd(xs: torch.Tensor, dt: torch.Tensor,
                              or dh_t.device != xs.device):
         raise ValueError(f"dh_t must be f32 {(b, din, n)} on {xs.device}, "
                          f"got {dh_t.dtype} {tuple(dh_t.shape)}")
-    geo = geometry(b, din, n, channels=channels)
+    if geo is None:
+        geo = bwd_geometry(b, t, din, n)
     if xs.stride(-1) != 1:
         xs = xs.contiguous()
     dt, bb, cc, a, d = (v.contiguous() for v in (dt, bb, cc, a, d))
     ckpt, dy = ckpt.contiguous(), dy.contiguous()
     if dh_t is not None:
         dh_t = dh_t.contiguous()
-    f32 = dict(dtype=torch.float32, device=xs.device)
-    dx = torch.empty((b, t, din), **f32)
-    dd_part = torch.empty((b, din), **f32)
-    da_part = torch.empty((b, din, n), **f32)
-    dh0 = torch.empty((b, din, n), **f32)
-    partial = torch.empty(partial_shape(b, t, din, n, channels), **f32)
+    lib = _lib() if lib is None else lib
+    sub = SUB if lib is _lib() else lib.selective_scan_bwd_knobs(0)
     sxb, sxt = xs.stride(0), xs.stride(1)
     ptrs = [v.data_ptr() for v in (xs, dt, bb, cc, dy)]
     bits = bwd_route((ptrs[0] % ALIGN, ptrs[1] % ALIGN,
                       (ptrs[2] | ptrs[3]) % ALIGN, ptrs[4] % ALIGN), b, t,
                      din, n, geo.states * geo.lanes, sxb, sxt)
-    _build.call(_lib(), "selective_scan_bwd", xs.device, ptrs[0], sxb, sxt,
+    starts, carries = selective_scan_bwd_replay(xs, dt, bb, cc, a, ckpt, dy,
+                                                geo, bits, sub, lib)
+    f32 = dict(dtype=torch.float32, device=xs.device)
+    dx = torch.empty((b, t, din), **f32)
+    dd_part = torch.empty((b, geo.segments, din), **f32)
+    da_part = torch.empty((b, geo.segments, din, n), **f32)
+    dh0 = torch.empty((b, din, n), **f32)
+    partial = torch.empty((b, geo.grid[0], t,
+                           2 * geo.states * geo.lanes + 1), **f32)
+    _build.call(lib, "selective_scan_bwd", xs.device, ptrs[0], sxb, sxt,
                 ptrs[1], ptrs[2], ptrs[3], a.data_ptr(), d.data_ptr(),
-                ckpt.data_ptr(), ptrs[4],
-                dh_t.data_ptr() if dh_t is not None else None,
-                dx.data_ptr(), dd_part.data_ptr(), da_part.data_ptr(),
-                dh0.data_ptr(), partial.data_ptr(), b, t, din, n,
-                geo.states, geo.lanes, geo.channels, bits)
+                ptrs[4], dh_t.data_ptr() if dh_t is not None else None,
+                starts.data_ptr(), carries.data_ptr(), dx.data_ptr(),
+                dd_part.data_ptr(), da_part.data_ptr(), dh0.data_ptr(),
+                partial.data_ptr(), b, t, din, n, geo.states, geo.lanes,
+                geo.channels, geo.segment_steps // CHUNK, geo.segments, bits)
     selective_scan_bwd.launches += 1
     ddt, dbb, dcc, da, dd = selective_scan_bwd_sum(partial, da_part, dd_part,
-                                                   n)
+                                                   n, lib)
     return dx, ddt, dbb, dcc, da, dd, dh0
 
 
 selective_scan_bwd.launches = 0
 
 
+def selective_scan_bwd_replay(xs, dt, bb, cc, a, ckpt, dy, geo: BwdGeometry,
+                              bits: int, sub: int = SUB,
+                              lib: Optional[ctypes.CDLL] = None):
+    """The backward's first launch, for :func:`selective_scan_bwd` (its
+    operands already checked and contiguous, ``bits`` of
+    :func:`bwd_route`): each segment replayed from its checkpoints into
+    ``starts`` (:func:`bwd_starts_shape`), and its decay product and local
+    carry into ``carries`` (2, B, segments, din, n), both returned.
+    Counted in ``selective_scan_bwd_replay.launches``."""
+    b, t, din = xs.shape
+    n = a.shape[-1]
+    f32 = dict(dtype=torch.float32, device=xs.device)
+    starts = torch.empty(bwd_starts_shape(geo, sub), **f32)
+    carries = torch.empty((2, b, geo.segments, din, n), **f32)
+    _build.call(_lib() if lib is None else lib, "selective_scan_bwd_replay",
+                xs.device, xs.data_ptr(), xs.stride(0), xs.stride(1),
+                dt.data_ptr(), bb.data_ptr(), cc.data_ptr(), a.data_ptr(),
+                ckpt.data_ptr(), dy.data_ptr(), starts.data_ptr(),
+                carries.data_ptr(), b, t, din, n, geo.states, geo.lanes,
+                geo.channels, geo.segment_steps // CHUNK, geo.segments, bits)
+    selective_scan_bwd_replay.launches += 1
+    return starts, carries
+
+
+selective_scan_bwd_replay.launches = 0
+
+
 def selective_scan_bwd_sum(partial: torch.Tensor, da_part: torch.Tensor,
-                           dd_part: torch.Tensor, n: int):
+                           dd_part: torch.Tensor, n: int,
+                           lib: Optional[ctypes.CDLL] = None):
     """The backward's second launch: ``partial`` (B, blocks, T, 2 NP + 1)
-    added over the blocks in block order into ``ddt`` (B, T), ``dbb`` and
-    ``dcc`` (B, T, n); ``da_part`` (B, din, n) and ``dd_part`` (B, din)
-    over the batch in row order into ``da`` and ``dd``.  Counted in
+    added over the channel blocks in block order into ``ddt`` (B, T),
+    ``dbb`` and ``dcc`` (B, T, n); ``da_part`` (B, segments, din, n) and
+    ``dd_part`` (B, segments, din) over the batch rows and segments, in
+    row order, into ``da`` and ``dd``.  Counted in
     ``selective_scan_bwd_sum.launches``."""
     b, blocks, t, width = partial.shape
-    din = dd_part.shape[1]
+    segments, din = dd_part.shape[1:]
     f32 = dict(dtype=torch.float32, device=partial.device)
     ddt = torch.empty((b, t), **f32)
     dbb = torch.empty((b, t, n), **f32)
     dcc = torch.empty((b, t, n), **f32)
     da = torch.empty((din, n), **f32)
     dd = torch.empty((din,), **f32)
-    _build.call(_lib(), "selective_scan_bwd_sum", partial.device,
-                partial.data_ptr(), da_part.data_ptr(), dd_part.data_ptr(),
-                ddt.data_ptr(), dbb.data_ptr(), dcc.data_ptr(), da.data_ptr(),
-                dd.data_ptr(), b, t, din, n, (width - 1) // 2, blocks)
+    _build.call(_lib() if lib is None else lib, "selective_scan_bwd_sum",
+                partial.device, partial.data_ptr(), da_part.data_ptr(),
+                dd_part.data_ptr(), ddt.data_ptr(), dbb.data_ptr(),
+                dcc.data_ptr(), da.data_ptr(), dd.data_ptr(), b, t, din, n,
+                (width - 1) // 2, blocks, segments)
     selective_scan_bwd_sum.launches += 1
     return ddt, dbb, dcc, da, dd
 
 
 selective_scan_bwd_sum.launches = 0
+
+
+def kernel_knobs() -> dict:
+    """The backward's compile-time knobs as built: steps a sub-chunk,
+    compute threads a block and blocks an SM of the walk's and the
+    replay's register caps (must equal :data:`SUB`,
+    :data:`BWD_MAX_THREADS`, :data:`BWD_MIN_BLOCKS` and
+    :data:`BWD_REPLAY_MIN_BLOCKS` in the port's build).  Needs the
+    card."""
+    lib = _lib()
+    return {"sub": lib.selective_scan_bwd_knobs(0),
+            "max_threads": lib.selective_scan_bwd_knobs(1),
+            "min_blocks": lib.selective_scan_bwd_knobs(2),
+            "replay_min_blocks": lib.selective_scan_bwd_knobs(3)}
 
 
 def kernel_chunk() -> int:

@@ -1173,22 +1173,27 @@ def _scan_grads(cuda, case, seed=1):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", SCAN_CASES, ids=str)
+@pytest.mark.parametrize("case", SCAN_CASES + [(1, 1100, 40, 16, True)],
+                         ids=str)
 def test_selective_scan_bwd_kernel_matches_twin_on_card(cuda, case):
     """The backward kernel from the forward's checkpoints, with gradients
     on y and on the final state, against ``ref.selective_scan_bwd`` from
-    h0: every gradient within SCAN_BWD_REL_L2; one launch of the kernel
-    and one of its sum a call; two runs bitwise equal."""
+    h0 at the kernel's segment count (T 1100: 3 segments):
+    every gradient within SCAN_BWD_REL_L2; one launch each of the replay,
+    the walk back and the sum a call; two runs bitwise equal."""
     from repro_torch.kernels import selective_scan as scan
     x, ckpt, dy, dh_t = _scan_grads(cuda, case)
+    segments = scan.bwd_geometry(*case[:4]).segments
     before = ops.launch_counts()
     got = scan.selective_scan_bwd(*x[:6], ckpt, dy, dh_t)
     torch.cuda.synchronize()
     after = ops.launch_counts()
     assert after["selective_scan_bwd"] == before["selective_scan_bwd"] + 1
+    assert (after["selective_scan_bwd_replay"]
+            == before["selective_scan_bwd_replay"] + 1)
     assert (after["selective_scan_bwd_sum"]
             == before["selective_scan_bwd_sum"] + 1)
-    want = ref.selective_scan_bwd(*x, dy, dh_t)
+    want = ref.selective_scan_bwd(*x, dy, dh_t, segments=segments)
     for name, g, w in zip(("dx", "ddt", "db", "dc", "da", "dd", "dh0"), got,
                           want):
         assert g.shape == w.shape, name

@@ -187,6 +187,51 @@ def test_scan_bwd_twin_chunks_replay_the_same_bits(every):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+# the segmented twin: T 37 in chunks of 8 steps (5 chunks, the last
+# ragged) cut into 2 (3 + 2 chunks), 3 (2 + 2 + 1) or 8 asked (5 of one),
+# short enough that the carries into the segments matter
+SEG_CHUNK, SEG_CASE = 8, (2, 37, 6, 16)
+SEG_REL_L2 = 1e-6
+
+
+@pytest.mark.parametrize("segments", [2, 3, 8])
+def test_scan_bwd_twin_segments_match_autograd_and_one_segment(segments):
+    """``ref.selective_scan_bwd`` with T cut into segments (each walked
+    alone from a zero carry for its decay product and local carry, the
+    carries folded from the last segment) from a nonzero h0 with ``dh_T``
+    at a ragged T: every gradient within TWIN_REL_L2 of autograd of
+    ``ref.selective_scan`` and within SEG_REL_L2 of the single walk."""
+    ins, dy, dh_t = _scan_operands(5, *SEG_CASE)
+    leaves = [v.clone().requires_grad_() for v in ins]
+    y, h_t = ref.selective_scan(*leaves)
+    want = torch.autograd.grad((y * dy).sum() + (h_t * dh_t).sum(), leaves)
+    one = ref.selective_scan_bwd(*ins, dy, dh_t, ckpt_every=SEG_CHUNK)
+    got = ref.selective_scan_bwd(*ins, dy, dh_t, ckpt_every=SEG_CHUNK,
+                                 segments=segments)
+    for name, g, w, o in zip(GRADS, got, want, one):
+        assert _rel_l2(g, w) <= TWIN_REL_L2, (name, _rel_l2(g, w))
+        assert _rel_l2(g, o) <= SEG_REL_L2, (name, _rel_l2(g, o))
+
+
+def test_scan_bwd_twin_segments_control_drops_the_carry(monkeypatch):
+    """The comparison can fail: with the carry into every segment but the
+    last dropped (zeros), the segmented twin misses SEG_REL_L2 of the
+    single walk on dx, ddt, dB, da and dh0 (dC and dD do not read g)."""
+    ins, dy, dh_t = _scan_operands(5, *SEG_CASE)
+    one = ref.selective_scan_bwd(*ins, dy, dh_t, ckpt_every=SEG_CHUNK)
+    real = ref._segment_carries
+
+    def dropped(*args):
+        carries = real(*args)
+        return [torch.zeros_like(c) for c in carries[:-1]] + carries[-1:]
+
+    monkeypatch.setattr(ref, "_segment_carries", dropped)
+    got = ref.selective_scan_bwd(*ins, dy, dh_t, ckpt_every=SEG_CHUNK,
+                                 segments=3)
+    for i in (0, 1, 2, 4, 6):
+        assert _rel_l2(got[i], one[i]) > SEG_REL_L2, GRADS[i]
+
+
 def test_scan_bwd_twin_control_misses():
     """The comparison can fail: the twin without the final state's
     gradient misses TWIN_REL_L2 on ddt, da and dh0."""

@@ -983,6 +983,7 @@ def test_cpu_dispatch_launches_no_kernel():
                                    "rwkv6_wkv": 0,
                                    "rwkv6_wkv_bwd": 0,
                                    "selective_scan": 0,
+                                   "selective_scan_bwd_replay": 0,
                                    "selective_scan_bwd": 0,
                                    "selective_scan_bwd_sum": 0}
     assert ops.route_counts() == {"flash_attention_fwd_tc": 0,

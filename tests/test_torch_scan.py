@@ -134,9 +134,11 @@ def test_scan_route_takes_bulk_copies_only_where_aligned(case):
 
 @pytest.mark.parametrize("fn", ["selective_scan_fwd", "selective_scan_chunk",
                                 "selective_scan_fwd_ckpt",
+                                "selective_scan_bwd_replay",
                                 "selective_scan_bwd",
                                 "selective_scan_bwd_sum",
-                                "selective_scan_bwd_smem"])
+                                "selective_scan_bwd_smem",
+                                "selective_scan_bwd_knobs"])
 def test_scan_signatures_match_the_source(fn):
     """Every C function the ``ctypes`` binding declares is an ``extern
     "C"`` function of ``csrc/selective_scan.cu`` with as many parameters
@@ -144,7 +146,8 @@ def test_scan_signatures_match_the_source(fn):
     compiles every (states, lanes) pair of ``INSTANCES`` and its chunk and
     block limit are the wrapper's."""
     assert sorted(scan._SIGNATURE) == [
-        "selective_scan_bwd", "selective_scan_bwd_smem",
+        "selective_scan_bwd", "selective_scan_bwd_knobs",
+        "selective_scan_bwd_replay", "selective_scan_bwd_smem",
         "selective_scan_bwd_sum", "selective_scan_chunk",
         "selective_scan_fwd", "selective_scan_fwd_ckpt"]
     src = (_build.CSRC / "selective_scan.cu").read_text()
@@ -164,15 +167,26 @@ def test_scan_signatures_match_the_source(fn):
 
 
 def test_scan_backward_constants_match_the_source():
-    """The backward's sub-chunk, ring depth and dy route bit are the
-    kernel's, and it is compiled for every (states, lanes) pair of
-    ``INSTANCES``."""
+    """The backward's knobs are the kernel's: the sub-chunk, the block's
+    compute threads and the blocks an SM of the walk's and the replay's
+    register caps (the build's defaults of its macros), the ring depth and
+    dy's route bit; it is compiled for every (states, lanes) pair of
+    ``INSTANCES`` and no other, for both of its launches."""
     src = (_build.CSRC / "selective_scan.cu").read_text()
-    assert f"constexpr int kSub = {scan.SUB};" in src
+    assert f"#define SCAN_BWD_SUB {scan.SUB}\n" in src
+    assert f"#define SCAN_BWD_MAX_CONSUMERS {scan.BWD_MAX_THREADS}\n" in src
+    assert f"#define SCAN_BWD_MIN_BLOCKS {scan.BWD_MIN_BLOCKS}\n" in src
+    assert (f"#define SCAN_BWD_REPLAY_MIN_BLOCKS "
+            f"{scan.BWD_REPLAY_MIN_BLOCKS}\n") in src
     assert f"constexpr int kBwdStages = {scan.BWD_STAGES};" in src
     assert f"constexpr int kVecDy = {scan.VEC_DY};" in src
     assert scan.CHUNK % scan.SUB == 0
-    body = src[src.index('extern "C" int selective_scan_bwd('):]
+    assert scan.MAX_SEGMENTS >= 1 and scan.SEGMENT_CHUNKS >= 1
+    assert "selective_scan_bwd_replay_kernel<R, L><<<" in src
+    assert "selective_scan_bwd_kernel<R, L><<<" in src
+    assert scan.BWD_MAX_THREADS % 32 == 0
+    assert scan.BWD_MAX_THREADS <= scan.MAX_THREADS
+    body = src[src.index('static int bwd('):]
     body = body[:body.index("default:")]
     assert set(re.findall(r"launch_bwd<(\d+), (\d+)>", body)) == {
         (str(r), str(ln)) for r, ln in scan.INSTANCES}
@@ -183,27 +197,100 @@ def test_scan_backward_constants_match_the_source():
                                        (2, 65, 64, 32), (1, 130, 8, 1)])
 def test_scan_checkpoint_and_partial_shapes(b, t, din, n):
     """The forward's checkpoints hold the state at the start of each chunk
-    and the final one; the backward's partials hold, for each block of a
-    batch row and each step, dB and dC over the padded states and ddt;
-    its shared memory fits a block (227 KB) at every state size, with
-    blocks of ``BWD_CHANNELS_PER_BLOCK`` channels and of the forward's."""
+    and the final one; the backward's partials hold, for each channel
+    block of a batch row and each step, dB and dC over the padded states
+    and ddt; its scratch holds each lane's state at the start of every
+    ``SUB`` steps of its segment; its shared memory fits a block (227 KB)
+    at every state size, and at hymba's width ``BWD_MIN_BLOCKS`` blocks
+    fit an SM (228 KB, 1 KB of it kept for each block), as the register
+    cap assumes."""
     chunks = -(-t // scan.CHUNK)
     assert scan.checkpoint_shape(b, t, din, n) == (b, chunks + 1, din, n)
-    geo = scan.geometry(b, din, n, channels=scan.BWD_CHANNELS_PER_BLOCK)
+    geo = scan.bwd_geometry(b, t, din, n)
     np_ = geo.states * geo.lanes
     assert scan.partial_shape(b, t, din, n) == (b, geo.grid[0], t,
                                                 2 * np_ + 1)
     smem = scan.bwd_smem_bytes(geo)
     warps = geo.threads // 32
-    assert smem == 4 * (scan.BWD_STAGES * (2 * scan.CHUNK * geo.channels
-                                           + 2 * scan.CHUNK * np_
-                                           + scan.CHUNK)
-                        + 2 * warps * scan.SUB * (2 * np_ + 1)
-                        + scan.CHUNK // scan.SUB * geo.threads * geo.states)
+    stages = scan.BWD_STAGES * (2 * scan.CHUNK * geo.channels
+                                + 2 * scan.CHUNK * np_ + scan.CHUNK)
+    assert smem == 4 * (stages + 2 * warps * scan.SUB * (2 * np_ + 1))
+    assert scan.bwd_smem_bytes(geo, replay=True) == 4 * stages
     assert smem <= 232448 and smem % 16 == 0
-    assert scan.bwd_smem_bytes(scan.geometry(b, din, n)) <= 232448
-    assert scan.partial_shape(b, t, din, n, scan.CHANNELS_PER_BLOCK)[1] == \
-        scan.geometry(b, din, n).grid[0]
+    starts = scan.bwd_starts_shape(geo)
+    assert starts == (b, geo.segments, geo.grid[0],
+                      geo.segment_steps // scan.SUB, geo.threads,
+                      geo.states)
+    # every sub-chunk of every segment has its start (a ragged last
+    # segment leaves some unused)
+    assert starts[1] * starts[3] * scan.SUB >= t
+    if (din, n) == (1600, 16):
+        assert scan.BWD_MIN_BLOCKS * (smem + 1024) <= 233472
+        assert scan.BWD_REPLAY_MIN_BLOCKS * (4 * stages + 1024) <= 233472
+    assert scan.partial_shape(b, t, din, n, 16)[1] == -(-din // max(
+        16, 32 // geo.lanes))
+
+
+def _bwd_owners(batch, t, din, n, geo):
+    """For every (batch row, channel, state, step) the count of (block,
+    thread, register) triples whose walk covers it: lanes and registers as
+    :func:`_owners`, and block ``(bx, by, z)`` the steps of segment z,
+    ``[z * segment_steps, min(T, (z + 1) * segment_steps))``."""
+    gx, gy, gz = geo.grid
+    count = np.zeros((batch, din, n, t), np.int64)
+    flat = scan.Geometry(geo.states, geo.lanes, geo.channels, geo.threads,
+                         (gx, gy))
+    per_row = _owners(batch, din, n, flat)       # (batch, din, n)
+    for z in range(gz):
+        lo, hi = z * geo.segment_steps, min(t, (z + 1) * geo.segment_steps)
+        count[..., lo:hi] += per_row[..., None]
+    return count
+
+
+@pytest.mark.parametrize("t", [1, 37, 64, 65, 300, 1088, 2048, 4160])
+@pytest.mark.parametrize("n", [1, 3, 5, 8, 16, 17, 32])
+def test_scan_bwd_geometry_gives_every_state_and_step_one_owner(n, t):
+    """The backward's launches: every (batch, channel, state, step) has
+    exactly one (block, lane, register), every segment starts on a
+    checkpoint (a whole number of chunks) and none is empty, at most
+    ``MAX_SEGMENTS`` of them; the twin's cut for the same count is the
+    kernel's; a block is whole warps within the build's limit, of a
+    (states, lanes) pair the library compiles."""
+    batch, din = 2, 40
+    geo = scan.bwd_geometry(batch, t, din, n)
+    assert (_bwd_owners(batch, t, din, n, geo) == 1).all()
+    chunks = -(-t // scan.CHUNK)
+    assert geo.segment_steps % scan.CHUNK == 0
+    assert 1 <= geo.segments <= scan.MAX_SEGMENTS
+    assert (geo.segments - 1) * geo.segment_steps < t
+    assert geo.segment_steps == -(-chunks // geo.segments) * scan.CHUNK
+    assert geo.segments == geo.grid[2]
+    assert geo.threads % 32 == 0 and geo.threads <= scan.BWD_MAX_THREADS
+    assert (geo.states, geo.lanes) in scan.INSTANCES
+    assert geo.grid[:2] == (-(-din // geo.channels), batch)
+
+
+def test_scan_bwd_geometry_at_hymba_width():
+    """hymba-1.5b's training shape (B 2 x T 2048, din 1600, n 16): 32
+    chunks in 16 segments of ``SEGMENT_CHUNKS`` (2) chunks, blocks of 32
+    channels; a short T gives one segment (T 37 is one chunk); T 300 (5
+    chunks) three, the last of one chunk; T 1088 (17 chunks) nine; longer
+    T keeps ``MAX_SEGMENTS`` (32) segments of more chunks; the knobs of
+    the bench's sweep give every state and step one owner too."""
+    geo = scan.bwd_geometry(2, 2048, 1600, 16)
+    c = scan.BWD_CHANNELS_PER_BLOCK
+    assert (scan.SEGMENT_CHUNKS, scan.MAX_SEGMENTS) == (2, 32)
+    assert geo == scan.BwdGeometry(4, 4, c, 16, 128, 4 * c,
+                                   (-(-1600 // c), 2, 16))
+    assert scan.bwd_geometry(2, 37, 1600, 16)[3:5] == (1, 64)
+    assert scan.bwd_geometry(2, 300, 1600, 16)[3:5] == (3, 128)
+    assert scan.bwd_geometry(1, 1088, 1600, 16)[3:5] == (9, 128)
+    assert scan.bwd_geometry(1, 8192, 1600, 16)[3:5] == (32, 256)
+    for sc in (1, 4, 8, 16, 32):
+        for c, threads in ((16, 128), (32, 128), (64, 256)):
+            g = scan.bwd_geometry(1, 2048, 64, 16, c, sc, threads)
+            assert g.threads <= threads
+            assert (_bwd_owners(1, 2048, 64, 16, g) == 1).all()
 
 
 def test_scan_checkpoints_hold_the_twins_chunk_states():
