@@ -208,14 +208,38 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the first ``HYMBA_GRAD_LAYERS``, whole and over the dt and q/k/v
    leaves, with the scan's ``ddt`` dropped and the flash backward without
    its window as controls; a profile of one step (no C10 windows: on an
-   H100 their profiler took 291 s).
+   H100 their profiler took 291 s);
+14. the SRDS drivers on ``torch.distributed`` and the serving tables: an
+   NCCL group of one rank from a ``file://`` store in a temporary
+   directory (NCCL's version printed), phase 4's DiT rebuilt from its
+   seed, and ``make_sharded_sampler`` over ``make_srds_mesh(1)`` at phase
+   4's early-exit tolerance (N=25, B=5, K=2; launch counts reset just
+   before and read just after): its iterations equal ``srds_sample``'s,
+   its launch counts too (B1, B2, B3), from the counters and from the
+   profiler's device records (``profiling.window_launches``; where a
+   window lost records, ROADMAP C12, each kernel's records within that
+   loss of its count), and its
+   sample is within ``SHARDED_REL_L2`` of ``srds_sample``'s, with the
+   input moved by ``DRIVER_PERTURB`` as the control that must miss it;
+   the two samplers' wall seconds in turns; then
+   ``make_pipelined_sampler`` at one rank (one block of 25 steps, every
+   superstep one model call on the fine and coarse pair: B2, B3 and B4 25
+   times) against ``sample_sequential`` within ``SRDS_VS_SEQ_REL_L2``, the
+   moved input as control; the group torn down.  Then
+   ``table9_batched`` and ``table10_slo`` on the toy, on the card and on
+   the CPU: every table10 row equal, and every table9 request at a
+   tolerance of at least ``ROUNDOFF_FREE_TOL`` stopping at the same
+   iteration (the others stop inside the toy's f32 residual floor: their
+   differences are printed, ROADMAP C20); last ``table10_wallclock`` with
+   the full DiT at its cut size (``DIT_CUT``): served wall seconds per
+   request, p50 and p95 by policy, and its four gates.
 
-Phases 4-8, 10, 12 and 13 also hold the flash kernels' launches on their
+Phases 4-8, 10, 12, 13 and 14 also hold the flash kernels' launches on their
 main paths, forward and backward, to their tensor-core route
 (``ops.route_counts``: every attention there is bf16 with head dim 64,
 72 or 128; the backward runs in phases 7, 10 and 13).  Phases 10 and 11
-end with ROADMAP
-C10's reading: the busy share of 10 ``train_loop`` steps as the launcher
+end with ROADMAP C10's reading: the busy share of ``BUSY_STEPS`` (5)
+``train_loop`` steps as the launcher
 runs them (``log_every=10``, pinned non-blocking batch copies) and as it
 ran before (``log_every=1``, pageable copies), each under the profiler
 and PyTorch's sync debug mode (the parameters are put back after).
@@ -259,6 +283,20 @@ SERVE_SLOTS, SERVE_PERIOD, SERVE_TRACE_SEED = 2, 1.0, 75
 # there, and 0.153-0.164 and 0.0092-0.0093 for the served requests), so
 # its requests stop at refinement 3, a factor 3 or more from any residual
 LOOSE_TOL = 5e-2
+# phase 14: the sharded driver on one NCCL rank runs srds_sample's blocks
+# in the same batches, so its sample is within this rel L2 of
+# srds_sample's; the control moves the input by DRIVER_PERTURB x N(0, 1)
+SHARDED_REL_L2 = 1e-6
+DRIVER_PERTURB = 1e-2
+# phase 14: table9's requests at tolerances below this stop inside the
+# toy's f32 residual floor (~2e-5 at N=64), where the card's rounding and
+# the CPU's may decide a count differently (ROADMAP C20); the rest must
+# stop at the same iteration on both
+ROUNDOFF_FREE_TOL = 1e-3
+# the port's kernels by device name: DDIM (B2), the update and residual
+# (B1), the flash forward (B3), the update alone (B4)
+PORT_KERNEL_NAMES = ("ddim_fused_kernel", "parareal_resid_cluster_kernel",
+                     "flash_fwd_kernel", "parareal_update_cluster_kernel")
 # PyTorch's sync debug mode's warning for a synchronizing call
 SYNC_WARNING = "called a synchronizing CUDA operation"
 # the l2_mean run against the l1_mean run, tol=0 requests: the norm
@@ -370,9 +408,11 @@ FIT_MARGIN = {"qwen3-8b": 0.45, "rwkv6-1.6b": 0.03, "hymba-1.5b": 0.2}
 # LEAD_LAUNCHES kernels of its own: from the WKV cases of this phase on,
 # the profiler kept no record of a window's first 1-4 launches)
 LAUNCH_WINDOW_CALLS, HOST_CALLS = 20, 200
-# phases 10-11: the steps of each busy-share window (ROADMAP C10), one
-# launcher log interval
-BUSY_STEPS = 10
+# phases 10-11: the steps of each busy-share window (ROADMAP C10); 10
+# (one launcher log interval) until phase 14 came: at 10 steps an H100 run
+# spent 218 s in rwkv6-1.6b's two windows (the profiler's many small ops)
+# and the whole run 937 s of its 1200
+BUSY_STEPS = 5
 # the gradient checks: qwen3-8b in bf16 at batch 1 x 2048 (the plain
 # attention's (B, H, S, S) f32 intermediates for 8 layers), rwkv6-1.6b in
 # f32 at batch 1 x 256 (the plain scan's autograd is a Python loop) on its
@@ -750,7 +790,7 @@ def train_phase(torch, ops, cfg, tree):
     stream = make_stream(cfg, DataConfig(seed=SEED,
                                          global_batch=TRAIN_BATCH),
                          device="cuda")
-    print(f"[7/13] training {cfg.name} through launch.train.build "
+    print(f"[7/14] training {cfg.name} through launch.train.build "
           f"({time.perf_counter() - t0:.1f} s), batch {TRAIN_BATCH}, "
           f"{stream.size}x{stream.size}x{stream.channels} images", flush=True)
     loop_seed = SEED + 1
@@ -882,7 +922,7 @@ def serve_phase(torch, ops, C, model_fn, sched, solver, layers):
                                seed=SERVE_TRACE_SEED)
     if [r.tol for r in trace] != [0.0, 0.0] + [LOOSE_TOL] * 4:
         raise AssertionError(f"unexpected tiers {[r.tol for r in trace]}")
-    print(f"[6/13] serving: {len(trace)} requests in 2 bursts "
+    print(f"[6/14] serving: {len(trace)} requests in 2 bursts "
           f"{SERVE_PERIOD} s apart (tols {[r.tol for r in trace]}), "
           f"{SERVE_SLOTS} slots, N={N_STEPS}, B={B}, AsyncServeLoop on a "
           f"MonotonicClock, FIFO", flush=True)
@@ -1214,7 +1254,7 @@ def lm_phase(torch, ops, step, arch, limits):
         SEED), device="cuda")
     torch.cuda.synchronize()
     kernel = "rwkv6_wkv" if cfg.block == "rwkv6" else "flash_attention_fwd"
-    print(f"[{step}/13] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
+    print(f"[{step}/14] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}, "
           f"{tf.param_count(model) / 1e9:.3f} B params drawn on the card in "
@@ -1371,7 +1411,7 @@ def hymba_phase(torch, ops, step):
     model = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(
         SEED), device="cuda")
     torch.cuda.synchronize()
-    print(f"[{step}/13] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
+    print(f"[{step}/14] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
           f"{cfg.resolved_head_dim}, window {cfg.window}, SSM {cfg.ssm_d_inner}"
           f" x {cfg.ssm_state}, vocab {cfg.vocab_size}, {cfg.dtype}, "
@@ -1639,7 +1679,7 @@ def lm_train_phase(torch, ops, step_no, arch):
                          device="cuda")
     torch.cuda.synchronize()
     n_params = tf.param_count(model)
-    print(f"[{step_no}/13] training {arch}: {cfg.num_layers} of "
+    print(f"[{step_no}/14] training {arch}: {cfg.num_layers} of "
           f"{get_arch(arch).num_layers} layers, d {cfg.d_model}, "
           f"{n_params / 1e9:.3f} B params ({cfg.dtype}, drawn on the card; "
           f"{time.perf_counter() - t0:.1f} s), batch {LM_TRAIN_BATCH} x "
@@ -3001,7 +3041,7 @@ def ddpm_paradigms_phase(torch, C, run, setup, layers, head):
             raise AssertionError(f"{label}: launch counts {counts} != "
                                  f"{want}")
 
-    print(f"[5/13] ddpm with frozen noise (seed {DDPM_SEED}) and ParaDiGMS "
+    print(f"[5/14] ddpm with frozen noise (seed {DDPM_SEED}) and ParaDiGMS "
           f"on srds-dit-sd2, N={n}", flush=True)
     # the native noise is a pure function of (seed, interval id)
     iid = 3 * (n + 1) + 4
@@ -3095,6 +3135,252 @@ def ddpm_paradigms_phase(torch, C, run, setup, layers, head):
     return ddpm_counts, pd_counts
 
 
+def timed(torch, fn):
+    """``fn()``'s result and its wall seconds, the card synchronized at
+    both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def port_kernel_records(by_name: dict) -> dict:
+    """The port's kernels' device launches in a ``window_launches``
+    reading, by kernel (B1, B2, B3 and B4)."""
+    out = {}
+    for name, (count, _) in by_name.items():
+        for k in PORT_KERNEL_NAMES:
+            if k in name:
+                out[k] = out.get(k, 0) + count
+    return out
+
+
+def drivers_phase(torch, ops, C, step, path_counts):
+    """Phase 14, part 1: the block-sharded and the wavefront drivers on an
+    NCCL group of one rank (module docstring).  Adds the two runs' launch
+    counts to ``path_counts``."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core.pipelined import (make_pipelined_sampler,
+                                            make_sharded_sampler)
+    from repro_torch.launch.mesh import init_process_group, make_srds_mesh
+    from repro_torch.runtime.profiling import window_launches
+
+    s = dit_setup(torch)
+    n, B, S, layers = N_STEPS, s.B, s.S, s.cfg.num_layers
+    nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+    early = C.SRDSConfig(num_blocks=B, per_sample=True, tol=EARLY_TOL)
+    pert = s.x_init + DRIVER_PERTURB * torch.from_numpy(
+        np.random.default_rng(SEED + 1).standard_normal(
+            tuple(s.x_init.shape)).astype(np.float32)).cuda()
+    print(f"[{step}/14] the SRDS drivers on torch.distributed: NCCL "
+          f"{nccl}, one rank, srds-dit-sd2 (N={n}, B={B}, K={SAMPLES}, "
+          f"tol={EARLY_TOL}), DiT built in {s.build_s:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as store:
+        init_process_group(store, 0, 1, device_type="cuda")
+        try:
+            mesh = make_srds_mesh(1)
+            print(f"  process group: backend {dist.get_backend()}, world "
+                  f"size {dist.get_world_size()}; mesh "
+                  f"{tuple(mesh.mesh.shape)} {mesh.mesh_dim_names}",
+                  flush=True)
+            sharded = make_sharded_sampler(mesh, "time", s.model_fn, s.sched,
+                                           s.solver, early)
+
+            def single(x):
+                return C.srds_sample(s.model_fn, s.sched, s.solver, x, early)
+
+            # the main path: counts reset just before, read just after
+            ops.reset_launch_counts()
+            res, wall = timed(torch, lambda: sharded(s.x_init))
+            counts = ops.launch_counts()
+            check_tc_route(ops, counts, "sharded driver", "sharded_srds")
+            ops.reset_launch_counts()
+            ref, ref_wall = timed(torch, lambda: single(s.x_init))
+            ref_counts = ops.launch_counts()
+            p = int(res.iterations.max())
+            want = dict(dict.fromkeys(counts, 0),
+                        flash_attention_fwd=layers * (B + p * (S + B)),
+                        ddim_fused=B + p * (S + B),
+                        parareal_update_residual=p * B)
+            print(f"  sharded driver: wall {wall:.3f} s, iterations "
+                  f"{res.iterations.tolist()}, launches {counts}; "
+                  f"srds_sample: wall {ref_wall:.3f} s, iterations "
+                  f"{ref.iterations.tolist()}, launches {ref_counts}",
+                  flush=True)
+            if counts != want or ref_counts != want:
+                raise AssertionError(f"sharded driver launches {counts}, "
+                                     f"srds_sample {ref_counts}, want {want}")
+            if not torch.equal(res.iterations, ref.iterations):
+                raise AssertionError(f"sharded driver iterations "
+                                     f"{res.iterations.tolist()} != "
+                                     f"{ref.iterations.tolist()}")
+            rel = rel_l2([res.sample], [ref.sample])
+            ctrl, _ = timed(torch, lambda: sharded(pert))
+            rel_ctrl = rel_l2([ctrl.sample], [ref.sample])
+            print(f"  sharded vs srds_sample: rel L2 {rel:.3e} (limit "
+                  f"{SHARDED_REL_L2}); control (input moved by "
+                  f"{DRIVER_PERTURB} x N(0, 1)) {rel_ctrl:.3e}, must miss "
+                  f"it", flush=True)
+            if not (bool(torch.isfinite(res.sample).all())
+                    and rel <= SHARDED_REL_L2):
+                raise AssertionError(f"the sharded driver differs from "
+                                     f"srds_sample: rel L2 {rel}")
+            if not rel_ctrl > SHARDED_REL_L2:
+                raise AssertionError(f"the sharded driver's control met the "
+                                     f"limit: rel L2 {rel_ctrl}")
+            # device launches of the port's kernels, from the profiler
+            recs = {name: window_launches(lambda f=f: f(s.x_init), 1)
+                    for name, f in (("srds_sample", single),
+                                    ("sharded", sharded))}
+            kern = {k: port_kernel_records(v["device"])
+                    for k, v in recs.items()}
+            other = sorted(k[:48] for k in recs["sharded"]["device"]
+                           if k not in recs["srds_sample"]["device"])
+            print(f"  device launches of the port's kernels (profiler): "
+                  f"srds_sample {kern['srds_sample']}, sharded "
+                  f"{kern['sharded']}; lead lost "
+                  f"{recs['sharded']['lead_lost']}, missing "
+                  f"{len(recs['sharded']['missing'])}; activities only the "
+                  f"sharded run has: {other}", flush=True)
+            lost = {k: v["lead_lost"] + len(v["missing"])
+                    for k, v in recs.items()}
+            if not any(lost.values()):
+                if kern["sharded"] != kern["srds_sample"]:
+                    raise AssertionError(f"device launches differ: {kern}")
+            else:
+                # late in a long process the profiler keeps no record of
+                # some launches (ROADMAP C12): each record is then at most
+                # the counter's count, short of it by no more than the
+                # launches the window lost
+                names = dict(zip(PORT_KERNEL_NAMES, (
+                    "ddim_fused", "parareal_update_residual",
+                    "flash_attention_fwd", "parareal_update")))
+                for run_name, rec in kern.items():
+                    for kernel, got in rec.items():
+                        counted = counts[names[kernel]]
+                        if not counted - lost[run_name] <= got <= counted:
+                            raise AssertionError(
+                                f"{run_name}: {got} device records of "
+                                f"{kernel}, {counted} launches counted, "
+                                f"{lost[run_name]} records lost (C12)")
+                print(f"  the profiler lost records (C12): {lost}; each "
+                      f"kernel's records within the loss of its count",
+                      flush=True)
+            # wall seconds in turns: single, sharded, sharded, single
+            walls = {"srds_sample": [], "sharded": []}
+            for name in ("srds_sample", "sharded", "sharded", "srds_sample"):
+                f = single if name == "srds_sample" else sharded
+                walls[name].append(timed(torch, lambda: f(s.x_init))[1])
+            print(f"  wall seconds in turns at tol={EARLY_TOL}: srds_sample "
+                  f"{walls['srds_sample']}, sharded {walls['sharded']}",
+                  flush=True)
+            path_counts["sharded_srds"] = counts
+
+            # the wavefront at one rank: one block, B=1, S=N
+            wf = make_pipelined_sampler(mesh, "time", s.model_fn, s.sched,
+                                        s.solver, C.SRDSConfig(tol=0.0))
+            ops.reset_launch_counts()
+            (wres, steps, evals), wf_wall = timed(torch,
+                                                  lambda: wf(s.x_init))
+            wf_counts = ops.launch_counts()
+            check_tc_route(ops, wf_counts, "wavefront", "wavefront")
+            seq, seq_wall = timed(torch, lambda: C.sample_sequential(
+                s.model_fn, s.sched, s.solver, s.x_init))
+            wrel = rel_l2([wres.sample], [seq])
+            (wctrl, _, _), _ = timed(torch, lambda: wf(pert))
+            wrel_ctrl = rel_l2([wctrl.sample], [seq])
+            wwant = dict(dict.fromkeys(wf_counts, 0),
+                         flash_attention_fwd=layers * n, ddim_fused=n,
+                         parareal_update=n)
+            print(f"  wavefront (one rank, B=1): wall {wf_wall:.3f} s "
+                  f"(sample_sequential {seq_wall:.3f} s), {steps} "
+                  f"supersteps, {evals} physical evals, launches "
+                  f"{wf_counts}; vs sample_sequential rel L2 {wrel:.3e} "
+                  f"(limit {SRDS_VS_SEQ_REL_L2}), control {wrel_ctrl:.3e}, "
+                  f"must miss it", flush=True)
+            if wf_counts != wwant or (steps, evals) != (n + 3, 2 * n):
+                raise AssertionError(f"wavefront launches {wf_counts} (want "
+                                     f"{wwant}), {steps} supersteps, "
+                                     f"{evals} evals")
+            if not wrel <= SRDS_VS_SEQ_REL_L2 < wrel_ctrl:
+                raise AssertionError(f"wavefront vs sequential rel L2 "
+                                     f"{wrel}, control {wrel_ctrl}")
+            walls = {"wavefront": [], "sample_sequential": []}
+            for name in ("wavefront", "sample_sequential",
+                         "sample_sequential", "wavefront"):
+                walls[name].append(timed(torch, (lambda: wf(s.x_init))
+                                         if name == "wavefront" else
+                                         (lambda: C.sample_sequential(
+                                             s.model_fn, s.sched, s.solver,
+                                             s.x_init)))[1])
+            print(f"  wall seconds in turns: wavefront {walls['wavefront']}"
+                  f", sample_sequential {walls['sample_sequential']}",
+                  flush=True)
+            path_counts["wavefront"] = wf_counts
+        finally:
+            dist.destroy_process_group()
+
+
+def serving_tables_phase(torch):
+    """Phase 14, part 2: ``table9_batched`` and ``table10_slo`` on the card
+    against the same emitters on the CPU (ROADMAP C20), then
+    ``table10_wallclock`` served by the full DiT."""
+    from repro_torch.benchmarks import (table9_batched, table10_slo,
+                                        table10_wallclock)
+    print("  table9_batched and table10_slo on the card and on the CPU:",
+          flush=True)
+    t9 = {d: table9_batched.main(device=d) for d in ("cuda", "cpu")}
+    for card, cpu in zip(t9["cuda"], t9["cpu"]):
+        tols = card["request_tols"]
+        exact = [i for i, t in enumerate(tols) if t >= ROUNDOFF_FREE_TOL]
+        diff = [(i, tols[i], card["request_iters"][i],
+                 cpu["request_iters"][i]) for i in range(len(tols))
+                if card["request_iters"][i] != cpu["request_iters"][i]]
+        print(f"    table9 batch {card['batch']}: requests whose "
+              f"iterations differ (index, tol, card, cpu): {diff}",
+              flush=True)
+        if any(i in exact for i, _, _, _ in diff):
+            raise AssertionError(f"table9 batch {card['batch']}: a request "
+                                 f"at tol >= {ROUNDOFF_FREE_TOL} stopped at "
+                                 f"another iteration on the card: {diff}")
+        if not diff and card != cpu:
+            raise AssertionError(f"table9 rows differ: {card} != {cpu}")
+    t10 = {d: table10_slo.main(device=d) for d in ("cuda", "cpu")}
+    if t10["cuda"] != t10["cpu"]:
+        raise AssertionError(f"table10_slo rows differ on the card: "
+                             f"{t10['cuda']} != {t10['cpu']}")
+    print("    table10_slo: every row equal to the CPU's", flush=True)
+    t0 = time.perf_counter()
+    rows = table10_wallclock.main(device="cuda", arch="srds-dit-sd2")
+    cut = table10_wallclock.DIT_CUT
+    print(f"  table10_wallclock --arch srds-dit-sd2 ({cut['n_heavy']} "
+          f"heavies, {cut['n_light']} lights, loads {cut['loads']} of "
+          f"{cut['sweep_requests']}): {time.perf_counter() - t0:.1f} s, "
+          f"the four gates held", flush=True)
+    for r in rows:
+        if r["trace"] == "calibration":
+            print(f"    calibration: {r['sec_per_eval'] * 1e3:.3f} ms a "
+                  f"physical eval, warm herd {r['makespan_s']:.3f} s (cold "
+                  f"{r['makespan_cold_s']:.3f} s), {r['physical_evals']} "
+                  f"evals", flush=True)
+        elif "latency_p50_ms" in r:
+            light = (f", light tier p95 {r['light_p95_ms'] / 1e3:.3f} s"
+                     if "light_p95_ms" in r else "")
+            print(f"    served wall seconds per request, {r['trace']} "
+                  f"{r['policy']}: p50 {r['latency_p50_ms'] / 1e3:.3f}, "
+                  f"p95 {r['latency_p95_ms'] / 1e3:.3f}{light}; "
+                  f"attainment {r['slo_attainment']:.2f}, goodput "
+                  f"{r['goodput_rps']:.3f} rps, makespan "
+                  f"{r['makespan_s']:.3f} s", flush=True)
+        else:
+            print(f"    overlap A/B: sync {r['makespan_sync_s']:.3f} s, "
+                  f"async {r['makespan_async_s']:.3f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3111,20 +3397,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/13] device: {smi} (torch {torch.__version__}, CUDA "
+    print(f"[1/14] device: {smi} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda})", flush=True)
 
     # ---- 2. build --------------------------------------------------------
     from repro_torch.kernels import _build, ops, ref
     secs = _build.build_all()
-    print(f"[2/13] build: {len(_build.sources())} CUDA source(s) in "
+    print(f"[2/14] build: {len(_build.sources())} CUDA source(s) in "
           f"{secs:.1f} s", flush=True)
     for name, log in _build.build_log.items():
         print(f"  nvcc {name}.cu:\n" + "\n".join(
             "    " + line for line in log.strip().splitlines()))
 
     # ---- 3. kernels against their plain versions -------------------------
-    print("[3/13] kernels vs plain versions (times on this card)",
+    print("[3/14] kernels vs plain versions (times on this card)",
           flush=True)
     cases = kernel_phase(torch, ops, ref)
 
@@ -3137,7 +3423,7 @@ def main() -> int:
         setup.model_fn
     sched, solver, x_init = setup.sched, setup.solver, setup.x_init
     B, S, fixed, build_s = setup.B, setup.S, setup.fixed, setup.build_s
-    print(f"[4/13] srds-dit-sd2: {cfg.num_layers} layers, d {cfg.d_model}, "
+    print(f"[4/14] srds-dit-sd2: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads}x{cfg.resolved_head_dim} heads, {cfg.dtype}, "
           f"{dit.param_count(model) / 1e6:.1f} M params, built in "
           f"{build_s:.1f} s", flush=True)
@@ -3250,6 +3536,15 @@ def main() -> int:
                                                    "hymba-1.5b")
     torch.cuda.empty_cache()
 
+    # ---- 14. the drivers on torch.distributed, the serving tables ---------
+    t14 = time.perf_counter()
+    driver_counts = {}
+    drivers_phase(torch, ops, C, 14, driver_counts)
+    torch.cuda.empty_cache()
+    serving_tables_phase(torch)
+    torch.cuda.empty_cache()
+    print(f"  phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
+
     sources = {"flash_attention_fwd": (
         "cuda", "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
         "src/repro/kernels/flash_attention.py:85"),
@@ -3329,7 +3624,8 @@ def main() -> int:
                    **{f"serve_{a}": c[counter]
                       for a, c in lm_counts.items()},
                    **{f"train_{a}": c[counter]
-                      for a, c in lm_train_counts.items()}}
+                      for a, c in lm_train_counts.items()},
+                   **{k: c[counter] for k, c in driver_counts.items()}}
         extra = ({"tc_launches_by_path": {
             k: r[f"{counter}_tc"] for k, r in ROUTES_BY_PATH.items()}}
             if counter in ("flash_attention_fwd",) + BWD_KERNELS else {})

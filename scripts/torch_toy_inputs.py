@@ -7,7 +7,8 @@ inputs that the JAX package's paper-table emitters draw with
 
 The toy weights are read out of the JAX emitters' own model closures
 (``benchmarks.common.toy_denoiser``, ``benchmarks.table13_accel.
-slow_model``); each emitter's ``x0`` is redrawn with its key and shape.
+slow_model``) or redrawn as ``benchmarks.table6_devices`` draws them in
+its subprocess; each emitter's ``x0`` is redrawn with its key and shape.
 Everything is drawn in JAX's default 32-bit mode, as the emitters run.
 ``--check`` compares the committed file instead of writing it (exit 1
 on any difference); ``tests/test_torch_bench.py`` makes the same check.
@@ -31,7 +32,9 @@ X0 = [("x0_table11", 0, (2, 16)),          # table11_truncation.SEED
       ("x0_table1_img32", 7, (1, 32, 32, 3)),
       ("x0_table1_img16", 7, (1, 16, 16, 3)),
       ("x0_table2", 11, (1, 16, 16, 3)),
-      ("x0_table8", 4, (1, 16, 16, 3))]
+      ("x0_table8", 4, (1, 16, 16, 3)),
+      ("x0_table3", 1, (1, 16)),
+      ("x0_table6", 1, (1, 16))]          # table6_devices.CODE's x0
 
 
 def _closure(fn) -> dict:
@@ -54,6 +57,9 @@ def jax_toy_inputs() -> dict:
         out = {"toy_w1": toy["w1"], "toy_w2": toy["w2"],
                "slow_w": slow["w"], "slow_ph": slow["ph"],
                "slow_a": slow["a"]}
+        # table6_devices.CODE's model weights
+        out["table6_w"] = jax.random.normal(jax.random.PRNGKey(0),
+                                            (16, 16)) * 0.4
         for name, key, shape in X0:
             out[name] = jax.random.normal(jax.random.PRNGKey(key), shape,
                                           jnp.float32)

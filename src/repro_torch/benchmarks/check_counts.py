@@ -8,8 +8,8 @@ read only) and requires every count a baseline row carries —
 ``*_pct`` ratios, not wall seconds) — to be exactly equal; a baseline row
 missing from the artifact fails too, and so does a table13 headline row
 that missed its >= 25% iteration cut.  Rows of tables the port has no
-emitter for yet are skipped with their ROADMAP item (table6: A10,
-table14: A12).
+emitter for yet are skipped with their ROADMAP item (table6's
+``mesh_t2d2m2`` row, the model-parallel DiT: A10(b); table14: A12).
 
 Known divergences, each named in ROADMAP §C, are reported and not
 failed:
@@ -32,7 +32,7 @@ import argparse
 import json
 import sys
 
-SKIPPED = {"table6": "A10", "table14": "A12"}
+SKIPPED = {"table6": "A10(b)", "table14": "A12"}
 # row -> (ROADMAP item, {field: the JAX package's value on this tree})
 REFERENCE = {
     "table12/n100_wtol0.01": ("C14", {"evals_window": 384}),

@@ -37,9 +37,6 @@ from repro_torch.core import (sample_sequential, srds_sample, srds_stats)
 ROWS = []
 INPUTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "toy_inputs.npz")
-# what a row says in place of the pipelined (wavefront) fields, which
-# need srds_stats(pipelined=True): not ported yet
-PIPELINED_NA = "A10"
 
 
 def emit(name: str, us_per_call: float, derived: str):
@@ -80,11 +77,22 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def toy_denoiser(device="cuda"):
+def host_noise(seed: int, shape, dtype, device) -> torch.Tensor:
+    """A served request's ``x_init``: ``N(0, I)`` from a CPU generator
+    seeded with ``seed``, copied to ``device``, so the card and the CPU
+    serve the same latents (the serving emitters' ``noise_fn``)."""
+    from repro_torch.transfer import host_to_device
+    g = torch.Generator().manual_seed(int(seed))
+    return host_to_device(torch.randn(shape, generator=g, dtype=dtype),
+                          device)
+
+
+def toy_denoiser(device="cuda", dtype=torch.float32):
     """The JAX emitters' smooth nonlinear eps model (``toy_denoiser()``:
-    dim 16, seed 0): x (M, 16), t (M,)."""
+    dim 16, seed 0): x (M, 16), t (M,); its f32 weights cast to
+    ``dtype``."""
     device = resolve_device(device)
-    w1, w2 = toy_array("toy_w1", device), toy_array("toy_w2", device)
+    w1, w2 = (toy_array(k, device).to(dtype) for k in ("toy_w1", "toy_w2"))
 
     def model_fn(x, t):
         h = torch.tanh(x @ w1) * (0.4 + 3e-4 * t[:, None])
@@ -124,9 +132,8 @@ def timeit(fn: Callable, repeats: int = 3, *, device) -> float:
 
 def run_pair(model_fn, sched, solver, x0, srds_cfg, repeats: int = 3):
     """The sequential and SRDS samples of ``x0``, their median wall
-    seconds and SRDS's eval accounting.  The pipelined fields of the JAX
-    emitters (``eff_serial_pipelined``, ``proj_speedup_pipelined``) wait
-    for ROADMAP A10: rows say ``pipelined=A10`` in their place."""
+    seconds and SRDS's eval accounting, vanilla and wavefront-pipelined
+    (``eff_serial_pipelined``, ``proj_speedup_pipelined``)."""
     dev = x0.device
 
     def seq():
@@ -141,11 +148,13 @@ def run_pair(model_fn, sched, solver, x0, srds_cfg, repeats: int = 3):
     err = float((res.sample - ref).abs().mean())
     iters = int(res.iterations)
     st = srds_stats(sched, solver, srds_cfg, iters)
+    stp = srds_stats(sched, solver, srds_cfg, iters, pipelined=True)
     seq_evals = sched.num_steps * solver.evals_per_step
     return dict(t_seq=t_seq, t_srds=t_srds, err=err, iters=iters,
                 eff_serial=st.serial_evals, total=st.total_evals,
-                seq_evals=seq_evals,
-                proj_speedup=seq_evals / max(st.serial_evals, 1))
+                eff_serial_pipelined=stp.serial_evals, seq_evals=seq_evals,
+                proj_speedup=seq_evals / max(st.serial_evals, 1),
+                proj_speedup_pipelined=seq_evals / max(stp.serial_evals, 1))
 
 
 def smi_line() -> str:

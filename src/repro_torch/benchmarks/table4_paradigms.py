@@ -1,7 +1,8 @@
 """Table 4: SRDS against ParaDiGMS at thresholds 1e-3/1e-2/1e-1 — the
 Picard sweeps (ParaDiGMS's effective serial evals) and wall seconds on
-one device (counterpart of ``benchmarks/table4_paradigms.py``).  The JAX
-row's pipelined SRDS fields wait for ROADMAP A10 (``pipelined=A10``).
+one device (counterpart of ``benchmarks/table4_paradigms.py``).  As in
+the JAX row, ``srds_eff`` and ``srds_proj`` price the wavefront-pipelined
+sampler; ``srds_eff_vanilla`` is the single-program sampler's.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.table4_paradigms \\
         [--device cpu]
@@ -9,8 +10,8 @@ row's pipelined SRDS fields wait for ROADMAP A10 (``pipelined=A10``).
 from repro_torch.core import (ParaDiGMSConfig, SolverConfig, SRDSConfig,
                               make_schedule, paradigms_sample)
 
-from .common import (PIPELINED_NA, emit, parser, resolve_device, run_pair,
-                     timeit, toy_array, toy_denoiser)
+from .common import (emit, parser, resolve_device, run_pair, timeit,
+                     toy_array, toy_denoiser)
 
 CASES = [(961, 31), (196, 14), (25, 5)]      # (N, SRDS blocks)
 PD_TOLS = (1e-3, 1e-2, 1e-1)
@@ -37,13 +38,17 @@ def rows(model_fn, x0, cases=tuple(CASES), tols=PD_TOLS, repeats: int = 3):
             pd[tol] = (res.iterations, res.total_evals, t)
         name = f"table4/ddim{n}"
         emit(name, r["t_srds"] * 1e6,
-             f"srds_iters={r['iters']};srds_eff={r['eff_serial']};"
-             f"pipelined={PIPELINED_NA};"
+             f"srds_iters={r['iters']};srds_eff={r['eff_serial_pipelined']};"
+             f"srds_proj={r['proj_speedup_pipelined']:.2f}x;"
+             f"srds_eff_vanilla={r['eff_serial']};"
              + ";".join(f"paradigms@{k:g}:eff={v[0]},proj={n/max(v[0],1):.2f}x"
                         for k, v in pd.items()))
         out.append(dict(name=name, n=n, blocks=b, srds_iters=r["iters"],
                         srds_eff_serial=r["eff_serial"],
-                        srds_total=r["total"], t_srds_s=r["t_srds"],
+                        srds_total=r["total"],
+                        srds_eff_pipelined=r["eff_serial_pipelined"],
+                        srds_proj_pipelined=r["proj_speedup_pipelined"],
+                        t_srds_s=r["t_srds"],
                         paradigms={k: dict(iterations=v[0], total_evals=v[1],
                                            t_s=v[2]) for k, v in pd.items()}))
     return out

@@ -23,7 +23,7 @@ and the optimizer's own names key the checkpoint.  Properties:
   place, by name, and raises on a missing leaf or a shape mismatch.
 
 Multi-host layouts (one ``host<k>.npz`` per process) wait for the
-multi-device port (ROADMAP A10).
+multi-device port (ROADMAP A10(b)).
 """
 from __future__ import annotations
 

@@ -4,7 +4,7 @@ Every sampler evaluates the backbone through a :class:`Denoiser`.  On one
 device it is exactly its ``fn``: ``den(x, t) == fn(x, t)`` with ``x`` of
 shape ``(M, ...)`` and per-row times ``t`` of shape ``(M,)`` (SRDS folds
 its blocks into the batch, so rows sit at different times).  The
-model-parallel modes (``shard_fn``, specs, meshes) wait for ROADMAP A10.
+model-parallel modes (``shard_fn``, specs, meshes) wait for ROADMAP A10(b).
 """
 from __future__ import annotations
 

@@ -16,8 +16,8 @@ batch (:func:`fold_fine_fn`); ``lax.scan``, ``lax.cond`` and
 ``while_loop`` become Python loops, so a truncated refinement's suffix
 shape is simply the loop's frontier.  The early-exit gate reads one
 boolean from the device per refinement — the loop's only host sync.
-Block sharding and straggler reuse (ROADMAP A10) raise
-``NotImplementedError``.
+Where the fine solves run is injected as ``fine_fn``: folded into one
+batch here, sharded over ranks in :mod:`repro_torch.core.pipelined`.
 """
 from __future__ import annotations
 
@@ -40,6 +40,9 @@ class SRDSConfig:
     gate convergence per sample over x_init's leading axis.  truncate:
     converged-prefix truncation (shorthand for ``window=ExactPrefix()``).
     window: a :class:`repro_torch.core.window.FrontierPolicy`.
+    block_sharding: JAX's in-program sharding constraint; the port
+    refuses it and shards blocks over ranks with
+    :func:`repro_torch.core.pipelined.make_sharded_sampler`.
     fixed_iters: run exactly max_iters refinements.  accel: a
     :class:`repro_torch.core.accel.Accelerator` (None: no mixing).
     """
@@ -378,23 +381,34 @@ class RefineState(NamedTuple):
     window_lo: Optional[torch.Tensor] = None     # int32 () or (K,)
     lo_hist: Optional[torch.Tensor] = None       # int32 (max_iters,[ K])
     accel: Optional[object] = None               # accel.AccelState
+    y_prev: Optional[torch.Tensor] = None        # (B, ...) last fine results
+    # under carry_fine_results (straggler reuse), else None
 
 
-FineFn = Callable[[torch.Tensor], torch.Tensor]
+FineFn = Callable[..., torch.Tensor]
+
+
+def fold_fine(F: Callable, x_heads: torch.Tensor,
+              starts: np.ndarray) -> torch.Tensor:
+    """Fine-solve the blocks ``x_heads (b, K, ...)`` starting at ``starts
+    (b,)`` as one ``(b*K, ...)`` batch with per-row start indices, so one
+    model call per fine step serves every block.  ``F(x, i0)`` is the fine
+    solve for per-row ``i0``."""
+    b, k = x_heads.shape[0], x_heads.shape[1]
+    rows = x_heads.reshape((b * k,) + tuple(x_heads.shape[2:]))
+    return F(rows, np.repeat(np.asarray(starts, np.int64), k)).reshape(
+        x_heads.shape)
 
 
 def fold_fine_fn(F: Callable, starts: np.ndarray) -> FineFn:
     """The single-device :data:`FineFn` (counterpart of ``vmap_fine_fn``):
-    the block heads ``(b, K, ...)`` — all B, or a truncated suffix — fold
-    into one ``(b*K, ...)`` batch with per-row start indices, so one model
-    call per fine step serves every block.  ``F(x, i0)`` is the fine
-    solve for per-row ``i0``."""
+    the block heads — all B, or a truncated suffix — through
+    :func:`fold_fine`; the refinement ``p`` and the last fine results
+    ``y_prev`` the engine passes are not needed here."""
     starts = np.asarray(starts, np.int64)
 
-    def fine_fn(x_heads):
-        b, k = x_heads.shape[0], x_heads.shape[1]
-        rows = x_heads.reshape((b * k,) + x_heads.shape[2:])
-        return F(rows, np.repeat(starts[-b:], k)).reshape(x_heads.shape)
+    def fine_fn(x_heads, p=None, y_prev=None):
+        return fold_fine(F, x_heads, starts[-x_heads.shape[0]:])
 
     return fine_fn
 
@@ -413,9 +427,14 @@ def run_parareal(G: GFn, fine_fn: FineFn, x_init: torch.Tensor,
                  window=None, accel=None, constrain=None) -> RefineState:
     """The Parareal refinement loop (Alg 1 minus the fine solves).
 
-    ``fine_fn(x_heads) -> y`` computes the fine solves of the block heads
-    (``[x_0, ..., x_{B-1}]``, or under truncation the suffix from the
-    frontier).  ``tol`` is a float or, with ``batched``, a per-sample
+    ``fine_fn(x_heads, p, y_prev) -> y`` computes the fine solves of the
+    block heads (``[x_0, ..., x_{B-1}]``, or under truncation the suffix
+    from the frontier) at refinement ``p`` (a host int).
+    ``carry_fine_results`` keeps the last refinement's ``(B, ...)`` fine
+    results (converged lanes' frozen under per-sample gating) and hands
+    them over as ``y_prev`` (straggler reuse: a sharded ``fine_fn`` may
+    return them for blocks whose fresh solve it drops); otherwise
+    ``y_prev`` is None.  ``tol`` is a float or, with ``batched``, a per-sample
     ``(K,)`` tensor.  ``batched`` gates convergence per sample over
     x_init's leading axis: converged samples freeze (``torch.where``), so
     each equals its own independent run; the loop ends when every sample
@@ -460,10 +479,12 @@ def run_parareal(G: GFn, fine_fn: FineFn, x_init: torch.Tensor,
         raise ValueError("truncate is incompatible with straggler reuse "
                          "(carry_fine_results): stale fine results are "
                          "indexed on the full block axis.")
-    if carry_fine_results or constrain is not None:
-        raise NotImplementedError("straggler reuse and block-sharding "
-                                  "constraints are not ported yet "
-                                  "(ROADMAP A10)")
+    if constrain is not None:
+        raise NotImplementedError(
+            "a block-sharding constraint inside one program has no torch "
+            "counterpart: the port's block parallelism is "
+            "repro_torch.core.pipelined.make_sharded_sampler (ROADMAP A10); "
+            "the dryrun's GSPMD form waits for A12")
     use_fused = resolve_fused(use_fused_update, x_init)
     gate = batched and not fixed_iters
     B = len(starts)
@@ -489,7 +510,9 @@ def run_parareal(G: GFn, fine_fn: FineFn, x_init: torch.Tensor,
                    device=dev),
         torch.zeros(kd, dtype=torch.int32, device=dev),
         torch.ones(kd, dtype=torch.bool, device=dev), br0, lo0, loh0,
-        astate0)
+        astate0,
+        # the init value is never read: substitution is gated on p > 0
+        x_tail if carry_fine_results else None)
 
     def gated(c: RefineState, resid):
         """The gate's bookkeeping after one refinement."""
@@ -521,7 +544,7 @@ def run_parareal(G: GFn, fine_fn: FineFn, x_init: torch.Tensor,
 
     def body(c: RefineState, f: int) -> RefineState:
         """One refinement on the static suffix ``[f, B)``."""
-        y = fine_fn(heads_from(c, f))                      # Alg 1, lines 7-8
+        y = fine_fn(heads_from(c, f), c.p, c.y_prev)      # Alg 1, lines 7-8
         new_tail, cur_all, resid = suffix_refinement(
             G, y, x_init, c.x_tail, c.prev_coarse, starts, f,
             use_fused=use_fused, norm=norm, batched=batched)
@@ -538,16 +561,20 @@ def run_parareal(G: GFn, fine_fn: FineFn, x_init: torch.Tensor,
             resid = convergence_norm(new_tail[-1] - c.x_tail[-1], norm,
                                      batched=batched)
         delta, history, iters, active = gated(c, resid)
+        y_keep = c.y_prev
+        if carry_fine_results:
+            y_keep = torch.where(_batch_mask(c.active, y), y, c.y_prev) \
+                if gate else y
         return RefineState(c.p + 1, new_tail, cur_all, delta, history,
                            iters, active, c.block_resid, c.window_lo,
-                           c.lo_hist, astate)
+                           c.lo_hist, astate, y_keep)
 
     def body_windowed(c: RefineState, f: int) -> RefineState:
         """One residual-window refinement: the static suffix ``[f, B)``,
         with blocks ``[f, lo)`` the policy advanced past frozen by
         masking inside the sweep."""
         lo_eff = torch.clamp(c.window_lo, min=f)
-        y = fine_fn(heads_from(c, f))
+        y = fine_fn(heads_from(c, f), c.p, c.y_prev)
         new_tail, cur_all, resid, br_sfx = suffix_refinement(
             G, y, x_init, c.x_tail, c.prev_coarse, starts, f,
             use_fused=use_fused, norm=norm, batched=batched,

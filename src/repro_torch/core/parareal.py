@@ -39,8 +39,13 @@ def srds_sample(model_fn: ModelFn, sched: DiffusionSchedule,
     point (fewer iterations, zero extra evals).
     """
     if cfg.block_sharding is not None:
-        raise NotImplementedError("block sharding is not ported yet "
-                                  "(ROADMAP A10)")
+        # JAX's is a GSPMD sharding constraint inside one program, read
+        # only by its dryrun; torch has no counterpart within a process
+        raise NotImplementedError(
+            "cfg.block_sharding (a sharding constraint inside one program) "
+            "has no torch counterpart: shard the blocks over ranks with "
+            "repro_torch.core.pipelined.make_sharded_sampler (ROADMAP A10); "
+            "the dryrun that reads it waits for A12")
     if x_init.dim() < 2:
         raise ValueError(f"x_init must be (K, *sample_shape); got shape "
                          f"{tuple(x_init.shape)}")
@@ -73,20 +78,22 @@ def srds_stats(sched: DiffusionSchedule, solver: SolverConfig,
                pipelined: bool = False) -> SampleStats:
     """Paper-style eval accounting: init B sequential coarse steps, then
     per refinement S fine steps (parallel across blocks) and the
-    sequential sweep.  Truncated runs (``cfg.truncate`` or a truncating
-    ``cfg.window``) fine-solve and sweep only ``[static_frontier(p), B)``:
-    total evals follow the policy's ``predict_evals`` and the serial sweep
-    shortens with the frontier."""
+    sequential sweep.  ``pipelined`` prices the wavefront
+    (:func:`repro_torch.core.pipelined.make_pipelined_sampler`), which
+    hides the sweep behind the fine evals: one superstep is one batched
+    eval, so ``B + k * (S + 1)`` (paper Table 3).  Truncated runs
+    (``cfg.truncate`` or a truncating ``cfg.window``) fine-solve and sweep
+    only ``[static_frontier(p), B)``: total evals follow the policy's
+    ``predict_evals`` and the serial sweep shortens with the frontier."""
     from .window import resolve_policy
-    if pipelined:
-        raise NotImplementedError("wavefront pricing is not ported yet "
-                                  "(ROADMAP A10)")
     B, S = resolve_blocks(sched.num_steps, cfg.num_blocks)
     e = solver.evals_per_step
     k = int(iterations)
     cost = iteration_cost(sched.num_steps, cfg.num_blocks, e)
     pol = resolve_policy(cfg.window, cfg.truncate)
-    if pol.truncates:
+    if pipelined:
+        serial = e * (B + k * (S + 1))
+    elif pol.truncates:
         serial = e * (B + sum(S + B - pol.static_frontier(p, B)
                               for p in range(k)))
     else:

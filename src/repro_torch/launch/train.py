@@ -2,7 +2,7 @@
 loop (counterpart of ``repro.launch.train``), for the DiT and the language
 models the port has (``qwen3-8b``, ``rwkv6-1.6b``, ``hymba-1.5b``) on one
 device (``--mesh local``).  The pod meshes wait for the multi-device port
-(ROADMAP A10).
+(ROADMAP A10(b)).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch srds-dit-sd2 \\
         --steps 5 --batch 8
@@ -53,7 +53,7 @@ def build(arch: str, *, mesh_kind: str = "local", reduced: bool = False,
     ``"lm"``."""
     if mesh_kind != "local":
         raise NotImplementedError(f"mesh {mesh_kind!r} waits for the "
-                                  f"multi-device port (ROADMAP A10)")
+                                  f"multi-device port (ROADMAP A10(b))")
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()

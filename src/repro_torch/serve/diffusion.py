@@ -52,7 +52,7 @@ noise is drawn per interval for the whole micro-batch, so a lane's
 realization depends on its batch (same distribution, not the
 single-request run's bits).
 Block and slot-batch sharding over a mesh (``mesh``, ``axis``,
-``data_axis``) are ROADMAP A10 and raise ``NotImplementedError``.
+``data_axis``) are ROADMAP A10(b) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -495,7 +495,7 @@ class DiffusionSamplingEngine:
       sample_shape / solver / schedule / num_steps: request defaults.
       batch_size: K, the slots of each micro-batch.
       num_blocks / max_iters / norm: SRDS knobs, as in ``SRDSConfig``.
-      mesh / axis / data_axis: block and slot sharding (ROADMAP A10;
+      mesh / axis / data_axis: block and slot sharding (ROADMAP A10(b);
         raise ``NotImplementedError``).
       allow_inexact: the opt-in for the stochastic ``ddpm`` solver,
         whose batch-shaped frozen noise gives distribution-level, not
@@ -532,7 +532,7 @@ class DiffusionSamplingEngine:
         if mesh is not None or axis is not None or data_axis is not None:
             raise NotImplementedError("sharding the serving engine over a "
                                       "mesh (mesh, axis, data_axis) is not "
-                                      "ported yet (ROADMAP A10)")
+                                      "ported yet (ROADMAP A10(b))")
         self.model_fn = model_fn
         self.denoiser = as_denoiser(model_fn)
         self.sample_shape = tuple(sample_shape)

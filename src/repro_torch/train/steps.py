@@ -3,7 +3,7 @@
 (the language models).  The step updates the model and the optimizer
 state in place; PyTorch runs it eagerly, so nothing is jitted or donated.
 The compressed-gradient data-parallel step waits for the multi-device
-port (ROADMAP A10)."""
+port (ROADMAP A10(b))."""
 from __future__ import annotations
 
 import torch

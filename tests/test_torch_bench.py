@@ -25,10 +25,13 @@ import torch
 
 import repro.core as J
 from repro_torch.benchmarks import (check_counts, common, prop4_blocksize,
-                                    table1_pixel, table2_sd, table4_paradigms,
-                                    table5_solvers, table8_tolerance,
-                                    table11_truncation, table12_window,
-                                    table13_accel)
+                                    run, serve_smoke, table1_pixel,
+                                    table2_sd, table3_pipelined,
+                                    table4_paradigms, table5_solvers,
+                                    table6_devices, table8_tolerance,
+                                    table9_batched, table10_slo,
+                                    table10_wallclock, table11_truncation,
+                                    table12_window, table13_accel)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
@@ -334,7 +337,9 @@ def test_check_counts_cli_on_baseline(tmp_path):
     "table13_accel.run_rows", "table1_pixel.main", "table2_sd.main",
     "table4_paradigms.main", "table5_solvers.main", "table8_tolerance.main",
     "table11_truncation.main", "table12_window.main", "table13_accel.main",
-    "prop4_blocksize.main"])
+    "prop4_blocksize.main", "table3_pipelined.main", "table6_devices.main",
+    "table9_batched.main", "table10_slo.main", "table10_wallclock.main",
+    "serve_smoke.main", "run.main"])
 def test_emitter_entry_points_default_to_the_card(entry, monkeypatch):
     """Called without a device, every Python entry point of the emitters
     asks for the card, and raises where CUDA is not available (never a

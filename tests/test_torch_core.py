@@ -243,10 +243,13 @@ def test_eval_accounting_matches_jax():
 
 
 def test_unported_paths_raise_naming_their_roadmap_item():
-    """What is left unported (block sharding, straggler reuse and
-    wavefront pricing, A10) raises and names its ROADMAP item; so do the
-    serving engine's mesh options.  The ddpm solver (A3) is ported: it
-    runs, in the samplers and behind the engine's ``allow_inexact``."""
+    """What is left unported raises and names its ROADMAP item: the
+    serving engine's mesh options (A10(b)); JAX's in-program block
+    sharding, which has no torch counterpart, names the port's sharded
+    driver (A10) and the dryrun (A12).  Straggler reuse and wavefront
+    pricing are ported (``tests/test_torch_pipelined.py``), and so is the
+    ddpm solver (A3): it runs, in the samplers and behind the engine's
+    ``allow_inexact``."""
     from repro_torch.core import engine as teng
     from repro_torch.serve import DiffusionSamplingEngine, SampleRequest
     _, sched = _scheds(16)
@@ -254,18 +257,18 @@ def test_unported_paths_raise_naming_their_roadmap_item():
     ddpm = T.SolverConfig("ddpm", noise_seed=0)
     seq = T.sample_sequential(_torch_matmul, sched, ddpm, x0)
     assert seq.shape == x0.shape and bool(torch.isfinite(seq).all())
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError,
+                       match="make_sharded_sampler.*A10.*A12"):
         T.srds_sample(_torch_matmul, sched, T.SolverConfig("ddim"), x0,
                       T.SRDSConfig(block_sharding=object()))
-    with pytest.raises(NotImplementedError, match="A10"):
-        T.srds_stats(sched, T.SolverConfig("ddim"), T.SRDSConfig(), 2,
-                     pipelined=True)
-    with pytest.raises(NotImplementedError, match="A10"):
+    assert T.srds_stats(sched, T.SolverConfig("ddim"), T.SRDSConfig(), 2,
+                        pipelined=True).serial_evals == 4 + 2 * (4 + 1)
+    with pytest.raises(NotImplementedError, match="make_sharded_sampler"):
         teng.run_parareal(None, None, x0, np.arange(4) * 4, tol=0.0,
-                          max_iters=4, carry_fine_results=True)
+                          max_iters=4, constrain=lambda t: t)
     for kw in (dict(mesh=object()), dict(axis="data"),
                dict(data_axis="data")):
-        with pytest.raises(NotImplementedError, match="A10"):
+        with pytest.raises(NotImplementedError, match=r"A10\(b\)"):
             DiffusionSamplingEngine(_torch_matmul, (8,), device="cpu", **kw)
     eng = DiffusionSamplingEngine(_torch_matmul, (8,), device="cpu",
                                   allow_inexact=True, num_steps=16,

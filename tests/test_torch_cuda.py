@@ -42,7 +42,12 @@ kernel agrees with ``ref.selective_scan_bwd`` to 1e-4 relative L2 per
 gradient (the sums over channels, steps and states in other orders) and
 runs bitwise equal twice; the forward's checkpoints are the twin's states
 to 1e-4 and change neither y nor h_T; a CUDA operand that needs a gradient
-runs the backward kernel, never the plain scan.
+runs the backward kernel, never the plain scan.  The block-sharded SRDS
+driver on an NCCL group of one rank runs the single program's blocks in
+the same batches, so it stops at the same iterations with the same
+kernel launches and its sample is within 1e-6 rel L2 of ``srds_sample``'s;
+the wavefront at one rank (B=1) equals the sequential sample to 1e-4.  A
+CUDA tensor on a gloo group, or a CPU one on NCCL, raises.
 """
 import numpy as np
 import pytest
@@ -1298,3 +1303,78 @@ def test_hymba_mix_full_has_grad_fn_on_card(cuda):
               "flash_attention_bwd_dkv", "selective_scan",
               "selective_scan_bwd", "selective_scan_bwd_sum"):
         assert counts[k] == 1, (k, counts)
+
+
+@pytest.fixture
+def process_group(cuda, tmp_path):
+    """Start a default process group of one rank: ``process_group(
+    device_type)`` (NCCL for ``"cuda"``, gloo for ``"cpu"``); it is
+    destroyed after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group
+
+    def start(device_type):
+        init_process_group(str(tmp_path), 0, 1, device_type=device_type)
+    yield start
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_sharded_driver_on_nccl_world1_equals_srds_sample_on_card(
+        cuda, process_group):
+    import repro_torch.core as C
+    from repro_torch.core.pipelined import (make_pipelined_sampler,
+                                            make_sharded_sampler)
+    from repro_torch.launch.mesh import make_srds_mesh
+    process_group("cuda")
+    mesh = make_srds_mesh(1)
+    fn = _small_dit_fn(cuda)
+    sched, solver = C.make_schedule("ddpm_linear", 16), C.SolverConfig("ddim")
+    x0 = torch.from_numpy(_rand(5, (2, 16, 16, 4))).to(cuda)
+    cfg = C.SRDSConfig(num_blocks=4, tol=1e-3, per_sample=True)
+    runs = {}
+    for name, samp in (("single", lambda x: C.srds_sample(fn, sched, solver,
+                                                          x, cfg)),
+                       ("sharded", make_sharded_sampler(
+                           mesh, "time", fn, sched, solver, cfg))):
+        ops.reset_launch_counts()
+        runs[name] = (samp(x0), ops.launch_counts())
+    (single, c1), (sharded, c2) = runs["single"], runs["sharded"]
+    assert torch.equal(sharded.iterations, single.iterations)
+    assert c2 == c1 and c2["flash_attention_fwd"] > 0
+    rel = ((sharded.sample - single.sample).norm()
+           / single.sample.norm()).item()
+    assert rel <= 1e-6, rel
+    res, steps, evals = make_pipelined_sampler(
+        mesh, "time", fn, sched, solver, C.SRDSConfig(tol=0.0))(x0)
+    seq = C.sample_sequential(fn, sched, solver, x0)
+    torch.testing.assert_close(res.sample, seq, atol=1e-4, rtol=1e-4)
+    assert (steps, evals) == (16 + 1 + 2, 2 * 16)    # + the ramp slack
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend_device", ["cpu", "cuda"])
+def test_drivers_refuse_a_tensor_the_backend_cannot_take_on_card(
+        cuda, process_group, backend_device):
+    """A CUDA tensor never runs on gloo and a CPU tensor never on NCCL:
+    the drivers raise instead of switching backend or path."""
+    import repro_torch.core as C
+    from repro_torch.core.pipelined import (make_pipelined_sampler,
+                                            make_sharded_sampler)
+    from repro_torch.launch.mesh import make_srds_mesh
+    process_group(backend_device)
+    mesh = make_srds_mesh(1, device_type=backend_device)
+    other = "cpu" if backend_device == "cuda" else "cuda"
+    x0 = torch.zeros((1, 4), device=other)
+    sched, solver = C.make_schedule("ddpm_linear", 8), C.SolverConfig("ddim")
+
+    def model(x, t):
+        return x
+    for samp in (make_sharded_sampler(mesh, "time", model, sched, solver,
+                                      C.SRDSConfig(num_blocks=2)),
+                 make_pipelined_sampler(mesh, "time", model, sched, solver,
+                                        C.SRDSConfig())):
+        with pytest.raises(ValueError, match="process group"):
+            samp(x0)

@@ -451,10 +451,10 @@ def test_engine_logits_match_jax_at_every_step():
         _close(got, w)
 
 
-def test_training_hymba_waits_for_a11a_training_half():
-    """A11(a)'s training half is in: the LM step builds for the full
-    hymba-1.5b config (``tests/test_torch_hymba_train.py`` holds its
-    loss, gradients and steps against JAX's)."""
+def test_training_hymba_lm_step_builds():
+    """The LM step builds for the full hymba-1.5b config
+    (``tests/test_torch_hymba_train.py`` holds its loss, gradients and
+    steps against JAX's)."""
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import make_train_step
     assert callable(make_train_step(get_arch(ARCH), AdamWConfig(),
