@@ -18,6 +18,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    multiple of 8 on its tensor-core route, f32 on its f32-FMA route: each
    case prints its route and, on the tensor cores, the bf16 terms of P;
    ptxas' registers and spills of every ``flash_fwd_kernel_tc`` instance;
+   a row at phase 15's shard shape, Sq 512 against Sk 1024;
    every bf16 case held to the forward's rel L2 limit; at the DiT's and
    qwen3-8b's shapes readings with P in 1 and 2 terms and the 1-term
    control, which must miss that limit while the kernel's 3 terms meet
@@ -234,7 +235,37 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the full DiT at its cut size (``DIT_CUT``): served wall seconds per
    request, p50 and p95 by policy, and its four gates.
 
-Phases 4-8, 10, 12, 13 and 14 also hold the flash kernels' launches on their
+15. the model-parallel DiT (``models.dit.make_denoiser(shard_axis=
+   "model")``: the rows split over ``model``, every layer's K/V gathered
+   into the flash forward) on phase 4's DiT: (a) on an NCCL group of one
+   rank, mesh ``make_srds_mesh(1, 1, 1)``, ``srds_sample`` with the bound
+   denoiser and ``make_sharded_sampler(..., data_axis="data")`` at phase
+   14's tolerance, each bitwise equal to the plain ``srds_sample`` with
+   its launch counts (B1, B2, B3) and the all-gathers counted, the input
+   moved by one ulp as the control that must differ; ``SHARD_SERVED``
+   requests through the engine over ``mesh``, ``axis`` and ``data_axis``
+   bitwise equal to the plain engine at its ``FixedBudget`` fallback; the
+   profiler's records of the port's kernels within the window's lost
+   records of the counters' launches on both paths, and of the activity
+   only the mesh path has: NCCL, one record an all-gather;
+   (d) the compressed data-parallel step at world size 1 on phase 7's
+   state and batch: with a zero carry ``|mean - g| <= scale / 2`` and the
+   carry ``g - mean`` exactly (a carry shifted by one quantum the control),
+   then one ``make_dp_train_step_compressed`` step, its loss the plain
+   loss's, its gradients the ones computed beside it within
+   ``DP_GRAD_REL_L2``, its parameters AdamW's update by the mean its
+   collective returned bitwise (the negated mean the control), B3 and B5
+   once a layer; the group torn down; (b) the row-sharded
+   body at full width in f32: shard r of m in ``SHARD_SPLITS`` fed the
+   unsharded forward's own K/V through its ``kv_gather`` hook, its local
+   K/V and its output rows within ``SHARD_REL_L2`` of the full forward's,
+   with its positions left unshifted as the control that must miss it;
+   (c) in bf16, the flash forward at the shard shape (Sq 512, Sk 1024,
+   D 72, the tensor-core route) on each layer's own inputs of a shard
+   forward against its plain version within ``SHARD_FLASH_REL_L2``; the
+   phase's seconds.
+
+Phases 4-8, 10, 12, 13, 14 and 15 also hold the flash kernels' launches on their
 main paths, forward and backward, to their tensor-core route
 (``ops.route_counts``: every attention there is bf16 with head dim 64,
 72 or 128; the backward runs in phases 7, 10 and 13).  Phases 10 and 11
@@ -293,6 +324,20 @@ DRIVER_PERTURB = 1e-2
 # the CPU's may decide a count differently (ROADMAP C20); the rest must
 # stop at the same iteration on both
 ROUNDOFF_FREE_TOL = 1e-3
+# phase 15: the model-parallel DiT.  (b) shard r of m of the row-sharded
+# forward, fed the full forward's K/V, against the full forward's rows in
+# f32 (and its local K/V against theirs); the control leaves its positions
+# unshifted.  (c) the flash forward at the shard shape (Sq = S/2 against
+# Sk = S, bf16, the tensor-core route) on each layer's own inputs
+# against its plain version, the limit of phase 3's bf16 cases
+SHARD_SPLITS = (2, 4)
+SHARD_REL_L2 = 1e-5
+SHARD_FLASH_REL_L2 = 1e-4
+SHARD_SERVED = 2           # (a): requests served through the mesh engine
+# (d): the compressed step's gradients against the same loss's gradients
+# taken beside it (the same kernels on the same inputs; the limit allows
+# for a backward that sums in another order from one call to the next)
+DP_GRAD_REL_L2 = 1e-5
 # the port's kernels by device name: DDIM (B2), the update and residual
 # (B1), the flash forward (B3), the update alone (B4)
 PORT_KERNEL_NAMES = ("ddim_fused_kernel", "parareal_resid_cluster_kernel",
@@ -790,7 +835,7 @@ def train_phase(torch, ops, cfg, tree):
     stream = make_stream(cfg, DataConfig(seed=SEED,
                                          global_batch=TRAIN_BATCH),
                          device="cuda")
-    print(f"[7/14] training {cfg.name} through launch.train.build "
+    print(f"[7/15] training {cfg.name} through launch.train.build "
           f"({time.perf_counter() - t0:.1f} s), batch {TRAIN_BATCH}, "
           f"{stream.size}x{stream.size}x{stream.channels} images", flush=True)
     loop_seed = SEED + 1
@@ -922,7 +967,7 @@ def serve_phase(torch, ops, C, model_fn, sched, solver, layers):
                                seed=SERVE_TRACE_SEED)
     if [r.tol for r in trace] != [0.0, 0.0] + [LOOSE_TOL] * 4:
         raise AssertionError(f"unexpected tiers {[r.tol for r in trace]}")
-    print(f"[6/14] serving: {len(trace)} requests in 2 bursts "
+    print(f"[6/15] serving: {len(trace)} requests in 2 bursts "
           f"{SERVE_PERIOD} s apart (tols {[r.tol for r in trace]}), "
           f"{SERVE_SLOTS} slots, N={N_STEPS}, B={B}, AsyncServeLoop on a "
           f"MonotonicClock, FIFO", flush=True)
@@ -1254,7 +1299,7 @@ def lm_phase(torch, ops, step, arch, limits):
         SEED), device="cuda")
     torch.cuda.synchronize()
     kernel = "rwkv6_wkv" if cfg.block == "rwkv6" else "flash_attention_fwd"
-    print(f"[{step}/14] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
+    print(f"[{step}/15] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}, "
           f"{tf.param_count(model) / 1e9:.3f} B params drawn on the card in "
@@ -1411,7 +1456,7 @@ def hymba_phase(torch, ops, step):
     model = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(
         SEED), device="cuda")
     torch.cuda.synchronize()
-    print(f"[{step}/14] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
+    print(f"[{step}/15] {arch}: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
           f"{cfg.resolved_head_dim}, window {cfg.window}, SSM {cfg.ssm_d_inner}"
           f" x {cfg.ssm_state}, vocab {cfg.vocab_size}, {cfg.dtype}, "
@@ -1679,7 +1724,7 @@ def lm_train_phase(torch, ops, step_no, arch):
                          device="cuda")
     torch.cuda.synchronize()
     n_params = tf.param_count(model)
-    print(f"[{step_no}/14] training {arch}: {cfg.num_layers} of "
+    print(f"[{step_no}/15] training {arch}: {cfg.num_layers} of "
           f"{get_arch(arch).num_layers} layers, d {cfg.d_model}, "
           f"{n_params / 1e9:.3f} B params ({cfg.dtype}, drawn on the card; "
           f"{time.perf_counter() - t0:.1f} s), batch {LM_TRAIN_BATCH} x "
@@ -2941,7 +2986,8 @@ def kernel_phase(torch, ops, ref):
              "flash_attention_bwd_dkv_causal_gqa": [], "rwkv6_wkv_bwd": [],
              "flash_attention_fwd_window": [], "selective_scan": [],
              "flash_attention_bwd_dq_window": [],
-             "flash_attention_bwd_dkv_window": [], "selective_scan_bwd": []}
+             "flash_attention_bwd_dkv_window": [], "selective_scan_bwd": [],
+             "flash_attention_fwd_shard": []}
     # flash forward: SD-v2 fine and coarse batches (10 and 2 latents x 16
     # heads, S 1024, D 72) in bf16, CIFAR-width f32, and ragged Sq/Sk
     for bh, sq, sk, d, dtype in [(160, 1024, 1024, 72, "bfloat16"),
@@ -2976,6 +3022,7 @@ def kernel_phase(torch, ops, ref):
             terms_control(torch, fa, q, k, v, want, dict(causal=False),
                           rel_lim)
 
+    shard_flash_case(torch, ops, ref, randn, cases)
     masked_flash_cases(torch, ops, ref, randn, cases)
     backward_cases(torch, ref, randn, cases)
     masked_backward_cases(torch, ref, randn, cases)
@@ -2988,6 +3035,45 @@ def kernel_phase(torch, ops, ref):
     scan_cases(torch, ops, randn, cases)
     scan_backward_cases(torch, ref, randn, cases)
     return cases
+
+
+def shard_flash_case(torch, ops, ref, randn, cases):
+    """Phase 3's row of the flash forward at the patch-sharded DiT's shape
+    (phase 15): one of two row shards of the SD-v2 DiT's 2 latents x 16
+    heads, Sq 512 queries against all Sk 1024 keys, D 72, bf16 (the
+    tensor-core route), held to the bf16 cases' rel L2 limit."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    bh, sq, sk, d, dtype = 32, 512, 1024, 72, "bfloat16"
+    tdt = getattr(torch, dtype)
+    q, k, v = (randn((1, bh, s, d), tdt) for s in (sq, sk, sk))
+    got = ops.attention(q, k, v, causal=False)
+    want, _ = ref.attention(q, k, v, causal=False)
+    b_ms, b_by = bound(nbytes(q, k, v, got) + 4 * bh * sq,
+                       4.0 * bh * sq * sk * d, dtype)
+    timing = dict(
+        ms=time_ms(lambda: ops.attention(q, k, v, causal=False), 50),
+        plain_ms=time_ms(lambda: ops.attention(q, k, v, causal=False,
+                                               use_kernel=False), 5),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                           50))
+    rel = rel_l2([got], [want])
+    # the call's device time beside its host time, and the unsharded
+    # coarse batch's (BH 32, Sq = Sk = 1024) in the same process
+    for label, qq in (("shard", q), ("Sq = Sk", randn((1, bh, sk, d), tdt))):
+        print_readings(f"flash forward at {label} BH={bh} Sq={qq.shape[2]} "
+                       f"Sk={sk}", dict(ms=time_ms(lambda: ops.attention(
+                           qq, k, v, causal=False), 50)),
+                       launch_readings(torch, lambda: ops.attention(
+                           qq, k, v, causal=False)), None)
+    cases["flash_attention_fwd_shard"].append(check_case(
+        f"flash_attention_fwd {dtype} BH={bh} Sq={sq} Sk={sk} D={d}, the "
+        f"row shard's shape ({route_label(fa, tdt, d)}; rel L2 {rel:.3e}, "
+        f"limit {SHARD_FLASH_REL_L2})", got, want, 2e-2, 2e-2, timing))
+    if not rel <= SHARD_FLASH_REL_L2:
+        raise AssertionError(f"flash_attention_fwd at Sq {sq}, Sk {sk}: rel "
+                             f"L2 {rel} against the plain version")
 
 
 def dit_setup(torch):
@@ -3041,7 +3127,7 @@ def ddpm_paradigms_phase(torch, C, run, setup, layers, head):
             raise AssertionError(f"{label}: launch counts {counts} != "
                                  f"{want}")
 
-    print(f"[5/14] ddpm with frozen noise (seed {DDPM_SEED}) and ParaDiGMS "
+    print(f"[5/15] ddpm with frozen noise (seed {DDPM_SEED}) and ParaDiGMS "
           f"on srds-dit-sd2, N={n}", flush=True)
     # the native noise is a pure function of (seed, interval id)
     iid = 3 * (n + 1) + 4
@@ -3176,7 +3262,7 @@ def drivers_phase(torch, ops, C, step, path_counts):
     pert = s.x_init + DRIVER_PERTURB * torch.from_numpy(
         np.random.default_rng(SEED + 1).standard_normal(
             tuple(s.x_init.shape)).astype(np.float32)).cuda()
-    print(f"[{step}/14] the SRDS drivers on torch.distributed: NCCL "
+    print(f"[{step}/15] the SRDS drivers on torch.distributed: NCCL "
           f"{nccl}, one rank, srds-dit-sd2 (N={n}, B={B}, K={SAMPLES}, "
           f"tol={EARLY_TOL}), DiT built in {s.build_s:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as store:
@@ -3381,6 +3467,434 @@ def serving_tables_phase(torch):
                   f"async {r['makespan_async_s']:.3f} s", flush=True)
 
 
+def _served(torch, C, fn, s, **kw):
+    """Phase 15 (a): ``SHARD_SERVED`` requests of phase 4's latents' shape
+    through a ``DiffusionSamplingEngine`` on ``fn`` (N, B and tol of phase
+    14), their responses in rid order."""
+    from repro_torch.benchmarks.common import host_noise
+    from repro_torch.serve import DiffusionSamplingEngine, SampleRequest
+    eng = DiffusionSamplingEngine(
+        fn, tuple(s.x_init.shape[1:]), s.solver, num_steps=N_STEPS,
+        batch_size=SAMPLES, num_blocks=s.B, noise_fn=host_noise, **kw)
+    rids = [eng.submit(SampleRequest(seed=SEED + i, tol=EARLY_TOL))
+            for i in range(SHARD_SERVED)]
+    out = eng.drain()
+    return [out[r] for r in rids]
+
+
+def _bitwise(torch, got, want) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _capture_kv(dit, model, x, t):
+    """Each layer's ``(k, v)`` of ``model``'s unsharded forward, and the
+    forward's output."""
+    kv = []
+    real = dit.attention_full
+
+    def capture(*a, **kw):
+        out = real(*a, **kw)
+        kv.append(out[1])
+        return out
+
+    dit.attention_full = capture
+    try:
+        out = model(x, t)
+    finally:
+        dit.attention_full = real
+    return kv, out
+
+
+def _shard_forward(model, x, t, r, m, kv, rank_pos, local=None):
+    """Rows ``r`` of ``m`` of ``x`` through the row-sharded forward at
+    position rank ``rank_pos``, its ``kv_gather`` handing back the full
+    forward's own K/V (``kv``); ``local`` collects the rel L2 of each
+    layer's local K/V against the full K/V's rows."""
+    rows = x.shape[1] // m
+    n = (rows // model.cfg.patch_size) * (x.shape[2] // model.cfg.patch_size)
+    calls = []
+
+    def hook(a):
+        layer, which = divmod(len(calls), 2)
+        calls.append(a)
+        full = kv[layer][which]
+        if local is not None:
+            mine = full[:, r * n:(r + 1) * n]
+            local.append((rel_l2([a], [mine]), bool((a == mine).all())))
+        return full
+
+    return model(x[:, r * rows:(r + 1) * rows], t, shard_rank=rank_pos,
+                 kv_gather=hook)
+
+
+def gather_readings(torch, mesh):
+    """Phase 15 (a): the cost of one K/V gather at the fine batch's shape
+    (10 latents x 1024 positions x 16 heads x 72, bf16) over the mesh's
+    ``model`` dim: host microseconds a call (enqueue) and device
+    microseconds a call (CUDA events over a loop), beside the copy into
+    the dim-0-leading layout alone."""
+    from repro_torch.parallel.collectives import all_gather_dim
+    group = mesh.get_group("model")
+    k = torch.randn((10, 1024, 16, 72), device="cuda").to(torch.bfloat16)
+    reps = 200
+    for label, fn in (("all_gather_dim", lambda: all_gather_dim(k, 1, group)),
+                      ("movedim copy", lambda: k.movedim(1, 0).contiguous())):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_us = (time.perf_counter() - t0) / reps * 1e6
+        dev_ms = time_ms(fn, reps)
+        print(f"  {label} of a {tuple(k.shape)} bf16 K: host {host_us:.1f} "
+              f"us a call (enqueue), loop {dev_ms * 1e3:.1f} us a call "
+              f"(CUDA events)", flush=True)
+
+
+def model_parallel_phase(torch, ops, C, step, path_counts):
+    """Phase 15: the model-parallel DiT and the mesh-sharded engine at one
+    NCCL rank, the row-sharded body at full width, the flash forward at
+    the shard shape, and the compressed data-parallel step at world size
+    1 (module docstring).  Adds the main paths' launch counts to
+    ``path_counts``."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core.pipelined import make_sharded_sampler
+    from repro_torch.core.window import FixedBudget
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import init_process_group, make_srds_mesh
+    from repro_torch.models import dit
+    from repro_torch.parallel import collectives
+    from repro_torch.runtime.profiling import window_launches
+
+    t_start = time.perf_counter()
+    s = dit_setup(torch)
+    layers, B, S = s.cfg.num_layers, s.B, s.S
+    early = C.SRDSConfig(num_blocks=B, per_sample=True, tol=EARLY_TOL)
+    nudged = torch.nextafter(s.x_init, torch.full_like(s.x_init, np.inf))
+    print(f"[{step}/15] the model-parallel DiT: srds-dit-sd2 (N={N_STEPS}, "
+          f"B={B}, K={SAMPLES}, tol={EARLY_TOL}), DiT built in "
+          f"{s.build_s:.1f} s", flush=True)
+
+    # ---- (a) at one NCCL rank the mesh path is the plain path, bitwise
+    with tempfile.TemporaryDirectory() as store:
+        init_process_group(store, 0, 1, device_type="cuda")
+        try:
+            mesh = make_srds_mesh(1, 1, 1)
+            den = dit.make_denoiser(s.model, shard_axis="model", mesh=mesh)
+            ops.reset_launch_counts()
+            ref_res, ref_wall = timed(torch, lambda: C.srds_sample(
+                s.model_fn, s.sched, s.solver, s.x_init, early))
+            ref_counts = ops.launch_counts()
+            runs = {}
+            for name, fn in (
+                    ("mp_srds", lambda: C.srds_sample(
+                        den, s.sched, s.solver, s.x_init, early)),
+                    ("mp_sharded", lambda: make_sharded_sampler(
+                        mesh, "time", den, s.sched, s.solver, early,
+                        data_axis="data")(s.x_init))):
+                g0 = collectives.all_gather_dim.calls
+                ops.reset_launch_counts()
+                res, wall = timed(torch, fn)
+                counts = ops.launch_counts()
+                check_tc_route(ops, counts, name, name)
+                runs[name] = (res, wall, counts,
+                              collectives.all_gather_dim.calls - g0)
+            p = int(ref_res.iterations.max())
+            want = dict(dict.fromkeys(ref_counts, 0),
+                        flash_attention_fwd=layers * (B + p * (S + B)),
+                        ddim_fused=B + p * (S + B),
+                        parareal_update_residual=p * B)
+            ctrl = C.srds_sample(den, s.sched, s.solver, nudged, early)
+            for name, (res, wall, counts, gathers) in runs.items():
+                same = _bitwise(torch, (res.sample, res.iterations),
+                                (ref_res.sample, ref_res.iterations))
+                print(f"  {name}: wall {wall:.3f} s (srds_sample "
+                      f"{ref_wall:.3f} s), iterations "
+                      f"{res.iterations.tolist()}, launches {counts}, "
+                      f"all-gathers {gathers}; bitwise equal to the plain "
+                      f"srds_sample: {same}", flush=True)
+                if counts != want or ref_counts != want:
+                    raise AssertionError(f"{name}: launches {counts}, plain "
+                                         f"{ref_counts}, want {want}")
+                if not same:
+                    raise AssertionError(f"{name}: not bitwise equal to the "
+                                         f"plain srds_sample")
+                path_counts[name] = counts
+            ctrl_same = torch.equal(ctrl.sample, ref_res.sample)
+            print(f"  control (input moved by one ulp) bitwise equal: "
+                  f"{ctrl_same}, must not be", flush=True)
+            if ctrl_same:
+                raise AssertionError("the bitwise check's control passed")
+            # the engine over mesh, axis and data_axis against the plain
+            # engine at its FixedBudget fallback
+            g0 = collectives.all_gather_dim.calls
+            ops.reset_launch_counts()
+            served, serve_wall = timed(torch, lambda: _served(
+                torch, C, den, s, mesh=mesh, axis="time", data_axis="data"))
+            serve_counts = ops.launch_counts()
+            serve_gathers = collectives.all_gather_dim.calls - g0
+            check_tc_route(ops, serve_counts, "mp_serve", "mp_serve")
+            plain, plain_wall = timed(torch, lambda: _served(
+                torch, C, s.model_fn, s, window=FixedBudget()))
+            same = all(a.iterations == b.iterations
+                       and np.array_equal(a.sample, b.sample)
+                       and np.array_equal(a.delta_history, b.delta_history)
+                       for a, b in zip(served, plain))
+            print(f"  served {SHARD_SERVED} requests (mesh, axis, "
+                  f"data_axis): wall {serve_wall:.3f} s (plain engine "
+                  f"{plain_wall:.3f} s), iterations "
+                  f"{[r.iterations for r in served]}, launches "
+                  f"{serve_counts}, all-gathers {serve_gathers}; bitwise "
+                  f"equal to the plain engine: {same}", flush=True)
+            if not same or min(serve_counts[k] for k in (
+                    "flash_attention_fwd", "ddim_fused",
+                    "parareal_update_residual")) == 0:
+                raise AssertionError("the mesh engine differs from the "
+                                     "plain engine, or skipped a kernel")
+            path_counts["mp_serve"] = serve_counts
+            # wall seconds in turns: plain, mesh, mesh, plain
+            walls = {"plain": [], "mp": []}
+            for name in ("plain", "mp", "mp", "plain"):
+                fn = s.model_fn if name == "plain" else den
+                walls[name].append(timed(torch, lambda: C.srds_sample(
+                    fn, s.sched, s.solver, s.x_init, early))[1])
+            print(f"  srds_sample wall seconds in turns: plain "
+                  f"{walls['plain']}, mesh {walls['mp']}", flush=True)
+            gather_readings(torch, mesh)
+            # the device activity beside the port's kernels, from the
+            # profiler: one srds_sample each way
+            recs = {name: window_launches(fn, 1) for name, fn in (
+                ("plain", lambda: C.srds_sample(s.model_fn, s.sched,
+                                                s.solver, s.x_init, early)),
+                ("mp", lambda: C.srds_sample(den, s.sched, s.solver,
+                                             s.x_init, early)))}
+            extra = {k[:60]: v[0] for k, v in recs["mp"]["device"].items()
+                     if k not in recs["plain"]["device"]}
+            kern = {k: port_kernel_records(v["device"])
+                    for k, v in recs.items()}
+            lost = {k: v["lead_lost"] + len(v["missing"])
+                    for k, v in recs.items()}
+            gathers = runs["mp_srds"][3]
+            print(f"  device records (profiler): port kernels plain "
+                  f"{kern['plain']}, mp {kern['mp']}; only the mp run has "
+                  f"{extra} (its all-gathers counted {gathers}); records "
+                  f"lost (lead and missing, C12) {lost}", flush=True)
+            # each run's records of the port's kernels are the counters'
+            # launches, short of them by no more than the records the
+            # window lost; the mp run's only other activity is its NCCL
+            # all-gathers, one record a gather
+            for run_name, rec in kern.items():
+                for kernel, counter in zip(PORT_KERNEL_NAMES, (
+                        "ddim_fused", "parareal_update_residual",
+                        "flash_attention_fwd", "parareal_update")):
+                    got, counted = rec.get(kernel, 0), want.get(counter, 0)
+                    if not counted - lost[run_name] <= got <= counted:
+                        raise AssertionError(
+                            f"{run_name}: {got} device records of {kernel}, "
+                            f"{counted} launches counted, {lost[run_name]} "
+                            f"records lost (C12)")
+            nccl = sum(v for k, v in extra.items() if "nccl" in k.lower())
+            if not (nccl == sum(extra.values())
+                    and gathers - lost["mp"] <= nccl <= gathers):
+                raise AssertionError(f"the mp run's extra device activity "
+                                     f"{extra}, {gathers} all-gathers "
+                                     f"counted, {lost['mp']} records lost")
+
+            # ---- (d) the compressed step at world size 1
+            dp_phase(torch, ops, C, s, mesh, path_counts)
+        finally:
+            dist.destroy_process_group()
+
+    # ---- (b) the row-sharded body at full width, f32, on the full K/V
+    t = torch.tensor([300.0, 800.0], device="cuda")
+    cfg32 = dataclasses.replace(s.cfg, dtype="float32")
+    model32 = dit.load_jax_params(cfg32, s.tree, device="cuda")
+    with torch.no_grad():
+        kv, full = _capture_kv(dit, model32, s.x_init, t)
+        worst, ctrl_best, locals_ = 0.0, float("inf"), []
+        for m in SHARD_SPLITS:
+            rows = s.x_init.shape[1] // m
+            for r in range(m):
+                got = _shard_forward(model32, s.x_init, t, r, m, kv, r,
+                                     locals_)
+                want = full[:, r * rows:(r + 1) * rows]
+                worst = max(worst, rel_l2([got], [want]))
+                if r:
+                    ctrl = _shard_forward(model32, s.x_init, t, r, m, kv, 0)
+                    ctrl_best = min(ctrl_best, rel_l2([ctrl], [want]))
+    local_worst = max(v for v, _ in locals_)
+    print(f"  row shards r of m in {SHARD_SPLITS} at full width (f32, fed "
+          f"the full forward's K/V): output rows rel L2 <= {worst:.3e} "
+          f"(limit {SHARD_REL_L2}), local K/V rel L2 <= {local_worst:.3e} "
+          f"({sum(b for _, b in locals_)} of {len(locals_)} bitwise); "
+          f"control (positions unshifted) >= {ctrl_best:.3e}, must miss "
+          f"it", flush=True)
+    if not (worst <= SHARD_REL_L2 and local_worst <= SHARD_REL_L2
+            < ctrl_best):
+        raise AssertionError(f"row-sharded body: rel L2 {worst}, local K/V "
+                             f"{local_worst}, control {ctrl_best}")
+    del model32, kv, full
+    torch.cuda.empty_cache()
+
+    # ---- (c) B3 at the shard shape on each layer's own inputs, bf16
+    real_attention = ops.attention
+    inputs = []
+
+    def capture(q, k, v, **kw):
+        inputs.append((q.detach().clone(), k.detach().clone(),
+                       v.detach().clone()))
+        return real_attention(q, k, v, **kw)
+
+    with torch.no_grad():
+        kv, _ = _capture_kv(dit, s.model, s.x_init, t)
+        ops.attention = capture
+        try:
+            ops.reset_launch_counts()
+            _shard_forward(s.model, s.x_init, t, 1, 2, kv, 1)
+            counts = ops.launch_counts()
+        finally:
+            ops.attention = real_attention
+    check_tc_route(ops, counts, "shard body", "shard_body")
+    if counts["flash_attention_fwd"] != layers:
+        raise AssertionError(f"shard body: {counts}")
+    path_counts["shard_body"] = counts
+    rels = []
+    for q, k, v in inputs:
+        got = ops.attention(q, k, v, causal=False)
+        want, _ = ref.attention(q, k, v, causal=False)
+        rels.append(rel_l2([got], [want]))
+    print(f"  flash forward at the shard shape {tuple(inputs[0][0].shape)} "
+          f"x {tuple(inputs[0][1].shape)} (bf16, tc) on each of {layers} "
+          f"layers' inputs: rel L2 {min(rels):.3e} to {max(rels):.3e} "
+          f"(limit {SHARD_FLASH_REL_L2}); launches in the shard body "
+          f"{counts}", flush=True)
+    if not max(rels) <= SHARD_FLASH_REL_L2:
+        raise AssertionError(f"flash forward at the shard shape: rel L2 "
+                             f"{max(rels)}")
+    del s, kv, inputs
+    torch.cuda.empty_cache()
+    print(f"  phase 15: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def dp_phase(torch, ops, C, s, mesh, path_counts):
+    """Phase 15 (d): the compressed data-parallel step at world size 1 on
+    phase 7's state (``launch.build`` from the same tree) and batch, with
+    a zero carry: the mean is the gradient rounded to its quantum
+    (``|mean - g| <= scale / 2`` elementwise) and the carry is ``g -
+    mean``; a carry shifted by one quantum, the control, fails that.  Then
+    one step through ``make_dp_train_step_compressed``: its loss the plain
+    loss, its gradients the ones above, its parameters AdamW's update by
+    the mean its collective returned, bitwise (the negated mean, the
+    control, is not)."""
+    from repro_torch.data import DataConfig, make_stream
+    from repro_torch.launch import train as launch
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.parallel import collectives
+    from repro_torch.train import (diffusion_loss, init_error_feedback,
+                                   make_dp_train_step_compressed)
+    from repro_torch.train.steps import layer_scale_groups
+
+    cfg, model, opt_state, _, _ = launch.build(
+        s.cfg.name, lr=TRAIN_LR, total_steps=TRAIN_STEPS, params=s.tree,
+        device="cuda")
+    stream = make_stream(cfg, DataConfig(seed=SEED, global_batch=TRAIN_BATCH),
+                         device="cuda")
+    batch = stream.batch(0)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    t = 999.0 * torch.rand((TRAIN_BATCH,), generator=g, device="cuda")
+    eps = torch.randn(batch["images"].shape, generator=g, device="cuda")
+    params = dict(model.named_parameters())
+    loss, _ = diffusion_loss(model, batch, t=t, eps=eps)
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(params.values()))))
+    groups = layer_scale_groups(params)
+    zero = init_error_feedback(model)
+    mean, carry = collectives.compressed_psum_mean(
+        grads, mesh.get_group("data"), zero, scale_groups=groups)
+    scale = {}
+    for k, gk in grads.items():
+        sk = float(gk.float().abs().max()) / 127.0
+        scale[groups[k]] = max(scale.get(groups[k], 0.0), sk)
+    worst = max(float((mean[k] - gk.float()).abs().max())
+                / scale[groups[k]] for k, gk in grads.items())
+    exact = all(torch.equal(carry[k], gk.float() - mean[k])
+                for k, gk in grads.items())
+    shifted = any(torch.equal(carry[k] + scale[groups[k]],
+                              gk.float() - mean[k])
+                  for k, gk in grads.items())
+    print(f"  compressed mean at world size 1 ({len(grads)} tensors, "
+          f"{len(scale)} scales): max |mean - g| / scale {worst:.6f} "
+          f"(limit 0.5, and 1e-5 of it for f32 rounding), carry == g - "
+          f"mean: {exact}; control (carry shifted by one quantum) equal: "
+          f"{shifted}, must not be", flush=True)
+    if not (worst <= 0.5 * (1 + 1e-5) and exact and not shifted):
+        raise AssertionError(f"compressed mean: |mean - g| / scale {worst}, "
+                             f"carry exact {exact}, control {shifted}")
+    del mean, carry
+    # the step, its collective's operands and result kept
+    real, seen = collectives.compressed_psum_mean, {}
+
+    def kept(grads_in, group, ef_in, **kw):
+        out = real(grads_in, group, ef_in, **kw)
+        seen.update(grads=grads_in, mean=out[0])
+        return out
+
+    collectives.compressed_psum_mean = kept
+    try:
+        opt_cfg = AdamWConfig(lr=TRAIN_LR)
+        step = make_dp_train_step_compressed(cfg, opt_cfg, mesh,
+                                             axis="data")
+    finally:
+        collectives.compressed_psum_mean = real
+    before = {k: p.detach().clone() for k, p in params.items()}
+    opt_before = {"m": {k: v.clone() for k, v in opt_state["m"].items()},
+                  "v": {k: v.clone() for k, v in opt_state["v"].items()},
+                  "step": opt_state["step"].clone()}
+    ops.reset_launch_counts()
+    (_, _, ef, metrics), wall = timed(torch, lambda: step(
+        model, opt_state, zero, batch, t=t, eps=eps))
+    counts = ops.launch_counts()
+    check_tc_route(ops, counts, "dp_compressed", "dp_compressed")
+    grad_rel = rel_l2([seen["grads"][k] for k in grads],
+                      list(grads.values()))
+    del grads, seen["grads"]
+
+    def applied(mean):
+        """Whether the step's parameters are AdamW's update of the ones
+        before it by ``mean``, bitwise."""
+        ref_p = {k: v.clone() for k, v in before.items()}
+        ref_opt = {"m": {k: v.clone() for k, v in opt_before["m"].items()},
+                   "v": {k: v.clone() for k, v in opt_before["v"].items()},
+                   "step": opt_before["step"].clone()}
+        adamw_update(ref_p, mean, ref_opt, opt_cfg)
+        return all(torch.equal(params[k], ref_p[k]) for k in params)
+
+    same = applied(seen["mean"])
+    negated = applied({k: -v for k, v in seen["mean"].items()})
+    print(f"  compressed step: wall {wall:.3f} s, loss "
+          f"{float(metrics['loss']):.6f} (the plain loss on the same draws "
+          f"{float(loss.detach()):.6f}), its gradients against the ones "
+          f"above rel L2 {grad_rel:.3e} (limit {DP_GRAD_REL_L2}), its "
+          f"parameters AdamW's update by its mean bitwise: {same}; control "
+          f"(the negated mean) bitwise: {negated}, must not be; launches "
+          f"{counts}", flush=True)
+    if not (float(metrics["loss"]) == float(loss.detach())
+            and grad_rel <= DP_GRAD_REL_L2 and same and not negated
+            and all(counts[k] == cfg.num_layers for k in
+                    ("flash_attention_fwd",) + BWD_KERNELS)):
+        raise AssertionError(f"compressed step: loss {metrics['loss']} vs "
+                             f"{loss}, gradients rel L2 {grad_rel}, update "
+                             f"applied {same}, control {negated}, launches "
+                             f"{counts}")
+    path_counts["dp_compressed"] = counts
+    del model, opt_state, ef, before, opt_before, seen
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -3397,20 +3911,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
-    print(f"[1/14] device: {smi} (torch {torch.__version__}, CUDA "
+    print(f"[1/15] device: {smi} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda})", flush=True)
 
     # ---- 2. build --------------------------------------------------------
     from repro_torch.kernels import _build, ops, ref
     secs = _build.build_all()
-    print(f"[2/14] build: {len(_build.sources())} CUDA source(s) in "
+    print(f"[2/15] build: {len(_build.sources())} CUDA source(s) in "
           f"{secs:.1f} s", flush=True)
     for name, log in _build.build_log.items():
         print(f"  nvcc {name}.cu:\n" + "\n".join(
             "    " + line for line in log.strip().splitlines()))
 
     # ---- 3. kernels against their plain versions -------------------------
-    print("[3/14] kernels vs plain versions (times on this card)",
+    print("[3/15] kernels vs plain versions (times on this card)",
           flush=True)
     cases = kernel_phase(torch, ops, ref)
 
@@ -3423,7 +3937,7 @@ def main() -> int:
         setup.model_fn
     sched, solver, x_init = setup.sched, setup.solver, setup.x_init
     B, S, fixed, build_s = setup.B, setup.S, setup.fixed, setup.build_s
-    print(f"[4/14] srds-dit-sd2: {cfg.num_layers} layers, d {cfg.d_model}, "
+    print(f"[4/15] srds-dit-sd2: {cfg.num_layers} layers, d {cfg.d_model}, "
           f"{cfg.num_heads}x{cfg.resolved_head_dim} heads, {cfg.dtype}, "
           f"{dit.param_count(model) / 1e6:.1f} M params, built in "
           f"{build_s:.1f} s", flush=True)
@@ -3545,6 +4059,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"  phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
 
+    # ---- 15. the model-parallel DiT, the mesh engine, the DP step --------
+    model_parallel_phase(torch, ops, C, 15, driver_counts)
+    torch.cuda.empty_cache()
+
     sources = {"flash_attention_fwd": (
         "cuda", "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
         "src/repro/kernels/flash_attention.py:85"),
@@ -3589,7 +4107,10 @@ def main() -> int:
             "src/repro/kernels/flash_attention.py:494"),
         "selective_scan_bwd": (
             "cuda", "src/repro_torch/kernels/csrc/selective_scan.cu",
-            "src/repro/models/hymba.py:55")}
+            "src/repro/models/hymba.py:55"),
+        "flash_attention_fwd_shard": (
+            "cuda", "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
+            "src/repro/kernels/flash_attention.py:85")}
     # a kernel's launches are those of its path: DiT training for the
     # backward, the l2_mean serving run for parareal_update, the served
     # qwen3-8b requests for the causal GQA forward (the same wrapper and
@@ -3598,7 +4119,9 @@ def main() -> int:
     # wrappers and counters as the DiT's backward), rwkv6-1.6b training
     # for the WKV backward, the served hymba-1.5b requests for the window
     # forward and the selective scan, hymba-1.5b training for the window
-    # backward and the scan's backward, DiT serving for the rest
+    # backward and the scan's backward, phase 15's row-sharded body for
+    # the forward at the shard shape (Sq = S/2, Sk = S), DiT serving for
+    # the rest
     path_of = dict.fromkeys(BWD_KERNELS, "train_loop")
     path_of["parareal_update"] = "serve_l2_mean"
     path_of["flash_attention_fwd_causal_gqa"] = "serve_qwen3-8b"
@@ -3611,10 +4134,12 @@ def main() -> int:
     path_of.update(dict.fromkeys((k + "_window" for k in BWD_KERNELS),
                                  "train_hymba-1.5b"))
     path_of["selective_scan_bwd"] = "train_hymba-1.5b"
+    path_of["flash_attention_fwd_shard"] = "shard_body"
     kernels = []
     for name, (route, source, replaces) in sources.items():
         first = cases[name][0]            # the main path's shape
-        counter = name.replace("_causal_gqa", "").replace("_window", "")
+        counter = name.replace("_causal_gqa", "").replace(
+            "_window", "").replace("_shard", "")
         by_path = {"srds_sample": main_counts[counter],
                    "ddpm_srds": ddpm_counts[counter],
                    "paradigms": pd_counts[counter],

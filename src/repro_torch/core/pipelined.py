@@ -6,7 +6,11 @@ Both are SPMD: every rank of a mesh calls the sampler on the same
 one process per rank; its collectives become NCCL (CUDA tensors) or gloo
 (CPU tensors) calls on the mesh dim's process group.  A tensor on the
 wrong backend's device raises: the drivers never switch backend, and
-never fall back to the single-program path.
+never fall back to the single-program path.  A model-parallel
+:class:`repro_torch.core.denoiser.Denoiser` runs through its
+``inner_eval(mesh)`` glue on the mesh's other dims (the DiT's patch rows
+over ``model``), so time, data and model compose on one
+``make_srds_mesh(t, d, m)``.
 
 :func:`make_sharded_sampler`
     Algorithmically :func:`repro_torch.core.parareal.srds_sample`: both
@@ -35,10 +39,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.parallel.collectives import (BACKENDS, all_gather_dim,
+                                              check_backend)
 from repro_torch.transfer import host_to_device
 
 from .accel import resolve_accel
-from .denoiser import as_denoiser
+from .denoiser import as_denoiser, check_driver_dims
 from .engine import (RefineState, SRDSConfig, SRDSResult, convergence_norm,
                      fold_fine, parareal_update, resolve_blocks,
                      resolve_fused, result_from_state, run_parareal)
@@ -49,39 +55,19 @@ from .window import ExactPrefix, resolve_policy
 __all__ = ["BACKENDS", "make_sharded_sampler", "make_pipelined_sampler",
            "srds_sharded_local", "srds_pipelined_local"]
 
-# the process-group backend of each device type
-BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 StragglerFn = Callable[[int], object]
-
-
-def _check_backend(group, x: torch.Tensor) -> None:
-    """``x`` must live where ``group``'s backend works: NCCL for a CUDA
-    tensor, gloo for a CPU one."""
-    want = BACKENDS.get(x.device.type)
-    have = str(dist.get_backend(group))
-    if want is None or (have != want
-                        and f"{x.device.type}:{want}" not in have):
-        raise ValueError(f"a {x.device.type} tensor needs a {want} process "
-                         f"group; this group runs {have}")
-
-
-def _all_gather(t: torch.Tensor, group) -> torch.Tensor:
-    """The rank-ordered concatenation of every rank's ``t`` on dim 0."""
-    t = t.contiguous()
-    out = t.new_empty((dist.get_world_size(group) * t.shape[0],)
-                      + tuple(t.shape[1:]))
-    dist.all_gather_into_tensor(out, t, group=group)
-    return out
 
 
 def srds_sharded_local(model_fn: ModelFn, sched: DiffusionSchedule,
                        solver: SolverConfig, x_init: torch.Tensor, group,
                        cfg: SRDSConfig,
                        straggler_fn: Optional[StragglerFn] = None,
-                       tol=None) -> RefineState:
+                       tol=None, mesh=None) -> RefineState:
     """One rank's part of the block-sharded sampler (counterpart of
     ``srds_sharded_local``): ``group`` holds the ranks of the ``time``
-    dim; ``x_init (K, ...)`` is the same on all of them.
+    dim; ``x_init (K, ...)`` is the same on all of them.  A model-parallel
+    ``model_fn`` evaluates through its ``inner_eval(mesh)`` glue on the
+    other dims of ``mesh``.
 
     ``straggler_fn(p) -> (B,) bool`` marks blocks whose fresh fine solve
     is dropped at refinement ``p`` (0-indexed; the last refinement's
@@ -91,7 +77,7 @@ def srds_sharded_local(model_fn: ModelFn, sched: DiffusionSchedule,
     n = sched.num_steps
     d = dist.get_world_size(group)
     me = dist.get_rank(group)
-    den = as_denoiser(model_fn)
+    den = as_denoiser(model_fn).inner_eval(mesh)
     b_total, s_steps = resolve_blocks(n, cfg.num_blocks)
     if b_total % d != 0:
         raise ValueError(f"num_blocks={b_total} not divisible by axis size "
@@ -115,8 +101,8 @@ def srds_sharded_local(model_fn: ModelFn, sched: DiffusionSchedule,
         live = x_heads.shape[0]
         if live == b_total:
             # every block: this rank's B/d in one batch, one all_gather
-            y = _all_gather(fold_fine(F, x_heads[mine], all_starts[mine]),
-                            group)
+            y = all_gather_dim(fold_fine(F, x_heads[mine],
+                                         all_starts[mine]), 0, group)
             if straggler_fn is not None and p > 0:
                 mask = straggler_fn(p)
                 mask = mask.to(y.device, torch.bool) \
@@ -141,7 +127,7 @@ def srds_sharded_local(model_fn: ModelFn, sched: DiffusionSchedule,
                                 st[start:start + m])
         else:
             y_local = x_heads.new_zeros((m,) + tuple(x_heads.shape[1:]))
-        return _all_gather(y_local, group)[:live]
+        return all_gather_dim(y_local, 0, group)[:live]
 
     return run_parareal(G, fine_fn, x_init, all_starts,
                         tol=cfg.tol if tol is None else tol,
@@ -157,11 +143,7 @@ def _gather_lanes(res: SRDSResult, group) -> SRDSResult:
     """Join the data ranks' lanes in rank order: the sample and the
     per-lane fields on their lane axis (the histories' is the last)."""
     def lanes(t, axis):
-        if t is None:
-            return None
-        if axis == 0:
-            return _all_gather(t, group)
-        return _all_gather(t.transpose(0, 1), group).transpose(0, 1)
+        return None if t is None else all_gather_dim(t, axis, group)
 
     return SRDSResult(sample=lanes(res.sample, 0),
                       iterations=lanes(res.iterations, 0),
@@ -188,6 +170,7 @@ def make_sharded_sampler(mesh, axis: str, model_fn: ModelFn,
     ``cfg.per_sample`` (joint gating couples the lanes) and a K divisible
     by the dim's size.
     """
+    check_driver_dims(mesh, as_denoiser(model_fn), axis, data_axis)
     if data_axis is not None and not cfg.per_sample:
         raise ValueError("data_axis shards the sample batch, which is only "
                          "exact under per-sample gating — set "
@@ -198,13 +181,13 @@ def make_sharded_sampler(mesh, axis: str, model_fn: ModelFn,
         if data_axis is not None else 1
 
     def sample(x_init: torch.Tensor, tol=None) -> SRDSResult:
-        _check_backend(group, x_init)
+        check_backend(group, x_init)
         tolv = torch.as_tensor(cfg.tol if tol is None else tol,
                                dtype=torch.float32, device=x_init.device)
         if data_axis is None:
             return result_from_state(srds_sharded_local(
                 model_fn, sched, solver, x_init, group, cfg, straggler_fn,
-                tol=tolv))
+                tol=tolv, mesh=mesh))
         k = x_init.shape[0]
         if k % d_data != 0:
             raise ValueError(f"sample batch K={k} not divisible by data "
@@ -215,7 +198,7 @@ def make_sharded_sampler(mesh, axis: str, model_fn: ModelFn,
         lanes = slice(r * kl, (r + 1) * kl)
         res = result_from_state(srds_sharded_local(
             model_fn, sched, solver, x_init[lanes], group, cfg, straggler_fn,
-            tol=tolv[lanes]))
+            tol=tolv[lanes], mesh=mesh))
         return _gather_lanes(res, data_group)
 
     return sample
@@ -246,12 +229,13 @@ def _ring_shift(t: torch.Tensor, group) -> torch.Tensor:
 
 def srds_pipelined_local(model_fn: ModelFn, sched: DiffusionSchedule,
                          solver: SolverConfig, x_init: torch.Tensor, group,
-                         cfg: SRDSConfig
+                         cfg: SRDSConfig, mesh=None
                          ) -> Tuple[SRDSResult, int, int]:
     """One rank's part of the wavefront (counterpart of
     ``srds_pipelined_local``); ``group`` holds the ``time`` dim's ranks,
     one block each.  Returns ``(result, supersteps, physical_evals)``, the
-    same on every rank.
+    same on every rank.  A model-parallel ``model_fn`` evaluates through
+    its ``inner_eval(mesh)`` glue.
 
     Every working superstep makes one model call on the ``(fine, coarse)``
     pair, ``2K`` rows.  Rank ``i`` retires after
@@ -266,7 +250,7 @@ def srds_pipelined_local(model_fn: ModelFn, sched: DiffusionSchedule,
     n = sched.num_steps
     d = dist.get_world_size(group)
     me = dist.get_rank(group)
-    den = as_denoiser(model_fn)
+    den = as_denoiser(model_fn).inner_eval(mesh)
     if n % d != 0:
         raise ValueError(f"N={n} must be divisible by device count {d}")
     if resolve_accel(cfg.accel).accelerates:
@@ -392,11 +376,12 @@ def make_pipelined_sampler(mesh, axis: str, model_fn: ModelFn,
     """The wavefront SPMD sampler over ``mesh``'s ``axis`` dim (one block a
     rank): ``sample(x_init) -> (SRDSResult, supersteps, physical_evals)``
     on every rank."""
+    check_driver_dims(mesh, as_denoiser(model_fn), axis)
     group = mesh.get_group(axis)
 
     def sample(x_init: torch.Tensor):
-        _check_backend(group, x_init)
+        check_backend(group, x_init)
         return srds_pipelined_local(model_fn, sched, solver, x_init, group,
-                                    cfg)
+                                    cfg, mesh=mesh)
 
     return sample

@@ -8,7 +8,7 @@ have seen, on any device.  The procedural formulas (:func:`image_formula`,
 :func:`token_formula`) take the draws as arguments and run on the
 stream's device.  The DiT's ``ImageStream`` and the language models'
 ``LMStream`` are ported; the audio and VLM streams wait for those archs
-(ROADMAP A11), and the per-host slicing for the multi-device port (A10(b)):
+(ROADMAP A11), and the per-host slicing for the multi-device port (A10(c)):
 the one host takes the whole global batch.  A stream's ``batch`` copies
 its draws to the device through pinned memory, non-blocking, so a
 training loop never waits for the card to fetch its next batch.

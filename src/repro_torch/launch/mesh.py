@@ -17,7 +17,7 @@ rank and the world size (:func:`spawn_ranks` does so for N local ranks).
     results = spawn_ranks(work, 4, device_type="cpu")   # gloo, 4 ranks
 
 The TPU roofline constants of the JAX module are not ported; the
-production pod meshes wait for ROADMAP A10(b).
+production pod meshes wait for ROADMAP A10(c).
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from typing import Callable, List, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.pipelined import BACKENDS
+from repro_torch.parallel.collectives import BACKENDS
 
 __all__ = ["init_process_group", "make_srds_mesh", "make_test_mesh",
            "spawn_ranks"]
@@ -59,7 +59,7 @@ def make_srds_mesh(time: int, data: int = 1, model: int = 1, *,
                    device_type: str = "cuda"):
     """The SRDS ``(time, data, model)`` mesh: Parareal blocks over
     ``time``, independent sample lanes over ``data``, the denoiser's own
-    parallelism over ``model`` (A10(b)).  Dims of size 1 are kept, so one
+    parallelism over ``model``.  Dims of size 1 are kept, so one
     driver covers every composition; needs ``time * data * model`` ranks
     in the default group.  Rank ``r`` sits at ``(r // (data * model),
     (r // model) % data, r % model)``, row-major as JAX's mesh."""

@@ -17,12 +17,12 @@ optimizer state, so a JAX train state continues here;
 ``torch.Generator``.  adaLN-zero leaves ``mod``, ``mod_b``, ``mod_f``,
 ``mod_fb`` and ``patch_out`` at zero, so a fresh DiT predicts eps == 0.
 The parameters are trainable; the samplers' :func:`make_denoiser` runs
-without autograd.
+without autograd, on one device or patch-sharded over a mesh dim.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -92,9 +92,18 @@ class DiT(nn.Module):
         self.patch_out = _param((d, p_in), dtype, device)
 
     def forward(self, x_img: torch.Tensor, t: torch.Tensor, *,
-                use_kernel: Optional[bool] = None) -> torch.Tensor:
+                use_kernel: Optional[bool] = None, shard_rank: int = 0,
+                kv_gather: Optional[Callable] = None) -> torch.Tensor:
         """x_img: (B, H, W, C); t: (B,) conditioning times -> eps.
-        ``use_kernel=False`` takes the plain attention (a yardstick)."""
+        ``use_kernel=False`` takes the plain attention (a yardstick).
+
+        The row-sharded form (JAX's ``dit_forward(..., shard_axis=)``):
+        ``x_img`` is shard ``shard_rank`` of ``m`` equal row shards of the
+        image, its positions are offset by ``shard_rank * (gh * gw)``
+        (row-major patches make a row shard one contiguous range), and
+        ``kv_gather`` joins every layer's projected K and V along the
+        sequence, so the local queries attend to the whole image.  Patch
+        embedding, modulation, the MLP and unpatchify are per position."""
         cfg = self.cfg
         b, h, w, c = x_img.shape
         p = cfg.patch_size
@@ -102,7 +111,8 @@ class DiT(nn.Module):
         dtype = self.patch_in.dtype
         patches = x_img.reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5)
         patches = patches.reshape(b, gh * gw, p * p * c).to(dtype)
-        x = patches @ self.patch_in + self.pos[:gh * gw][None]
+        off = shard_rank * gh * gw
+        x = patches @ self.patch_in + self.pos[off:off + gh * gw][None]
 
         temb = sinusoidal_time_embed(t, TIME_EMBED_DIM).to(dtype)
         temb = F.silu((temb @ self.t_mlp1).float()).to(dtype)
@@ -116,7 +126,8 @@ class DiT(nn.Module):
             attn, _ = attention_full(
                 blk.attn, h_in, num_heads=cfg.num_heads,
                 num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-                causal=False, theta=None, use_kernel=use_kernel)
+                causal=False, theta=None, use_kernel=use_kernel,
+                kv_gather=kv_gather)
             x = x + gm[:, None] * attn
             h2 = _modulate(apply_norm(x), sm, s2)
             x = x + g2[:, None] * apply_mlp(blk.mlp, h2, act="gelu")
@@ -285,16 +296,52 @@ def init_dit(cfg: ArchConfig, generator: torch.Generator,
     return model.to(resolve_device(device))
 
 
-def make_denoiser(model: DiT):
+def make_denoiser(model: DiT, *, shard_axis: Optional[str] = None,
+                  mesh=None):
     """``model_fn(x, t)`` for the samplers: x (M, H, W, C), t a scalar or
-    per-row ``(M,)``; runs without autograd."""
+    per-row ``(M,)``; runs without autograd.
+
+    With ``shard_axis`` it returns a model-parallel
+    :class:`repro_torch.core.denoiser.Denoiser` instead: the sample rows
+    (H of ``(M, H, W, C)``) split over that mesh dim (``in_spec =
+    out_spec = (None, shard_axis)``), ``shard_fn`` is the row-sharded
+    forward with the K/V all-gathered over the dim's group, and ``fn`` the
+    plain forward (the reference).  ``mesh`` binds it for standalone
+    calls (``srds_sample``)."""
 
     @torch.no_grad()
     def model_fn(x, t):
         tb = torch.as_tensor(t, dtype=torch.float32, device=x.device)
         return model(x, tb.expand(x.shape[0]))
 
-    return model_fn
+    if shard_axis is None:
+        return model_fn
+
+    from repro_torch.core.denoiser import Denoiser
+    from repro_torch.parallel.collectives import all_gather_dim
+    patch = model.cfg.patch_size
+
+    @torch.no_grad()
+    def shard_fn(x, t, mesh):
+        if x.shape[1] % patch:
+            raise ValueError(
+                f"local row-shard of {x.shape[1]} rows is not divisible by "
+                f"patch_size={patch}; pick a {shard_axis!r} axis size with "
+                f"(H / axis_size) % patch_size == 0")
+        group = mesh.get_group(shard_axis)
+
+        def kv_gather(a):         # (M, S_local, Hkv, D) -> (M, S, Hkv, D)
+            return all_gather_dim(a, 1, group)
+
+        tb = torch.as_tensor(t, dtype=torch.float32, device=x.device)
+        return model(x, tb.expand(x.shape[0]),
+                     shard_rank=mesh.get_local_rank(shard_axis),
+                     kv_gather=kv_gather)
+
+    den = Denoiser(fn=model_fn, shard_fn=shard_fn,
+                   in_spec=(None, shard_axis), out_spec=(None, shard_axis),
+                   mesh_axes={shard_axis: 1})
+    return den.bind(mesh) if mesh is not None else den
 
 
 def param_count(model: DiT) -> int:

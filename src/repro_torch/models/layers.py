@@ -9,7 +9,7 @@ mapping from the JAX leaf names to tensors.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -85,16 +85,27 @@ def attention_full(p, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
                    window: Optional[int] = None,
                    theta: Optional[float] = 10_000.0, qk_norm: bool = False,
                    positions: Optional[torch.Tensor] = None,
-                   use_kernel: Optional[bool] = None):
+                   use_kernel: Optional[bool] = None,
+                   kv_gather: Optional[Callable] = None):
     """Full-sequence attention (training, prefill, the DiT), x: (B, S, d).
     Runs through :func:`repro_torch.kernels.ops.attention` (the flash
     kernels on CUDA).  Returns ``(out (B, S, d), (k, v))`` with k after
-    qk-norm and rope, each (B, S, Hkv, D): the decode cache's layout."""
+    qk-norm and rope, each (B, S, Hkv, D): the decode cache's layout.
+
+    ``kv_gather``: the sequence-parallel hook of JAX's ``attention_full``.
+    Where ``x`` is this rank's rows of the sequence, it gathers the
+    projected K and V along the sequence dim (``(B, S_local, Hkv, D) ->
+    (B, S, Hkv, D)``), so the ``S_local`` queries attend to every key (the
+    DiT's patch rows: the flash forward at ``Sq = S_local``, ``Sk = S``).
+    Positions are the caller's: global ones for rope, or ``theta=None``.
+    The returned (k, v) are the gathered ones, as JAX's."""
     b, s, _ = x.shape
     if positions is None and theta is not None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
     q, k, v = project_qkv(p, x, num_heads, num_kv_heads, head_dim, positions,
                           theta, qk_norm)
+    if kv_gather is not None:
+        k, v = kv_gather(k), kv_gather(v)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     o = kops.attention(qt, kt, vt, causal=causal, window=window,
                        use_kernel=use_kernel)

@@ -51,8 +51,18 @@ The stochastic ``ddpm`` solver needs ``allow_inexact=True``: its frozen
 noise is drawn per interval for the whole micro-batch, so a lane's
 realization depends on its batch (same distribution, not the
 single-request run's bits).
-Block and slot-batch sharding over a mesh (``mesh``, ``axis``,
-``data_axis``) are ROADMAP A10(b) and raise ``NotImplementedError``.
+
+Over a ``torch.distributed`` mesh (SPMD: every rank builds the same
+engine and submits the same requests), the fine solves of a refinement
+split over the mesh's dims: its blocks over ``axis``, its K lanes over
+``data_axis``, and a model-parallel denoiser's sample dims over its own
+(``parallel.sharding.denoiser_spec``; the body runs ``shard_eval``, the
+DiT's rows with their K/V gathered), rejoined by one all-gather a split
+dim a refinement.  The coarse sweep and the corrector run on the whole
+arrays, through the denoiser bound to the mesh.  The engine's state is
+whole on every rank, so admission, slots, gating and the one host read a
+refinement are those of one device.  Truncating policies fall back to
+``FixedBudget`` when ``axis`` is set (the split needs every block).
 """
 from __future__ import annotations
 
@@ -64,16 +74,21 @@ import numpy as np
 import torch
 
 from repro_torch.core.accel import resolve_accel
-from repro_torch.core.denoiser import as_denoiser
+from repro_torch.core.denoiser import as_denoiser, check_driver_dims
 from repro_torch.core.engine import (IterationCost, blockwise_norm,
                                      coarse_init_sweep, convergence_norm,
-                                     fold_fine_fn, iteration_cost,
+                                     fold_fine, fold_fine_fn,
+                                     iteration_cost,
                                      predicted_evals, prefix_frontier,
                                      resolve_blocks, resolve_fused,
                                      suffix_refinement, truncated_evals)
 from repro_torch.core.schedules import make_schedule
 from repro_torch.core.solvers import ModelFn, SolverConfig, solve, solver_names
-from repro_torch.core.window import resolve_policy
+from repro_torch.core.window import FixedBudget, resolve_policy
+from repro_torch.parallel.collectives import check_backend
+from repro_torch.parallel.sharding import (denoiser_spec, gather_spec,
+                                          mesh_shape, microbatch_spec,
+                                          slice_spec)
 from repro_torch.serve.clock import Clock, VirtualClock
 from repro_torch.transfer import host_to_device
 
@@ -495,8 +510,11 @@ class DiffusionSamplingEngine:
       sample_shape / solver / schedule / num_steps: request defaults.
       batch_size: K, the slots of each micro-batch.
       num_blocks / max_iters / norm: SRDS knobs, as in ``SRDSConfig``.
-      mesh / axis / data_axis: block and slot sharding (ROADMAP A10(b);
-        raise ``NotImplementedError``).
+      mesh / axis / data_axis: a ``DeviceMesh`` and the names of its
+        dims that split the fine solves' blocks (``axis``; ``num_blocks``
+        must divide) and the slot batch (``data_axis``; ``batch_size``
+        must divide).  A model-parallel denoiser is bound to ``mesh``
+        (without one it needs a bound mesh) and splits its own dims.
       allow_inexact: the opt-in for the stochastic ``ddpm`` solver,
         whose batch-shaped frozen noise gives distribution-level, not
         lane-exact, results.
@@ -529,12 +547,23 @@ class DiffusionSamplingEngine:
                  window=None, clock: Optional[Clock] = None, accel=None,
                  device="cuda",
                  noise_fn: Optional[Callable] = None):
-        if mesh is not None or axis is not None or data_axis is not None:
-            raise NotImplementedError("sharding the serving engine over a "
-                                      "mesh (mesh, axis, data_axis) is not "
-                                      "ported yet (ROADMAP A10(b))")
         self.model_fn = model_fn
-        self.denoiser = as_denoiser(model_fn)
+        # a model-parallel denoiser is bound to the engine's mesh: the
+        # coarse sweep and the corrector evaluate it standalone
+        den = as_denoiser(model_fn)
+        if den.is_model_parallel:
+            if mesh is not None:
+                den.check_mesh(mesh)
+                if den.mesh is None:
+                    den = den.bind(mesh)
+            elif den.mesh is None:
+                raise ValueError(
+                    "model-parallel denoiser needs a mesh: pass mesh= to "
+                    "the engine or bind one with Denoiser.bind(mesh)")
+        self.denoiser = den
+        self.mesh = mesh
+        self.axis = axis
+        self.data_axis = data_axis
         self.sample_shape = tuple(sample_shape)
         self.solver = solver
         self.schedule = schedule
@@ -549,6 +578,9 @@ class DiffusionSamplingEngine:
         self.device = torch.device(device)
         self.noise_fn = noise_fn if noise_fn is not None else default_noise
         pol = resolve_policy(window, truncate)
+        if axis is not None and pol.truncates:
+            # the block split slices the full block dim
+            pol = FixedBudget()
         self.window = pol
         self.truncate = pol.truncates
         self.truncate_quantum = truncate_quantum
@@ -564,6 +596,22 @@ class DiffusionSamplingEngine:
                 f"/ window=FixedBudget().")
         self.use_fused = resolve_fused(
             use_fused, torch.empty(0, device=self.device))
+        if axis is not None or data_axis is not None:
+            if mesh is None:
+                raise ValueError("axis and data_axis require a mesh")
+            # unbound names raise
+            denoiser_spec(data_axis, den, mesh=mesh)
+            if axis is not None:
+                microbatch_spec(axis, mesh=mesh)
+            check_driver_dims(mesh, den, axis, data_axis)
+        if data_axis is not None:
+            d = mesh_shape(mesh)[data_axis]
+            if batch_size % d != 0:
+                raise ValueError(f"batch_size={batch_size} not divisible by "
+                                 f"data axis size {d}")
+        if mesh is not None:
+            check_backend(mesh.get_group(mesh.mesh_dim_names[0]),
+                          torch.empty(0, device=self.device))
         # completed lanes' samples are copied on their own stream, so the
         # copy does not queue behind a refinement dispatched after them
         self.fetch_stream = torch.cuda.Stream(self.device) \
@@ -854,10 +902,7 @@ class DiffusionSamplingEngine:
         def G(x, i0):
             return solve(den, sched, solver, x, i0, 1, S)
 
-        def F(x, i0):
-            return solve(den, sched, solver, x, i0, S, 1)
-
-        fine = fold_fine_fn(F, starts)
+        fine = self._make_fine(sched, solver, starts, B, S)
 
         def init_fn(x_init, x_tail, prev_coarse, new_mask):
             """Coarse init of the whole slot batch; only the new lanes
@@ -955,3 +1000,43 @@ class DiffusionSamplingEngine:
         step_windowed.cache = step_win_cache
         self._programs[key] = (init_fn, step_for, B, S)
         return self._programs[key]
+
+    def _make_fine(self, sched, solver: SolverConfig, starts: np.ndarray,
+                   B: int, S: int) -> Callable:
+        """The fine solves of a refinement's block heads ``(b, K,
+        *shape)``: one batch on one device, or this rank's blocks
+        (``axis``), lanes (``data_axis``) and a model-parallel denoiser's
+        sample dims (its ``shard_eval``) of them, rejoined by one
+        all-gather a split dim."""
+        den, mesh = self.denoiser, self.mesh
+
+        if mesh is None or (self.axis is None and self.data_axis is None
+                            and not den.is_model_parallel):
+            def F(x, i0):     # standalone: self-wraps if model-parallel
+                return solve(den, sched, solver, x, i0, S, 1)
+            return fold_fine_fn(F, starts)
+
+        spec = denoiser_spec(self.data_axis, den, mesh=mesh)
+        ev = den.shard_eval(mesh)
+        if self.axis is not None:
+            d = mesh_shape(mesh)[self.axis]
+            if B % d != 0:
+                raise ValueError(f"num_blocks={B} not divisible by axis "
+                                 f"size {d}")
+            spec = (self.axis,) + spec[1:]
+            b_local = B // d
+            me = mesh.get_local_rank(self.axis)
+            my_starts = starts[me * b_local:(me + 1) * b_local]
+
+        def F(x, i0):
+            return solve(ev, sched, solver, x, i0, S, 1)
+
+        def fine(x_heads, p=None, y_prev=None):
+            # the block split runs on every block (no truncation there);
+            # otherwise the heads may be a truncated suffix
+            st = my_starts if self.axis is not None \
+                else starts[B - x_heads.shape[0]:]
+            y = fold_fine(F, slice_spec(x_heads, spec, mesh), st)
+            return gather_spec(y, spec, mesh)
+
+        return fine

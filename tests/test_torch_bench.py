@@ -282,11 +282,22 @@ def test_check_counts_rules():
              serial_truncated=174, t_truncated_s=9.0),
         dict(name="table13/n100_tol3", iters_plain=7, iters_accel=6,
              evals_plain=780, evals_accel=670, iters_saving_pct=14.3,
-             headline_met=False)])
+             headline_met=False),
+        dict(name="table6/mesh_t2d2m2", iterations=1, max_abs_diff=0.0,
+             tol=5e-5, within_tol=True, t_mesh_s=9.0)])
     failures, notes = check_counts.check(good, base)
     assert failures == []
-    assert any("table6" in n and "A10" in n for n in notes)
+    assert not any("table6" in n for n in notes)
     assert any("table14" in n and "A12" in n for n in notes)
+    # table6's mesh row is gated: its iterations and its within_tol
+    for change, want in ((dict(iterations=2), "iterations 2 != baseline 1"),
+                         (dict(within_tol=False, max_abs_diff=1e-3),
+                          "within_tol is false (max_abs_diff 0.001 > tol "
+                          "5e-05)")):
+        mesh = json.loads(json.dumps(good))
+        mesh["rows"][2].update(change)
+        failures, _ = check_counts.check(mesh, base)
+        assert failures == [f"table6/mesh_t2d2m2: {want}"]
     assert any("C5" in n and "iters_plain 7" in n for n in notes)
     # an exact count that moved, a reference value the port missed, a
     # missing row: each fails

@@ -23,6 +23,8 @@ import jax
 
 jax.config.update("jax_enable_x64", True)
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +32,7 @@ import torch
 
 import repro.core as J
 import repro_torch.core as T
+from conftest import REPO
 from repro.core.schedules import DiffusionSchedule as JSchedule
 
 SAMPLE_TOL = 1e-10
@@ -243,10 +246,13 @@ def test_eval_accounting_matches_jax():
 
 
 def test_unported_paths_raise_naming_their_roadmap_item():
-    """What is left unported raises and names its ROADMAP item: the
-    serving engine's mesh options (A10(b)); JAX's in-program block
-    sharding, which has no torch counterpart, names the port's sharded
-    driver (A10) and the dryrun (A12).  Straggler reuse and wavefront
+    """What is left unported raises and names its ROADMAP item: JAX's
+    in-program block sharding, which has no torch counterpart, names the
+    port's sharded driver (A10) and the dryrun (A12).  The serving
+    engine's mesh options are ported (A10(b); on gloo ranks in
+    ``tests/test_torch_model_parallel.py``): here they reach their own
+    checks, a model-parallel denoiser without a mesh needs one, and no
+    message of the port names A10(b).  Straggler reuse and wavefront
     pricing are ported (``tests/test_torch_pipelined.py``), and so is the
     ddpm solver (A3): it runs, in the samplers and behind the engine's
     ``allow_inexact``."""
@@ -266,10 +272,20 @@ def test_unported_paths_raise_naming_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="make_sharded_sampler"):
         teng.run_parareal(None, None, x0, np.arange(4) * 4, tol=0.0,
                           max_iters=4, constrain=lambda t: t)
-    for kw in (dict(mesh=object()), dict(axis="data"),
-               dict(data_axis="data")):
-        with pytest.raises(NotImplementedError, match=r"A10\(b\)"):
+    for kw in (dict(axis="time"), dict(data_axis="data")):
+        with pytest.raises(ValueError, match="require a mesh"):
             DiffusionSamplingEngine(_torch_matmul, (8,), device="cpu", **kw)
+    mp = T.Denoiser(fn=_torch_matmul, shard_fn=lambda x, t, mesh: x,
+                    in_spec=(None, "model"), out_spec=(None, "model"),
+                    mesh_axes={"model": 1})
+    with pytest.raises(ValueError, match="needs a mesh"):
+        DiffusionSamplingEngine(mp, (8,), device="cpu")
+    src = os.path.join(REPO, "src", "repro_torch")
+    for root, _, files in os.walk(src):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(root, f)) as fh:
+                    assert "A10(b)" not in fh.read(), f
     eng = DiffusionSamplingEngine(_torch_matmul, (8,), device="cpu",
                                   allow_inexact=True, num_steps=16,
                                   dtype=torch.float64)

@@ -62,9 +62,11 @@ GRAD_BF16_ATOL, GRAD_BF16_RTOL = 4e-3, 1e-2
 SUM_RTOL = 1e-5
 F16_TOL = 2e-3        # two f16 ulps of values of order 1
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# (B, H, Sq, Sk, D): SD-v2's head dim 72, CIFAR's 64, ragged Sq and Sk
+# (B, H, Sq, Sk, D): SD-v2's head dim 72, CIFAR's 64, ragged Sq and Sk,
+# and the patch-sharded SD-v2 DiT's row shard (Sq = S/2 against Sk = S)
 ATTN_CASES = [(1, 2, 64, 64, 64), (2, 2, 48, 48, 72), (1, 3, 40, 77, 72),
-              (1, 2, 33, 50, 64), (2, 16, 1024, 1024, 72)]
+              (1, 2, 33, 50, 64), (2, 16, 1024, 1024, 72),
+              (2, 16, 512, 1024, 72)]
 
 
 def _rand(seed, shape):

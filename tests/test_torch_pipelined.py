@@ -669,12 +669,36 @@ def test_table6_rank_body_equals_single_program(request, w, x32):
     assert res["iters"] == int(jres.iterations)
 
 
-def test_table6_rows(capsys):
-    """One rank of gloo through ``main``; the mesh row names A10(b)."""
-    from repro_torch.benchmarks import table6_devices
-    rows = table6_devices.main(device="cpu", worlds=(1,))
+def test_table6_rows(capsys, tmp_path):
+    """One rank of gloo through ``main``, then the mesh row: the reduced
+    DiT over a (2, 2, 2) mesh of 8 gloo ranks against ``srds_sample`` on
+    one process, in JAX's fields, at the baseline's 1 iteration and within
+    its 5e-5 (the adaLN-zero DiT predicts eps == 0, so the two agree
+    bitwise), written into the ``--out`` artifact ``check_counts``
+    gates."""
+    from repro_torch.benchmarks import check_counts, table6_devices
+    out = str(tmp_path / "bench.json")
+    rows = table6_devices.main(device="cpu", worlds=(1,), out=out)
     assert [r["name"] for r in rows] == ["table6/devices1",
                                          "table6/mesh_t2d2m2"]
     assert rows[0]["backend"] == "gloo" and rows[0]["iterations"] > 0
+    mesh = rows[1]
+    assert (mesh["devices"], mesh["mesh_time"], mesh["mesh_data"],
+            mesh["mesh_model"]) == (8, 2, 2, 2)
+    assert mesh["iterations"] == 1 and mesh["tol"] == 5e-5
+    assert mesh["within_tol"] and mesh["max_abs_diff"] == 0.0
+    assert mesh["t_mesh_s"] > 0
     lines = capsys.readouterr().out.strip().splitlines()
-    assert lines[-1] == "table6/mesh_t2d2m2,-1.0,A10(b)"
+    assert lines[-2].startswith("table6/mesh_t2d2m2,")
+    assert lines[-2].endswith(",iters=1;max_abs_diff=0.00e+00;"
+                              "within_tol=True")
+    with open(out) as f:
+        art = json.load(f)
+    assert [r["name"] for r in art["rows"]] == ["table6/mesh_t2d2m2"]
+    base = os.path.join(REPO, "benchmarks", "baselines",
+                        "BENCH_core_baseline.json")
+    with open(base) as f:
+        brow = [r for r in json.load(f)["rows"]
+                if r["name"] == "table6/mesh_t2d2m2"]
+    failures, _ = check_counts.check(art, {"rows": brow})
+    assert failures == []

@@ -274,3 +274,294 @@ def wavefront(rank, world):
     from repro_torch.benchmarks import table3_pipelined
     out["table3"] = table3_pipelined.wavefront_rank(rank, world, 5 * world)
     return out
+
+
+# --------------------------------------------------------------------------
+# the model-parallel DiT, the mesh-sharded engine and the compressed step
+# (tests/test_torch_model_parallel.py)
+# --------------------------------------------------------------------------
+
+# table6's reduced DiT (JAX's MESH_CODE): srds-dit-cifar cut to 2 layers,
+# d 32, 2 heads of 16, d_ff 64, patch 2, f32, on 4 x 8 x 8 x 3 latents
+MP_DIT = dict(num_layers=2, d_model=32, num_heads=2, num_kv_heads=2,
+              head_dim=16, d_ff=64, patch_size=2, dtype="float32")
+MP_SHAPE = (8, 8, 3)
+MP_N, MP_BLOCKS, MP_K = 8, 4, 4
+MP_REQ_TOL = 1e-3
+MP_TREE_SEED = 5
+# the f64 toy of JAX's block-axis engine tests
+TOY_SCALE = np.linspace(0.5, 1.5, 6)
+TOY_TOLS = (1e-2, 1e-4, 1e-5)
+# the compressed step: reduced qwen3-8b, global batch 4 x 16, 3 steps
+DP_ARCH, DP_BATCH, DP_SEQ, DP_STEPS, DP_LR = "qwen3-8b", 4, 16, 3, 1e-3
+DP_GRAD_SHAPES = {"a": (5, 7), "b": (11,), "c": (3, 2, 4)}
+
+
+def mp_cfg():
+    import dataclasses
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("srds-dit-cifar"), **MP_DIT)
+
+
+def mp_tree():
+    """The reduced DiT's JAX-layout tree, every leaf drawn nonzero (an
+    adaLN-zero init predicts eps == 0 and would compare zeros)."""
+    from repro_torch.models.dit import random_jax_tree
+    return random_jax_tree(mp_cfg(), seed=MP_TREE_SEED)
+
+
+def mp_x0():
+    return np.random.default_rng(7).standard_normal(
+        (MP_K,) + MP_SHAPE).astype(np.float32)
+
+
+def toy_requests(n):
+    return [(i, TOY_TOLS[i % 3]) for i in range(n)]
+
+
+def dp_batches():
+    """The compressed step's token batches, one a step."""
+    rng = np.random.default_rng(11)
+    return [rng.integers(0, 256, (DP_BATCH, DP_SEQ)).astype(np.int32)
+            for _ in range(DP_STEPS)]
+
+
+def dp_grads(rank):
+    """Per-rank gradient dicts (and carries) for the collective alone."""
+    rng = np.random.default_rng(100 + rank)
+    g = {k: rng.standard_normal(s).astype(np.float32)
+         for k, s in DP_GRAD_SHAPES.items()}
+    ef = {k: (0.01 * rng.standard_normal(s)).astype(np.float32)
+          for k, s in DP_GRAD_SHAPES.items()}
+    return g, ef
+
+
+def lse_inputs(rank):
+    rng = np.random.default_rng(200 + rank)
+    return (rng.standard_normal((3, 4, 8)).astype(np.float32),
+            rng.standard_normal((3, 4)).astype(np.float32))
+
+
+def _table_noise(table):
+    """A ``noise_fn`` handing out JAX's draws by seed."""
+    def noise_fn(seed, shape, dtype, device):
+        return torch.from_numpy(np.array(table[int(seed)])).to(
+            device=device, dtype=dtype)
+    return noise_fn
+
+
+def _serve(den, noise, reqs, shape, dtype, **kw):
+    """Serve ``reqs`` ((seed, tol) pairs) and return each response's
+    fields plus the engine's eval counters."""
+    from repro_torch.serve import DiffusionSamplingEngine, SampleRequest
+    eng = DiffusionSamplingEngine(den, shape, device="cpu", dtype=dtype,
+                                  noise_fn=_table_noise(noise), **kw)
+    rids = [eng.submit(SampleRequest(seed=s, tol=t)) for s, t in reqs]
+    out = eng.drain()
+    st = eng.stats()
+    return dict(
+        sample=np.stack([out[r].sample for r in rids]),
+        iterations=np.array([out[r].iterations for r in rids]),
+        delta_history=[np.asarray(out[r].delta_history) for r in rids],
+        model_evals=np.array([out[r].model_evals for r in rids]),
+        physical_evals=st["physical_evals"],
+        effective_evals=st["effective_evals"])
+
+
+def _toy_model(x, t):
+    scale = torch.from_numpy(TOY_SCALE)
+    return torch.tanh(x * scale) * (0.5 + 0.001 * t[:, None])
+
+
+def model_parallel(rank, world, dit_noise, toy_noise):
+    """8 ranks: the reduced DiT over a (2, 2, 2) mesh in ``srds_sample``,
+    the sharded driver and the engine, the port's single-process runs
+    they are held to, the f64 toy engine over block and data dims, and
+    the refusals."""
+    import repro_torch.core as C
+    from repro_torch.configs.srds_dit import dit_denoiser
+    from repro_torch.core.pipelined import make_sharded_sampler
+    from repro_torch.launch.mesh import make_srds_mesh, make_test_mesh
+    from repro_torch.models.dit import load_jax_params
+    from repro_torch.parallel import collectives
+
+    mesh = make_srds_mesh(2, 2, 2, device_type="cpu")
+    cfg = mp_cfg()
+    model = load_jax_params(cfg, mp_tree(), device="cpu")
+    den = dit_denoiser(cfg, model, shard_axis="model", mesh=mesh)
+    ref_fn = dit_denoiser(cfg, model)
+    sched = C.make_schedule("ddpm_linear", MP_N)
+    solver = C.SolverConfig("ddim")
+    x0 = torch.from_numpy(mp_x0())
+    cfg_s = C.SRDSConfig(num_blocks=MP_BLOCKS, per_sample=True)
+    out = {"coords": tuple(mesh.get_local_rank(a)
+                           for a in ("time", "data", "model"))}
+    out["single/srds"] = _res(C.srds_sample(ref_fn, sched, solver, x0,
+                                            cfg_s))
+    g0 = collectives.all_gather_dim.calls
+    out["mp/srds"] = _res(C.srds_sample(den, sched, solver, x0, cfg_s))
+    out["mp/srds_gathers"] = collectives.all_gather_dim.calls - g0
+    out["mp/sharded"] = _res(make_sharded_sampler(
+        mesh, "time", den, sched, solver, cfg_s, data_axis="data")(x0))
+    reqs = [(i, MP_REQ_TOL) for i in range(4)]
+    kw = dict(solver=solver, num_steps=MP_N, batch_size=MP_K,
+              num_blocks=MP_BLOCKS)
+    out["engine/single"] = _serve(ref_fn, dit_noise, reqs, MP_SHAPE,
+                                  torch.float32, **kw)
+    out["engine/single_fixed"] = _serve(ref_fn, dit_noise, reqs, MP_SHAPE,
+                                        torch.float32, truncate=False, **kw)
+    out["engine/data"] = _serve(den, dit_noise, reqs, MP_SHAPE,
+                                torch.float32, mesh=mesh, data_axis="data",
+                                **kw)
+    out["engine/time_data"] = _serve(den, dit_noise, reqs, MP_SHAPE,
+                                     torch.float32, mesh=mesh, axis="time",
+                                     data_axis="data", **kw)
+    # refusals on the mesh
+    out["refused/rows"] = _error(lambda: den(torch.zeros((1, 6, 8, 3)),
+                                             torch.zeros(1)))
+    out["refused/batch"] = _error(lambda: _serve(
+        den, dit_noise, reqs, MP_SHAPE, torch.float32, mesh=mesh,
+        data_axis="data", **dict(kw, batch_size=3)))
+    out["refused/blocks"] = _error(lambda: _serve(
+        den, dit_noise, reqs[:1], MP_SHAPE, torch.float32, mesh=mesh,
+        axis="time", **dict(kw, num_blocks=1)))
+    out["refused/same_dim"] = _error(lambda: make_sharded_sampler(
+        mesh, "model", den, sched, solver, cfg_s))
+
+    # JAX's block-axis engine cases on the f64 toy
+    toy = dict(solver=solver, num_steps=64, batch_size=2)
+    mesh8 = make_test_mesh((8,), ("time",), device_type="cpu")
+    mesh42 = make_test_mesh((4, 2), ("time", "data"), device_type="cpu")
+    for n, name, mkw in ((5, "toy/plain5", {}),
+                         (6, "toy/plain6", {}),
+                         (5, "toy/time", dict(mesh=mesh8, axis="time")),
+                         (5, "toy/data", dict(mesh=mesh42,
+                                              data_axis="data")),
+                         (6, "toy/time_data", dict(mesh=mesh42, axis="time",
+                                                   data_axis="data"))):
+        out[name] = _serve(_toy_model, toy_noise, toy_requests(n), (6,),
+                           torch.float64, **toy, **mkw)
+    out["refused/toy_blocks"] = _error(lambda: _serve(
+        _toy_model, toy_noise, toy_requests(1), (6,), torch.float64,
+        mesh=mesh8, axis="time", **dict(toy, num_blocks=4)))
+    out["refused/toy_batch"] = _error(lambda: _serve(
+        _toy_model, toy_noise, toy_requests(1), (6,), torch.float64,
+        mesh=mesh42, data_axis="data", **dict(toy, batch_size=3)))
+    return out
+
+
+def dp_cfg():
+    from repro_torch.configs import get_arch
+    return get_arch(DP_ARCH).reduced()
+
+
+def jax_leaves(cfg, tree):
+    """``{port parameter name: numpy leaf}`` of a JAX-layout tree
+    (``blocks`` leaves split by layer)."""
+    from repro_torch.models.transformer import jax_leaf_names
+    out = {}
+    for name, path, layer in jax_leaf_names(cfg):
+        leaf = tree
+        for part in path.split("/"):
+            leaf = leaf[part]
+        out[name] = np.asarray(leaf if layer is None else leaf[layer])
+    return out
+
+
+# the compressed step's runs from each carried JAX state: the step itself
+# and two controls, each rank taking the other rank's half of the batch
+# and the optimizer applying the negated mean
+DP_RUNS = ("step", "swapped", "negated")
+
+
+def compressed(rank, world, tree, jsteps):
+    """2 ranks: ``compressed_psum_mean`` and ``lse_combine`` on per-rank
+    draws, then the compressed step on reduced qwen3-8b, each step started
+    from JAX's state entering it (parameters, optimizer state, this rank's
+    carry) and run as itself and as its two controls (``DP_RUNS``): the
+    loss and grad norm, the parameters, this rank's carry and the quanta
+    (the group's scale of each tensor) it came out with."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.parallel import collectives
+    from repro_torch.train import (init_error_feedback,
+                                   make_dp_train_step_compressed)
+
+    mesh = make_test_mesh((world,), ("data",), device_type="cpu")
+    group = mesh.get_group("data")
+    out = {}
+    g, ef = dp_grads(rank)
+    for name, carry in (("zero", {k: np.zeros_like(v) for k, v in
+                                  ef.items()}), ("carry", ef)):
+        mean, new = collectives.compressed_psum_mean(
+            {k: torch.from_numpy(v) for k, v in g.items()}, group,
+            {k: torch.from_numpy(v) for k, v in carry.items()})
+        out[f"psum/{name}"] = ({k: v.numpy() for k, v in mean.items()},
+                               {k: v.numpy() for k, v in new.items()})
+    o, lse = lse_inputs(rank)
+    out["lse"] = collectives.lse_combine(torch.from_numpy(o),
+                                         torch.from_numpy(lse),
+                                         group).numpy()
+
+    real = collectives.compressed_psum_mean
+    seen = {}
+
+    def recorded(grads, grp, carry, scale_groups):
+        """The step's collective, its quanta kept and, for the negated
+        control, its mean negated."""
+        s = {k: float(collectives._scale(grads[k].float() + carry[k]))
+             for k in grads}
+        shared = {}
+        for k, key in scale_groups.items():
+            shared[key] = max(shared.get(key, 0.0), s[k])
+        keys = sorted(shared)
+        vals = torch.tensor([shared[k] for k in keys])
+        dist.all_reduce(vals, op=dist.ReduceOp.MAX, group=grp)
+        top = dict(zip(keys, vals.tolist()))
+        seen["quanta"] = {k: top[scale_groups[k]] for k in grads}
+        mean, new = real(grads, grp, carry, scale_groups=scale_groups)
+        if seen["run"] == "negated":
+            mean = {k: -v for k, v in mean.items()}
+        return mean, new
+
+    collectives.compressed_psum_mean = recorded
+    try:
+        cfg = dp_cfg()
+        step = make_dp_train_step_compressed(cfg, AdamWConfig(lr=DP_LR),
+                                             mesh, loss_kind="lm")
+        steps = []
+        for i, toks in enumerate(dp_batches()):
+            t = torch.from_numpy(toks).long()
+            runs = {}
+            for run in DP_RUNS:
+                params = tree if i == 0 else jsteps[i - 1]["params"]
+                model = tf.load_jax_params(cfg, params, device="cpu",
+                                           trainable=True)
+                if i == 0:
+                    opt = init_opt_state(dict(model.named_parameters()))
+                    ef = init_error_feedback(model)
+                else:
+                    opt = tf.load_jax_opt_state(model, jsteps[i - 1]["opt"])
+                    ef = {k: torch.from_numpy(v.copy()) for k, v in
+                          jax_leaves(cfg, jsteps[i - 1]["ef"][rank]).items()}
+                b = t if run != "swapped" else torch.roll(
+                    t, DP_BATCH // world, 0)
+                seen["run"] = run
+                model, opt, ef, m = step(model, opt, ef,
+                                         {"tokens": b, "labels": b})
+                runs[run] = dict(
+                    loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                    params={k: v.detach().numpy().copy()
+                            for k, v in model.named_parameters()},
+                    carry={k: v.numpy().copy() for k, v in ef.items()},
+                    quanta=seen["quanta"])
+            steps.append(runs)
+        out["steps"] = steps
+        out["refused/batch"] = _error(lambda: step(
+            model, opt, ef, {"tokens": t[:3], "labels": t[:3]}))
+    finally:
+        collectives.compressed_psum_mean = real
+    return out
