@@ -264,6 +264,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    D 72, the tensor-core route) on each layer's own inputs of a shard
    forward against its plain version within ``SHARD_FLASH_REL_L2``; the
    phase's seconds.
+16. the tensor-, sequence- and data-parallel language models at one NCCL
+   rank, a ``(data 1, model 1)`` mesh with ``ParallelCtx(mesh=...)``:
+   (a) full-width, full-depth ``qwen3-8b`` serving phase 8's 4 requests
+   through ``ServingEngine`` on the flash-decoding cache, in turns with
+   the plain engine on the same parameters (plain, mesh, mesh, plain):
+   tokens and the last step's logits bitwise, launch counts equal, the
+   collectives a prefill and a decode step issue, one decode step of each
+   under the profiler (the same launches counted, each step's records of
+   the port's kernels its launches short of them by no more than the
+   records its window lost, C12; the kernel names only the mesh step runs
+   listed), and the plain prefill
+   with the unembedding one ulp up as the control that must miss the
+   bitwise check; (b) ``qwen3-8b`` at 8 of 36 layers trained 2 steps at 2 x 2048
+   through ``launch.train.build_on_mesh`` (``sp``, ZeRO-1) and through
+   the plain step from the same seed: each step's loss and grad norm
+   bitwise, every parameter and moment after each step bitwise (exact
+   integer digests of their bits), launch counts equal; (c) the same for
+   ``rwkv6-1.6b`` and ``hymba-1.5b`` cut to 4 layers at full width (one
+   step each), which puts B6 and the scan on the path; (d) the kernels at
+   the shard shapes one rank of ``model`` 2 or 16 gets, each against its
+   twin within phase 3's limits, with ms, the bound and SDPA's time for
+   the flash rows (``shard_kernel_rows``; rows ``<kernel>_model<m>`` in
+   the kernels line, their launches the phase's world-1 path's); the
+   phase's seconds.
 
 Phases 4-8, 10, 12, 13, 14 and 15 also hold the flash kernels' launches on their
 main paths, forward and backward, to their tensor-core route
@@ -3895,6 +3919,428 @@ def dp_phase(torch, ops, C, s, mesh, path_counts):
     torch.cuda.empty_cache()
 
 
+# phase 16: the tensor- and data-parallel language models at one NCCL rank
+LMP_TRAIN_LAYERS = {"qwen3-8b": 8, "rwkv6-1.6b": 4, "hymba-1.5b": 4}
+LMP_SERVE_LAYERS = {"qwen3-8b": None, "rwkv6-1.6b": 4, "hymba-1.5b": 4}
+LMP_STEPS = {"qwen3-8b": 2, "rwkv6-1.6b": 1, "hymba-1.5b": 1}
+DIGEST_CHUNK = 1 << 24
+
+
+def digest(torch, t) -> int:
+    """An exact integer digest of a tensor's bits: the sum of its words
+    (as signed ints) weighted by their position mod a prime, in chunks."""
+    w = t.detach().contiguous().view(-1)
+    w = w.view(torch.int16 if w.element_size() == 2 else torch.int32)
+    total = 0
+    for start in range(0, w.numel(), DIGEST_CHUNK):
+        part = w[start:start + DIGEST_CHUNK].long()
+        idx = torch.arange(start, start + part.numel(), device=part.device)
+        total += int((part * (idx % 1000003 + 1)).sum())
+    return total
+
+
+def state_digests(torch, model, opt):
+    return {"params": {n: digest(torch, p)
+                       for n, p in model.named_parameters()},
+            "m": {n: digest(torch, t) for n, t in opt["m"].items()},
+            "v": {n: digest(torch, t) for n, t in opt["v"].items()}}
+
+
+def lmp_serve(torch, ops, tf, cfg, model, mesh, reqs, label):
+    """Phase 16 (a)/(c): ``reqs`` through the plain engine and through
+    ``ServingEngine(parallel=...)`` on the world-1 mesh (the same
+    parameters), in turns: tokens and the last step's logits bitwise,
+    launch counts equal, the collectives a prefill and a decode step
+    issue, walls, and one decode step of each under
+    ``profiling.window_launches``: the same launches counted, the port's
+    kernels' records within the window's lost records of them, and the
+    kernel names only the sharded step runs.  The one-ulp control: the plain prefill
+    with the unembedding moved by one ulp misses the sharded prefill's
+    logits.
+    Returns the sharded run's launch counts."""
+    import copy
+    import numpy as np
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.runtime.profiling import window_launches
+    from repro_torch.serve import Request, ServingEngine
+    plain = copy.copy(model)
+    plain.parallel, plain.specs = tf.LOCAL, None
+    max_seq = max(len(p) for p, _ in reqs) + max(m for _, m in reqs)
+    runs = {}
+
+    def serve(m, key):
+        eng = ServingEngine(cfg, m, batch_size=len(reqs), max_seq=max_seq)
+        seen = {"calls": []}
+        dec, pre = eng._decode, eng._prefill
+
+        def prefill(*a):
+            c0 = sum(coll.CALLS.values())
+            out = pre(*a)
+            seen["calls"].append(("prefill", sum(coll.CALLS.values()) - c0))
+            return out
+
+        def decode(*a):
+            c0 = sum(coll.CALLS.values())
+            out = dec(*a)
+            seen["calls"].append(("decode", sum(coll.CALLS.values()) - c0))
+            seen["logits"] = out[0]
+            return out
+
+        eng._prefill, eng._decode = prefill, decode
+        ops.reset_launch_counts()
+        outs, wall = timed(torch, lambda: eng.generate(
+            [Request(prompt=p, max_new_tokens=n) for p, n in reqs]))
+        runs.setdefault(key, []).append(dict(
+            outs=outs, wall=wall, counts=ops.launch_counts(),
+            logits=seen["logits"], calls=seen["calls"]))
+
+    for key in ("plain", "mesh", "mesh", "plain"):
+        serve(plain if key == "plain" else model, key)
+    p, m = runs["plain"][0], runs["mesh"][0]
+    same = p["outs"] == m["outs"] and torch.equal(p["logits"], m["logits"])
+    pre = [c for k, c in m["calls"] if k == "prefill"]
+    dec = sorted(set(c for k, c in m["calls"] if k == "decode"))
+    walls = [r["wall"] for k in ("plain", "mesh") for r in runs[k]]
+    print(f"  {label} served: tokens and last logits bitwise the plain "
+          f"engine's: {same}; launches {m['counts']} (plain "
+          f"{p['counts']}); collectives a prefill {pre}, a decode step "
+          f"{dec}; wall in turns plain/mesh/mesh/plain "
+          f"{walls[0]:.3f}/{walls[2]:.3f}/{walls[3]:.3f}/{walls[1]:.3f} s",
+          flush=True)
+    if not same or m["counts"] != p["counts"]:
+        raise AssertionError(f"{label}: the world-1 mesh engine is not the "
+                             f"plain engine (tokens/logits {same}, launches "
+                             f"{m['counts']} vs {p['counts']})")
+    # one decode step of each under the profiler
+    plen = max(len(q) for q, _ in reqs)
+    toks = torch.zeros((len(reqs), plen), dtype=torch.long)
+    for i, (q, _) in enumerate(reqs):
+        toks[i, plen - len(q):] = torch.from_numpy(q)
+    batch = {"tokens": toks.cuda()}
+    names, lost, counted = {}, {}, {}
+    for key, mm in (("plain", plain), ("mesh", model)):
+        logits, cache = tf.prefill(cfg, mm, batch, cache_len=plen + 1)
+        tok = {"tokens": logits.argmax(-1)[:, None]}
+        ops.reset_launch_counts()
+        rec = window_launches(lambda: tf.decode_step(cfg, mm, tok, cache,
+                                                     plen), 1)
+        counted[key] = {k: n for k, n in ops.launch_counts().items() if n}
+        names[key] = rec["device"]
+        lost[key] = rec["lead_lost"] + len(rec["missing"])
+        if key == "mesh":
+            mesh_logits = logits
+    port = {k: {n: c for n, (c, _) in v.items() if "flash" in n
+                or "scan" in n or "wkv" in n} for k, v in names.items()}
+    extra = sorted(set(names["mesh"]) - set(names["plain"]))
+    print(f"  {label}, one decode step: launches counted plain "
+          f"{counted['plain']}, mesh {counted['mesh']}; the port's kernels' "
+          f"device records plain {port['plain']}, mesh {port['mesh']}, "
+          f"records lost (lead and missing, C12) {lost}; kernels only the "
+          f"mesh step runs: "
+          + ", ".join(f"{KERNEL_NAME.search(n).group(1) if KERNEL_NAME.search(n) else n[:60]} x{names['mesh'][n][0]}"
+                      for n in extra), flush=True)
+    # the two steps count the same launches, and each step's records of
+    # the port's kernels are its launches short of them by no more than
+    # the records its window lost
+    if counted["plain"] != counted["mesh"] or any(
+            not sum(counted[k].values()) - lost[k]
+            <= sum(port[k].values()) <= sum(counted[k].values())
+            for k in counted):
+        raise AssertionError(f"{label}: the decode steps' kernel launches "
+                             f"differ")
+    w = plain["unembed"]["w"]
+    keep = w.detach().clone()
+    with torch.no_grad():
+        w.copy_(torch.nextafter(w, torch.full_like(w, np.inf)))
+        ctrl, _ = tf.prefill(cfg, plain, batch)
+        w.copy_(keep)
+    hit = torch.equal(ctrl, mesh_logits)
+    print(f"  control, the plain prefill with the unembedding one ulp up, "
+          f"bitwise the mesh prefill's logits: {hit}, must not be",
+          flush=True)
+    if hit:
+        raise AssertionError(f"{label}: the bitwise check's control passed")
+    return m["counts"]
+
+
+def lmp_train(torch, ops, arch, mesh, stream_batch):
+    """Phase 16 (b)/(c): ``LMP_STEPS[arch]`` steps of the plain step and of
+    ``launch.train.build_on_mesh``'s (``sp``, ZeRO-1) at the world-1 mesh,
+    one after the other from seed 0: the loss and grad norm of every step
+    and a digest of every parameter and moment after each, bitwise (the
+    moments after a step carry its clipped gradient), launch counts
+    equal.  Returns the sharded run's launch counts."""
+    from repro_torch.launch.train import build_on_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamWConfig, init_opt_state, warmup_cosine
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.train import make_train_step
+    layers, steps = LMP_TRAIN_LAYERS[arch], LMP_STEPS[arch]
+    out = {}
+    for key in ("plain", "mesh"):
+        t0 = time.perf_counter()
+        if key == "mesh":
+            cfg, model, opt, step, _ = build_on_mesh(
+                arch, mesh, total_steps=100, layers=layers, device="cuda")
+        else:
+            import dataclasses
+            from repro_torch.configs import get_arch
+            cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+            model = tf.init_params(cfg, torch.Generator(device="cuda")
+                                   .manual_seed(0), device="cuda",
+                                   trainable=True)
+            opt = init_opt_state(dict(model.named_parameters()))
+            step = make_train_step(cfg, AdamWConfig(
+                lr=3e-4, schedule=warmup_cosine(3e-4, 10, 100)),
+                loss_kind="lm")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        ops.reset_launch_counts()
+        c0 = sum(coll.CALLS.values())
+        metrics, digests, walls = [], [], []
+        for i in range(steps):
+            b = stream_batch(cfg, i)
+            (model, opt, m), wall = timed(torch, lambda: step(model, opt, b))
+            walls.append(wall)
+            metrics.append((m["loss"].clone(), m["grad_norm"].clone()))
+            digests.append(state_digests(torch, model, opt))
+        out[key] = dict(metrics=metrics, digests=digests, walls=walls,
+                        counts=ops.launch_counts(), build_s=build_s,
+                        calls=(sum(coll.CALLS.values()) - c0) / steps)
+        del model, opt, step
+        torch.cuda.empty_cache()
+    p, m = out["plain"], out["mesh"]
+    same_m = all(torch.equal(a, b) for x, y in zip(p["metrics"], m["metrics"])
+                 for a, b in zip(x, y))
+    same_d = p["digests"] == m["digests"]
+    print(f"  {arch} trained ({layers} layers, {steps} step(s) at "
+          f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}): loss/grad norm "
+          + ", ".join(f"{float(a):.6f}/{float(b):.6f}" for a, b in
+                      m["metrics"])
+          + f" bitwise the plain step's: {same_m}; every parameter and "
+          f"moment after each step bitwise (digests): {same_d}; launches "
+          f"{m['counts']} (plain {p['counts']}); collectives a step "
+          f"{m['calls']:.0f}; step walls plain "
+          + "/".join(f"{w:.3f}" for w in p["walls"]) + " s, mesh "
+          + "/".join(f"{w:.3f}" for w in m["walls"])
+          + f" s; built in {p['build_s']:.1f}/{m['build_s']:.1f} s",
+          flush=True)
+    if not (same_m and same_d and m["counts"] == p["counts"]):
+        raise AssertionError(f"{arch}: the world-1 sharded step is not the "
+                             f"plain step")
+    return m["counts"]
+
+
+def shard_kernel_rows(torch, ops, ref, rows):
+    """Phase 16 (d): the kernels at the shapes one rank of a ``model`` 2
+    or 16 mesh hands them, each against its twin within phase 3's limits,
+    with ms, plain ms, the bound and (flash rows) SDPA's time: B3's causal
+    GQA form at qwen3-8b's local heads (batch 4, S 2048, D 128), its
+    window form at hymba-1.5b's (m 16: 2 local of 32/8 padded heads, one
+    KV head; m 2: 13 local of 26/13, K/V repeated to them), WKV at 16 and
+    2 heads, the scan at d_inner 800 and 100 (B 4, T 2048), and at m 2
+    the backward's dq/dkv at qwen3's training heads and the scan backward
+    at d_inner 800 (B 2)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan
+    from repro_torch.kernels import selective_scan as scan
+    g = torch.Generator(device="cuda").manual_seed(SEED + 16)
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    def flash(name, m, b, hq, hkv, d, window):
+        tdt = torch.bfloat16
+        q = randn((b, hq, 2048, d), tdt)
+        k, v = randn((b, hkv, 2048, d), tdt), randn((b, hkv, 2048, d), tdt)
+        mask = dict(causal=True, window=window)
+        got = ops.attention(q, k, v, **mask)
+        want, _ = ref.attention(q, k, v, **mask)
+        keep = ref._keep(2048, 2048, True, window, q.device)
+        b_ms, b_by = bound(nbytes(q, k, v, got) + 4 * b * hq * 2048,
+                           4.0 * b * hq * int(keep.sum()) * d, "bfloat16")
+        kx, vx = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+        sdpa = dict(is_causal=True) if window is None else dict(
+            attn_mask=keep)
+        timing = dict(ms=time_ms(lambda: ops.attention(q, k, v, **mask), 10),
+                      plain_ms=time_ms(lambda: ops.attention(
+                          q, k, v, **mask, use_kernel=False), 2),
+                      bound_ms=b_ms, bound_by=b_by,
+                      library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                          q, kx, vx, **sdpa), 10))
+        rel, lim = rel_l2([got], [want]), MASKED_REL_L2["bfloat16"]
+        rows.append(dict(name=name, model=m, **check_case(
+            f"{name} (model {m}) bf16 BH={b * hq} BKV={b * hkv} S=2048 D={d}"
+            f" ({route_label(fa, tdt, d)}; rel L2 {rel:.3e}, limit {lim})",
+            got, want, *MASKED_TOL["bfloat16"], timing)))
+        if not rel <= lim:
+            raise AssertionError(f"{name} at model {m}: rel L2 {rel}")
+
+    flash("flash_attention_fwd_causal_gqa", 2, 4, 16, 4, 128, None)
+    flash("flash_attention_fwd_causal_gqa", 16, 4, 2, 1, 128, None)
+    flash("flash_attention_fwd_window", 16, 4, 2, 1, 64, 1024)
+    flash("flash_attention_fwd_window", 2, 4, 13, 13, 64, 1024)
+    for m, h in ((16, 2), (2, 16)):
+        r, k, v, w, u, s0 = wkv_inputs(torch, randn, 4, h, 2048, 64, 64,
+                                       "bfloat16", True, False)
+        got, s_t, _ = rwkv6_scan.rwkv6_wkv(r, k, v, w, u, s0)
+        want, s_r = ref.rwkv6_wkv(r, k, v, w, u, s0)
+        rel = rel_l2([got], [want])
+        b_ms, b_by = bound(nbytes(r, k, v, w, u, s0, got, s_t),
+                           4 * h * 2048 * (5.0 * 64 * 64 + 5 * 64),
+                           "float32")
+        timing = dict(ms=time_ms(lambda: rwkv6_scan.rwkv6_wkv(
+            r, k, v, w, u, s0), 20), plain_ms=time_ms(
+            lambda: ref.rwkv6_wkv(r, k, v, w, u, s0), 1),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        rows.append(dict(name="rwkv6_wkv", model=m, **check_case(
+            f"rwkv6_wkv (model {m}) bf16 B=4 H={h} T=2048 D=64 (rel L2 "
+            f"{rel:.3e}, limit {WKV_REL_L2})", got, want, 2e-2, 2e-2,
+            timing)))
+        if not rel <= WKV_REL_L2:
+            raise AssertionError(f"rwkv6_wkv at model {m}: rel L2 {rel}")
+    for m, din in ((2, 800), (16, 100)):
+        x = scan_inputs(torch, randn, 4, 2048, din, 16, True)
+        y, h_t, _ = scan.selective_scan(*x)
+        y_r, h_r = ref.selective_scan(*x)
+        rel = max(rel_l2([y], [y_r]), rel_l2([h_t], [h_r]))
+        b_ms, b_by = scan_bound(4, 2048, din, 16, nbytes(*x, y, h_t))
+        timing = dict(ms=time_ms(lambda: scan.selective_scan(*x), 20),
+                      plain_ms=time_ms(lambda: ref.selective_scan(*x), 1),
+                      bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        rows.append(dict(name="selective_scan", model=m, **check_case(
+            f"selective_scan (model {m}) f32 B=4 T=2048 din={din} n=16 "
+            f"(grid {scan.geometry(4, din, 16).grid}; rel L2 {rel:.3e}, "
+            f"limit {SCAN_REL_L2})",
+            torch.cat([y.flatten(), h_t.flatten()]),
+            torch.cat([y_r.flatten(), h_r.flatten()]), SCAN_TOL, SCAN_TOL,
+            timing)))
+        if not rel <= SCAN_REL_L2:
+            raise AssertionError(f"selective_scan at model {m}: rel L2 {rel}")
+    # model 2 only: the backward at qwen3's training heads and the scan's
+    b, hq, hkv, d = 2, 16, 4, 128
+    tdt = torch.bfloat16
+    q, do = (randn((b, hq, 2048, d), tdt) for _ in range(2))
+    k, v = (randn((b, hkv, 2048, d), tdt) for _ in range(2))
+    q3, do3 = (x.reshape(b * hq, 2048, d) for x in (q, do))
+    k3, v3 = (x.reshape(b * hkv, 2048, d) for x in (k, v))
+    o3, lse = fa.flash_attention_fwd(q3, k3, v3, causal=True)
+    delta = (do3.float() * o3.float()).sum(dim=-1)
+    want = ref.attention_bwd(q, k, v, o3.view(q.shape), lse.view(b, hq, 2048),
+                             do, causal=True)
+    live = 2048 * 2049 // 2
+    kx, vx = (x.repeat_interleave(hq // hkv, dim=1) for x in (k, v))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, kx, vx))
+    sd = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        sd, (qg, kg, vg), do, retain_graph=True), 5)
+    plain_ms = time_ms(lambda: ref.attention_bwd(
+        q, k, v, o3.view(q.shape), lse.view(b, hq, 2048), do, causal=True), 2)
+    for name, fn, ref_out, flops in (
+            ("flash_attention_bwd_dq_causal_gqa", lambda: (
+                fa.flash_attention_bwd_dq(q3, k3, v3, do3, lse, delta,
+                                          d ** -0.5, causal=True),),
+             want[:1], 6.0),
+            ("flash_attention_bwd_dkv_causal_gqa", lambda: (
+                fa.flash_attention_bwd_dkv(q3, k3, v3, do3, lse, delta,
+                                           d ** -0.5, causal=True)),
+             want[1:], 8.0)):
+        got = fn()
+        b_ms, b_by = bound(nbytes(q, k, v, do, lse, delta) + nbytes(*got),
+                           flops * b * hq * live * d, "bfloat16")
+        rel = bwd_rel_l2(torch, fn, got, ref_out, f"{name} model 2")
+        timing = dict(ms=time_ms(fn, 5), plain_ms=plain_ms, bound_ms=b_ms,
+                      bound_by=b_by, library_ms=library_ms)
+        rows.append(dict(name=name, model=2, **check_case(
+            f"{name} (model 2) bf16 BH={b * hq} BKV={b * hkv} S=2048 D={d} "
+            f"(rel L2 {rel:.3e}, limit {BWD_MASKED_REL_L2['bfloat16']})",
+            torch.cat([x.reshape(-1) for x in got]),
+            torch.cat([x.reshape(-1) for x in ref_out]), BWD_BF16_ATOL,
+            BWD_BF16_RTOL, timing)))
+    del qg, kg, vg, sd, want
+    x = scan_inputs(torch, randn, 2, 2048, 800, 16, True)
+    dy = randn((2, 2048, 800))
+    _, _, ckpt = scan.selective_scan(*x, checkpoints=True)
+    segments = scan.bwd_geometry(2, 2048, 800, 16).segments
+    got = scan.selective_scan_bwd(*x[:6], ckpt, dy, None)
+    want = ref.selective_scan_bwd(*x, dy, None, segments=segments)
+    rel = max(rel_l2([a], [c]) for a, c in zip(got, want))
+    b_ms, b_by = scan_bwd_bound(2, 2048, 800, 16, nbytes(*x[:6], ckpt, dy,
+                                                         *got))
+    timing = dict(ms=time_ms(lambda: scan.selective_scan_bwd(
+        *x[:6], ckpt, dy, None), 20), plain_ms=time_ms(
+        lambda: ref.selective_scan_bwd(*x, dy, None, segments=segments), 1),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    flat = [torch.cat([t.reshape(-1) for t in ts]) for ts in (got, want)]
+    rows.append(dict(name="selective_scan_bwd", model=2, **check_case(
+        f"selective_scan_bwd (model 2) f32 B=2 T=2048 din=800 n=16 "
+        f"({segments} segments; rel L2 {rel:.3e}, limit {SCAN_BWD_REL_L2})",
+        *flat, 1e-3 * flat[1].abs().max().item(), 1e-3, timing)))
+    if not rel <= SCAN_BWD_REL_L2:
+        raise AssertionError(f"selective_scan_bwd at model 2: rel L2 {rel}")
+
+
+def lm_parallel_phase(torch, ops, step):
+    """Phase 16: the tensor-, sequence- and data-parallel language models
+    at one NCCL rank (module docstring).  Returns ``(path counts, kernel
+    rows)``."""
+    import dataclasses
+    import tempfile
+    import numpy as np
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, make_stream
+    from repro_torch.kernels import ref
+    from repro_torch.launch.mesh import init_process_group, make_test_mesh
+    from repro_torch.models import transformer as tf
+
+    t_start = time.perf_counter()
+    print(f"[{step}/16] the tensor- and data-parallel LMs at one NCCL rank, "
+          f"mesh (data 1, model 1)", flush=True)
+    counts = {}
+    with tempfile.TemporaryDirectory() as store:
+        init_process_group(store, 0, 1, device_type="cuda")
+        try:
+            mesh = make_test_mesh((1, 1), device_type="cuda")
+            ctx = tf.ParallelCtx(mesh=mesh)
+
+            def stream_batch(cfg, i):
+                return make_stream(cfg, DataConfig(
+                    global_batch=LM_TRAIN_BATCH, seq_len=LM_TRAIN_SEQ),
+                    device="cuda", mesh=mesh).batch(i)
+
+            for arch in ("qwen3-8b", "rwkv6-1.6b", "hymba-1.5b"):
+                cfg = get_arch(arch)
+                if LMP_SERVE_LAYERS[arch]:
+                    cfg = dataclasses.replace(
+                        cfg, num_layers=LMP_SERVE_LAYERS[arch])
+                t0 = time.perf_counter()
+                model = tf.init_params(cfg, torch.Generator(
+                    device="cuda").manual_seed(SEED), device="cuda",
+                    parallel=ctx)
+                torch.cuda.synchronize()
+                print(f"  {arch}: {cfg.num_layers} layers at full width "
+                      f"drawn on the card in {time.perf_counter() - t0:.1f}"
+                      f" s", flush=True)
+                reqs = lm_requests(np, min(LM_TOKEN_IDS, cfg.vocab_size))
+                counts[f"serve_{arch}"] = lmp_serve(torch, ops, tf, cfg,
+                                                    model, mesh, reqs, arch)
+                del model
+                torch.cuda.empty_cache()
+                counts[f"train_{arch}"] = lmp_train(torch, ops, arch, mesh,
+                                                    stream_batch)
+                torch.cuda.empty_cache()
+        finally:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    rows = []
+    shard_kernel_rows(torch, ops, ref, rows)
+    torch.cuda.empty_cache()
+    print(f"  phase {step}: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    return counts, rows
+
+
 def main() -> int:
     import torch
 
@@ -4063,6 +4509,10 @@ def main() -> int:
     model_parallel_phase(torch, ops, C, 15, driver_counts)
     torch.cuda.empty_cache()
 
+    # ---- 16. the tensor- and data-parallel language models ---------------
+    lmp_counts, lmp_rows = lm_parallel_phase(torch, ops, 16)
+    torch.cuda.empty_cache()
+
     sources = {"flash_attention_fwd": (
         "cuda", "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
         "src/repro/kernels/flash_attention.py:85"),
@@ -4166,6 +4616,35 @@ def main() -> int:
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
             library_ms=first["library_ms"], cases=cases[name]))
+    # phase 16's rows: each kernel at a shard shape of model 2 or 16; its
+    # launches are its counter's on the phase's world-1 path that runs it
+    lmp_path = {"flash_attention_fwd_causal_gqa": ("serve_qwen3-8b",
+                                                   "flash_attention_fwd"),
+                "flash_attention_fwd_window": ("serve_hymba-1.5b",
+                                               "flash_attention_fwd"),
+                "rwkv6_wkv": ("serve_rwkv6-1.6b", "rwkv6_wkv"),
+                "selective_scan": ("serve_hymba-1.5b", "selective_scan"),
+                "flash_attention_bwd_dq_causal_gqa": (
+                    "train_qwen3-8b", "flash_attention_bwd_dq"),
+                "flash_attention_bwd_dkv_causal_gqa": (
+                    "train_qwen3-8b", "flash_attention_bwd_dkv"),
+                "selective_scan_bwd": ("train_hymba-1.5b",
+                                       "selective_scan_bwd")}
+    for row in lmp_rows:
+        route, source, replaces = sources[row["name"]]
+        path, counter = lmp_path[row["name"]]
+        launches = lmp_counts[path][counter]
+        if launches == 0:
+            raise AssertionError(f"{row['name']} never ran on phase 16's "
+                                 f"{path}")
+        kernels.append(dict(
+            name=f"{row['name']}_model{row['model']}", route=route,
+            source=source, replaces=replaces, launches=launches,
+            launches_path=f"phase16_{path}",
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            cases=[row]))
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

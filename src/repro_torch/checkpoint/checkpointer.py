@@ -22,14 +22,25 @@ and the optimizer's own names key the checkpoint.  Properties:
 * :meth:`Checkpointer.restore` copies into the template's own tensors, in
   place, by name, and raises on a missing leaf or a shape mismatch.
 
-Multi-host layouts (one ``host<k>.npz`` per process) wait for the
-multi-device port (ROADMAP A10(c)).
+Multi-process layout (JAX's): with a ``mesh`` and ``shardings`` (a
+spec per leaf name, e.g. :func:`repro_torch.train.steps.
+train_state_specs`), every rank gathers each leaf whole
+(:func:`repro_torch.parallel.sharding.full_tensor`, collectives on the
+calling thread) and writes ``host<rank>.npz`` of the whole leaves; the
+manifest holds ``"hosts": world size``.  Each rank marks its file done;
+rank 0 commits (manifest, rename, ``LATEST``) once every rank's mark is
+there, and the others' :meth:`Checkpointer.wait` returns once the commit
+is visible.  :meth:`Checkpointer.restore` with specs and a mesh reads
+``host<rank % hosts>.npz`` and copies each rank's part
+(:func:`repro_torch.parallel.sharding.local_part`), so a state saved on
+one mesh restores on another.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Mapping, Optional, Tuple
 
@@ -37,6 +48,7 @@ import numpy as np
 import torch
 
 HOST_FILE = "host0.npz"
+COMMIT_TIMEOUT_S = 600.0       # how long a rank waits for the others
 
 
 def _leaf_key(i: int) -> str:
@@ -68,10 +80,26 @@ def _from_storable(a: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _wait_for(cond, what: str) -> None:
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > COMMIT_TIMEOUT_S:
+            raise TimeoutError(f"checkpoint: waited {COMMIT_TIMEOUT_S} s "
+                               f"for {what}")
+        time.sleep(0.01)
+
+
 class Checkpointer:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, *, mesh=None,
+                 shardings: Optional[Mapping] = None):
         self.dir = directory
         self.keep = keep
+        self.mesh, self.shardings = mesh, shardings
+        if mesh is not None:
+            import torch.distributed as dist
+            self.rank, self.hosts = dist.get_rank(), dist.get_world_size()
+        else:
+            self.rank, self.hosts = 0, 1
         os.makedirs(directory, exist_ok=True)
         self._pool = ThreadPoolExecutor(max_workers=1)
         self._pending: Optional[Future] = None
@@ -87,12 +115,24 @@ class Checkpointer:
             "leaves": [{"name": n, "shape": list(a.shape), "dtype": dt}
                        for n, a, dt in snapshot],
             "meta": meta or {},
-            "hosts": 1,
+            "hosts": self.hosts,
         }
+        np.savez(os.path.join(tmp, f"host{self.rank}.npz"),
+                 **{_leaf_key(i): a for i, (_, a, _) in enumerate(snapshot)})
+        if self.hosts > 1:
+            open(os.path.join(tmp, f"host{self.rank}.done"), "w").close()
+            if self.rank:
+                _wait_for(lambda: (self.latest_step() or -1) >= step
+                          and os.path.exists(final), f"step {step}'s commit")
+                return
+            marks = [os.path.join(tmp, f"host{k}.done")
+                     for k in range(self.hosts)]
+            _wait_for(lambda: all(map(os.path.exists, marks)),
+                      f"step {step}'s {self.hosts} host files")
+            for mark in marks:
+                os.remove(mark)
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
-        np.savez(os.path.join(tmp, HOST_FILE),
-                 **{_leaf_key(i): a for i, (_, a, _) in enumerate(snapshot)})
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)
@@ -102,9 +142,13 @@ class Checkpointer:
                    os.path.join(self.dir, "LATEST"))
         self._gc()
 
-    @staticmethod
-    def _snapshot(tree: Mapping):
-        return [(name, *_to_storable(t)) for name, t in flatten(tree)]
+    def _snapshot(self, tree: Mapping):
+        if self.mesh is None:
+            return [(name, *_to_storable(t)) for name, t in flatten(tree)]
+        from repro_torch.parallel.sharding import full_tensor
+        return [(name, *_to_storable(full_tensor(
+            name, t, self.shardings[name], self.mesh)))
+            for name, t in flatten(tree)]
 
     def save(self, step: int, tree: Mapping, meta: Optional[dict] = None):
         self.wait()
@@ -145,9 +189,12 @@ class Checkpointer:
             return int(f.read().strip())
 
     @torch.no_grad()
-    def restore(self, template: Mapping, step: Optional[int] = None):
+    def restore(self, template: Mapping, step: Optional[int] = None, *,
+                shardings: Optional[Mapping] = None, mesh=None):
         """Copy checkpoint ``step`` (default: the latest) into the tensors
-        of ``template``, by leaf name.  Returns ``(template, step, meta)``."""
+        of ``template``, by leaf name.  Returns ``(template, step, meta)``.
+        With ``shardings`` and ``mesh`` (default: the checkpointer's) each
+        tensor of ``template`` is this rank's part of its leaf."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
@@ -156,19 +203,33 @@ class Checkpointer:
             manifest = json.load(f)
         index: Dict[str, Tuple[int, dict]] = {
             leaf["name"]: (i, leaf) for i, leaf in enumerate(manifest["leaves"])}
+        mesh = self.mesh if mesh is None else mesh
+        shardings = self.shardings if shardings is None else shardings
         leaves = flatten(template)
         missing = [n for n, _ in leaves if n not in index]
         if missing or len(leaves) != len(index):
             raise ValueError(f"checkpoint step {step} has {len(index)} "
                              f"leaves, the template {len(leaves)}; missing: "
                              f"{missing[:5]}")
+        def part(name, whole):
+            if mesh is None:
+                return whole
+            from repro_torch.parallel.sharding import local_part
+            return local_part(name, whole, shardings[name], mesh)
+
+        meta_t = torch.device("meta")
         for name, t in leaves:               # check all before any copy
             shape = tuple(index[name][1]["shape"])
-            if shape != tuple(t.shape):
+            got = tuple(part(name, torch.empty(shape, device=meta_t)).shape)
+            if got != tuple(t.shape):
                 raise ValueError(f"shape mismatch at {name}: checkpoint "
-                                 f"{shape}, template {tuple(t.shape)}")
-        with np.load(os.path.join(d, HOST_FILE)) as data:
+                                 f"{shape} (this rank's part {got}), "
+                                 f"template {tuple(t.shape)}")
+        host = f"host{self.rank % manifest.get('hosts', 1)}.npz" \
+            if mesh is not None else HOST_FILE
+        with np.load(os.path.join(d, host)) as data:
             for name, t in leaves:
                 i, leaf = index[name]
-                t.copy_(_from_storable(data[_leaf_key(i)], leaf["dtype"]))
+                t.copy_(part(name, _from_storable(data[_leaf_key(i)],
+                                                  leaf["dtype"])))
         return template, manifest["step"], manifest["meta"]

@@ -8,10 +8,16 @@ have seen, on any device.  The procedural formulas (:func:`image_formula`,
 :func:`token_formula`) take the draws as arguments and run on the
 stream's device.  The DiT's ``ImageStream`` and the language models'
 ``LMStream`` are ported; the audio and VLM streams wait for those archs
-(ROADMAP A11), and the per-host slicing for the multi-device port (A10(c)):
-the one host takes the whole global batch.  A stream's ``batch`` copies
-its draws to the device through pinned memory, non-blocking, so a
-training loop never waits for the card to fetch its next batch.
+(ROADMAP A11).  A stream's ``batch`` copies its draws to the device
+through pinned memory, non-blocking, so a training loop never waits for
+the card to fetch its next batch.
+
+Per-rank slices (JAX's ``_host_slice``).  With a ``mesh``, a stream hands
+each rank its rows of the global batch: the rank's position on the batch
+axes (row-major, in place of ``jax.process_index()``) picks
+``global_batch / n`` consecutive rows.  The draws are the global batch's
+(JAX folds the slice's start into its key instead), so the ranks' slices,
+concatenated, are the one-host batch bit for bit.
 """
 from __future__ import annotations
 
@@ -43,6 +49,26 @@ def fold_in(seed: int, data: int) -> int:
     return (z ^ (z >> 31)) >> 1
 
 
+def _host_slice(global_batch: int, mesh=None,
+                batch_axes=("data",)) -> tuple:
+    """``(start, rows)`` of this rank's part of the global batch: its
+    position on ``batch_axes`` of ``mesh`` (row-major) times
+    ``global_batch / n``; the whole batch without a mesh."""
+    if mesh is None:
+        return 0, global_batch
+    from repro_torch.parallel.sharding import mesh_shape
+    sizes = mesh_shape(mesh)
+    idx, n = 0, 1
+    for a in batch_axes:
+        idx = idx * sizes[a] + mesh.get_local_rank(a)
+        n *= sizes[a]
+    if global_batch % n:
+        raise ValueError(f"a global batch of {global_batch} does not split "
+                         f"over the batch axes {tuple(batch_axes)} ({n})")
+    per = global_batch // n
+    return idx * per, per
+
+
 def image_formula(cx, cy, sig, grad_dir, amp, size: int) -> torch.Tensor:
     """Gaussian blobs over linear gradients, clipped to [-1, 1]:
     (B, size, size, C) f32 from the five draws (``cx``, ``cy``, ``sig`` of
@@ -60,11 +86,12 @@ class ImageStream:
     """Procedural images in [-1, 1]: Gaussian blobs over linear gradients."""
 
     def __init__(self, cfg: DataConfig, size: int, channels: int,
-                 device="cuda"):
+                 device="cuda", mesh=None, batch_axes=("data",)):
         self.cfg = cfg
         self.size = size
         self.channels = channels
         self.device = torch.device(device)
+        self.rows = _host_slice(cfg.global_batch, mesh, batch_axes)
 
     def draws(self, step: int):
         """The five draws of ``step``'s batch, on the CPU."""
@@ -81,7 +108,9 @@ class ImageStream:
                 uniform((b, 1, 1, c), 0.3, 1.0))
 
     def batch(self, step: int):
-        draws = [host_to_device(d, self.device) for d in self.draws(step)]
+        start, per = self.rows
+        draws = [host_to_device(d[start:start + per], self.device)
+                 for d in self.draws(step)]
         return {"images": image_formula(*draws, self.size)}
 
 
@@ -102,10 +131,12 @@ class LMStream:
     progression (``t_{i+1} = t_i + a mod V``) with 15% uniform noise, so
     short training runs visibly reduce the loss."""
 
-    def __init__(self, cfg: DataConfig, vocab: int, device="cuda"):
+    def __init__(self, cfg: DataConfig, vocab: int, device="cuda",
+                 mesh=None, batch_axes=("data",)):
         self.cfg = cfg
         self.vocab = vocab
         self.device = torch.device(device)
+        self.rows = _host_slice(cfg.global_batch, mesh, batch_axes)
 
     def draws(self, step: int):
         """The four draws of ``step``'s batch, on the CPU."""
@@ -117,18 +148,22 @@ class LMStream:
                 torch.rand((b, s), generator=g) < 0.15)
 
     def batch(self, step: int):
-        draws = [host_to_device(d, self.device) for d in self.draws(step)]
+        start, per = self.rows
+        draws = [host_to_device(d[start:start + per].contiguous(),
+                                self.device) for d in self.draws(step)]
         tokens = token_formula(*draws, self.cfg.seq_len, self.vocab)
         return {"tokens": tokens, "labels": tokens}
 
 
-def make_stream(cfg: ArchConfig, data_cfg: DataConfig, device="cuda"):
+def make_stream(cfg: ArchConfig, data_cfg: DataConfig, device="cuda",
+                mesh=None, batch_axes=("data",)):
     """The arch's stream: images for the DiT, tokens for the dense, RWKV
-    and hybrid (hymba) language models."""
+    and hybrid (hymba) language models; with ``mesh``, this rank's rows
+    (:func:`_host_slice`)."""
     if cfg.family == "dit":
         return ImageStream(data_cfg, IMAGE_SIZES.get(cfg.name, 32),
-                           cfg.in_channels, device)
+                           cfg.in_channels, device, mesh, batch_axes)
     if cfg.family in ("dense", "ssm", "hybrid"):
-        return LMStream(data_cfg, cfg.vocab_size, device)
+        return LMStream(data_cfg, cfg.vocab_size, device, mesh, batch_axes)
     raise NotImplementedError(f"the {cfg.family} data streams (audio, "
                               f"vision) wait for those archs (ROADMAP A11)")

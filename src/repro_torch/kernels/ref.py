@@ -47,6 +47,57 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.to(q.dtype), lse
 
 
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      *, causal: bool = True, window: Optional[int] = None,
+                      scale: Optional[float] = None,
+                      chunk: int = 512) -> torch.Tensor:
+    """The plain flash-style attention of ``repro.kernels.ref.
+    attention_chunked``: an online softmax over tiles of ``chunk`` keys
+    (the last padded and masked), f32 throughout, so the largest
+    intermediate is ``(B, H, Sq, chunk)``.  Same shapes and masks as
+    :func:`attention`; returns o in q's dtype (a row with no live key
+    gives 0).  JAX's ``attention_full`` runs it when given ``chunk_kv``
+    and the kernel does not run."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = hq // hkv
+    scale = scale if scale is not None else float(d) ** -0.5
+    c = min(chunk, sk)
+    n_chunks = -(-sk // c)
+    pad = n_chunks * c - sk
+    kp = torch.nn.functional.pad(k, (0, 0, 0, pad))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, pad))
+    if group > 1:
+        kp = kp.repeat_interleave(group, dim=1)
+        vp = vp.repeat_interleave(group, dim=1)
+    qf = q.float()
+    qpos = torch.arange(sq, device=q.device) + (sk - sq)
+    acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, hq, sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hq, sq), dtype=torch.float32, device=q.device)
+    for idx in range(n_chunks):
+        k_c = kp[:, :, idx * c:(idx + 1) * c].float()
+        v_c = vp[:, :, idx * c:(idx + 1) * c].float()
+        s_ = torch.einsum("bhqd,bhkd->bhqk", qf, k_c) * scale
+        kpos = idx * c + torch.arange(c, device=q.device)
+        keep = (kpos < sk)[None, :]
+        if causal:
+            keep = keep & (kpos[None, :] <= qpos[:, None])
+        if window is not None:
+            keep = keep & (kpos[None, :] > qpos[:, None] - window)
+        s_ = torch.where(keep, s_, NEG_INF)
+        m_new = torch.maximum(m, s_.amax(dim=-1))
+        p = torch.where(keep, torch.exp(s_ - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p,
+                                                    v_c)
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    return (acc / l[..., None]).to(q.dtype)
+
+
 def _keep(sq: int, sk: int, causal: bool, window: Optional[int],
           device) -> torch.Tensor:
     """(Sq, Sk) bool mask, query positions right-aligned to the keys."""

@@ -16,43 +16,89 @@ rank and the world size (:func:`spawn_ranks` does so for N local ranks).
 
     results = spawn_ranks(work, 4, device_type="cpu")   # gloo, 4 ranks
 
-The TPU roofline constants of the JAX module are not ported; the
-production pod meshes wait for ROADMAP A10(c).
+The production meshes (:func:`make_production_mesh`) are JAX's: ``(16,
+16)`` over ``("data", "model")``, 256 ranks, or ``(2, 16, 16)`` with
+``"pod"``, 512; under ``torchrun`` :func:`init_process_group` starts from
+its environment (``env://``).  The TPU roofline constants of the JAX
+module are not ported.
 """
 from __future__ import annotations
 
 import os
 import pickle
 import tempfile
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.parallel.collectives import BACKENDS
 
-__all__ = ["init_process_group", "make_srds_mesh", "make_test_mesh",
-           "spawn_ranks"]
+__all__ = ["init_process_group", "make_production_mesh", "make_srds_mesh",
+           "make_test_mesh", "production_shape", "spawn_ranks"]
 
 
-def init_process_group(store_dir: str, rank: int, world_size: int, *,
+def init_process_group(store_dir: Optional[str] = None,
+                       rank: Optional[int] = None,
+                       world_size: Optional[int] = None, *,
                        device_type: str = "cuda",
                        local_rank: int = None) -> str:
-    """Start the default process group from a ``file://`` store in
-    ``store_dir`` (a directory every rank sees; the caller removes it):
+    """Start the default process group: from a ``file://`` store in
+    ``store_dir`` (a directory every rank sees; the caller removes it)
+    with the given ``rank`` and ``world_size``, or, with ``store_dir``
+    None, from torchrun's environment (``env://``: ``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``).
     NCCL for ``device_type="cuda"``, after ``torch.cuda.set_device(
-    local_rank)`` (default: ``rank``), gloo for ``"cpu"``.  Returns the
-    backend."""
+    local_rank)`` (default: ``LOCAL_RANK``, else ``rank``), gloo for
+    ``"cpu"``.  Returns the backend."""
     backend = BACKENDS[device_type]
+    if store_dir is None:
+        rank = int(os.environ["RANK"]) if rank is None else rank
+        world_size = (int(os.environ["WORLD_SIZE"]) if world_size is None
+                      else world_size)
+        if local_rank is None and "LOCAL_RANK" in os.environ:
+            local_rank = int(os.environ["LOCAL_RANK"])
     if device_type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass "
                                "device_type='cpu' for a gloo group")
         torch.cuda.set_device(rank if local_rank is None else local_rank)
+    if store_dir is None:
+        dist.init_process_group(backend, init_method="env://", rank=rank,
+                                world_size=world_size)
+        return backend
     store = os.path.join(os.path.abspath(store_dir), "store")
     dist.init_process_group(backend, init_method=f"file://{store}",
                             rank=rank, world_size=world_size)
     return backend
+
+
+def production_shape(multi_pod: bool = False):
+    """``(shape, dim names)`` of JAX's production mesh: one pod slice of
+    ``(16, 16)`` ``("data", "model")`` (256 ranks), or two of ``(2, 16,
+    16)`` with ``"pod"`` (512)."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """JAX's ``make_production_mesh`` over the default group, which must
+    have exactly the mesh's ranks (one process a card); a clear error
+    names them otherwise."""
+    import math
+    shape, axes = production_shape(multi_pod)
+    need = math.prod(shape)
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have != need:
+        raise ValueError(
+            f"the {'two-pod' if multi_pod else 'one-pod'} production mesh "
+            f"{dict(zip(axes, shape))} needs {need} ranks (one process a "
+            f"card, e.g. torchrun --nproc-per-node 8 over {need // 8} "
+            f"hosts); the default group has {have}")
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
 def make_srds_mesh(time: int, data: int = 1, model: int = 1, *,

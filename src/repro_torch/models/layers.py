@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 
 
 def apply_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
@@ -80,13 +81,29 @@ def project_qkv(p, x: torch.Tensor, num_heads: int, num_kv_heads: int,
     return q, k, v
 
 
-def attention_full(p, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
-                   head_dim: int, causal: bool = True,
+def select_kv(t: torch.Tensor, share) -> torch.Tensor:
+    """The K (or V) heads ``(B, S, H, D)`` a rank's q heads read, by its
+    :class:`repro_torch.parallel.tensor_parallel.HeadShare`: its own block
+    where the heads are split, a contiguous run of the replicated heads,
+    or (``kv_index``) the replicated heads repeated to its q heads."""
+    if share.kv_split:
+        return t
+    if share.kv_index is None:
+        return t.narrow(2, share.kv_start, share.kv_heads)
+    idx = torch.tensor(share.kv_index, dtype=torch.long, device=t.device)
+    return t.index_select(2, idx)
+
+
+def attention_full(p, x: torch.Tensor, *, head_dim: int,
+                   num_heads: Optional[int] = None,
+                   num_kv_heads: Optional[int] = None,
+                   causal: bool = True,
                    window: Optional[int] = None,
                    theta: Optional[float] = 10_000.0, qk_norm: bool = False,
                    positions: Optional[torch.Tensor] = None,
                    use_kernel: Optional[bool] = None,
-                   kv_gather: Optional[Callable] = None):
+                   kv_gather: Optional[Callable] = None,
+                   chunk_kv: Optional[int] = None, share=None):
     """Full-sequence attention (training, prefill, the DiT), x: (B, S, d).
     Runs through :func:`repro_torch.kernels.ops.attention` (the flash
     kernels on CUDA).  Returns ``(out (B, S, d), (k, v))`` with k after
@@ -98,19 +115,61 @@ def attention_full(p, x: torch.Tensor, *, num_heads: int, num_kv_heads: int,
     (B, S, Hkv, D)``), so the ``S_local`` queries attend to every key (the
     DiT's patch rows: the flash forward at ``Sq = S_local``, ``Sk = S``).
     Positions are the caller's: global ones for rope, or ``theta=None``.
-    The returned (k, v) are the gathered ones, as JAX's."""
+    The returned (k, v) are the gathered ones, as JAX's.
+
+    ``share``: a tensor-parallel rank's heads (a
+    :class:`repro_torch.parallel.tensor_parallel.HeadShare`, in place of
+    ``num_heads``/``num_kv_heads``): ``p`` holds the rank's q columns and
+    ``wo`` rows, and its K/V columns or all of them; the kernel sees the
+    rank's q heads and the K/V heads they read (:func:`select_kv`);
+    ``out`` is the rank's partial sum (the caller sums it over ``model``)
+    and ``(k, v)`` are the projected heads (the rank's, or all).
+
+    ``chunk_kv``: where the flash kernel does not run (a CPU tensor or
+    ``use_kernel=False``), JAX's plain chunked attention
+    (:func:`repro_torch.kernels.ref.attention_chunked`, ``chunk_kv``
+    keys a tile)."""
     b, s, _ = x.shape
+    if share is not None:
+        num_heads = share.hq_l
+        num_kv_heads = share.kv_heads if share.kv_split else share.hkv
     if positions is None and theta is not None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
     q, k, v = project_qkv(p, x, num_heads, num_kv_heads, head_dim, positions,
                           theta, qk_norm)
     if kv_gather is not None:
         k, v = kv_gather(k), kv_gather(v)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    o = kops.attention(qt, kt, vt, causal=causal, window=window,
-                       use_kernel=use_kernel)
+    ka, va = (k, v) if share is None else (select_kv(k, share),
+                                           select_kv(v, share))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, ka, va))
+    if chunk_kv is not None and not (x.is_cuda and use_kernel is not False):
+        o = kref.attention_chunked(qt, kt, vt, causal=causal, window=window,
+                                   chunk=chunk_kv)
+    else:
+        o = kops.attention(qt, kt, vt, causal=causal, window=window,
+                           use_kernel=use_kernel)
     o = o.transpose(1, 2).reshape(b, s, num_heads * head_dim)
     return o @ p["wo"], (k, v)
+
+
+def decode_partials(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, valid: torch.Tensor,
+                    head_dim: int):
+    """One token's attention over a part of the cache: q (B, 1, Hq, D)
+    against ``(B, C, Hkv, D)`` where ``valid`` (C,) holds, with the plain
+    decode's masked f32 softmax.  Returns ``(o (B, 1, Hkv, G, D) f32,
+    normalized by this part's softmax, lse (B, 1, Hkv, G))``; a part with
+    no valid slot gives lse -inf (the caller zeroes its o)."""
+    b, _, hq, _ = q.shape
+    hkv = k_cache.shape[2]
+    qf = q.float().reshape(b, 1, hkv, hq // hkv, head_dim)
+    logits = torch.einsum("bqhgd,bshd->bhgqs", qf,
+                          k_cache.float()) / math.sqrt(head_dim)
+    logits = logits.masked_fill(~valid, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhgqs,bshd->bqhgd", probs, v_cache.float())
+    lse = torch.logsumexp(logits, dim=-1).permute(0, 3, 1, 2)
+    return o, lse
 
 
 def attention_decode(p, x: torch.Tensor, k_cache: torch.Tensor,

@@ -13,6 +13,17 @@ f32), the group norm and the gates in f32, cast back before the next
 product.
 
 State per layer: ``(x_tmix (B, d), wkv (B, H, dk, dk) f32, x_cmix (B, d))``.
+
+Tensor parallel (``tp``, a :class:`repro_torch.parallel.tensor_parallel.
+TensorParallel` with a group): ``wr``, ``wk``, ``wv``, ``wg`` and the
+channel mix's ``wk_c``, ``wr_c`` are the rank's columns, ``wo`` and
+``wv_c`` its rows; the token shift, the mixes and the decay LoRA run on
+the whole, replicated ``d``, and the WKV kernel on the rank's heads with
+its rows of ``u`` and ``gn_scale`` (its ``state.wkv`` is its heads').  The
+channel mix's gate is the rank's ``d`` columns while ``k @ wv_c`` is a
+sum over ranks: that sum is reduce-scattered onto the same columns, the
+product gathered back over ``d`` (and, under ``sp``, cut to the rank's
+part of the sequence) before the residual.
 """
 from __future__ import annotations
 
@@ -48,10 +59,11 @@ def _group_norm(x: torch.Tensor, scale: torch.Tensor, h: int,
 
 
 def time_mix(p, x: torch.Tensor, state: RWKVState, head_dim: int, *,
-             use_kernel: Optional[bool] = None):
-    """x: (B, S, d).  Returns ``(out, x[:, -1], final WKV state)``."""
+             use_kernel: Optional[bool] = None, tp=None):
+    """x: (B, S, d).  Returns ``(out, x[:, -1], final WKV state)``; with
+    ``tp``, ``out`` is the rank's partial sum."""
     b, s, d = x.shape
-    h = d // head_dim
+    h = p["wr"].shape[1] // head_dim
     xx = _shift(x, state.x_tmix) - x
     base = x + xx * p["mu_base"]
     z = torch.tanh(base @ p["A_mix"]).reshape(b, s, 5, LORA_R)
@@ -67,33 +79,53 @@ def time_mix(p, x: torch.Tensor, state: RWKVState, head_dim: int, *,
     w_logit = p["w_base"] + torch.tanh(
         xw.float() @ p["A_w"].float()) @ p["B_w"].float()
     # clamp for numerical sanity of exp(-exp(w))
-    w_logit = heads(torch.clamp(w_logit, -8.0, 4.0))
+    w_logit = torch.clamp(w_logit, -8.0, 4.0)
+    u, gn_scale = p["u"], p["gn_scale"]
+    if tp is not None:
+        w_logit, u, gn_scale = (tp.part(w_logit, -1), tp.part(u, 0),
+                                tp.part(gn_scale, 0))
+    w_logit = heads(w_logit)
 
-    wkv, s_fin = kops.rwkv6_wkv(r, k, v, w_logit, p["u"], state.wkv,
+    wkv, s_fin = kops.rwkv6_wkv(r, k, v, w_logit, u, state.wkv,
                                 use_kernel=use_kernel)
-    wkv = wkv.transpose(1, 2).reshape(b, s, d)
-    out = _group_norm(wkv, p["gn_scale"], h)
+    wkv = wkv.transpose(1, 2).reshape(b, s, h * head_dim)
+    out = _group_norm(wkv, gn_scale, h)
     out = out * F.silu(g.float()).to(out.dtype)
     return out @ p["wo"], x[:, -1], s_fin
 
 
-def channel_mix(p, x: torch.Tensor, state: RWKVState):
-    """Returns ``(out, x[:, -1])``."""
+def channel_mix(p, x: torch.Tensor, state: RWKVState, *, tp=None):
+    """Returns ``(out, x[:, -1])``; with ``tp``, ``out`` is whole (under
+    ``sp`` the rank's part of the sequence)."""
+    from repro_torch.parallel import collectives as coll
     xx = _shift(x, state.x_cmix) - x
     xk = x + xx * p["mu_ck"]
     xr = x + xx * p["mu_cr"]
     kk = torch.square(F.relu((xk @ p["wk_c"]).float())).to(x.dtype)
     gate = torch.sigmoid((xr @ p["wr_c"]).float()).to(x.dtype)
-    return gate * (kk @ p["wv_c"]), x[:, -1]
+    if tp is None or tp.group is None:
+        return gate * (kk @ p["wv_c"]), x[:, -1]
+    kv = coll.scatter_seq(kk @ p["wv_c"], -1, tp.group)
+    out = coll.gather_split(gate * kv, -1, tp.group)
+    if tp.sp:
+        out = coll.split(out, 1, tp.group)
+    return out, x[:, -1]
 
 
 def rwkv_block(p, x: torch.Tensor, state: RWKVState, head_dim: int,
-               norm_fn: Callable, *, use_kernel: Optional[bool] = None):
-    """The pre-norm RWKV6 block.  Returns ``(x_out, new_state)``."""
-    h1, xt, wkv = time_mix(p["tmix"], norm_fn(p["ln1"], x), state, head_dim,
-                           use_kernel=use_kernel)
-    x = x + h1
-    h2, xc = channel_mix(p["cmix"], norm_fn(p["ln2"], x), state)
+               norm_fn: Callable, *, use_kernel: Optional[bool] = None,
+               tp=None):
+    """The pre-norm RWKV6 block.  Returns ``(x_out, new_state)``; with
+    ``tp``, the state's ``x_tmix``/``x_cmix`` are whole, its ``wkv`` the
+    rank's heads."""
+    def enter(t):
+        return t if tp is None else tp.enter(t)
+
+    h1, xt, wkv = time_mix(p["tmix"], enter(norm_fn(p["ln1"], x)), state,
+                           head_dim, use_kernel=use_kernel, tp=tp)
+    x = x + (h1 if tp is None else tp.leave(h1))
+    h2, xc = channel_mix(p["cmix"], enter(norm_fn(p["ln2"], x)), state,
+                         tp=tp)
     return x + h2, RWKVState(x_tmix=xt, wkv=wkv, x_cmix=xc)
 
 

@@ -1,7 +1,9 @@
 """The language-model backbone (counterpart of
 ``repro.models.transformer``) for dense attention+MLP blocks
 (``block="attn_mlp"``, no MoE), RWKV6 blocks (``block="rwkv6"``) and Hymba
-blocks (``block="hymba"``).  MoE blocks wait for ROADMAP A11(b).
+blocks (``block="hymba"``), on one device or tensor-, sequence- and
+data-parallel over a ``(data, model)`` or ``(pod, data, model)`` mesh.
+MoE blocks wait for ROADMAP A11(b).
 
 :class:`TransformerLM` holds the parameters: one :class:`ParamTree` per
 layer (JAX stacks them on a leading layer axis for ``jax.lax.scan``; the
@@ -11,9 +13,31 @@ leaves but ``w_in``/``w_out`` in f32, the rest in the config's dtype).  The para
 for ``trainable=True`` (``repro_torch.launch.train`` does); the serving
 functions run without autograd either way.
 
+:class:`ParallelCtx` is JAX's, field for field.  Its ``model_parallel``
+pads the heads and the vocabulary as JAX pads them (``padded_heads``,
+``padded_vocab``), with or without a mesh.  With a ``mesh`` (a
+``DeviceMesh`` of one process per rank, every rank calling the same
+functions with the same global inputs), each rank holds its part of every
+parameter by :func:`repro_torch.parallel.sharding.param_shardings`, and
+:class:`repro_torch.parallel.tensor_parallel.TensorParallel` issues the
+collectives GSPMD inserts in JAX: q/K/V, the MLP's ``d_ff``, RWKV's and
+the SSM's channels and the vocabulary split over ``model``; row shards
+summed over it; with ``sp`` the residual stream split along the sequence
+between blocks, each mixer's and MLP's normed input gathered first.  The
+math is the single device's: at one rank every collective returns its
+input's bits.  ``use_ep`` and the ``moe_*`` fields raise, naming ROADMAP
+A11(b)2; ``fsdp`` in a forward raises, naming A12 (JAX's launcher never
+sets it; :func:`repro_torch.parallel.sharding.param_shardings` takes it);
+``remat`` and a ``remat_policy`` other than JAX's default raise, naming
+A13.  ``scan_unroll`` is accepted and does nothing (it changes no result
+in JAX, and the port has no scan).  ``attn_chunk_kv`` runs the plain
+chunked attention (``ref.attention_chunked``) where the flash kernel does
+not run, as JAX's ``attention_full`` does.
+
 Modes, with the JAX semantics:
   * :func:`forward_hidden` / :func:`forward_train`: the full sequence,
     hidden states / f32 logits (there is no MoE, so no auxiliary loss);
+    with a mesh the logits are the rank's vocabulary columns;
   * :func:`prefill`: the full sequence, returns ``(last_logits, cache)``.
     It unembeds the last position only (JAX unembeds every position and
     keeps the last: the same per-position numbers, without a
@@ -23,7 +47,15 @@ Modes, with the JAX semantics:
 
 Caches: dense, ``(k, v)`` each ``(L, B, S, Hkv, D)`` with K after qk-norm
 and rope; RWKV6, an :class:`RWKVState` of per-layer stacks; Hymba, a
-:class:`HymbaCache` of per-layer stacks (``ring_pos`` ``(L, W)``).
+:class:`HymbaCache` of per-layer stacks (``ring_pos`` ``(L, W)``).  With a
+mesh each rank holds its part by
+:func:`repro_torch.parallel.sharding.cache_shardings` (flash-decoding):
+K/V and the ring split along their sequence or slots over ``model`` with
+every head, RWKV's WKV states on heads and its shift states on ``d``, the
+SSM states on ``d_inner``; a decode step gathers the token's q, k and v
+over heads, the slot's owner writes it, every rank attends over its
+slots, and :func:`repro_torch.parallel.collectives.lse_combine` merges
+the partials.
 
 Hymba's prefill ring (ROADMAP C16).  :func:`prefill` always returns a ring
 of ``window`` slots in :func:`init_hymba_cache`'s layout: position ``p`` of
@@ -36,26 +68,82 @@ that case against its own :func:`forward_train`.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import sharding
+from repro_torch.parallel.tensor_parallel import TensorParallel
 from .dit import resolve_device
 from .hymba import HymbaCache, hymba_mix_decode, hymba_mix_full, \
     init_hymba_cache
 from .layers import (apply_mlp, apply_norm, attention_decode, attention_full,
-                     embed, unembed)
+                     decode_partials, embed, project_qkv, unembed)
 from .rwkv6 import LORA_R, RWKVState, init_rwkv_state, rwkv_block
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+             "float8_e4m3fn": torch.float8_e4m3fn}
+# the norms between blocks: their scales see the residual stream, which is
+# replicated over ``model`` (split along the sequence under ``sp``)
+BLOCK_NORMS = ("ln1", "ln2", "ln_f", "n_attn", "n_ssm")
 # a leaf: (path, shape, dtype, init); init is ("normal", std), ("fill",
 # value) or ("log_linspace", n) (log(1 .. n), the same on every row), the
 # JAX init's rule for that leaf
 Leaf = Tuple[str, tuple, torch.dtype, tuple]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelCtx:
+    """JAX's ``ParallelCtx`` (same fields and defaults; module docstring)."""
+    mesh: Any = None
+    batch_axes: Tuple[str, ...] = ("data",)
+    model_axis: Optional[str] = "model"
+    data_axis: str = "data"
+    use_ep: bool = False
+    sp: bool = False                 # sequence-parallel residual stream
+    moe_capacity: float = 1.25
+    moe_chunk: int = 8_192
+    model_parallel: int = 1          # TP degree (head and vocab padding)
+    # JAX: unroll the layer scan for cost analysis; no result changes, and
+    # the port has no scan, so it does nothing here
+    scan_unroll: bool = False
+    attn_chunk_kv: Optional[int] = None   # plain chunked attention's tile
+    ce_masksum: bool = False              # CE gold logit by mask-sum
+    moe_fixed_capacity: bool = False
+    remat_policy: str = "dots"            # dots | nothing
+    bf16_grad_sync: bool = False          # the step's gradient sums in bf16
+    fsdp: bool = False                    # large dense params on data
+    kv_cache_dtype: str = "bfloat16"      # make_dense_cache's dtype
+
+
+LOCAL = ParallelCtx()
+_MOE_DEFAULTS = {f.name: f.default for f in dataclasses.fields(ParallelCtx)
+                 if f.name.startswith("moe_")}
+
+
+def check_ctx(parallel: ParallelCtx, remat: bool = False) -> None:
+    """Raise for the fields whose JAX user the port lacks."""
+    if parallel.use_ep or any(getattr(parallel, k) != v
+                              for k, v in _MOE_DEFAULTS.items()):
+        raise NotImplementedError("expert parallelism and the MoE fields "
+                                  "wait for MoE blocks (ROADMAP A11(b)2)")
+    if parallel.fsdp:
+        raise NotImplementedError("FSDP execution (parameters gathered "
+                                  "over data in the forward) waits for "
+                                  "ROADMAP A12")
+    if remat or parallel.remat_policy != "dots":
+        raise NotImplementedError("rematerialization (remat=, "
+                                  "remat_policy) is ROADMAP A13")
+    if parallel.kv_cache_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_cache_dtype {parallel.kv_cache_dtype!r} not "
+                         f"in {sorted(KV_DTYPES)}")
 
 
 class ParamTree(nn.Module):
@@ -89,16 +177,17 @@ def _norm_leaves(name: str, d: int, kind: str) -> List[Leaf]:
     return out
 
 
-def _leaves(cfg: ArchConfig) -> Tuple[List[Leaf], List[Leaf]]:
+def _leaves(cfg: ArchConfig, mp: int = 1) -> Tuple[List[Leaf], List[Leaf]]:
     """(top-level leaves, per-layer block leaves) of the JAX init
-    (``repro.models.transformer.init_params`` at one model-parallel way):
-    paths, shapes without the layer axis, dtypes and init rules."""
+    (``repro.models.transformer.init_params`` with ``ParallelCtx(
+    model_parallel=mp)``): paths, global shapes without the layer axis,
+    dtypes and init rules."""
     if cfg.block not in ("attn_mlp", "rwkv6", "hymba"):
         raise NotImplementedError(f"{cfg.block!r} blocks are not ported yet "
                                   f"(ROADMAP A11)")
     dt = _DTYPES[cfg.dtype]
     d, ff = cfg.d_model, cfg.d_ff
-    vocab = cfg.padded_vocab(1)
+    vocab = cfg.padded_vocab(mp)
     s_d, s_ff = d ** -0.5, ff ** -0.5
     top = [("embed/table", (vocab, d), dt, ("normal", 0.02)),
            ("unembed/w", (d, vocab), dt, ("normal", s_d))]
@@ -125,7 +214,7 @@ def _leaves(cfg: ArchConfig) -> Tuple[List[Leaf], List[Leaf]]:
                 ("cmix/wr_c", (d, d), dt, ("normal", s_d))]
         return top, blk
     hd = cfg.resolved_head_dim
-    hq, hkv = cfg.padded_heads(1)
+    hq, hkv = cfg.padded_heads(mp)
     blk += [("attn/wq", (d, hq * hd), dt, ("normal", s_d)),
             ("attn/wk", (d, hkv * hd), dt, ("normal", s_d)),
             ("attn/wv", (d, hkv * hd), dt, ("normal", s_d)),
@@ -156,6 +245,28 @@ def _leaves(cfg: ArchConfig) -> Tuple[List[Leaf], List[Leaf]]:
     return top, blk
 
 
+def global_shapes(cfg: ArchConfig, parallel: ParallelCtx = LOCAL
+                  ) -> Dict[str, tuple]:
+    """``{parameter name: global shape}`` in the model's order."""
+    top, blk = _leaves(cfg, parallel.model_parallel)
+    out = {p.replace("/", "."): shape for p, shape, _, _ in top}
+    for i in range(cfg.num_layers):
+        out.update({f"blocks.{i}.{p.replace('/', '.')}": shape
+                    for p, shape, _, _ in blk})
+    return out
+
+
+def _local_shape(shape: tuple, spec, mesh) -> tuple:
+    sizes = sharding.mesh_shape(mesh)
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for a in ((entry,) if isinstance(entry, str) else entry):
+            out[dim] //= sizes[a]
+    return tuple(out)
+
+
 def _nest(leaves: List[Leaf]) -> dict:
     spec: dict = {}
     for path, shape, dtype, _ in leaves:
@@ -170,16 +281,41 @@ def _nest(leaves: List[Leaf]) -> dict:
 class TransformerLM(ParamTree):
     """The LM's parameters: ``embed``, ``ln_f``, ``unembed`` and
     ``blocks`` (one :class:`ParamTree` per layer), frozen unless
-    ``trainable``."""
+    ``trainable``.  With ``parallel.mesh`` each leaf is this rank's part
+    (``specs``: :func:`sharding.param_shardings` over ``shapes``, the
+    global shapes)."""
 
     def __init__(self, cfg: ArchConfig, device="cuda",
-                 trainable: bool = False):
-        device = resolve_device(device)
-        top, blk = _leaves(cfg)
-        super().__init__(_nest(top), device, trainable)
+                 trainable: bool = False,
+                 parallel: ParallelCtx = LOCAL):
+        device = resolve_device(device) if str(device) != "meta" \
+            else torch.device("meta")
+        top, blk = _leaves(cfg, parallel.model_parallel)
+        self_shapes = global_shapes(cfg, parallel)
+        specs = (sharding.param_shardings(cfg, parallel.mesh, self_shapes,
+                                          parallel)
+                 if parallel.mesh is not None else None)
+
+        def local(leaves, layer):
+            if specs is None:
+                return leaves
+            out = []
+            for path, shape, dt, init in leaves:
+                name = path.replace("/", ".")
+                if layer is not None:
+                    name = f"blocks.{layer}.{name}"
+                out.append((path, _local_shape(shape, specs[name],
+                                               parallel.mesh), dt, init))
+            return out
+
+        super().__init__(_nest(local(top, None)), device, trainable)
         self.cfg = cfg
-        self.blocks = nn.ModuleList(ParamTree(_nest(blk), device, trainable)
-                                    for _ in range(cfg.num_layers))
+        self.parallel = parallel
+        self.shapes = self_shapes
+        self.specs = specs
+        self.blocks = nn.ModuleList(
+            ParamTree(_nest(local(blk, i)), device, trainable)
+            for i in range(cfg.num_layers))
 
 
 def _param(model: TransformerLM, path: str, layer: Optional[int]):
@@ -190,34 +326,52 @@ def _param(model: TransformerLM, path: str, layer: Optional[int]):
 
 
 def _targets(model: TransformerLM):
-    """``(param, jax_path, layer, init)`` for every leaf of ``model``."""
-    top, blk = _leaves(model.cfg)
-    out = [(_param(model, p, None), p, None, init) for p, _, _, init in top]
-    out += [(_param(model, p, i), f"blocks/{p}", i, init)
+    """``(param, jax_path, layer, init, name)`` for every leaf of
+    ``model``."""
+    top, blk = _leaves(model.cfg, model.parallel.model_parallel)
+    out = [(_param(model, p, None), p, None, init, p.replace("/", "."))
+           for p, _, _, init in top]
+    out += [(_param(model, p, i), f"blocks/{p}", i, init,
+             f"blocks.{i}.{p.replace('/', '.')}")
             for i in range(model.cfg.num_layers) for p, _, _, init in blk]
     return out
 
 
+def _to_local(model: TransformerLM, name: str, full: torch.Tensor):
+    if model.specs is None:
+        return full
+    return sharding.local_part(name, full, model.specs[name],
+                               model.parallel.mesh)
+
+
 @torch.no_grad()
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device="cuda", *, trainable: bool = False) -> TransformerLM:
+                device="cuda", *, trainable: bool = False,
+                parallel: ParallelCtx = LOCAL) -> TransformerLM:
     """A fresh LM with the JAX init's shapes, dtypes and scales (normal
     draws times 1/sqrt(fan_in), embeddings 0.02, unit norms, RWKV's
     ``w_base`` -0.5, ``u`` 0.3 and zero token-shift mixes, Hymba's
     ``b_dt`` -2, ``D`` 1 and ``A_log`` log(1 .. n) on every row).  Each leaf is
     drawn on ``device`` in its own dtype from ``generator`` (a generator
     of that device): qwen3-8b's 8.2 B parameters never pass through host
-    memory."""
-    model = TransformerLM(cfg, device=device, trainable=trainable)
-    for param, _, _, (kind, value) in _targets(model):
+    memory.  With a mesh every rank draws each whole leaf in turn, as
+    JAX's launcher draws the whole model before placing it, and keeps its
+    part."""
+    model = TransformerLM(cfg, device=device, trainable=trainable,
+                          parallel=parallel)
+    for param, _, _, (kind, value), name in _targets(model):
+        full = param if model.specs is None else torch.empty(
+            model.shapes[name], dtype=param.dtype, device=param.device)
         if kind == "normal":
-            param.normal_(0.0, value, generator=generator)
+            full.normal_(0.0, value, generator=generator)
         elif kind == "log_linspace":
-            param.copy_(torch.log(torch.linspace(
-                1.0, float(value), value, device=param.device)).expand_as(
-                    param))
+            full.copy_(torch.log(torch.linspace(
+                1.0, float(value), value, device=full.device)).expand_as(
+                    full))
         else:
-            param.fill_(value)
+            full.fill_(value)
+        if model.specs is not None:
+            param.copy_(_to_local(model, name, full))
     return model
 
 
@@ -235,46 +389,56 @@ def jax_leaf_names(cfg: ArchConfig):
 
 def _jax_values(model: TransformerLM, tree):
     """``(param, value)`` for every leaf of ``model``: ``value`` the JAX
-    tree's f32 numpy leaf (a layer's slice of a stacked ``blocks`` leaf),
-    checked against the parameter's shape."""
+    tree's f32 leaf (a layer's slice of a stacked ``blocks`` leaf; with a
+    mesh this rank's part of it), checked against the parameter's
+    shape."""
     stacked: Dict[str, np.ndarray] = {}
-    for param, path, layer, _ in _targets(model):
+    for param, path, layer, _, name in _targets(model):
         if path not in stacked:
             node = tree
             for part in path.split("/"):
                 node = node[part]
             stacked[path] = np.asarray(node, np.float32)
         value = stacked[path] if layer is None else stacked[path][layer]
+        value = _to_local(model, name, torch.from_numpy(np.array(value)))
         if tuple(value.shape) != tuple(param.shape):
-            raise ValueError(f"{path} (layer {layer}): shape {value.shape} "
-                             f"!= {tuple(param.shape)}")
-        yield param, value
+            raise ValueError(f"{path} (layer {layer}): shape "
+                             f"{tuple(value.shape)} != {tuple(param.shape)}")
+        yield param, value, name
 
 
 @torch.no_grad()
 def load_jax_params(cfg: ArchConfig, tree, device="cuda", *,
-                    trainable: bool = False) -> TransformerLM:
+                    trainable: bool = False,
+                    parallel: ParallelCtx = LOCAL) -> TransformerLM:
     """An LM holding the JAX parameter tree ``tree`` (numpy or array-like
     leaves of any float dtype; ``blocks`` leaves stacked on a leading
-    ``num_layers`` axis, as ``jax.vmap`` over layers builds them)."""
-    model = TransformerLM(cfg, device=device, trainable=trainable)
-    for param, value in _jax_values(model, tree):
-        param.copy_(torch.from_numpy(np.array(value)))   # a writable copy
+    ``num_layers`` axis, as ``jax.vmap`` over layers builds them; the
+    shapes of JAX's init with ``parallel``'s ``model_parallel``)."""
+    model = TransformerLM(cfg, device=device, trainable=trainable,
+                          parallel=parallel)
+    for param, value, _ in _jax_values(model, tree):
+        param.copy_(value)
     return model
 
 
-def load_jax_opt_state(model: TransformerLM, jax_opt_state):
+def load_jax_opt_state(model: TransformerLM, jax_opt_state,
+                       zero1: Optional[dict] = None):
     """The port's optimizer state (``repro_torch.optim.init_opt_state``'s
     layout: f32 moments keyed by the model's parameter names, on its
     device) holding JAX's ``{"m", "v", "step"}`` (numpy leaves, ``blocks``
     stacked on the layer axis, split here into the port's per-layer
-    trees), so a JAX train state continues in the port."""
+    trees), so a JAX train state continues in the port.  ``zero1``
+    (:func:`repro_torch.train.steps.zero1_slices`) keeps each rank's
+    ZeRO-1 slice of the moments."""
     device = next(model.parameters()).device
-    names = {id(p): n for n, p in model.named_parameters()}
     state = {}
     for key in ("m", "v"):
-        loaded = {names[id(p)]: torch.from_numpy(np.array(value)).to(device)
-                  for p, value in _jax_values(model, jax_opt_state[key])}
+        loaded = {}
+        for _, value, name in _jax_values(model, jax_opt_state[key]):
+            z = (zero1 or {}).get(name)
+            loaded[name] = (z.part(value) if z is not None
+                            else value).contiguous().to(device)
         state[key] = {n: loaded[n] for n, _ in model.named_parameters()}
     state["step"] = torch.tensor(int(np.asarray(jax_opt_state["step"])),
                                  dtype=torch.int32, device=device)
@@ -283,6 +447,29 @@ def load_jax_opt_state(model: TransformerLM, jax_opt_state):
 
 def param_count(model: TransformerLM) -> int:
     return sum(math.prod(p.shape) for p in model.parameters())
+
+
+def model_partial_grads(model: TransformerLM) -> List[str]:
+    """The parameters replicated over ``model`` whose gradient on each
+    rank is that rank's part (so the step sums it over ``model``): every
+    replicated leaf inside a mixer or an MLP, whose output feeds the
+    rank's own heads or channels (q/k-norm scales, replicated K/V
+    projections, RWKV's mixes, LoRAs, ``u`` and group-norm scale, the
+    SSM's ``b_dt``), and, under ``sp``, the norms between blocks, which
+    see the rank's part of the sequence."""
+    if model.specs is None:
+        return []
+    mp = model.parallel.model_axis
+    out = []
+    for name, spec in model.specs.items():
+        if any(a == mp or (isinstance(a, tuple) and mp in a) for a in spec):
+            continue
+        keys = sharding.leaf_keys(name)
+        if len(keys) >= 2 and keys[-2] in BLOCK_NORMS and \
+                not model.parallel.sp:
+            continue
+        out.append(name)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -296,46 +483,108 @@ def _norm(cfg: ArchConfig):
     return norm
 
 
-def _attn_kwargs(cfg: ArchConfig) -> dict:
-    hq, hkv = cfg.padded_heads(1)
-    return dict(num_heads=hq, num_kv_heads=hkv,
-                head_dim=cfg.resolved_head_dim, window=cfg.window,
+def _attn_kwargs(cfg: ArchConfig, tp: Optional[TensorParallel] = None,
+                 mp: int = 1) -> dict:
+    if tp is None:
+        hq, hkv = cfg.padded_heads(mp)
+        heads = dict(num_heads=hq, num_kv_heads=hkv)
+    else:
+        heads = dict(share=tp.heads())
+    return dict(heads, head_dim=cfg.resolved_head_dim, window=cfg.window,
                 theta=cfg.rope_theta, qk_norm=cfg.qk_norm)
 
 
+def _ctx(model: TransformerLM, parallel: Optional[ParallelCtx],
+         remat: bool = False) -> ParallelCtx:
+    parallel = model.parallel if parallel is None else parallel
+    if parallel != model.parallel:
+        raise ValueError("the model was built for another ParallelCtx: "
+                         "pass the one it was built with (or none)")
+    check_ctx(parallel, remat)
+    return parallel
+
+
+def _embed(model: TransformerLM, tokens: torch.Tensor,
+           tp: TensorParallel) -> torch.Tensor:
+    """The vocabulary-parallel embedding: each rank looks up the tokens in
+    its rows, zeros the others', and the ranks' rows are summed
+    (reduce-scattered along the sequence under ``sp``)."""
+    table = model["embed"]["table"]
+    if tp.group is None:
+        return embed(model["embed"], tokens)
+    v_l = table.shape[0]
+    local = tokens - tp.r * v_l
+    ok = (local >= 0) & (local < v_l)
+    rows = table[local.clamp(0, v_l - 1)]
+    return tp.leave(torch.where(ok[..., None], rows, 0))
+
+
+def _kv_layout(tp: TensorParallel, kv: torch.Tensor, seq_dim: int,
+               length: int) -> torch.Tensor:
+    """Prefill K/V stacked ``(L, B, S, H, D)`` (the rank's heads where they
+    are split, all of them where replicated) at ``length`` positions
+    (zeros past ``S``), with a mesh in the flash-decoding layout: split
+    over ``model``, every head."""
+    if kv.shape[seq_dim] != length:
+        pad = list(kv.shape)
+        pad[seq_dim] = length - kv.shape[seq_dim]
+        kv = torch.cat([kv, kv.new_zeros(pad)], dim=seq_dim)
+    if tp.group is None:
+        return kv
+    if tp.heads().kv_split:
+        return coll.heads_to_seq(kv, seq_dim, seq_dim + 1, tp.group)
+    return tp.part(kv, seq_dim).contiguous()
+
+
 def forward_hidden(cfg: ArchConfig, model: TransformerLM, batch, *,
+                   parallel: Optional[ParallelCtx] = None,
+                   remat: bool = False,
                    use_kernel: Optional[bool] = None,
-                   return_cache: bool = False):
+                   return_cache: bool = False,
+                   cache_len: Optional[int] = None):
     """The backbone up to the final norm: ``(x (B, S, d), cache|None)``,
-    the cache being what :func:`prefill` returns."""
+    the cache being what :func:`prefill` returns.  Under ``sp`` ``x`` is
+    this rank's part of the sequence (``S / m`` rows).  ``cache_len``: a
+    dense cache's length, zeros past ``S`` (default ``S``; with a mesh
+    rounded up to a multiple of the ``model`` dim)."""
+    parallel = _ctx(model, parallel, remat)
+    tp = TensorParallel(cfg, parallel)
     norm = _norm(cfg)
-    x = embed(model["embed"], batch["tokens"])
+    x = _embed(model, batch["tokens"], tp)
+    s = batch["tokens"].shape[1]
+    chunk = parallel.attn_chunk_kv
     caches = []
     if cfg.block == "rwkv6":
-        state0 = init_rwkv_state(x.shape[0], cfg.d_model, cfg.rwkv_head_dim,
+        b = x.shape[0]
+        state0 = init_rwkv_state(b, cfg.d_model, cfg.rwkv_head_dim,
                                  x.dtype, x.device)
+        if tp.group is not None:
+            state0 = state0._replace(wkv=tp.part(state0.wkv, 1))
         for p in model.blocks:
             x, st = rwkv_block(p, x, state0, cfg.rwkv_head_dim, norm,
-                               use_kernel=use_kernel)
+                               use_kernel=use_kernel, tp=tp)
             if return_cache:
                 caches.append(st)
     elif cfg.block == "hymba":
-        kw = dict(_attn_kwargs(cfg), causal=cfg.causal)
+        kw = dict(_attn_kwargs(cfg, tp), causal=cfg.causal, chunk_kv=chunk)
         for p in model.blocks:
-            fused, kv, h_fin = hymba_mix_full(p, norm(p["ln1"], x), kw, norm,
-                                              use_kernel=use_kernel)
+            fused, kv, h_fin = hymba_mix_full(
+                p, tp.enter(norm(p["ln1"], x)), kw, norm,
+                use_kernel=use_kernel, tp=tp)
             x = x + fused
-            x = x + apply_mlp(p["mlp"], norm(p["ln2"], x), cfg.act)
+            x = x + tp.leave(apply_mlp(p["mlp"],
+                                       tp.enter(norm(p["ln2"], x)), cfg.act))
             if return_cache:
                 caches.append((*kv, h_fin))
     else:
-        kw = _attn_kwargs(cfg)
+        kw = _attn_kwargs(cfg, tp)
         for p in model.blocks:
-            out, kv = attention_full(p["attn"], norm(p["ln1"], x),
+            out, kv = attention_full(p["attn"], tp.enter(norm(p["ln1"], x)),
                                      causal=cfg.causal, **kw,
-                                     use_kernel=use_kernel)
-            x = x + out
-            x = x + apply_mlp(p["mlp"], norm(p["ln2"], x), cfg.act)
+                                     use_kernel=use_kernel, chunk_kv=chunk)
+            x = x + tp.leave(out)
+            x = x + tp.leave(apply_mlp(p["mlp"],
+                                       tp.enter(norm(p["ln2"], x)), cfg.act))
             if return_cache:
                 caches.append(kv)
     x = norm(model["ln_f"], x)
@@ -343,8 +592,20 @@ def forward_hidden(cfg: ArchConfig, model: TransformerLM, batch, *,
         return x, None
     stacked = tuple(torch.stack(parts) for parts in zip(*caches))
     if cfg.block == "hymba":
-        return x, _ring_from_prefill(cfg, *stacked)
-    return x, RWKVState(*stacked) if cfg.block == "rwkv6" else stacked
+        k, v, h_fin = stacked
+        ring = _ring_from_prefill(cfg, k, v, h_fin)
+        w = ring.k_ring.shape[2]
+        return x, HymbaCache(h_fin, _kv_layout(tp, ring.k_ring, 2, w),
+                             _kv_layout(tp, ring.v_ring, 2, w),
+                             ring.ring_pos)
+    if cfg.block == "rwkv6":
+        xt, wkv, xc = stacked
+        return x, RWKVState(tp.part(xt, -1).contiguous(), wkv,
+                            tp.part(xc, -1).contiguous())
+    length = s if cache_len is None else cache_len
+    if tp.group is not None:
+        length = -(-length // tp.m) * tp.m
+    return x, tuple(_kv_layout(tp, c, 2, length) for c in stacked)
 
 
 def _ring_from_prefill(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor,
@@ -368,64 +629,141 @@ def _ring_from_prefill(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor,
 
 
 def forward_train(cfg: ArchConfig, model: TransformerLM, batch, *,
+                  parallel: Optional[ParallelCtx] = None,
+                  remat: bool = False,
                   use_kernel: Optional[bool] = None) -> torch.Tensor:
-    """Full-sequence logits ``(B, S, vocab)`` in f32."""
+    """Full-sequence logits ``(B, S, vocab)`` in f32; with a mesh this
+    rank's vocabulary columns ``(B, S, vocab / m)`` of every position
+    (JAX's logits are sharded the same way)."""
+    parallel = _ctx(model, parallel, remat)
     x, _ = forward_hidden(cfg, model, batch, use_kernel=use_kernel)
-    return unembed(model["unembed"], x)
+    return unembed(model["unembed"], TensorParallel(cfg, parallel).enter(x))
 
 
 def make_dense_cache(cfg: ArchConfig, batch: int, seq_len: int,
-                     device="cuda"):
-    """An empty decode cache: zero K/V ``(L, B, seq_len, Hkv, D)`` in bf16
-    (JAX's default cache dtype), RWKV6's zero state per layer, or Hymba's
-    per layer (:func:`init_hymba_cache`: a ring of ``window`` slots, or
-    ``seq_len`` without a window, in the model's dtype, as JAX's)."""
+                     device="cuda", parallel: ParallelCtx = LOCAL):
+    """An empty decode cache: zero K/V ``(L, B, seq_len, Hkv, D)`` in
+    ``parallel.kv_cache_dtype`` (JAX's default bf16; ``float8_e4m3fn``
+    stores ``torch.float8_e4m3fn``), RWKV6's zero state per layer, or
+    Hymba's per layer (:func:`init_hymba_cache`: a ring of ``window``
+    slots, or ``seq_len`` without a window, in the model's dtype, as
+    JAX's), with the heads padded at ``parallel.model_parallel``.  With a
+    mesh, this rank's part by :func:`sharding.cache_shardings`."""
+    check_ctx(parallel)
     device = resolve_device(device)
     n = cfg.num_layers
     if cfg.block == "rwkv6":
         st = init_rwkv_state(batch, cfg.d_model, cfg.rwkv_head_dim,
                              _DTYPES[cfg.dtype], device)
-        return RWKVState(*(t.expand((n,) + t.shape).clone() for t in st))
-    _, hkv = cfg.padded_heads(1)
-    if cfg.block == "hymba":
-        c = init_hymba_cache(batch, cfg.ssm_d_inner or cfg.d_model,
-                             cfg.ssm_state, cfg.window or seq_len, hkv,
-                             cfg.resolved_head_dim, _DTYPES[cfg.dtype],
-                             device)
-        return HymbaCache(*(t.expand((n,) + t.shape).clone() for t in c))
-    shape = (n, batch, seq_len, hkv, cfg.resolved_head_dim)
-    return (torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            torch.zeros(shape, dtype=torch.bfloat16, device=device))
+        cache = dict(zip(RWKVState._fields,
+                         (t.expand((n,) + t.shape) for t in st)))
+        kind = RWKVState
+    else:
+        _, hkv = cfg.padded_heads(parallel.model_parallel)
+        if cfg.block == "hymba":
+            c = init_hymba_cache(batch, cfg.ssm_d_inner or cfg.d_model,
+                                 cfg.ssm_state, cfg.window or seq_len, hkv,
+                                 cfg.resolved_head_dim, _DTYPES[cfg.dtype],
+                                 device)
+            cache = dict(zip(HymbaCache._fields,
+                             (t.expand((n,) + t.shape) for t in c)))
+            kind = HymbaCache
+        else:
+            shape = (n, batch, seq_len, hkv, cfg.resolved_head_dim)
+            z = torch.zeros(shape, dtype=KV_DTYPES[parallel.kv_cache_dtype],
+                            device=device)
+            cache, kind = {"k": z, "v": z}, None
+    if parallel.mesh is not None:
+        specs = sharding.cache_shardings(cfg, parallel.mesh, cache, parallel)
+        cache = {k: sharding.local_part(k, t, specs[k], parallel.mesh)
+                 for k, t in cache.items()}
+    parts = tuple(t.clone() for t in cache.values())
+    return parts if kind is None else kind(*parts)
 
 
 @torch.no_grad()
 def prefill(cfg: ArchConfig, model: TransformerLM, batch, *,
-            use_kernel: Optional[bool] = None):
-    """The full sequence: ``(last_logits (B, vocab) f32, cache)``."""
+            parallel: Optional[ParallelCtx] = None,
+            use_kernel: Optional[bool] = None,
+            cache_len: Optional[int] = None):
+    """The full sequence: ``(last_logits (B, vocab) f32, cache)``.
+    ``cache_len``: a dense cache's length (module docstring); with a mesh
+    the cache is this rank's part of the flash-decoding layout and the
+    logits are gathered over the vocabulary."""
+    parallel = _ctx(model, parallel)
+    tp = TensorParallel(cfg, parallel)
     x, cache = forward_hidden(cfg, model, batch, use_kernel=use_kernel,
-                              return_cache=True)
-    return unembed(model["unembed"], x[:, -1]), cache
+                              return_cache=True, cache_len=cache_len)
+    logits = unembed(model["unembed"], tp.enter(x)[:, -1])
+    return tp.gather(logits, -1), cache
+
+
+def _decode_attention(cfg, p, h, k_c, v_c, pos: int, tp: TensorParallel,
+                      valid: torch.Tensor, slot: Optional[int]):
+    """One token's attention against this rank's part of a flash-decoding
+    cache ``(B, C, Hkv, D)`` (``valid`` its slots' mask; ``slot`` the
+    local slot this rank writes, or None): the token's q, k and v
+    gathered over heads, the local softmax's partials merged over
+    ``model`` by :func:`coll.lse_combine`, and the rank's heads' rows
+    through ``wo`` (the caller sums them)."""
+    share = tp.heads()
+    hd = cfg.resolved_head_dim
+    b = h.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=h.device)
+    q, k_new, v_new = project_qkv(
+        p, h, share.hq_l, share.kv_heads if share.kv_split else share.hkv,
+        hd, positions, cfg.rope_theta, cfg.qk_norm)
+    q = tp.gather(q, 2)
+    if share.kv_split:
+        k_new, v_new = tp.gather(k_new, 2), tp.gather(v_new, 2)
+    if slot is not None:
+        k_c[:, slot] = k_new[:, 0].to(k_c.dtype)
+        v_c[:, slot] = v_new[:, 0].to(v_c.dtype)
+    o, lse = decode_partials(q, k_c, v_c, valid, hd)
+    o = torch.where(torch.isfinite(lse)[..., None], o, 0.0)
+    if tp.group is not None:
+        o = coll.lse_combine(o, lse, tp.group)
+    o = o.reshape(b, 1, share.hq, hd)
+    o = tp.part(o, 2).reshape(b, 1, share.hq_l * hd).to(h.dtype)
+    return o @ p["wo"]
 
 
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, model: TransformerLM, token_batch, cache,
-                pos: int, *, use_kernel: Optional[bool] = None):
+                pos: int, *, parallel: Optional[ParallelCtx] = None,
+                use_kernel: Optional[bool] = None):
     """One token, ``token_batch["tokens"]`` (B, 1), at position ``pos``
     against ``cache``, which it updates in place.  Returns
     ``(logits (B, vocab) f32, cache)``."""
     if not cfg.causal:
         raise ValueError(f"{cfg.name} is encoder-only; no decode step")
+    parallel = _ctx(model, parallel)
     norm = _norm(cfg)
-    x = embed(model["embed"], token_batch["tokens"])
+    tp = TensorParallel(cfg, parallel).without_sp()
+    x = _embed(model, token_batch["tokens"], tp)
     if cfg.block == "rwkv6":
         for layer, p in enumerate(model.blocks):
-            st = RWKVState(*(c[layer] for c in cache))
+            st = RWKVState(tp.gather(cache.x_tmix[layer], -1),
+                           cache.wkv[layer],
+                           tp.gather(cache.x_cmix[layer], -1))
             x, new = rwkv_block(p, x, st, cfg.rwkv_head_dim, norm,
-                                use_kernel=use_kernel)
-            for c, n in zip(cache, new):
-                c[layer].copy_(n)
+                                use_kernel=use_kernel, tp=tp)
+            cache.x_tmix[layer].copy_(tp.part(new.x_tmix, -1))
+            cache.wkv[layer].copy_(new.wkv)
+            cache.x_cmix[layer].copy_(tp.part(new.x_cmix, -1))
+    elif cfg.block == "hymba" and tp.group is not None:
+        w = cfg.window
+        for layer, p in enumerate(model.blocks):
+            c = HymbaCache(*(t[layer] for t in cache))
+            fused = hymba_mix_decode(
+                p, norm(p["ln1"], x), c, pos, window=w, norm_fn=norm,
+                use_kernel=use_kernel, tp=tp,
+                attend=lambda pa, h, kc, vc, valid, slot: _decode_attention(
+                    cfg, pa, h, kc, vc, pos, tp, valid, slot))[0]
+            x = x + fused
+            x = x + tp.leave(apply_mlp(p["mlp"], norm(p["ln2"], x), cfg.act))
     elif cfg.block == "hymba":
-        kw = _attn_kwargs(cfg)
+        kw = _attn_kwargs(cfg, mp=parallel.model_parallel)
         kw.pop("qk_norm")
         for layer, p in enumerate(model.blocks):
             c = HymbaCache(*(t[layer] for t in cache))
@@ -433,8 +771,23 @@ def decode_step(cfg: ArchConfig, model: TransformerLM, token_batch, cache,
                                         norm_fn=norm, use_kernel=use_kernel)
             x = x + fused
             x = x + apply_mlp(p["mlp"], norm(p["ln2"], x), cfg.act)
+    elif tp.group is not None:
+        k_c, v_c = cache
+        n_slots = k_c.shape[2]
+        kpos = tp.r * n_slots + torch.arange(n_slots, device=x.device)
+        valid = kpos <= pos
+        if cfg.window is not None:
+            valid = valid & (kpos > pos - cfg.window)
+        owner, slot = divmod(pos, n_slots)
+        slot = slot if owner == tp.r else None
+        for layer, p in enumerate(model.blocks):
+            out = _decode_attention(cfg, p["attn"], norm(p["ln1"], x),
+                                    k_c[layer], v_c[layer], pos, tp, valid,
+                                    slot)
+            x = x + tp.leave(out)
+            x = x + tp.leave(apply_mlp(p["mlp"], norm(p["ln2"], x), cfg.act))
     else:
-        kw = _attn_kwargs(cfg)
+        kw = _attn_kwargs(cfg, mp=parallel.model_parallel)
         k_c, v_c = cache
         for layer, p in enumerate(model.blocks):
             out, _, _ = attention_decode(p["attn"], norm(p["ln1"], x),
@@ -442,4 +795,4 @@ def decode_step(cfg: ArchConfig, model: TransformerLM, token_batch, cache,
             x = x + out
             x = x + apply_mlp(p["mlp"], norm(p["ln2"], x), cfg.act)
     x = norm(model["ln_f"], x)
-    return unembed(model["unembed"], x[:, -1]), cache
+    return tp.gather(unembed(model["unembed"], x[:, -1]), -1), cache

@@ -18,11 +18,38 @@
     The flash-decoding merge of attention partials computed over disjoint
     KV-sequence slices, by their logsumexps.
 
+The tensor- and sequence-parallel operators of the language models
+(``autograd.Function``s; JAX has none, XLA inserts them): each is the
+identity, issuing nothing, when ``group`` is None (a model without a
+mesh), and issues its collective at every world size otherwise (at one
+rank it returns its input's bits):
+
+:func:`copy_to`      identity forward, all-reduce backward: where a
+                     replicated activation enters a rank's own columns.
+:func:`reduce_from`  all-reduce forward, identity backward: where the
+                     ranks' partial sums leave for replicated work.
+:func:`gather_seq`   all-gather forward, reduce-scatter backward (the
+                     sequence gather before a mixer under ``sp``).
+:func:`scatter_seq`  reduce-scatter forward, all-gather backward (a row
+                     shard's output back onto the sequence shards).
+:func:`gather_split` all-gather forward, this rank's slice backward (a
+                     channel shard joined for replicated work).
+:func:`split`        this rank's slice forward, all-gather backward.
+:func:`joined`       several tensors through one collective each way:
+                     ``reduce_from``'s or ``scatter_seq``'s, or an
+                     all-reduce both ways (partial sums each rank's own
+                     channels read: hymba's ``dt``, ``B``, ``C``).
+:func:`heads_to_seq` one all-to-all, heads split to sequence split (the
+                     flash-decoding cache from a prefill; no gradient).
+
+:data:`CALLS` counts every collective issued, by kind.
+
 A CUDA tensor needs an NCCL group and a CPU tensor a gloo one
 (:func:`check_backend`); nothing here switches backend.
 """
 from __future__ import annotations
 
+import collections
 from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -31,12 +58,21 @@ import torch.distributed as dist
 
 from repro_torch.transfer import host_to_device
 
-__all__ = ["BACKENDS", "all_gather_dim", "check_backend",
-           "compressed_psum_mean", "lse_combine"]
+__all__ = ["BACKENDS", "CALLS", "all_gather_dim", "check_backend",
+           "compressed_psum_mean", "copy_to", "gather_seq", "gather_split",
+           "heads_to_seq", "joined", "lse_combine", "reduce_from",
+           "reset_calls", "scatter_seq", "split"]
 
 # the process-group backend of each device type
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 QMAX = 127                      # int8's symmetric range
+# collectives issued, by kind ("all_reduce", "all_gather",
+# "reduce_scatter", "all_to_all"), forward and backward
+CALLS: collections.Counter = collections.Counter()
+
+
+def reset_calls() -> None:
+    CALLS.clear()
 
 
 def check_backend(group, x: torch.Tensor) -> None:
@@ -60,6 +96,7 @@ def all_gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     out = front.new_empty((m * front.shape[0],) + tuple(front.shape[1:]))
     dist.all_gather_into_tensor(out, front, group=group)
     all_gather_dim.calls += 1
+    CALLS["all_gather"] += 1
     return out.movedim(0, dim)
 
 
@@ -132,4 +169,198 @@ def lse_combine(o_parts: torch.Tensor, lse_parts: torch.Tensor,
     dist.all_reduce(num, group=group)
     den = w.clone()
     dist.all_reduce(den, group=group)
+    CALLS["all_reduce"] += 3
     return num / den[..., None]
+
+
+# --------------------------------------------------------------------------
+# tensor- and sequence-parallel operators
+# --------------------------------------------------------------------------
+
+def _all_reduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    check_backend(group, x)
+    y = x.contiguous().clone()
+    dist.all_reduce(y, op=op or dist.ReduceOp.SUM, group=group)
+    CALLS["all_reduce"] += 1
+    return y
+
+
+def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The rank's ``1/m`` of ``dim`` of the sum over ``group``."""
+    check_backend(group, x)
+    m = dist.get_world_size(group)
+    if x.shape[dim] % m:
+        raise ValueError(f"dim {dim} of shape {tuple(x.shape)} does not "
+                         f"split over {m} ranks")
+    front = x.movedim(dim, 0).contiguous()
+    out = front.new_empty((front.shape[0] // m,) + tuple(front.shape[1:]))
+    dist.reduce_scatter_tensor(out, front, group=group)
+    CALLS["reduce_scatter"] += 1
+    return out.movedim(0, dim)
+
+
+def _slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    m, r = dist.get_world_size(group), dist.get_rank(group)
+    if x.shape[dim] % m:
+        raise ValueError(f"dim {dim} of shape {tuple(x.shape)} does not "
+                         f"split over {m} ranks")
+    n = x.shape[dim] // m
+    return x.narrow(dim, r * n, n)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.dim, ctx.group).contiguous(), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter(x, dim, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_dim(g, ctx.dim, ctx.group).contiguous(), None, None
+
+
+class _GatherSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.dim, ctx.group).contiguous(), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _slice(x, dim, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather_dim(g.contiguous(), ctx.dim,
+                               ctx.group).contiguous(), None, None)
+
+
+class _Joined(torch.autograd.Function):
+    """Tensors joined on their last dim through one collective each way;
+    every part comes out contiguous, forward and backward."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, *parts):
+        ctx.bwd, ctx.sizes = bwd, [p.shape[-1] for p in parts]
+        y = fwd(torch.cat(parts, dim=-1))
+        return tuple(t.contiguous() for t in y.split(ctx.sizes, dim=-1))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = ctx.bwd(torch.cat(grads, dim=-1))
+        return (None, None) + tuple(t.contiguous()
+                                    for t in g.split(ctx.sizes, dim=-1))
+
+
+def joined(parts, kind: str, group):
+    """``parts`` (same leading dims) through one collective as if each
+    went through its own: ``kind`` ``"reduce_both"`` (the sum over
+    ``group`` forward and backward), ``"reduce_from"``
+    (:func:`reduce_from`) or ``"scatter_seq"`` (:func:`scatter_seq` along
+    dim 1)."""
+    if group is None:
+        return tuple(parts)
+    ar = lambda t: _all_reduce(t, group)  # noqa: E731
+    fns = {"reduce_both": (ar, ar),
+           "reduce_from": (ar, lambda t: t),
+           "scatter_seq": (lambda t: _reduce_scatter(t, 1, group),
+                           lambda t: all_gather_dim(t, 1, group))}
+    return _Joined.apply(*fns[kind], *parts)
+
+
+def copy_to(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity; the gradient is summed over ``group``."""
+    return x if group is None else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group``; the gradient passes as it is."""
+    return x if group is None else _ReduceFrom.apply(x, group)
+
+
+def gather_seq(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' parts joined along ``dim``; the gradient is summed over
+    ``group`` and split along ``dim`` (reduce-scatter)."""
+    return x if group is None else _GatherSeq.apply(x, dim, group)
+
+
+def scatter_seq(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's part along ``dim`` of the sum over ``group``; the
+    gradient is gathered."""
+    return x if group is None else _ScatterSeq.apply(x, dim, group)
+
+
+def gather_split(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' parts joined along ``dim``; the gradient (the same on
+    every rank) is cut back to this rank's part."""
+    return x if group is None else _GatherSplit.apply(x, dim, group)
+
+
+def split(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's part along ``dim`` of a replicated tensor; the gradient
+    is gathered."""
+    return x if group is None else _Split.apply(x, dim, group)
+
+
+def heads_to_seq(x: torch.Tensor, seq_dim: int, head_dim: int,
+                 group) -> torch.Tensor:
+    """``x`` split over ``group`` on ``head_dim`` (each rank its heads,
+    the whole sequence) to split on ``seq_dim`` (each rank its ``1/m``
+    of the sequence, every head): one ``all_to_all``.  Heads join in rank
+    order, so rank ``i``'s heads land at ``[i * H_l, (i + 1) * H_l)``."""
+    if group is None:
+        return x
+    check_backend(group, x)
+    m = dist.get_world_size(group)
+    s = x.shape[seq_dim]
+    if s % m:
+        raise ValueError(f"a sequence of {s} does not split over {m} ranks")
+    if not 0 <= seq_dim < head_dim:
+        raise ValueError("heads_to_seq wants 0 <= seq_dim < head_dim")
+    # (m, ..., S/m, ..., H_l, ...): chunk i goes to rank i
+    send = x.unflatten(seq_dim, (m, s // m)).movedim(seq_dim, 0).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    CALLS["all_to_all"] += 1
+    # recv[i] holds rank i's heads of this rank's chunk: move i next to
+    # the heads and join them
+    return recv.movedim(0, head_dim).flatten(head_dim, head_dim + 1)

@@ -2,14 +2,27 @@
 cross-entropy for the causal language models, chunked as JAX chunks it,
 and the diffusion epsilon-prediction objective.  The masked-unit (audio)
 and prefix (VLM) forms of the LM loss wait for those archs (ROADMAP
-A11)."""
+A11).
+
+On a mesh (the model's ``ParallelCtx``) the cross-entropy runs on the
+rank's vocabulary columns: the columns past the real vocabulary are
+masked by their global index, the logsumexp is combined over ``model``
+(``max + log(sum(exp(lse_r - max)))``, which at one rank is ``lse + 0``),
+the gold logit comes from the column's owner (or by mask-sum with
+``ce_masksum``) and is summed over ``model``, and the loss is ``sum nll /
+sum valid`` over the batch axes: each rank's loss is its sum over the
+global count, so the ranks' gradients add up to JAX's."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+import torch.distributed as dist
+
 from repro_torch.models.transformer import forward_hidden
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.tensor_parallel import TensorParallel
 
 TRAIN_STEPS = 1000          # the training grid of t
 AUX_COEF = 0.01             # the MoE auxiliary loss's weight (no MoE yet)
@@ -53,9 +66,17 @@ def diffusion_loss(model, batch, generator: Optional[torch.Generator] = None,
     return loss, {"mse": loss.detach()}
 
 
+def _vocab_lse(lse: torch.Tensor, group) -> torch.Tensor:
+    """The logsumexp over every rank's columns from each rank's own."""
+    m = lse.detach().clone()
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    coll.CALLS["all_reduce"] += 1
+    return m + torch.log(coll.reduce_from(torch.exp(lse - m), group))
+
+
 def _chunked_ce(x: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
                 unembed_w: torch.Tensor, vocab_real: int,
-                chunk: int = CE_CHUNK):
+                chunk: int = CE_CHUNK, *, tp=None, masksum: bool = False):
     """Cross-entropy summed over sequence chunks, the counterpart of
     ``repro.train.losses._chunked_ce``: ``(sum of the valid positions'
     NLL, number of valid positions)``, both f32 scalars.
@@ -64,14 +85,21 @@ def _chunked_ce(x: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
     is JAX's (``S // chunk``, lowered until it divides S), and the chunks'
     sums are added in order, so the sums agree; each chunk's logits are
     computed in the model's dtype, then cast to f32, and the padded vocab
-    columns are masked out of the logsumexp.
+    columns are masked out of the logsumexp.  ``tp`` (a
+    :class:`TensorParallel` with a group): ``unembed_w`` is the rank's
+    columns (module docstring).  ``masksum``: the gold logit by JAX's
+    mask-sum (``ce_masksum``).
     """
     b, s, _ = x.shape
     n_chunks = max(1, s // chunk)
     while s % n_chunks:
         n_chunks -= 1
     cs = s // n_chunks
-    col_ok = torch.arange(unembed_w.shape[1], device=x.device) < vocab_real
+    group = None if tp is None else tp.group
+    v_l = unembed_w.shape[1]
+    lo = 0 if group is None else tp.r * v_l
+    cols = lo + torch.arange(v_l, device=x.device)
+    col_ok = cols < vocab_real
     loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     n_sum = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(n_chunks):
@@ -79,33 +107,71 @@ def _chunked_ce(x: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
         logits = (x[:, part] @ unembed_w).float()
         logits = torch.where(col_ok, logits, NEG_INF)
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, part, None].long())[..., 0]
+        lab = labels[:, part].long()
+        if masksum:
+            gold = torch.where(lab[..., None] == cols, logits, 0.0).sum(-1)
+        elif group is None:
+            gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+        else:
+            local = lab - lo
+            ok = (local >= 0) & (local < v_l)
+            gold = torch.where(ok, torch.gather(
+                logits, -1, local.clamp(0, v_l - 1)[..., None])[..., 0], 0.0)
+        if group is not None:
+            lse = _vocab_lse(lse, group)
+            gold = coll.reduce_from(gold, group)
         nll = torch.where(valid[:, part], lse - gold, 0.0)
         loss_sum = loss_sum + nll.sum()
         n_sum = n_sum + valid[:, part].sum(dtype=torch.float32)
     return loss_sum, n_sum
 
 
-def lm_loss(cfg, model, batch, *, use_kernel: Optional[bool] = None):
+def _batch_sum(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``t`` summed over the mesh's batch axes (no gradient)."""
+    t = t.detach().clone()
+    for a in axes:
+        dist.all_reduce(t, group=mesh.get_group(a))
+        coll.CALLS["all_reduce"] += 1
+    return t
+
+
+def lm_loss(cfg, model, batch, *, parallel=None, remat: bool = False,
+            use_kernel: Optional[bool] = None):
     """Next-token cross-entropy of a causal LM (``repro.train.losses.
     lm_loss`` for causal archs): ``(loss, {"ce", "aux", "tokens"})``.
 
     ``batch["tokens"]`` and ``batch["labels"]``: (B, S) ints; position i
     predicts ``labels[i + 1]``, every position valid, the mean over them.
     ``aux`` is 0 (no MoE).  ``use_kernel=False`` takes the plain attention,
-    WKV and selective scan (a yardstick)."""
+    WKV and selective scan (a yardstick).
+
+    On a mesh ``batch`` is this rank's part of the global batch, ``loss``
+    is this rank's sum of NLL over the global count of valid positions
+    (the ranks' losses add up to the mean, and so do their gradients),
+    and the metrics are global: ``ce`` the mean, ``tokens`` the count."""
     if not cfg.causal or cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(f"the masked-unit (audio) and prefix "
                                   f"(VLM) LM losses wait for those archs "
                                   f"(ROADMAP A11); {cfg.name} is "
                                   f"{cfg.family}")
-    x, _ = forward_hidden(cfg, model, batch, use_kernel=use_kernel)
+    ctx = model.parallel if parallel is None else parallel
+    x, _ = forward_hidden(cfg, model, batch, parallel=parallel, remat=remat,
+                          use_kernel=use_kernel)
+    tp = TensorParallel(cfg, ctx)
+    x = tp.enter(x)
     labels = batch["labels"]
     b, s = labels.shape
     valid = torch.ones((b, s - 1), dtype=torch.bool, device=x.device)
     loss_sum, n = _chunked_ce(x[:, :-1], labels[:, 1:], valid,
-                              model["unembed"]["w"], cfg.vocab_size)
-    ce = loss_sum / torch.clamp(n, min=1.0)
+                              model["unembed"]["w"], cfg.vocab_size, tp=tp,
+                              masksum=ctx.ce_masksum)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return ce + AUX_COEF * aux, {"ce": ce.detach(), "aux": aux,
-                                 "tokens": n}
+    if ctx.mesh is None:
+        ce = loss_sum / torch.clamp(n, min=1.0)
+        return ce + AUX_COEF * aux, {"ce": ce.detach(), "aux": aux,
+                                     "tokens": n}
+    n = _batch_sum(n, ctx.mesh, ctx.batch_axes)
+    ce = loss_sum / torch.clamp(n, min=1.0)
+    ce_all = _batch_sum(loss_sum, ctx.mesh, ctx.batch_axes) / torch.clamp(
+        n, min=1.0)
+    return ce + AUX_COEF * aux, {"ce": ce_all, "aux": aux, "tokens": n}

@@ -4,13 +4,26 @@ loss (the language models).  The steps update the model and the optimizer
 state in place; PyTorch runs them eagerly, so nothing is jitted or
 donated.
 
-``make_train_step``                 one device.
+``make_train_step``                 one device, or with ``parallel`` (a
+                                    ``ParallelCtx`` with a mesh) the
+                                    language models' tensor-, sequence-
+                                    and data-parallel step with ZeRO-1.
 ``make_dp_train_step_compressed``   data parallel over a mesh dim, the
                                     gradient mean sent as int8 with error
                                     feedback (``parallel.collectives``).
 
-The GSPMD (tensor-, expert- and sequence-parallel) step of the JAX
-module's launcher waits for ROADMAP A10(c)."""
+The sharded step is what GSPMD compiles for JAX's launcher, spelled out:
+each rank's loss is its share of the global mean
+(:func:`repro_torch.train.losses.lm_loss`), the gradients of the
+parameters replicated over ``model`` whose use is per rank
+(:func:`repro_torch.models.transformer.model_partial_grads`) are summed
+over ``model``, every gradient is summed over the batch axes (in f32, or
+in its own dtype with ``AdamWConfig.bf16_grad_sync``), the global norm
+counts each element once (the sums of squares of ``model``-split leaves
+summed over ``model``, the replicated ones once), and AdamW updates each
+rank's ZeRO-1 slice (:func:`zero1_slices`: ``opt_state_shardings``'s
+``data`` dim) and gathers it over ``data``.  Expert parallelism waits for
+ROADMAP A11(b)2, rematerialization (``remat=``) for A13."""
 from __future__ import annotations
 
 import re
@@ -21,7 +34,9 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
-from .losses import diffusion_loss, lm_loss
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import sharding
+from .losses import AUX_COEF, diffusion_loss, lm_loss
 
 
 def _loss_fn(cfg: ArchConfig, loss_kind: str):
@@ -44,12 +59,138 @@ def _loss_fn(cfg: ArchConfig, loss_kind: str):
     return loss_fn
 
 
+class Zero1Slice:
+    """A rank's ZeRO-1 slice of a parameter: ``1/n`` of ``dim`` over the
+    mesh's ``axis``."""
+
+    def __init__(self, dim: int, mesh, axis: str):
+        self.dim, self.group = dim, mesh.get_group(axis)
+        self.n = sharding.mesh_shape(mesh)[axis]
+        self.i = mesh.get_local_rank(axis)
+
+    def part(self, t: torch.Tensor) -> torch.Tensor:
+        c = t.shape[self.dim] // self.n
+        return t.narrow(self.dim, self.i * c, c)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        return coll.all_gather_dim(t.contiguous(), self.dim, self.group)
+
+
+def zero1_specs(model) -> Dict:
+    """JAX's ``opt_state_shardings`` of ``model``'s moments."""
+    ctx = model.parallel
+    return sharding.opt_state_shardings(
+        model.cfg, ctx.mesh, {"m": model.shapes, "v": model.shapes}, ctx)
+
+
+def zero1_slices(model) -> Dict[str, Zero1Slice]:
+    """``{name: Zero1Slice}`` for every parameter whose moments
+    ``opt_state_shardings`` splits over ``data`` on a dim its parameter
+    keeps whole."""
+    ctx = model.parallel
+    if ctx.mesh is None:
+        return {}
+    zspecs = zero1_specs(model)["m"]
+    out = {}
+    for name, spec in model.specs.items():
+        for dim, (a, b) in enumerate(zip(zspecs[name], spec)):
+            if a == ctx.data_axis and b is None:
+                out[name] = Zero1Slice(dim, ctx.mesh, ctx.data_axis)
+    return out
+
+
+def train_state_specs(model) -> Dict[str, tuple]:
+    """The checkpoint's specs of a train state ``{"params": ..., "opt":
+    ...}`` (the train loop's leaf names)."""
+    zs = zero1_specs(model)
+    out = {f"params/{n}": s for n, s in model.specs.items()}
+    for key in ("m", "v"):
+        out.update({f"opt/{key}/{n}": s for n, s in zs[key].items()})
+    out["opt/step"] = ()
+    return out
+
+
+def _sum_over(grads: Dict[str, torch.Tensor], names, group,
+              keep_dtype: bool) -> None:
+    """Sum ``grads[name]`` over ``group`` for each name, in place of the
+    dict's entry: f32, or the gradient's dtype with ``keep_dtype``."""
+    for name in names:
+        g = grads[name]
+        g = g.clone() if keep_dtype else g.float().clone()
+        dist.all_reduce(g, group=group)
+        coll.CALLS["all_reduce"] += 1
+        grads[name] = g
+
+
+def sharded_global_norm(model, grads: Dict[str, torch.Tensor]
+                        ) -> torch.Tensor:
+    """The global norm of a sharded gradient: each leaf's f32 sum of
+    squares, those of leaves split over ``model`` summed over it (one
+    all-reduce), added in the parameters' order as
+    :func:`repro_torch.optim.global_norm` adds them."""
+    ctx = model.parallel
+    mp = ctx.model_axis
+    sq = [torch.sum(torch.square(g.float())) for g in grads.values()]
+    split = [i for i, n in enumerate(grads)
+             if any(a == mp for a in model.specs[n])]
+    if split:
+        v = torch.stack([sq[i] for i in split])
+        dist.all_reduce(v, group=ctx.mesh.get_group(mp))
+        coll.CALLS["all_reduce"] += 1
+        for j, i in enumerate(split):
+            sq[i] = v[j]
+    return torch.sqrt(sum(sq))
+
+
+def _sharded_lm_step(cfg: ArchConfig, opt_cfg: AdamWConfig, parallel):
+    from repro_torch.models.transformer import model_partial_grads
+    mesh = parallel.mesh
+
+    def step(model, opt_state, batch, generator=None, *, t=None, eps=None):
+        if model.parallel != parallel:
+            raise ValueError("the model was built for another ParallelCtx")
+        params = dict(model.named_parameters())
+        loss, metrics = lm_loss(cfg, model, batch)
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        keep = opt_cfg.bf16_grad_sync
+        _sum_over(grads, model_partial_grads(model),
+                  mesh.get_group(parallel.model_axis), keep)
+        for a in parallel.batch_axes:
+            _sum_over(grads, list(grads), mesh.get_group(a), keep)
+        gnorm = sharded_global_norm(model, grads)
+        _, opt_state, opt_metrics = adamw_update(
+            params, grads, opt_state, opt_cfg, gnorm=gnorm,
+            zero1=zero1_slices(model))
+        total = metrics["ce"] + AUX_COEF * metrics["aux"]
+        return model, opt_state, dict(metrics, loss=total, **opt_metrics)
+
+    return step
+
+
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
-                    loss_kind: str = "diffusion"):
+                    loss_kind: str = "diffusion", parallel=None,
+                    remat: bool = False):
     """Returns ``step(model, opt_state, batch, generator=None, *, t=None,
     eps=None) -> (model, opt_state, metrics)``; ``t``/``eps`` pin the
     diffusion loss's draws (tests and yardsticks; the LM loss draws
-    nothing).  Metrics stay device tensors."""
+    nothing).  Metrics stay device tensors.  ``parallel`` with a mesh:
+    the sharded LM step (module docstring); ``batch`` is then the rank's
+    part of the global batch (``data.make_stream(..., mesh=)``), the
+    model and ``opt_state`` hold the rank's parts
+    (``init_opt_state(params, zero1=zero1_slices(model))``), and the
+    metrics are global."""
+    if remat:
+        raise NotImplementedError("make_train_step(remat=) is ROADMAP A13")
+    if parallel is not None and parallel.mesh is not None:
+        if loss_kind != "lm":
+            raise ValueError("the sharded step trains the language models; "
+                             "the DiT's data-parallel step is "
+                             "make_dp_train_step_compressed")
+        _loss_fn(cfg, loss_kind)
+        from repro_torch.models.transformer import check_ctx
+        check_ctx(parallel)
+        return _sharded_lm_step(cfg, opt_cfg, parallel)
     loss_fn = _loss_fn(cfg, loss_kind)
 
     def step(model, opt_state, batch, generator=None, *, t=None, eps=None):

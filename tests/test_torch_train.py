@@ -550,7 +550,9 @@ def test_stream_batches_copy_through_pinned_memory(monkeypatch, arch):
 def test_launcher_refuses_what_is_not_ported(monkeypatch):
     with pytest.raises(NotImplementedError, match="A11"):
         tlaunch.build("stablelm-3b", device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
+    # the pod meshes are ported (PR 28): a group of the wrong size names
+    # the ranks the mesh needs
+    with pytest.raises(ValueError, match="needs 256 ranks"):
         tlaunch.build("srds-dit-sd2", mesh_kind="pod1", device="cpu")
     # the LM step is ported; the MoE block's is not
     with pytest.raises(NotImplementedError, match="A11"):
