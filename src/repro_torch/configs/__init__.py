@@ -1,4 +1,6 @@
 """Architecture configs for the port (counterpart of ``repro.configs``)."""
-from .base import ArchConfig, get_arch, register_arch
+from .base import (SHAPES, ArchConfig, ShapeConfig, arch_names, get_arch,
+                   register_arch, shape_cells)
 
-__all__ = ["ArchConfig", "get_arch", "register_arch"]
+__all__ = ["SHAPES", "ArchConfig", "ShapeConfig", "arch_names", "get_arch",
+           "register_arch", "shape_cells"]

@@ -6,9 +6,11 @@ draws come from a ``torch.Generator`` seeded by :func:`fold_in` of the two,
 on the CPU, so a restarted trainer resumes on exactly the batch it would
 have seen, on any device.  The procedural formulas (:func:`image_formula`,
 :func:`token_formula`) take the draws as arguments and run on the
-stream's device.  The DiT's ``ImageStream`` and the language models'
-``LMStream`` are ported; the audio and VLM streams wait for those archs
-(ROADMAP A11).  A stream's ``batch`` copies its draws to the device
+stream's device: the DiT's ``ImageStream``, the language models'
+``LMStream``, the audio stub's ``AudioStream`` (frame features, unit
+labels and a Bernoulli 0.3 mask of the positions the loss counts) and
+the vision stub's ``VLMStream`` (the LM stream's tokens and
+``image_embeds``).  A stream's ``batch`` copies its draws to the device
 through pinned memory, non-blocking, so a training loop never waits for
 the card to fetch its next batch.
 
@@ -155,15 +157,86 @@ class LMStream:
         return {"tokens": tokens, "labels": tokens}
 
 
+def audio_formula(normal, labels, mask) -> dict:
+    """The audio stub's batch from its three draws (a standard normal
+    ``(B, S, d)``, labels ``(B, S)`` and the bool mask ``(B, S)``, true
+    with probability 0.3): features ``normal * 0.5``, the labels as int64
+    and the mask; the formulas of ``AudioStream.batch`` in JAX."""
+    return {"features": normal * 0.5, "labels": labels.long(),
+            "mask": mask}
+
+
+class AudioStream:
+    """Frame features, unit labels and the mask of the positions the
+    masked-unit loss counts (the audio frontend is a stub)."""
+
+    def __init__(self, cfg: DataConfig, d_model: int, vocab: int,
+                 device="cuda", mesh=None, batch_axes=("data",)):
+        self.cfg = cfg
+        self.d_model = d_model
+        self.vocab = vocab
+        self.device = torch.device(device)
+        self.rows = _host_slice(cfg.global_batch, mesh, batch_axes)
+
+    def draws(self, step: int):
+        """The three draws of ``step``'s batch, on the CPU."""
+        g = torch.Generator().manual_seed(fold_in(self.cfg.seed ^ 0xA0D10,
+                                                  step))
+        b, s = self.cfg.global_batch, self.cfg.seq_len
+        return (torch.randn((b, s, self.d_model), generator=g),
+                torch.randint(0, self.vocab, (b, s), generator=g),
+                torch.rand((b, s), generator=g) < 0.3)
+
+    def batch(self, step: int):
+        start, per = self.rows
+        draws = [host_to_device(d[start:start + per].contiguous(),
+                                self.device) for d in self.draws(step)]
+        return audio_formula(*draws)
+
+
+class VLMStream:
+    """The LM stream's tokens with ``image_embeds`` ``(B, P, d)``, a
+    normal draw times 0.2 (the vision frontend is a stub)."""
+
+    def __init__(self, cfg: DataConfig, vocab: int, num_prefix: int,
+                 d_model: int, device="cuda", mesh=None,
+                 batch_axes=("data",)):
+        self.cfg = cfg
+        self.lm = LMStream(cfg, vocab, device, mesh, batch_axes)
+        self.num_prefix = num_prefix
+        self.d_model = d_model
+        self.device = torch.device(device)
+        self.rows = self.lm.rows
+
+    def draws(self, step: int):
+        """The image draw of ``step``'s batch, on the CPU."""
+        g = torch.Generator().manual_seed(fold_in(self.cfg.seed ^ 0x1AB,
+                                                  step))
+        return torch.randn((self.cfg.global_batch, self.num_prefix,
+                            self.d_model), generator=g)
+
+    def batch(self, step: int):
+        b = self.lm.batch(step)
+        start, per = self.rows
+        b["image_embeds"] = host_to_device(
+            self.draws(step)[start:start + per].contiguous(),
+            self.device) * 0.2
+        return b
+
+
 def make_stream(cfg: ArchConfig, data_cfg: DataConfig, device="cuda",
                 mesh=None, batch_axes=("data",)):
-    """The arch's stream: images for the DiT, tokens for the dense, RWKV
-    and hybrid (hymba) language models; with ``mesh``, this rank's rows
-    (:func:`_host_slice`)."""
+    """The arch's stream (JAX's ``make_stream``): frames for the audio
+    stub, tokens and image embeddings for the vision stub, images for the
+    DiT, tokens for the other language models; with ``mesh``, this rank's
+    rows (:func:`_host_slice`)."""
+    if cfg.frontend == "audio":
+        return AudioStream(data_cfg, cfg.d_model, cfg.vocab_size, device,
+                           mesh, batch_axes)
+    if cfg.frontend == "vision":
+        return VLMStream(data_cfg, cfg.vocab_size, cfg.num_prefix_embeds,
+                         cfg.d_model, device, mesh, batch_axes)
     if cfg.family == "dit":
         return ImageStream(data_cfg, IMAGE_SIZES.get(cfg.name, 32),
                            cfg.in_channels, device, mesh, batch_axes)
-    if cfg.family in ("dense", "ssm", "hybrid"):
-        return LMStream(data_cfg, cfg.vocab_size, device, mesh, batch_axes)
-    raise NotImplementedError(f"the {cfg.family} data streams (audio, "
-                              f"vision) wait for those archs (ROADMAP A11)")
+    return LMStream(data_cfg, cfg.vocab_size, device, mesh, batch_axes)

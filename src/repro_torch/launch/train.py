@@ -1,8 +1,8 @@
 """Training launcher: config -> mesh -> sharded model and optimizer state
 -> fault-tolerant loop (counterpart of ``repro.launch.train``), for the
-DiT and the language models the port has (``qwen3-8b``, ``rwkv6-1.6b``,
-``hymba-1.5b``): on one device (``--mesh local``), or, for the language
-models, on JAX's production meshes (``--mesh pod1``: ``(data 16, model
+DiT and every language model of the zoo (dense, MoE, RWKV6, hybrid, and
+the audio and vision stubs): on one device (``--mesh local``), or, for
+the language models, on JAX's production meshes (``--mesh pod1``: ``(data 16, model
 16)``, 256 ranks; ``pod2``: ``(pod 2, data 16, model 16)``, 512) under
 ``torchrun``, one process a card:
 
@@ -11,7 +11,8 @@ models, on JAX's production meshes (``--mesh pod1``: ``(data 16, model
         --arch qwen3-8b --mesh pod1 --steps 100 --batch 256 --seq 2048
 
 Every rank draws the whole model from seed 0 and keeps its parts
-(``ParallelCtx(sp=True, model_parallel=16)``, ZeRO-1 moments), takes its
+(``ParallelCtx(sp=True, model_parallel=16)``, ``use_ep`` for the MoE
+archs, ZeRO-1 moments), takes its
 rows of each batch, and checkpoints JAX's multi-process layout.  The
 step is :func:`repro_torch.train.make_train_step`'s sharded one.
 :func:`build_on_mesh` is the part after the mesh (the tests call it on
@@ -105,38 +106,43 @@ def build(arch: str, *, mesh_kind: str = "local", reduced: bool = False,
     return cfg, model, opt_state, step, loss_kind
 
 
-def mesh_ctx(mesh) -> ParallelCtx:
+def mesh_ctx(mesh, cfg=None) -> ParallelCtx:
     """JAX's launcher context on ``mesh``: batch over ``("pod", "data")``
     or ``("data",)``, ``sp=True``, the model-parallel degree the mesh's
-    ``model`` dim (16 on the production meshes, as JAX's)."""
+    ``model`` dim (16 on the production meshes, as JAX's), and expert
+    parallelism (``use_ep``) for an MoE ``cfg``."""
     names = tuple(mesh.mesh_dim_names)
     multi = "pod" in names
     return ParallelCtx(mesh=mesh,
                        batch_axes=("pod", "data") if multi else ("data",),
+                       use_ep=cfg is not None and cfg.moe_experts > 0,
                        sp=True, model_parallel=mesh_shape(mesh)["model"])
 
 
 def build_on_mesh(arch: str, mesh, *, reduced: bool = False,
                   lr: float = 3e-4, total_steps: int = 100, device="cuda",
-                  params=None, layers: Optional[int] = None):
+                  params=None, layers: Optional[int] = None,
+                  experts: Optional[int] = None):
     """:func:`build`'s part after the mesh, for a language model:
     ``(cfg, model, opt_state, step, "lm")`` with the model's and the
     moments' parts of this rank (:func:`mesh_ctx`'s context; every rank
     draws the whole model from seed 0, or takes ``params``, a JAX tree at
     that context's padding, and keeps its part).  ``layers`` cuts the
-    depth (a smoke test's)."""
+    depth and ``experts`` an MoE arch's expert count (a smoke test's)."""
     import dataclasses
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
+    if experts is not None:
+        cfg = dataclasses.replace(cfg, moe_experts=experts)
     if cfg.family == "dit":
         raise ValueError("the mesh launcher trains the language models; "
                          "the DiT's data-parallel step is "
                          "make_dp_train_step_compressed")
     device = resolve_device(device)
-    ctx = mesh_ctx(mesh)
+    ctx = mesh_ctx(mesh, cfg)
     if params is not None:
         model = transformer.load_jax_params(cfg, params, device=device,
                                             trainable=True, parallel=ctx)

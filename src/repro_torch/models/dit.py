@@ -18,6 +18,16 @@ optimizer state, so a JAX train state continues here;
 ``mod_fb`` and ``patch_out`` at zero, so a fresh DiT predicts eps == 0.
 The parameters are trainable; the samplers' :func:`make_denoiser` runs
 without autograd, on one device or patch-sharded over a mesh dim.
+
+The TimeConditioned wrapper (JAX's ``init_time_conditioned`` and
+``time_conditioned_forward``) makes any backbone of the LM zoo an
+embedding-space denoiser: :class:`TimeConditioned` holds a
+:class:`repro_torch.models.transformer.TransformerLM` and two leaves,
+``time_in`` ``(256, d)`` and ``eps_out`` ``(d, d)``;
+:func:`time_conditioned_forward` adds the sinusoidal time embedding to
+every position of the latents, runs every block non-causal, then
+``ln_f`` and ``eps_out``; :func:`make_time_conditioned_denoiser` is its
+``model_fn(x, t)`` for ``srds_sample`` and ``sample_sequential``.
 """
 from __future__ import annotations
 
@@ -346,3 +356,104 @@ def make_denoiser(model: DiT, *, shard_axis: Optional[str] = None,
 
 def param_count(model: DiT) -> int:
     return sum(math.prod(p.shape) for p in model.parameters())
+
+
+# --------------------------------------------------------------------------
+# TimeConditioned: any backbone of the LM zoo as a denoiser
+# --------------------------------------------------------------------------
+
+class TimeConditioned(nn.Module):
+    """A backbone (``backbone``: a :class:`TransformerLM`, its embedding
+    and unembedding unused) with ``time_in`` ``(256, d)`` and ``eps_out``
+    ``(d, d)`` in the config's dtype, JAX's ``init_time_conditioned``
+    tree.  Frozen unless ``trainable``; ``backbone`` a built one (by
+    default zeros)."""
+
+    def __init__(self, cfg: ArchConfig, device="cuda",
+                 trainable: bool = False, backbone=None):
+        from .transformer import TransformerLM
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.backbone = backbone if backbone is not None else \
+            TransformerLM(cfg, device=device, trainable=trainable)
+        d, dt = cfg.d_model, _DTYPES[cfg.dtype]
+        self.time_in = nn.Parameter(torch.zeros(
+            (TIME_EMBED_DIM, d), dtype=dt, device=device),
+            requires_grad=trainable)
+        self.eps_out = nn.Parameter(torch.zeros((d, d), dtype=dt,
+                                                device=device),
+                                    requires_grad=trainable)
+
+    def forward(self, x, t, *, use_kernel: Optional[bool] = None):
+        return time_conditioned_forward(self.cfg, self, x, t,
+                                        use_kernel=use_kernel)
+
+
+@torch.no_grad()
+def init_time_conditioned(cfg: ArchConfig, generator: torch.Generator,
+                          device="cuda") -> TimeConditioned:
+    """A fresh :class:`TimeConditioned`: the backbone by
+    :func:`repro_torch.models.transformer.init_params`, ``time_in`` normal
+    times 256^-0.5 and ``eps_out`` normal times 0.02 d^-0.5 (JAX's
+    scales), drawn on ``device`` from ``generator``."""
+    from .transformer import init_params
+    model = TimeConditioned(cfg, device=device, backbone=init_params(
+        cfg, generator, device=device))
+    d = cfg.d_model
+    model.time_in.normal_(0.0, TIME_EMBED_DIM ** -0.5, generator=generator)
+    model.eps_out.normal_(0.0, 0.02 * d ** -0.5, generator=generator)
+    return model
+
+
+@torch.no_grad()
+def load_time_conditioned(cfg: ArchConfig, tree, device="cuda"
+                          ) -> TimeConditioned:
+    """A :class:`TimeConditioned` holding JAX's tree (the backbone's
+    leaves, ``blocks`` stacked on the layer axis, and ``time_in``,
+    ``eps_out``)."""
+    from .transformer import load_jax_params
+    model = TimeConditioned(cfg, device=device,
+                            backbone=load_jax_params(cfg, tree,
+                                                     device=device))
+    for name in ("time_in", "eps_out"):
+        _set(getattr(model, name), np.asarray(tree[name], np.float32), name)
+    return model
+
+
+def time_conditioned_forward(cfg: ArchConfig, model: TimeConditioned,
+                             x: torch.Tensor, t: torch.Tensor, *,
+                             use_kernel: Optional[bool] = None
+                             ) -> torch.Tensor:
+    """x: ``(B, S, d_model)`` latents, t: ``(B,)``; the epsilon
+    prediction of x's shape and dtype (the blocks run in the config's
+    dtype: JAX promotes a f32 ``x`` against bf16 weights, the port casts
+    it).  Every block runs bidirectionally (``causal=False``; RWKV's
+    recurrence and Hymba's SSM from zero states), the time embedding
+    added at every position."""
+    import dataclasses
+    from repro_torch.parallel.tensor_parallel import TensorParallel
+    from .transformer import LOCAL, run_blocks
+    cfg_nc = dataclasses.replace(cfg, causal=False)
+    dt = model.time_in.dtype
+    temb = sinusoidal_time_embed(t, TIME_EMBED_DIM).to(dt) @ model.time_in
+    h = x.to(dt) + temb[:, None, :]
+    h, _, _ = run_blocks(cfg_nc, model.backbone, h, LOCAL,
+                         TensorParallel(cfg_nc, LOCAL),
+                         use_kernel=use_kernel)
+    ln_f = model.backbone["ln_f"]
+    h = apply_norm(h, ln_f["scale"], kind=cfg.norm,
+                   bias=ln_f["bias"] if "bias" in ln_f else None)
+    return (h @ model.eps_out).to(x.dtype)
+
+
+def make_time_conditioned_denoiser(model: TimeConditioned):
+    """``model_fn(x, t)`` for the samplers: x ``(M, S, d)``, t a scalar or
+    per-row ``(M,)``; runs without autograd."""
+
+    @torch.no_grad()
+    def model_fn(x, t):
+        tb = torch.as_tensor(t, dtype=torch.float32, device=x.device)
+        return model(x, tb.expand(x.shape[0]))
+
+    return model_fn

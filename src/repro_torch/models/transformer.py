@@ -1,17 +1,23 @@
 """The language-model backbone (counterpart of
 ``repro.models.transformer``) for dense attention+MLP blocks
-(``block="attn_mlp"``, no MoE), RWKV6 blocks (``block="rwkv6"``) and Hymba
-blocks (``block="hymba"``), on one device or tensor-, sequence- and
-data-parallel over a ``(data, model)`` or ``(pod, data, model)`` mesh.
-MoE blocks wait for ROADMAP A11(b).
+(``block="attn_mlp"``), MoE blocks (``moe_experts > 0``: the experts in
+place of the MLP, or beside it with ``moe_dense_residual``), RWKV6 blocks
+(``block="rwkv6"``) and Hymba blocks (``block="hymba"``), with the audio
+(frame features in place of the embedding) and vision (image embeddings
+spliced over the first ``num_prefix_embeds`` positions) stub frontends
+and encoder-only (``causal=False``) attention, on one device or tensor-,
+sequence-, data- and expert-parallel over a ``(data, model)`` or
+``(pod, data, model)`` mesh.
 
 :class:`TransformerLM` holds the parameters: one :class:`ParamTree` per
 layer (JAX stacks them on a leading layer axis for ``jax.lax.scan``; the
 port loops over layers), with the JAX tree's leaf names, shapes and
-dtypes (norm scales, RWKV's ``w_base``/``u``/``gn_scale`` and Hymba's SSM
-leaves but ``w_in``/``w_out`` in f32, the rest in the config's dtype).  The parameters are frozen unless the caller asks
-for ``trainable=True`` (``repro_torch.launch.train`` does); the serving
-functions run without autograd either way.
+dtypes (norm scales, RWKV's ``w_base``/``u``/``gn_scale``, Hymba's SSM
+leaves but ``w_in``/``w_out`` and the MoE ``router`` in f32, the rest in
+the config's dtype; no ``embed`` for the audio frontend).  The parameters
+are frozen unless the caller asks for ``trainable=True``
+(``repro_torch.launch.train`` does); the serving functions run without
+autograd either way.
 
 :class:`ParallelCtx` is JAX's, field for field.  Its ``model_parallel``
 pads the heads and the vocabulary as JAX pads them (``padded_heads``,
@@ -25,9 +31,19 @@ the SSM's channels and the vocabulary split over ``model``; row shards
 summed over it; with ``sp`` the residual stream split along the sequence
 between blocks, each mixer's and MLP's normed input gathered first.  The
 math is the single device's: at one rank every collective returns its
-input's bits.  ``use_ep`` and the ``moe_*`` fields raise, naming ROADMAP
-A11(b)2; ``fsdp`` in a forward raises, naming A12 (JAX's launcher never
-sets it; :func:`repro_torch.parallel.sharding.param_shardings` takes it);
+input's bits.  MoE blocks on a mesh (JAX's ``_apply_moe``): with
+``use_ep`` (JAX's launcher sets it for every MoE arch) each rank holds
+``E / D`` experts and ``f / M`` of their width and runs
+:func:`repro_torch.models.moe.moe_ep_local` on its tokens (under ``sp``
+the sequence gathered first and the rank's slice of the output kept),
+the aux a ``pmean`` over the batch axes (value the mean, gradient the
+rank's share: :func:`repro_torch.parallel.collectives.mean_share`);
+without it each rank gathers the experts over ``data`` and runs
+:func:`moe_local` on its tokens, with the global Switch loss as JAX's
+GSPMD computes it.  The router routes from an input whose gradient is
+not summed over ``model`` (it is whole on every model rank).  ``fsdp``
+in a forward raises, naming A12 (JAX's launcher never sets it;
+:func:`repro_torch.parallel.sharding.param_shardings` takes it);
 ``remat`` and a ``remat_policy`` other than JAX's default raise, naming
 A13.  ``scan_unroll`` is accepted and does nothing (it changes no result
 in JAX, and the port has no scan).  ``attn_chunk_kv`` runs the plain
@@ -36,8 +52,10 @@ not run, as JAX's ``attention_full`` does.
 
 Modes, with the JAX semantics:
   * :func:`forward_hidden` / :func:`forward_train`: the full sequence,
-    hidden states / f32 logits (there is no MoE, so no auxiliary loss);
-    with a mesh the logits are the rank's vocabulary columns;
+    hidden states / f32 logits, and the MoE auxiliary loss summed over
+    the layers (0 without MoE); with a mesh the logits are the rank's
+    vocabulary columns.  ``batch`` holds ``tokens``, or ``features`` for
+    the audio frontend, and for the vision frontend ``image_embeds``;
   * :func:`prefill`: the full sequence, returns ``(last_logits, cache)``.
     It unembeds the last position only (JAX unembeds every position and
     keeps the last: the same per-position numbers, without a
@@ -85,6 +103,7 @@ from .hymba import HymbaCache, hymba_mix_decode, hymba_mix_full, \
     init_hymba_cache
 from .layers import (apply_mlp, apply_norm, attention_decode, attention_full,
                      decode_partials, embed, project_qkv, unembed)
+from .moe import moe_ep_local, moe_local
 from .rwkv6 import LORA_R, RWKVState, init_rwkv_state, rwkv_block
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -124,16 +143,10 @@ class ParallelCtx:
 
 
 LOCAL = ParallelCtx()
-_MOE_DEFAULTS = {f.name: f.default for f in dataclasses.fields(ParallelCtx)
-                 if f.name.startswith("moe_")}
 
 
 def check_ctx(parallel: ParallelCtx, remat: bool = False) -> None:
     """Raise for the fields whose JAX user the port lacks."""
-    if parallel.use_ep or any(getattr(parallel, k) != v
-                              for k, v in _MOE_DEFAULTS.items()):
-        raise NotImplementedError("expert parallelism and the MoE fields "
-                                  "wait for MoE blocks (ROADMAP A11(b)2)")
     if parallel.fsdp:
         raise NotImplementedError("FSDP execution (parameters gathered "
                                   "over data in the forward) waits for "
@@ -183,14 +196,15 @@ def _leaves(cfg: ArchConfig, mp: int = 1) -> Tuple[List[Leaf], List[Leaf]]:
     model_parallel=mp)``): paths, global shapes without the layer axis,
     dtypes and init rules."""
     if cfg.block not in ("attn_mlp", "rwkv6", "hymba"):
-        raise NotImplementedError(f"{cfg.block!r} blocks are not ported yet "
-                                  f"(ROADMAP A11)")
+        raise ValueError(f"unknown block {cfg.block!r}")
     dt = _DTYPES[cfg.dtype]
     d, ff = cfg.d_model, cfg.d_ff
     vocab = cfg.padded_vocab(mp)
     s_d, s_ff = d ** -0.5, ff ** -0.5
-    top = [("embed/table", (vocab, d), dt, ("normal", 0.02)),
-           ("unembed/w", (d, vocab), dt, ("normal", s_d))]
+    # the audio stub feeds frame features: no embedding table
+    top = [] if cfg.frontend == "audio" else [
+        ("embed/table", (vocab, d), dt, ("normal", 0.02))]
+    top.append(("unembed/w", (d, vocab), dt, ("normal", s_d)))
     top += _norm_leaves("ln_f", d, cfg.norm)
     blk = _norm_leaves("ln1", d, cfg.norm) + _norm_leaves("ln2", d, cfg.norm)
     if cfg.block == "rwkv6":
@@ -238,6 +252,15 @@ def _leaves(cfg: ArchConfig, mp: int = 1) -> Tuple[List[Leaf], List[Leaf]]:
                 ("ssm/w_out", (din, d), dt, s_i)]
         blk += _norm_leaves("n_attn", d, cfg.norm)
         blk += _norm_leaves("n_ssm", d, cfg.norm)
+    if cfg.moe_experts and cfg.block == "attn_mlp":
+        e, mff = cfg.moe_experts, cfg.moe_d_ff
+        blk += [("moe/router", (d, e), torch.float32, ("normal", s_d)),
+                ("moe/w_up", (e, d, mff), dt, ("normal", s_d)),
+                ("moe/w_down", (e, mff, d), dt, ("normal", mff ** -0.5))]
+        if cfg.act == "swiglu":
+            blk.append(("moe/w_gate", (e, d, mff), dt, ("normal", s_d)))
+        if not cfg.moe_dense_residual:
+            return top, blk
     blk += [("mlp/w_up", (d, ff), dt, ("normal", s_d)),
             ("mlp/w_down", (ff, d), dt, ("normal", s_ff))]
     if cfg.act == "swiglu":
@@ -456,7 +479,9 @@ def model_partial_grads(model: TransformerLM) -> List[str]:
     rank's own heads or channels (q/k-norm scales, replicated K/V
     projections, RWKV's mixes, LoRAs, ``u`` and group-norm scale, the
     SSM's ``b_dt``), and, under ``sp``, the norms between blocks, which
-    see the rank's part of the sequence."""
+    see the rank's part of the sequence.  The MoE router is not one: it
+    routes the same tokens on every model rank from an input whose
+    gradient is whole there."""
     if model.specs is None:
         return []
     mp = model.parallel.model_axis
@@ -465,6 +490,8 @@ def model_partial_grads(model: TransformerLM) -> List[str]:
         if any(a == mp or (isinstance(a, tuple) and mp in a) for a in spec):
             continue
         keys = sharding.leaf_keys(name)
+        if keys[-2:] == ("moe", "router"):
+            continue
         if len(keys) >= 2 and keys[-2] in BLOCK_NORMS and \
                 not model.parallel.sp:
             continue
@@ -521,8 +548,9 @@ def _embed(model: TransformerLM, tokens: torch.Tensor,
 
 def _kv_layout(tp: TensorParallel, kv: torch.Tensor, seq_dim: int,
                length: int) -> torch.Tensor:
-    """Prefill K/V stacked ``(L, B, S, H, D)`` (the rank's heads where they
-    are split, all of them where replicated) at ``length`` positions
+    """Prefill K/V (a layer's ``(B, S, H, D)``, or Hymba's rings stacked
+    ``(L, B, W, H, D)``; the rank's heads where they are split, all of
+    them where replicated) at ``length`` positions along ``seq_dim``
     (zeros past ``S``), with a mesh in the flash-decoding layout: split
     over ``model``, every head."""
     if kv.shape[seq_dim] != length:
@@ -536,24 +564,124 @@ def _kv_layout(tp: TensorParallel, kv: torch.Tensor, seq_dim: int,
     return tp.part(kv, seq_dim).contiguous()
 
 
-def forward_hidden(cfg: ArchConfig, model: TransformerLM, batch, *,
-                   parallel: Optional[ParallelCtx] = None,
-                   remat: bool = False,
-                   use_kernel: Optional[bool] = None,
-                   return_cache: bool = False,
-                   cache_len: Optional[int] = None):
-    """The backbone up to the final norm: ``(x (B, S, d), cache|None)``,
-    the cache being what :func:`prefill` returns.  Under ``sp`` ``x`` is
-    this rank's part of the sequence (``S / m`` rows).  ``cache_len``: a
-    dense cache's length, zeros past ``S`` (default ``S``; with a mesh
-    rounded up to a multiple of the ``model`` dim)."""
-    parallel = _ctx(model, parallel, remat)
-    tp = TensorParallel(cfg, parallel)
-    norm = _norm(cfg)
+def embed_inputs(cfg: ArchConfig, model: TransformerLM, batch,
+                 tp: TensorParallel) -> torch.Tensor:
+    """The blocks' input (JAX's ``embed_inputs``): the audio stub's
+    ``features`` cast to the model's dtype, else the token embedding with,
+    for the vision stub, ``image_embeds`` ``(B, P, d)`` over the first P
+    positions (the sequence keeps its length).  Under ``sp`` this rank's
+    part of the sequence."""
+    if cfg.frontend == "audio":
+        x = batch["features"].to(_DTYPES[cfg.dtype])
+        return tp.part(x, 1) if tp.sp else x
     x = _embed(model, batch["tokens"], tp)
-    s = batch["tokens"].shape[1]
+    if cfg.frontend != "vision" or "image_embeds" not in batch:
+        return x
+    pfx = batch["image_embeds"]
+    n, lo = pfx.shape[1], 0
+    if tp.sp:       # this rank's rows of the global positions
+        lo = tp.r * x.shape[1]
+        n = min(max(n - lo, 0), x.shape[1])
+    if n == 0:
+        return x
+    return torch.cat([pfx[:, lo:lo + n].to(x.dtype), x[:, n:]], dim=1)
+
+
+def _global_switch_aux(cfg: ArchConfig, router: torch.Tensor,
+                       xr: torch.Tensor, groups) -> torch.Tensor:
+    """JAX's aux of :func:`moe_local` over the whole batch (GSPMD's),
+    from each rank's tokens: the probabilities' and the top-1 counts'
+    sums reduced over the batch groups (the gradient reaches this rank's
+    own probabilities)."""
+    probs = torch.softmax(xr.reshape(-1, xr.shape[-1]).float() @ router,
+                          dim=-1)
+    e = cfg.moe_experts
+    # the top-1 expert: the first of equal maxima, as the route's sort
+    stats = torch.cat([probs.sum(dim=0), torch.nn.functional.one_hot(
+        probs.argmax(dim=-1), e).float().sum(dim=0)])
+    n = torch.full((), float(probs.shape[0]), device=probs.device)
+    for g in groups:
+        stats = coll.reduce_from(stats, g)
+        n = coll.reduce_from(n, g)
+    return e * torch.sum((stats[:e] / n) * (stats[e:] / n))
+
+
+def _apply_moe(cfg: ArchConfig, p, h: torch.Tensor, parallel: ParallelCtx,
+               tp: TensorParallel):
+    """The MoE of a block (JAX's ``_apply_moe``) on the normed input ``h``
+    (under ``sp`` the rank's part of the sequence): ``(out, aux)``, out
+    whole (the rank's part of the sequence under ``sp``)."""
+    k, act = cfg.moe_top_k, cfg.act
+    mesh = parallel.mesh
+    if mesh is None:
+        return moe_local(p, h, k, act)
+    # the experts' input (its gradient summed over ``model``, where each
+    # rank holds its part of the FFN width) and the router's (the same
+    # values; its gradient whole on every model rank).  At one model rank
+    # nothing is summed, and both read one entry: ``h``'s gradient then
+    # adds its parts in the plain path's order (ROADMAP C24)
+    xe = tp.enter(h)
+    if tp.m == 1:
+        xr = xe
+    else:
+        xr = coll.gather_split(h, 1, tp.group) if tp.sp else h
+    if tp.m > 1 and p["w_up"].shape[2] == cfg.moe_d_ff:
+        raise ValueError(f"{cfg.name}: the expert width {cfg.moe_d_ff} "
+                         f"does not split over {tp.m} model ranks")
+    batch_groups = [mesh.get_group(a) for a in parallel.batch_axes]
+    b, s, d = xe.shape
+    if parallel.use_ep:
+        out, aux = moe_ep_local(
+            p, xe.reshape(b * s, d), k, num_experts=cfg.moe_experts,
+            data_group=mesh.get_group(parallel.data_axis),
+            model_group=tp.group, capacity_factor=parallel.moe_capacity,
+            chunk_tokens=parallel.moe_chunk, act=act,
+            fixed_capacity=parallel.moe_fixed_capacity,
+            x_route=xr.reshape(b * s, d))
+        out = out.reshape(b, s, d)
+        aux = coll.mean_share(aux, batch_groups)
+    else:
+        full = dict(p.named_parameters())
+        if full["w_up"].shape[0] != cfg.moe_experts:
+            dg = mesh.get_group(parallel.data_axis)
+            full = {n: (w if n == "router" else coll.gather_seq(w, 0, dg))
+                    for n, w in full.items()}
+        out, _ = moe_local(full, xe, k, act, x_route=xr)
+        out = coll.reduce_from(out, tp.group)
+        aux = _global_switch_aux(cfg, p["router"], xr, batch_groups)
+    if tp.sp:
+        out = coll.split(out, 1, tp.group)
+    return out, aux
+
+
+def _mlp_or_moe(cfg: ArchConfig, p, h: torch.Tensor, parallel: ParallelCtx,
+                tp: TensorParallel):
+    """A dense block's second half on the normed input ``h``: ``(out,
+    aux)`` to add to the residual (the MLP, or the MoE with its dense
+    residual MLP beside it)."""
+    aux = None
+    if cfg.moe_experts:
+        out, aux = _apply_moe(cfg, p["moe"], h, parallel, tp)
+        if cfg.moe_dense_residual:
+            out = out + tp.leave(apply_mlp(p["mlp"], tp.enter(h), cfg.act))
+        return out, aux
+    return tp.leave(apply_mlp(p["mlp"], tp.enter(h), cfg.act)), aux
+
+
+def run_blocks(cfg: ArchConfig, model: TransformerLM, x: torch.Tensor,
+               parallel: ParallelCtx, tp: TensorParallel, *,
+               use_kernel: Optional[bool] = None,
+               return_cache: bool = False, cache_len: Optional[int] = None):
+    """Every block over the full sequence ``x`` (JAX's ``_block_full``
+    scanned over the layers; ``cfg.causal`` picks the attention's form):
+    ``(x, aux summed over the layers, caches)``, the caches per layer,
+    except a dense model's: its K and V, each written layer by layer into
+    one ``(L, ...)`` buffer of :func:`_kv_layout`'s ``cache_len``
+    positions (no per-layer copies to stack)."""
+    norm = _norm(cfg)
     chunk = parallel.attn_chunk_kv
     caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block == "rwkv6":
         b = x.shape[0]
         state0 = init_rwkv_state(b, cfg.d_model, cfg.rwkv_head_dim,
@@ -578,34 +706,69 @@ def forward_hidden(cfg: ArchConfig, model: TransformerLM, batch, *,
                 caches.append((*kv, h_fin))
     else:
         kw = _attn_kwargs(cfg, tp)
-        for p in model.blocks:
+        for i, p in enumerate(model.blocks):
             out, kv = attention_full(p["attn"], tp.enter(norm(p["ln1"], x)),
                                      causal=cfg.causal, **kw,
                                      use_kernel=use_kernel, chunk_kv=chunk)
             x = x + tp.leave(out)
-            x = x + tp.leave(apply_mlp(p["mlp"],
-                                       tp.enter(norm(p["ln2"], x)), cfg.act))
+            out, layer_aux = _mlp_or_moe(cfg, p, norm(p["ln2"], x),
+                                         parallel, tp)
+            x = x + out
+            if layer_aux is not None:
+                aux = aux + layer_aux
             if return_cache:
-                caches.append(kv)
+                kv = [_kv_layout(tp, t, 1, cache_len) for t in kv]
+                if not caches:
+                    caches = [t.new_empty((cfg.num_layers,) + t.shape)
+                              for t in kv]
+                for buf, t in zip(caches, kv):
+                    buf[i] = t
+    return x, aux, caches
+
+
+def forward_hidden(cfg: ArchConfig, model: TransformerLM, batch, *,
+                   parallel: Optional[ParallelCtx] = None,
+                   remat: bool = False,
+                   use_kernel: Optional[bool] = None,
+                   return_cache: bool = False,
+                   cache_len: Optional[int] = None):
+    """The backbone up to the final norm: ``(x (B, S, d), aux, cache|None)``,
+    ``aux`` the MoE auxiliary loss summed over the layers (an f32 zero
+    without MoE; on a mesh JAX's ``pmean`` over the batch axes, its
+    gradient the rank's share), the cache being what :func:`prefill`
+    returns.  Under ``sp`` ``x`` is this rank's part of the sequence
+    (``S / m`` rows).  ``cache_len``: a dense cache's length, zeros past
+    ``S`` (default ``S``; with a mesh rounded up to a multiple of the
+    ``model`` dim)."""
+    parallel = _ctx(model, parallel, remat)
+    tp = TensorParallel(cfg, parallel)
+    norm = _norm(cfg)
+    x = embed_inputs(cfg, model, batch, tp)
+    length = x.shape[1] * (tp.m if tp.sp else 1) if cache_len is None \
+        else cache_len
+    if tp.group is not None:
+        length = -(-length // tp.m) * tp.m
+    x, aux, caches = run_blocks(cfg, model, x, parallel, tp,
+                                use_kernel=use_kernel,
+                                return_cache=return_cache,
+                                cache_len=length)
     x = norm(model["ln_f"], x)
     if not return_cache:
-        return x, None
+        return x, aux, None
+    if cfg.block == "attn_mlp":
+        return x, aux, tuple(caches)
     stacked = tuple(torch.stack(parts) for parts in zip(*caches))
     if cfg.block == "hymba":
         k, v, h_fin = stacked
         ring = _ring_from_prefill(cfg, k, v, h_fin)
         w = ring.k_ring.shape[2]
-        return x, HymbaCache(h_fin, _kv_layout(tp, ring.k_ring, 2, w),
-                             _kv_layout(tp, ring.v_ring, 2, w),
-                             ring.ring_pos)
+        return x, aux, HymbaCache(h_fin, _kv_layout(tp, ring.k_ring, 2, w),
+                                  _kv_layout(tp, ring.v_ring, 2, w),
+                                  ring.ring_pos)
     if cfg.block == "rwkv6":
         xt, wkv, xc = stacked
-        return x, RWKVState(tp.part(xt, -1).contiguous(), wkv,
-                            tp.part(xc, -1).contiguous())
-    length = s if cache_len is None else cache_len
-    if tp.group is not None:
-        length = -(-length // tp.m) * tp.m
-    return x, tuple(_kv_layout(tp, c, 2, length) for c in stacked)
+        return x, aux, RWKVState(tp.part(xt, -1).contiguous(), wkv,
+                                 tp.part(xc, -1).contiguous())
 
 
 def _ring_from_prefill(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor,
@@ -631,12 +794,13 @@ def _ring_from_prefill(cfg: ArchConfig, k: torch.Tensor, v: torch.Tensor,
 def forward_train(cfg: ArchConfig, model: TransformerLM, batch, *,
                   parallel: Optional[ParallelCtx] = None,
                   remat: bool = False,
-                  use_kernel: Optional[bool] = None) -> torch.Tensor:
+                  use_kernel: Optional[bool] = None):
     """Full-sequence logits ``(B, S, vocab)`` in f32; with a mesh this
     rank's vocabulary columns ``(B, S, vocab / m)`` of every position
-    (JAX's logits are sharded the same way)."""
+    (JAX's logits are sharded the same way).  The MoE aux is
+    :func:`forward_hidden`'s."""
     parallel = _ctx(model, parallel, remat)
-    x, _ = forward_hidden(cfg, model, batch, use_kernel=use_kernel)
+    x, _, _ = forward_hidden(cfg, model, batch, use_kernel=use_kernel)
     return unembed(model["unembed"], TensorParallel(cfg, parallel).enter(x))
 
 
@@ -686,14 +850,15 @@ def prefill(cfg: ArchConfig, model: TransformerLM, batch, *,
             parallel: Optional[ParallelCtx] = None,
             use_kernel: Optional[bool] = None,
             cache_len: Optional[int] = None):
-    """The full sequence: ``(last_logits (B, vocab) f32, cache)``.
-    ``cache_len``: a dense cache's length (module docstring); with a mesh
-    the cache is this rank's part of the flash-decoding layout and the
-    logits are gathered over the vocabulary."""
+    """The full sequence: ``(last_logits (B, vocab) f32, cache)`` (an MoE
+    block's aux is dropped, as JAX's).  ``cache_len``: a dense cache's
+    length (module docstring); with a mesh the cache is this rank's part
+    of the flash-decoding layout and the logits are gathered over the
+    vocabulary."""
     parallel = _ctx(model, parallel)
     tp = TensorParallel(cfg, parallel)
-    x, cache = forward_hidden(cfg, model, batch, use_kernel=use_kernel,
-                              return_cache=True, cache_len=cache_len)
+    x, _, cache = forward_hidden(cfg, model, batch, use_kernel=use_kernel,
+                                 return_cache=True, cache_len=cache_len)
     logits = unembed(model["unembed"], tp.enter(x)[:, -1])
     return tp.gather(logits, -1), cache
 
@@ -734,7 +899,8 @@ def decode_step(cfg: ArchConfig, model: TransformerLM, token_batch, cache,
                 use_kernel: Optional[bool] = None):
     """One token, ``token_batch["tokens"]`` (B, 1), at position ``pos``
     against ``cache``, which it updates in place.  Returns
-    ``(logits (B, vocab) f32, cache)``."""
+    ``(logits (B, vocab) f32, cache)``; an MoE block's aux is dropped, as
+    JAX's."""
     if not cfg.causal:
         raise ValueError(f"{cfg.name} is encoder-only; no decode step")
     parallel = _ctx(model, parallel)
@@ -785,7 +951,7 @@ def decode_step(cfg: ArchConfig, model: TransformerLM, token_batch, cache,
                                     k_c[layer], v_c[layer], pos, tp, valid,
                                     slot)
             x = x + tp.leave(out)
-            x = x + tp.leave(apply_mlp(p["mlp"], norm(p["ln2"], x), cfg.act))
+            x = x + _mlp_or_moe(cfg, p, norm(p["ln2"], x), parallel, tp)[0]
     else:
         kw = _attn_kwargs(cfg, mp=parallel.model_parallel)
         k_c, v_c = cache
@@ -793,6 +959,6 @@ def decode_step(cfg: ArchConfig, model: TransformerLM, token_batch, cache,
             out, _, _ = attention_decode(p["attn"], norm(p["ln1"], x),
                                          k_c[layer], v_c[layer], pos, **kw)
             x = x + out
-            x = x + apply_mlp(p["mlp"], norm(p["ln2"], x), cfg.act)
+            x = x + _mlp_or_moe(cfg, p, norm(p["ln2"], x), parallel, tp)[0]
     x = norm(model["ln_f"], x)
     return tp.gather(unembed(model["unembed"], x[:, -1]), -1), cache

@@ -41,6 +41,13 @@ rank it returns its input's bits):
                      channels read: hymba's ``dt``, ``B``, ``C``).
 :func:`heads_to_seq` one all-to-all, heads split to sequence split (the
                      flash-decoding cache from a prefill; no gradient).
+:func:`mean_share`   the mean over the batch groups forward, this rank's
+                     share (``g / n``) backward: a per-rank loss term
+                     whose JAX counterpart is a ``pmean``.
+:func:`all_to_all`   dim 0's equal chunks exchanged (chunk ``i`` to rank
+                     ``i``, received in rank order: JAX's ``all_to_all(x,
+                     axis, 0, 0, tiled=True)``); the backward is the
+                     reverse exchange (the MoE dispatch over ``data``).
 
 :data:`CALLS` counts every collective issued, by kind.
 
@@ -58,10 +65,11 @@ import torch.distributed as dist
 
 from repro_torch.transfer import host_to_device
 
-__all__ = ["BACKENDS", "CALLS", "all_gather_dim", "check_backend",
-           "compressed_psum_mean", "copy_to", "gather_seq", "gather_split",
-           "heads_to_seq", "joined", "lse_combine", "reduce_from",
-           "reset_calls", "scatter_seq", "split"]
+__all__ = ["BACKENDS", "CALLS", "all_gather_dim", "all_to_all",
+           "check_backend", "compressed_psum_mean", "copy_to", "gather_seq",
+           "gather_split", "heads_to_seq", "joined", "lse_combine",
+           "mean_share", "reduce_from", "reset_calls", "scatter_seq",
+           "split"]
 
 # the process-group backend of each device type
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
@@ -208,6 +216,49 @@ def _slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return x.narrow(dim, r * n, n)
 
 
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    check_backend(group, x)
+    m = dist.get_world_size(group)
+    if x.shape[0] % m:
+        raise ValueError(f"dim 0 of shape {tuple(x.shape)} does not split "
+                         f"over {m} ranks")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    CALLS["all_to_all"] += 1
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        # chunk i came from rank i: its gradient goes back there
+        return _all_to_all(g, ctx.group), None
+
+
+class _MeanShare(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        y = x.detach().clone()
+        n = 1
+        for g in groups:
+            check_backend(g, y)
+            dist.all_reduce(y, group=g)
+            CALLS["all_reduce"] += 1
+            n *= dist.get_world_size(g)
+        ctx.n = n
+        return y / n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
 class _CopyTo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -305,6 +356,20 @@ def joined(parts, kind: str, group):
            "scatter_seq": (lambda t: _reduce_scatter(t, 1, group),
                            lambda t: all_gather_dim(t, 1, group))}
     return _Joined.apply(*fns[kind], *parts)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Dim 0 cut into ``m`` equal chunks, chunk ``i`` sent to rank ``i``;
+    the result holds rank ``j``'s chunk for this rank at chunk ``j``.  The
+    gradient takes the reverse exchange (the same call)."""
+    return x if group is None else _AllToAll.apply(x, group)
+
+
+def mean_share(x: torch.Tensor, groups) -> torch.Tensor:
+    """The mean of ``x`` over every group of ``groups`` (JAX's ``pmean``
+    over the batch axes); the gradient is ``1/n`` of the upstream, this
+    rank's share, so the ranks' gradients add up to the mean's."""
+    return _MeanShare.apply(x, tuple(groups)) if groups else x
 
 
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:

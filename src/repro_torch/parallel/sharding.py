@@ -155,6 +155,14 @@ def _param_spec(cfg, keys, shape, *, mp_axis: Optional[str],
         return (mp_axis, None)
     if keys[-2:] == ("unembed", "w"):
         return (fa, mp_axis)
+    if name in ("time_in", "eps_out"):
+        return (None, None)
+    if "moe" in keys:               # experts over data, their width over model
+        if name in ("w_up", "w_gate"):
+            return (data_axis, None, mp_axis)
+        if name == "w_down":
+            return (data_axis, mp_axis, None)
+        return rep()
     if "tmix" in keys:
         if name in ("wr", "wk", "wv", "wg"):
             return (fa, mp_axis)
@@ -224,10 +232,11 @@ def param_shardings(cfg, mesh, params, parallel, *, fsdp: bool = False,
     parameter names to tensors or shapes, global shapes: a model built on
     the meta device reads them without memory), JAX's
     ``param_shardings``: tensor parallelism on ``model`` (q heads, K/V
-    heads where :func:`kv_shardable`, the MLP's ``d_ff``, RWKV's and the
-    SSM's channels, the vocabulary), ``data`` on the large dense weights'
-    other dim with ``fsdp`` or ``zero1``, and an axis whose size does not
-    divide its dim dropped."""
+    heads where :func:`kv_shardable`, the MLP's and the experts' ``d_ff``,
+    RWKV's and the SSM's channels, the vocabulary), expert parallelism on
+    ``data`` (the MoE experts; the router replicated), ``data`` on the
+    large dense weights' other dim with ``fsdp`` or ``zero1``, and an axis
+    whose size does not divide its dim dropped."""
     mp, da = parallel.model_axis, parallel.data_axis
     kv = kv_shardable(cfg, parallel)
     sizes = mesh_shape(mesh)

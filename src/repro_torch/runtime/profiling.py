@@ -84,10 +84,11 @@ def window_launches(fn, calls: int, pause_s: float = LAUNCH_EDGE_PAUSE_S
                     ) -> dict:
     """``calls`` calls of ``fn`` under one ``torch.profiler`` window:
     ``{"device": {kernel name: [launches, device µs]}, "api": n,
-    "lead_lost": k, "missing": [i, ...]}``, the device activities (kernels,
-    copies, fills) the profiler recorded and the host's calls that start
-    one (``LAUNCH_APIS``), the lead's launches with no record, and the
-    places (in launch order) of the calls' launches with no record.  The
+    "lead_lost": k, "missing": [i, ...], "missing_api": [name, ...]}``, the
+    device activities (kernels, copies, fills) the profiler recorded and
+    the host's calls that start one (``LAUNCH_APIS``), the lead's launches
+    with no record, and the places (in launch order) and the host calls'
+    names of the calls' launches with no record.  The
     card is idle and the host waits ``pause_s`` seconds at both ends of the
     window.  On a card the window starts with ``LEAD_LAUNCHES`` lead kernels
     (``torch.cuda._sleep``), a synchronize and another pause; their calls
@@ -117,10 +118,11 @@ def window_launches(fn, calls: int, pause_s: float = LAUNCH_EDGE_PAUSE_S
         torch.cuda.synchronize()
         time.sleep(pause_s)
     raw = prof.profiler.kineto_results.events()
-    launches = [c for _, c in sorted(
-        (e.start_ns(), e.correlation_id()) for e in raw
+    calls = [(c, name) for _, c, name in sorted(
+        (e.start_ns(), e.correlation_id(), e.name()) for e in raw
         if e.device_type() == DeviceType.CPU
         and e.name().startswith(LAUNCH_APIS))]
+    launches = [c for c, _ in calls]
     skip = set(launches[:lead])
     records = [e for e in raw if e.device_type() == DeviceType.CUDA
                and e.name() not in NOT_KERNELS]
@@ -131,10 +133,11 @@ def window_launches(fn, calls: int, pause_s: float = LAUNCH_EDGE_PAUSE_S
             count, us = device.get(e.name(), (0, 0.0))
             device[e.name()] = [count + 1,
                                 us + (e.end_ns() - e.start_ns()) / 1e3]
+    missing = [i for i, c in enumerate(launches[len(skip):])
+               if c not in recorded]
     return {"device": device, "api": len(launches) - len(skip),
-            "lead_lost": len(skip - recorded),
-            "missing": [i for i, c in enumerate(launches[len(skip):])
-                        if c not in recorded]}
+            "lead_lost": len(skip - recorded), "missing": missing,
+            "missing_api": [calls[len(skip) + i][1] for i in missing]}
 
 
 def device_launches(fn, calls: int, pause_s: float = LAUNCH_EDGE_PAUSE_S

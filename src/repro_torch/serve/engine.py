@@ -10,9 +10,9 @@ to compile and no cache donation (the port's decode updates the cache in
 place).  One device-to-host fetch per step brings the batch's tokens to
 the host.
 
-Only a dense model's cache grows with the sequence and is padded after
-prefill to the prompt plus the generation budget (with a mesh the
-prefill lays it out at that length).  RWKV6 carries fixed-size
+Only a dense model's cache grows with the sequence: the prefill lays it
+out at the prompt plus the generation budget (``cache_len``), zeros past
+the prompt.  RWKV6 carries fixed-size
 states, and Hymba its SSM states and a ring of ``window`` K/V slots
 (:func:`repro_torch.models.transformer.prefill` builds it at its full size
 whatever the prompt's length), so neither is padded, as in JAX.
@@ -32,7 +32,6 @@ import dataclasses
 from typing import List, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.data.pipeline import _host_slice
@@ -85,7 +84,7 @@ class ServingEngine:
         self.batch_size = batch_size
         self.max_seq = max_seq
         self.parallel = model.parallel if parallel is None else parallel
-        self.device = model["embed"]["table"].device
+        self.device = model["unembed"]["w"].device
         self._prefill = make_prefill_fn(cfg, self.parallel,
                                         use_kernel=use_kernel)
         self._decode = make_decode_fn(cfg, self.parallel,
@@ -131,15 +130,9 @@ class ServingEngine:
             return sharding.full_tensor("tokens", t, spec, mesh)
 
         batch = {"tokens": toks[rows].to(self.device)}
-        if mesh is None:
-            last_logits, cache = self._prefill(self.model, batch)
-            if self.cfg.block == "attn_mlp":
-                # the cache sized for prompt + generation budget
-                pad = (0, 0, 0, 0, 0, total - plen)
-                cache = tuple(F.pad(c, pad) for c in cache)
-        else:
-            # the prefill lays the dense cache out at the budget, split
-            last_logits, cache = self._prefill(self.model, batch, total)
+        # a dense cache is laid out at prompt + generation budget by the
+        # prefill (with a mesh, split)
+        last_logits, cache = self._prefill(self.model, batch, total)
         vocab = self.cfg.vocab_size
         tok = last_logits[:, :vocab].argmax(dim=-1)
         outs = [[t] for t in tokens(tok).tolist()[:len(requests)]]

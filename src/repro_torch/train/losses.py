@@ -1,8 +1,8 @@
-"""Loss functions (counterpart of ``repro.train.losses``): next-token
-cross-entropy for the causal language models, chunked as JAX chunks it,
-and the diffusion epsilon-prediction objective.  The masked-unit (audio)
-and prefix (VLM) forms of the LM loss wait for those archs (ROADMAP
-A11).
+"""Loss functions (counterpart of ``repro.train.losses``): the language
+models' cross-entropy, chunked as JAX chunks it (next-token for the
+causal models, the vision stub's prefix positions left out; masked-unit
+for the encoder-only audio model), plus ``AUX_COEF`` times the MoE
+auxiliary loss, and the diffusion epsilon-prediction objective.
 
 On a mesh (the model's ``ParallelCtx``) the cross-entropy runs on the
 rank's vocabulary columns: the columns past the real vocabulary are
@@ -25,7 +25,7 @@ from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.tensor_parallel import TensorParallel
 
 TRAIN_STEPS = 1000          # the training grid of t
-AUX_COEF = 0.01             # the MoE auxiliary loss's weight (no MoE yet)
+AUX_COEF = 0.01             # the MoE auxiliary loss's weight
 CE_CHUNK = 512
 NEG_INF = -1e30             # a padded vocab column's logit
 
@@ -137,41 +137,50 @@ def _batch_sum(t: torch.Tensor, mesh, axes) -> torch.Tensor:
 
 def lm_loss(cfg, model, batch, *, parallel=None, remat: bool = False,
             use_kernel: Optional[bool] = None):
-    """Next-token cross-entropy of a causal LM (``repro.train.losses.
-    lm_loss`` for causal archs): ``(loss, {"ce", "aux", "tokens"})``.
+    """The LM loss (``repro.train.losses.lm_loss``): ``(loss, {"ce",
+    "aux", "tokens"})``, ``loss = ce + AUX_COEF * aux``.
 
-    ``batch["tokens"]`` and ``batch["labels"]``: (B, S) ints; position i
-    predicts ``labels[i + 1]``, every position valid, the mean over them.
-    ``aux`` is 0 (no MoE).  ``use_kernel=False`` takes the plain attention,
-    WKV and selective scan (a yardstick).
+    Causal models: ``batch["tokens"]`` and ``batch["labels"]`` (B, S)
+    ints; position i predicts ``labels[i + 1]``, every position valid but,
+    for the vision stub, those below ``num_prefix_embeds`` (its
+    ``image_embeds`` sit there), the mean over the valid ones.  The
+    encoder-only audio model: ``batch["features"]`` (B, S, d), the CE of
+    ``labels`` at the same positions where ``batch["mask"]`` (default
+    every position).  ``aux``: the MoE auxiliary loss summed over the
+    layers (0 without MoE).  ``use_kernel=False`` takes the plain
+    attention, WKV and selective scan (a yardstick).
 
     On a mesh ``batch`` is this rank's part of the global batch, ``loss``
     is this rank's sum of NLL over the global count of valid positions
-    (the ranks' losses add up to the mean, and so do their gradients),
-    and the metrics are global: ``ce`` the mean, ``tokens`` the count."""
-    if not cfg.causal or cfg.family not in ("dense", "ssm", "hybrid"):
-        raise NotImplementedError(f"the masked-unit (audio) and prefix "
-                                  f"(VLM) LM losses wait for those archs "
-                                  f"(ROADMAP A11); {cfg.name} is "
-                                  f"{cfg.family}")
+    plus ``AUX_COEF`` times the aux (JAX's ``pmean`` over the batch axes,
+    whose gradient is the rank's share), so the ranks' gradients add up
+    to JAX's; the metrics are global: ``ce`` the mean, ``aux`` JAX's,
+    ``tokens`` the count."""
     ctx = model.parallel if parallel is None else parallel
-    x, _ = forward_hidden(cfg, model, batch, parallel=parallel, remat=remat,
-                          use_kernel=use_kernel)
+    x, aux, _ = forward_hidden(cfg, model, batch, parallel=parallel,
+                               remat=remat, use_kernel=use_kernel)
     tp = TensorParallel(cfg, ctx)
     x = tp.enter(x)
     labels = batch["labels"]
     b, s = labels.shape
-    valid = torch.ones((b, s - 1), dtype=torch.bool, device=x.device)
-    loss_sum, n = _chunked_ce(x[:, :-1], labels[:, 1:], valid,
-                              model["unembed"]["w"], cfg.vocab_size, tp=tp,
-                              masksum=ctx.ce_masksum)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.causal:
+        x_in, tgt = x[:, :-1], labels[:, 1:]
+        pos = torch.arange(s - 1, device=x.device)
+        valid = (pos >= (cfg.num_prefix_embeds if cfg.frontend == "vision"
+                         else 0)).expand(b, s - 1)
+    else:
+        x_in, tgt = x, labels
+        valid = batch["mask"] if "mask" in batch else torch.ones(
+            (b, s), dtype=torch.bool, device=x.device)
+    loss_sum, n = _chunked_ce(x_in, tgt, valid, model["unembed"]["w"],
+                              cfg.vocab_size, tp=tp, masksum=ctx.ce_masksum)
     if ctx.mesh is None:
         ce = loss_sum / torch.clamp(n, min=1.0)
-        return ce + AUX_COEF * aux, {"ce": ce.detach(), "aux": aux,
+        return ce + AUX_COEF * aux, {"ce": ce.detach(), "aux": aux.detach(),
                                      "tokens": n}
     n = _batch_sum(n, ctx.mesh, ctx.batch_axes)
     ce = loss_sum / torch.clamp(n, min=1.0)
     ce_all = _batch_sum(loss_sum, ctx.mesh, ctx.batch_axes) / torch.clamp(
         n, min=1.0)
-    return ce + AUX_COEF * aux, {"ce": ce_all, "aux": aux, "tokens": n}
+    return ce + AUX_COEF * aux, {"ce": ce_all, "aux": aux.detach(),
+                                 "tokens": n}

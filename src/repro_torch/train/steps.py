@@ -17,13 +17,18 @@ each rank's loss is its share of the global mean
 (:func:`repro_torch.train.losses.lm_loss`), the gradients of the
 parameters replicated over ``model`` whose use is per rank
 (:func:`repro_torch.models.transformer.model_partial_grads`) are summed
-over ``model``, every gradient is summed over the batch axes (in f32, or
-in its own dtype with ``AdamWConfig.bf16_grad_sync``), the global norm
-counts each element once (the sums of squares of ``model``-split leaves
-summed over ``model``, the replicated ones once), and AdamW updates each
+over ``model``, every gradient is summed over each batch axis its
+parameter is not split on (in f32, or in its own dtype with
+``AdamWConfig.bf16_grad_sync``; the MoE experts, split over ``data``,
+have their whole gradient on their owner through the all-to-all's
+backward), the global norm counts each element once (the sums of squares
+of leaves split over ``model`` summed over ``model``, of those split over
+``data`` over ``data``, the replicated ones once), and AdamW updates each
 rank's ZeRO-1 slice (:func:`zero1_slices`: ``opt_state_shardings``'s
-``data`` dim) and gathers it over ``data``.  Expert parallelism waits for
-ROADMAP A11(b)2, rematerialization (``remat=``) for A13."""
+``data`` dim, on leaves whose parameter is not already split there) and
+gathers it over ``data``.  Rematerialization (``remat=``) is ROADMAP
+A13.  The MoE, audio and vision families train as the dense ones do
+(their losses: :func:`repro_torch.train.losses.lm_loss`)."""
 from __future__ import annotations
 
 import re
@@ -46,10 +51,6 @@ def _loss_fn(cfg: ArchConfig, loss_kind: str):
     if (loss_kind == "diffusion") != (cfg.family == "dit"):
         raise ValueError(f"loss_kind {loss_kind!r} does not train a "
                          f"{cfg.family} arch")
-    if loss_kind == "lm" and cfg.family not in ("dense", "ssm", "hybrid"):
-        raise NotImplementedError(f"training {cfg.family} archs (audio, "
-                                  f"vision) waits for their blocks and "
-                                  f"losses (ROADMAP A11)")
 
     def loss_fn(model, batch, generator, t, eps):
         if loss_kind == "lm":
@@ -122,23 +123,37 @@ def _sum_over(grads: Dict[str, torch.Tensor], names, group,
         grads[name] = g
 
 
+def _split_on(spec, axis) -> bool:
+    return any(a == axis or (isinstance(a, tuple) and axis in a)
+               for a in spec)
+
+
+def batch_summed(model, axis: str):
+    """The parameters whose gradient the step sums over the batch axis
+    ``axis``: every one not split over it (an expert's whole gradient is
+    already on its owner)."""
+    return [n for n, spec in model.specs.items()
+            if not _split_on(spec, axis)]
+
+
 def sharded_global_norm(model, grads: Dict[str, torch.Tensor]
                         ) -> torch.Tensor:
     """The global norm of a sharded gradient: each leaf's f32 sum of
-    squares, those of leaves split over ``model`` summed over it (one
-    all-reduce), added in the parameters' order as
+    squares, those of leaves split over ``model`` summed over it, then
+    those of leaves split over ``data`` (the experts) over it (one
+    all-reduce each), added in the parameters' order as
     :func:`repro_torch.optim.global_norm` adds them."""
     ctx = model.parallel
-    mp = ctx.model_axis
     sq = [torch.sum(torch.square(g.float())) for g in grads.values()]
-    split = [i for i, n in enumerate(grads)
-             if any(a == mp for a in model.specs[n])]
-    if split:
-        v = torch.stack([sq[i] for i in split])
-        dist.all_reduce(v, group=ctx.mesh.get_group(mp))
-        coll.CALLS["all_reduce"] += 1
-        for j, i in enumerate(split):
-            sq[i] = v[j]
+    for axis in (ctx.model_axis, ctx.data_axis):
+        split = [i for i, n in enumerate(grads)
+                 if _split_on(model.specs[n], axis)]
+        if split:
+            v = torch.stack([sq[i] for i in split])
+            dist.all_reduce(v, group=ctx.mesh.get_group(axis))
+            coll.CALLS["all_reduce"] += 1
+            for j, i in enumerate(split):
+                sq[i] = v[j]
     return torch.sqrt(sum(sq))
 
 
@@ -157,7 +172,7 @@ def _sharded_lm_step(cfg: ArchConfig, opt_cfg: AdamWConfig, parallel):
         _sum_over(grads, model_partial_grads(model),
                   mesh.get_group(parallel.model_axis), keep)
         for a in parallel.batch_axes:
-            _sum_over(grads, list(grads), mesh.get_group(a), keep)
+            _sum_over(grads, batch_summed(model, a), mesh.get_group(a), keep)
         gnorm = sharded_global_norm(model, grads)
         _, opt_state, opt_metrics = adamw_update(
             params, grads, opt_state, opt_cfg, gnorm=gnorm,

@@ -1380,3 +1380,106 @@ def test_drivers_refuse_a_tensor_the_backend_cannot_take_on_card(
                                         C.SRDSConfig())):
         with pytest.raises(ValueError, match="process group"):
             samp(x0)
+
+
+# --------------------------------------------------------------------------
+# the rest of the LM zoo: the grouped matmul and the new head dims
+# --------------------------------------------------------------------------
+
+def _grouped_operands(cuda, dtype, rows=200, d=64, f=48, groups=(40, 0, 100,
+                                                                  30)):
+    x = torch.from_numpy(_rand(1, (rows, d))).to(cuda, dtype)
+    w = torch.from_numpy(_rand(2, (len(groups), d, f))).to(cuda, dtype)
+    return x, w, torch.tensor(groups, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_grouped_matmul_route_on_card(cuda, dtype):
+    """``models.moe.ragged_dot`` on the card: bf16 and f32 take
+    ``torch._grouped_mm`` (``moe.GROUPED_MM_DTYPES``); each against the
+    loop over groups in f32 on the same operands (bf16 within its rounding
+    of the output), an empty group, the rows past the last group exactly 0
+    forward and in the gradient; in bf16 at a zoo-like width (d 1024,
+    f 512) no host sync (PyTorch's sync debug mode).  On an H100 (torch
+    2.11) the library's f32 call synchronized at every width, and its
+    bf16 call at d 64 x f 48 with rows past the last group (ROADMAP
+    C23)."""
+    import warnings
+    from repro_torch.models import moe
+    x, w, gs = _grouped_operands(cuda, DTYPES[dtype])
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    got = moe.ragged_dot(x, w, gs)
+    want = moe.ragged_dot_ref(x.detach().float(), w.detach().float(), gs)
+    tol = BF16_TOL if dtype == "bfloat16" else F32_TOL
+    torch.testing.assert_close(got.float(), want, atol=tol * 8, rtol=tol)
+    assert torch.equal(got[170:], torch.zeros_like(got[170:]))
+    up = torch.ones_like(got)
+    dx, dw = torch.autograd.grad(got, (x, w), up)
+    assert torch.equal(dx[170:], torch.zeros_like(dx[170:]))
+    assert torch.equal(dw[1], torch.zeros_like(dw[1]))
+    if dtype == "bfloat16":
+        x, w, gs = _grouped_operands(cuda, DTYPES[dtype], rows=256, d=1024,
+                                     f=512, groups=(60, 0, 100, 70))
+        moe.ragged_dot(x, w, gs)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with torch.no_grad():
+                    moe.ragged_dot(x, w, gs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = [str(c.message) for c in caught
+                 if "called a synchronizing CUDA operation"
+                 in str(c.message)]
+        assert not syncs, syncs
+
+
+# the zoo's head dims on the tensor-core routes: kimi-k2's D 112 with group
+# 8, phi-3-vision's D 96, hubert's non-causal D 80, and the
+# TimeConditioned qwen3 backbone's non-causal GQA at D 128
+ZOO_CASES = [(1, 16, 2, 256, 256, 112, dict(causal=True)),
+             (1, 8, 8, 256, 256, 96, dict(causal=True)),
+             (1, 8, 8, 300, 300, 80, dict(causal=False)),
+             (1, 8, 2, 256, 256, 128, dict(causal=False))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ZOO_CASES, ids=str)
+def test_flash_fwd_and_bwd_at_zoo_head_dims_on_card(cuda, case):
+    """B3 and B5 at the zoo's head dims, bf16, on their tensor-core
+    routes (by route count): o and lse against the plain forward, dq, dk
+    and dv against ``ref.attention_bwd`` (rel L2 within the forward's
+    1e-4 and the backward's 1e-3)."""
+    from repro_torch.kernels import flash_attention as fa
+    b, hq, hkv, sq, sk, d, mask = case
+    q, k, v = _masked_qkv(cuda, case, "bfloat16")
+    do = torch.from_numpy(_rand(9, (b, hq, sq, d))).to(cuda, torch.bfloat16)
+    assert fa.fwd_route(q.dtype, d) == fa.bwd_route(q.dtype, d) == "tc"
+    q3, do3 = (t.reshape(b * hq, sq, d) for t in (q, do))
+    k3, v3 = (t.reshape(b * hkv, sk, d) for t in (k, v))
+    before = ops.route_counts()
+    o3, lse = fa.flash_attention_fwd(q3, k3, v3, **mask)
+    dq, dk, dv = fa.flash_attention_bwd(q3, k3, v3, o3, lse, do3, **mask)
+    torch.cuda.synchronize()
+    after = ops.route_counts()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert after[f"{name}_tc"] == before[f"{name}_tc"] + 1, name
+    o_ref, lse_ref = ref.attention(q, k, v, **mask)
+
+    def rel(got, want):
+        got = torch.cat([g.float().reshape(-1) for g in got])
+        want = torch.cat([w.float().reshape(-1) for w in want])
+        return ((got - want).norm() / want.norm()).item()
+
+    assert rel([o3], [o_ref]) <= 1e-4
+    torch.testing.assert_close(lse.view(b, hq, sq), lse_ref, atol=F32_TOL,
+                               rtol=F32_TOL)
+    want = ref.attention_bwd(q, k, v, o3.view(q.shape), lse.view(b, hq, sq),
+                             do, **mask)
+    assert rel([dq], want[:1]) <= 1e-3
+    assert rel([dk, dv], want[1:]) <= 1e-3

@@ -432,8 +432,8 @@ def test_engine_logits_match_jax_at_every_step():
     eng = ServingEngine(tcfg, model, batch_size=3, max_seq=64)
     seen = []
 
-    def prefill(m, batch):
-        out = tf.prefill(tcfg, m, batch)
+    def prefill(m, batch, cache_len=None):
+        out = tf.prefill(tcfg, m, batch, cache_len=cache_len)
         seen.append(out[0].clone())
         return out
 

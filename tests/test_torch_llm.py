@@ -97,9 +97,20 @@ def test_configs_match_jax_field_for_field(arch):
 
 @pytest.mark.parametrize("arch", ["qwen1.5-32b", "stablelm-3b", "qwen3-14b"])
 def test_unported_zoo_names_raise_a11(arch):
-    jget_arch(arch)                      # a real arch of the JAX zoo
-    with pytest.raises(NotImplementedError, match="A11"):
-        get_arch(arch)
+    """The rest of the dense zoo is ported (it raised before): each config
+    equals JAX's field for field, and its reduced model holds JAX's
+    leaves, shapes and all."""
+    jcfg, tcfg = jget_arch(arch), get_arch(arch)
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+    jtree = jax.eval_shape(lambda: jtf.init_params(jcfg.reduced(),
+                                                   jax.random.PRNGKey(0)))
+    model = tf.TransformerLM(tcfg.reduced(), device="meta")
+    for name, path, layer in tf.jax_leaf_names(tcfg.reduced()):
+        leaf = jtree
+        for part in path.split("/"):
+            leaf = leaf[part]
+        shape = leaf.shape if layer is None else leaf.shape[1:]
+        assert tuple(model.get_parameter(name).shape) == tuple(shape), name
 
 
 @pytest.mark.parametrize("reduced", [True, False], ids=["reduced", "full"])
@@ -400,8 +411,8 @@ def test_engine_logits_match_jax_at_every_step(arch):
     eng = ServingEngine(tcfg, model, batch_size=3, max_seq=64)
     seen = []
 
-    def prefill(m, batch):
-        out = tf.prefill(tcfg, m, batch)
+    def prefill(m, batch, cache_len=None):
+        out = tf.prefill(tcfg, m, batch, cache_len=cache_len)
         seen.append(out[0].clone())
         return out
 
@@ -447,9 +458,12 @@ def test_engine_refuses_what_does_not_fit():
         eng.generate([Request(prompt=[1], max_new_tokens=1)] * 3)
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import make_train_step
-    # hymba-1.5b trains since A11(a)'s training half; the audio and
-    # vision families still wait for theirs
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_train_step(dataclasses.replace(get_arch("hymba-1.5b"),
-                                            family="audio"),
-                        AdamWConfig(), loss_kind="lm")
+    # the audio and vision families train; an encoder-only model has no
+    # decode step to serve
+    hubert = get_arch("hubert-xlarge").reduced()
+    assert callable(make_train_step(hubert, AdamWConfig(), loss_kind="lm"))
+    enc = tf.TransformerLM(hubert, device="cpu")
+    with pytest.raises(ValueError, match="encoder-only"):
+        tf.decode_step(hubert, enc, {"tokens": torch.zeros((1, 1),
+                                                           dtype=torch.long)},
+                       None, 0)

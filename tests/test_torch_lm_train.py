@@ -175,17 +175,34 @@ def test_chunked_ce_matches_jax(s):
 
 
 def test_lm_loss_refuses_unported_objectives():
-    _, tcfg = _cfgs("qwen3-8b")
-    model = tf.TransformerLM(tcfg, device="cpu")
-    _, tbatch = _batch(0)
-    for cfg in (dataclasses.replace(tcfg, causal=False, family="audio"),
-                dataclasses.replace(tcfg, family="vlm")):
-        with pytest.raises(NotImplementedError, match="A11"):
-            lm_loss(cfg, model, tbatch)
-        with pytest.raises(NotImplementedError, match="A11"):
-            make_train_step(cfg, topt.AdamWConfig(), loss_kind="lm")
+    """The masked-unit (encoder-only) and prefix (vision) objectives, which
+    raised before, match JAX's ``lm_loss`` on qwen3-8b's reduced tree
+    rewired as each: the non-causal model's CE at the mask's positions,
+    and the causal CE without the positions below ``num_prefix_embeds``
+    (the image embeddings spliced there); each trains."""
+    jcfg0, tcfg0 = _cfgs("qwen3-8b")
+    tree = _tree("qwen3-8b")
+    jbatch, tbatch = _batch(0)
+    mask = np.random.default_rng(4).random((2, SEQ)) < 0.3
+    img = np.random.default_rng(5).standard_normal((2, 4, 64)).astype(
+        np.float32) * 0.2
+    for kw, extra in ((dict(causal=False, family="audio"), "mask"),
+                      (dict(family="vlm", frontend="vision",
+                            num_prefix_embeds=4), "image_embeds")):
+        jcfg = dataclasses.replace(jcfg0, **kw)
+        cfg = dataclasses.replace(tcfg0, **kw)
+        value = mask if extra == "mask" else img
+        jb = dict(jbatch, **{extra: jnp.asarray(value)})
+        tb = dict(tbatch, **{extra: torch.from_numpy(value)})
+        want, _ = jlosses.lm_loss(jcfg, jax.tree.map(jnp.asarray, tree), jb,
+                                  use_kernel=False)
+        got, _ = lm_loss(cfg, tf.load_jax_params(cfg, tree, device="cpu"),
+                         tb)
+        assert got.item() == pytest.approx(float(want), rel=LOSS_RTOL)
+        assert callable(make_train_step(cfg, topt.AdamWConfig(),
+                                        loss_kind="lm"))
     with pytest.raises(ValueError, match="loss_kind"):
-        make_train_step(tcfg, topt.AdamWConfig(), loss_kind="diffusion")
+        make_train_step(tcfg0, topt.AdamWConfig(), loss_kind="diffusion")
 
 
 # --------------------------------------------------------------------------
@@ -284,10 +301,21 @@ def test_make_stream_serves_the_language_models(arch):
     steps = (a["tokens"][:, 1:] - a["tokens"][:, :-1]) % 256
     mode = torch.mode(steps, dim=1).values
     assert bool(((mode >= 1) & (mode < 8)).all())
-    for family in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            make_stream(dataclasses.replace(tcfg, family=family),
-                        DataConfig(), device="cpu")
+    # the audio and vision stubs' streams (they raised before)
+    from repro_torch.data import AudioStream, VLMStream
+    audio = make_stream(dataclasses.replace(tcfg, family="audio",
+                                            frontend="audio", causal=False),
+                        DataConfig(global_batch=3, seq_len=33), device="cpu")
+    vlm = make_stream(dataclasses.replace(tcfg, family="vlm",
+                                          frontend="vision",
+                                          num_prefix_embeds=4),
+                      DataConfig(seed=1, global_batch=3, seq_len=33),
+                      device="cpu")
+    assert isinstance(audio, AudioStream) and isinstance(vlm, VLMStream)
+    assert audio.batch(3)["features"].shape == (3, 33, 64)
+    v = vlm.batch(3)
+    assert torch.equal(v["tokens"], a["tokens"])
+    assert v["image_embeds"].shape == (3, 4, 64)
 
 
 # --------------------------------------------------------------------------

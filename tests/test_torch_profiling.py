@@ -206,7 +206,8 @@ def test_window_launches_counts_host_launch_calls(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     x = torch.ones(16, 16)
     got = profiling.window_launches(lambda: (x @ x).sum(), 3, pause_s=0.0)
-    assert got == {"device": {}, "api": 0, "lead_lost": 0, "missing": []}
+    assert got == {"device": {}, "api": 0, "lead_lost": 0, "missing": [],
+                   "missing_api": []}
     for name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cudaMemcpyAsync", "cudaMemsetAsync", "cudaGraphLaunch"):
         assert name.startswith(profiling.LAUNCH_APIS), name
@@ -234,7 +235,8 @@ def test_window_launches_leads_with_a_kernel_of_its_own(monkeypatch):
     first = order.index("call")
     assert order[:first] == ["sync", *lead, "sync"]
     assert [v for v in order[first:] if v != "sync"] == ["call"] * 3
-    assert got == {"device": {}, "api": 0, "lead_lost": 0, "missing": []}
+    assert got == {"device": {}, "api": 0, "lead_lost": 0, "missing": [],
+                   "missing_api": []}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     order.clear()
     profiling.window_launches(lambda: order.append(1), 2, pause_s=0.0)

@@ -149,9 +149,19 @@ def test_diffusion_loss_draws_from_the_generator():
     assert runs[0].item() == runs[1].item() != runs[2].item()
     with pytest.raises(ValueError, match="generator"):
         diffusion_loss(model, batch)
-    # the LM loss is ported; its masked-unit (audio) form is not
-    with pytest.raises(NotImplementedError, match="A11"):
-        lm_loss(_lm_cfg("audio", causal=False), model, batch)
+    # the LM loss's masked-unit (audio) form: an encoder-only model fed
+    # frame features, the CE of the labels where the mask holds
+    from repro_torch.models import transformer as tf
+    cfg = _lm_cfg("audio", causal=False, frontend="audio")
+    lm = tf.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    mask = torch.tensor([[1, 0, 1, 1, 0], [0, 0, 1, 0, 1]], dtype=torch.bool)
+    audio = {"features": torch.randn((2, 5, 8), generator=g),
+             "labels": torch.randint(0, 16, (2, 5), generator=g),
+             "mask": mask}
+    loss, metrics = lm_loss(cfg, lm, audio)
+    assert bool(torch.isfinite(loss)) and metrics["tokens"].item() == 5.0
+    assert "embed" not in lm
 
 
 # --------------------------------------------------------------------------
@@ -317,10 +327,14 @@ def test_image_stream_deterministic_and_step_dependent():
     assert a.min() >= -1 and a.max() <= 1
     other = ImageStream(DataConfig(seed=2, global_batch=3), 32, 4, "cpu")
     assert not torch.equal(other.batch(3)["images"], a)
-    # the LM stream is ported; the audio stream is not
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_stream(_lm_cfg("audio", causal=False), DataConfig(),
-                    device="cpu")
+    # the audio stub's stream: frame features, labels and the loss mask
+    from repro_torch.data import AudioStream
+    audio = make_stream(_lm_cfg("audio", causal=False, frontend="audio"),
+                        DataConfig(global_batch=2, seq_len=5), device="cpu")
+    assert isinstance(audio, AudioStream)
+    got = audio.batch(3)
+    assert got["features"].shape == (2, 5, 8) and got["mask"].dtype == \
+        torch.bool and got["labels"].max() < 16
 
 
 # --------------------------------------------------------------------------
@@ -548,15 +562,30 @@ def test_stream_batches_copy_through_pinned_memory(monkeypatch, arch):
 
 
 def test_launcher_refuses_what_is_not_ported(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A11"):
-        tlaunch.build("stablelm-3b", device="cpu")
+    # every arch of the zoo builds (reduced here: the full stablelm-3b is
+    # 2.8 B parameters); an unknown name raises as JAX's does
+    cfg, model, _, _, kind = tlaunch.build("stablelm-3b", reduced=True,
+                                           device="cpu")
+    assert cfg.name == "stablelm-3b-reduced" and kind == "lm"
+    assert "bias" in model["ln_f"]
+    with pytest.raises(KeyError, match="unknown arch"):
+        tlaunch.build("no-such-arch", device="cpu")
     # the pod meshes are ported (PR 28): a group of the wrong size names
     # the ranks the mesh needs
     with pytest.raises(ValueError, match="needs 256 ranks"):
         tlaunch.build("srds-dit-sd2", mesh_kind="pod1", device="cpu")
-    # the LM step is ported; the MoE block's is not
-    with pytest.raises(NotImplementedError, match="A11"):
-        make_train_step(_lm_cfg("moe"), topt.AdamWConfig(), loss_kind="lm")
+    # the MoE block's step trains: its aux enters the loss
+    from repro_torch.models import transformer as tf
+    moe = _lm_cfg("moe", moe_experts=4, moe_top_k=2, moe_d_ff=8)
+    step = make_train_step(moe, topt.AdamWConfig(), loss_kind="lm")
+    lm = tf.init_params(moe, torch.Generator().manual_seed(0), device="cpu",
+                        trainable=True)
+    toks = torch.randint(0, 16, (2, 6), generator=torch.Generator(
+    ).manual_seed(2))
+    _, _, metrics = step(lm, topt.init_opt_state(dict(lm.named_parameters())),
+                         {"tokens": toks, "labels": toks})
+    assert metrics["aux"].item() > 0 and bool(torch.isfinite(
+        metrics["loss"]))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tlaunch.build("srds-dit-sd2", reduced=True)

@@ -354,7 +354,7 @@ def _controls(model, batch):
     cfg, ctx = model.cfg, model.parallel
     mesh = ctx.mesh
     tp = TensorParallel(cfg, ctx)
-    x, _ = losses.forward_hidden(cfg, model, batch)
+    x, _, _ = losses.forward_hidden(cfg, model, batch)
     x = tp.enter(x)[:, :-1]
     r = mesh.get_local_rank("data")
     valid = torch.ones(x.shape[:2], dtype=torch.bool)
