@@ -232,8 +232,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    tolerance of at least ``ROUNDOFF_FREE_TOL`` stopping at the same
    iteration (the others stop inside the toy's f32 residual floor: their
    differences are printed, ROADMAP C20); last ``table10_wallclock`` with
-   the full DiT at its cut size (``DIT_CUT``): served wall seconds per
-   request, p50 and p95 by policy, and its four gates.
+   the DiT at full width and ``HERD_LAYERS`` (14) of its 28 blocks (since
+   PR 30; 28 before) at its cut size (``DIT_CUT``): served wall seconds
+   per request, p50 and p95 by policy, and its four gates (on the
+   herd's virtual-clock replay).
 
 15. the model-parallel DiT (``models.dit.make_denoiser(shard_axis=
    "model")``: the rows split over ``model``, every layer's K/V gathered
@@ -333,11 +335,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    3's limits with ms, the bound and SDPA's time; rows
    ``flash_attention_<row>_{fwd,bwd_dq,bwd_dkv}`` in the kernels line.
    Phases 17 and 18 print their seconds.
+19. the tuning seam (``repro_torch.kernels.tuning``): each family's
+   resolved config and source at the main paths' shapes (the sweep's
+   cases); each family launched once at a candidate the heuristics do not
+   give (``TUNING_CANDIDATES``, pinned through ``KernelTuner(overrides=
+   ...)``) and held to its plain version within phase 3's limits: the
+   elementwise kernels on other threads, clusters and spans (outputs
+   bitwise, sums to 1e-5), the flash forward and backward from the
+   3-stage builds phase 2 made (rel L2 1e-4 and 1e-3 at the DiT's shape),
+   the WKV backward's dv sum on 64 threads (every gradient bitwise the
+   default's), the scan forward and backward on other channels, ring
+   depth and segments (within SCAN_REL_L2 and SCAN_BWD_REL_L2); for the
+   elementwise and scan kernels the profiler's record of each launch
+   (grid and block) equals the geometry the tuner gave; then the sweep's
+   card mode on its launch knobs (``autotune_kernels.sweep(launch_only=
+   True)``: no ``nvcc``, the schema and round-trip checks) and table14's
+   rows on the card, ``parity_ok`` for every family.  No build happens in
+   the phase (``_build.build_log`` unchanged); it prints its seconds.  A
+   committed ``tuning_tables/sm90.json`` is built in phase 2 (its
+   variants), printed here with each of its keys' cases timed under it
+   and under the shipped constants in turns (and held to the plain
+   version), and phases 4-18 run under it (phase 4's counts hold).
 
 Phases 4-8, 10, 12, 13, 14 and 15 also hold the flash kernels' launches on their
 main paths, forward and backward, to their tensor-core route
 (``ops.route_counts``: every attention there is bf16 with head dim 64,
-72 or 128; the backward runs in phases 7, 10 and 13).  Phases 10 and 11
+72 or 128; the backward runs in phases 7, 10 and 13).  Each kernel's
+launch and build geometry there comes from the tuning seam's process
+tuner: the committed table where it names the key, else the shipped
+constants.  Phases 10 and 11
 end with ROADMAP C10's reading: the busy share of ``BUSY_STEPS`` (2)
 ``train_loop`` steps as the launcher
 runs them (``log_every=10``, pinned non-blocking batch copies) and as it
@@ -401,6 +427,11 @@ ROUNDOFF_FREE_TOL = 1e-3
 # Sk = S, bf16, the tensor-core route) on each layer's own inputs
 # against its plain version, the limit of phase 3's bf16 cases
 SHARD_SPLITS = (2, 4)
+# phase 14's served herd: the DiT at full width and this many of its 28
+# blocks.  The herd's gate runs on a virtual-clock replay beside the
+# wall-clock one since PR 30, which took the herd from ~150 to 208 s at 28
+# (an H100 run) and a whole run to 1109 s of the 1200
+HERD_LAYERS = 14
 SHARD_REL_L2 = 1e-5
 SHARD_FLASH_REL_L2 = 1e-4
 SHARD_SERVED = 2           # (a): requests served through the mesh engine
@@ -643,6 +674,16 @@ ZOO_ROWS = (
     ("noncausal_gqa_d128", 2, 32, 8, 256, 128, False, False, "tc_srds"))
 # a device kernel's name without its namespace and parameters, as the
 # profiler records it: "void (anonymous namespace)::k<4, 4>(...)" -> k<4, 4>
+# phase 19: a candidate a family that the heuristics do not give, launch
+# knobs but the flash rings (build knobs: phase 2 builds those libraries,
+# so the phase runs no nvcc)
+TUNING_CANDIDATES = {
+    "elementwise": {"ddim_threads": 128, "resid_threads": 256,
+                    "resid_max_cluster": 4, "resid_slice_per_block": 1024},
+    "flash": {"fwd_stages": 3, "bwd_stages": 3},
+    "rwkv6": {"dv_sum_threads": 64},
+    "selective_scan": {"channels": 32, "stages": 2, "bwd_channels": 16,
+                       "segment_chunks": 1}}
 KERNEL_NAME = re.compile(r"(\w+(?:<[^>]*>)?)[(]")
 # the SFUs' rate for expf's ex2 (16 a clock an SM on compute capability
 # 9.0, CUDA C++ Programming Guide, arithmetic instruction throughput) at
@@ -1889,8 +1930,8 @@ def lm_train_phase(torch, ops, step_no, arch):
     elif cfg.block == "rwkv6":
         real_wkv_bwd = ops.rwkv6_wkv_bwd
 
-        def checked(r, k, v, w, u, ckpt, dout, ds_t=None):
-            got = real_wkv_bwd(r, k, v, w, u, ckpt, dout, ds_t)
+        def checked(r, k, v, w, u, ckpt, dout, ds_t=None, **tuner):
+            got = real_wkv_bwd(r, k, v, w, u, ckpt, dout, ds_t, **tuner)
             want = ref.rwkv6_wkv_bwd(r, k, v, w, u, ckpt[:, :, 0], dout,
                                      ds_t)
             errs.append([rel_l2([g], [x]) for g, x in zip(got, want)])
@@ -1902,8 +1943,8 @@ def lm_train_phase(torch, ops, step_no, arch):
     else:
         real_bwd = ops.flash_attention_bwd
 
-        def checked(q, k, v, o, lse, do, **mask):
-            got = real_bwd(q, k, v, o, lse, do, **mask)
+        def checked(q, k, v, o, lse, do, tuner=None, **mask):
+            got = real_bwd(q, k, v, o, lse, do, tuner=tuner, **mask)
             want = ref.attention_bwd(q[None], k[None], v[None], o[None],
                                      lse[None], do[None], **mask)
             errs.append([rel_l2([g], [x[0]]) for g, x in zip(got, want)])
@@ -2065,8 +2106,8 @@ def lm_train_phase(torch, ops, step_no, arch):
         del model, trained
         real_wkv_bwd = ops.rwkv6_wkv_bwd
 
-        def no_dd(*args):
-            dr, dk, dv, dw, du, ds0 = real_wkv_bwd(*args)
+        def no_dd(*args, **tuner):
+            dr, dk, dv, dw, du, ds0 = real_wkv_bwd(*args, **tuner)
             return dr, dk, dv, torch.zeros_like(dw), du, ds0
 
         readings, line = grad_readings(
@@ -2124,8 +2165,8 @@ def hymba_layer_checks(torch, ops, ref, cfg, model, batch):
     real_bwd, real_scan_bwd = ops.flash_attention_bwd, ops.selective_scan_bwd
     flash_errs, scan_errs, calls = [], {}, []
 
-    def flash_checked(q, k, v, o, lse, do, **mask):
-        got = real_bwd(q, k, v, o, lse, do, **mask)
+    def flash_checked(q, k, v, o, lse, do, tuner=None, **mask):
+        got = real_bwd(q, k, v, o, lse, do, tuner=tuner, **mask)
         want = ref.attention_bwd(q[None], k[None], v[None], o[None],
                                  lse[None], do[None], **mask)
         flash_errs.append((rel_l2(got[:1], [want[0][0]]),
@@ -2133,8 +2174,8 @@ def hymba_layer_checks(torch, ops, ref, cfg, model, batch):
                            mask.get("window")))
         return got
 
-    def scan_checked(xs, dt, bb, cc, a, d, ckpt, dy, dh_t=None):
-        got = real_scan_bwd(xs, dt, bb, cc, a, d, ckpt, dy, dh_t)
+    def scan_checked(xs, dt, bb, cc, a, d, ckpt, dy, dh_t=None, **tuner):
+        got = real_scan_bwd(xs, dt, bb, cc, a, d, ckpt, dy, dh_t, **tuner)
         layer = cfg.num_layers - 1 - len(calls)     # the backward's order
         calls.append(layer)
         if layer in HYMBA_SCAN_CHECK_LAYERS:
@@ -2212,8 +2253,8 @@ def hymba_grad_check(torch, ops, cfg, model, batch):
     torch.cuda.empty_cache()
     real_scan_bwd, real_bwd = ops.selective_scan_bwd, ops.flash_attention_bwd
 
-    def no_ddt(*args):
-        g = list(real_scan_bwd(*args))
+    def no_ddt(*args, **tuner):
+        g = list(real_scan_bwd(*args, **tuner))
         g[1] = torch.zeros_like(g[1])
         return tuple(g)
 
@@ -3609,9 +3650,11 @@ def serving_tables_phase(torch):
                              f"{t10['cuda']} != {t10['cpu']}")
     print("    table10_slo: every row equal to the CPU's", flush=True)
     t0 = time.perf_counter()
-    rows = table10_wallclock.main(device="cuda", arch="srds-dit-sd2")
+    rows = table10_wallclock.main(device="cuda", arch="srds-dit-sd2",
+                                  layers=HERD_LAYERS)
     cut = table10_wallclock.DIT_CUT
-    print(f"  table10_wallclock --arch srds-dit-sd2 ({cut['n_heavy']} "
+    print(f"  table10_wallclock --arch srds-dit-sd2 --layers {HERD_LAYERS} "
+          f"({cut['n_heavy']} "
           f"heavies, {cut['n_light']} lights, loads {cut['loads']} of "
           f"{cut['sweep_requests']}): {time.perf_counter() - t0:.1f} s, "
           f"the four gates held", flush=True)
@@ -5048,6 +5091,265 @@ def zoo_phase(torch, ops, C, step):
     return counts, rows
 
 
+def tuning_builds():
+    """The ``(source, defines)`` builds phase 19's flash candidate needs,
+    for phase 2's ``build_all``."""
+    from repro_torch.kernels import tuning
+    params = dict(tuning.resolve("flash", backend="cpu").params,
+                  **TUNING_CANDIDATES["flash"])
+    return [(src, tuning.defines("flash", params, src))
+            for src in ("flash_attention_fwd", "flash_attention_bwd")]
+
+
+def launch_dims(torch, fn, kernel: str, calls: int = 20) -> set:
+    """The ``(grid, block)`` of every launch of ``kernel`` the profiler
+    recorded over ``calls`` calls of ``fn`` (CUPTI's record of the launch,
+    from the exported trace).  Each window starts as
+    ``profiling.window_launches``' does, with ``LEAD_LAUNCHES`` sleep
+    kernels, a synchronize and a pause: late in a long process the
+    profiler keeps no record of a window's first launches (ROADMAP C12).
+    Up to three windows, until one holds a record of the kernel."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.profiling import (LAUNCH_EDGE_PAUSE_S,
+                                               LEAD_CYCLES, LEAD_LAUNCHES)
+    pattern = re.compile(rf"\b{kernel}\b")
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(LAUNCH_EDGE_PAUSE_S)
+            for _ in range(LEAD_LAUNCHES):
+                torch.cuda._sleep(LEAD_CYCLES)
+            torch.cuda.synchronize()
+            time.sleep(LAUNCH_EDGE_PAUSE_S)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(LAUNCH_EDGE_PAUSE_S)
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        got = {(tuple(e["args"]["grid"]), tuple(e["args"]["block"]))
+               for e in events if e.get("cat") == "kernel"
+               and pattern.search(e.get("name", ""))
+               and "grid" in e.get("args", {})}
+        if got:
+            return got
+    return set()
+
+
+def tuning_phase(torch, ops, ref, step):
+    """Phase 19 (module docstring): the tuning seam on the card."""
+    import numpy as np
+    from repro_torch.benchmarks import autotune_kernels, table14_kernels
+    from repro_torch.kernels import _build, elementwise, tuning
+    from repro_torch.kernels import selective_scan as scan
+    t0 = time.perf_counter()
+    builds = len(_build.build_log)
+    dev = torch.device("cuda")
+    table = tuning.get_tuner().table("sm90")
+    print(f"[{step}] the tuning seam: committed sm90 table: "
+          + (f"{len(table['entries'])} entries, {table.get('provenance')}"
+             if table else "none (every key on the shipped constants)"),
+          flush=True)
+    for case in autotune_kernels.CASES:
+        cfg = tuning.config(case.family, None, dev, case.dtype,
+                            autotune_kernels.tuning_shape(case))
+        print(f"  {case.family}, {case.label}: {cfg.source} "
+              f"{dict(cfg.params)} (key {cfg.key})", flush=True)
+        if cfg.source != "table":
+            continue
+        # the table's config against the shipped constants, in one process
+        work = autotune_kernels._work(case, case.shape, dev)
+        heuristic = tuning.KernelTuner(tables={"sm90": {
+            "version": tuning.TABLE_SCHEMA_VERSION, "backend": "sm90",
+            "entries": []}})
+        err, ok = work.check(work.run(None), dict(cfg.params))
+        tuned, shipped = autotune_kernels._in_turns(
+            work.run, [None, heuristic], autotune_kernels._reps(case),
+            autotune_kernels.RUNS)
+        print(f"    the table's config {np.median(tuned):.2f} us a call "
+              f"(runs {[round(x, 2) for x in tuned]}), the shipped "
+              f"constants' {np.median(shipped):.2f} "
+              f"({[round(x, 2) for x in shipped]}); max abs err {err:.3g}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"{case.label}: the table's config misses "
+                                 f"the plain version")
+        del work
+        torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def pinned(family):
+        return autotune_kernels._tuner("sm90", family,
+                                       TUNING_CANDIDATES[family])
+
+    def dims_match(fn, kernel, want):
+        got = launch_dims(torch, fn, kernel)
+        print(f"  {kernel}: the profiler's launches (grid, block) {got}, "
+              f"the tuner's {want}", flush=True)
+        if not got or any(d[:len(w)] != w for grid_block in got
+                          for d, w in zip(grid_block, want)):
+            raise AssertionError(f"{kernel}: launched with {got}, not the "
+                                 f"candidate's {want}")
+
+    # (a) elementwise: the DiT's latents
+    tuner = pinned("elementwise")
+    shape = (2, 64, 64, 4)
+    y, cur, prev, old = (randn(*shape) for _ in range(4))
+    out, resid = ops.parareal_update_residual(y, cur, prev, old,
+                                              batch_dims=1, tuner=tuner)
+    want, want_r = ref.parareal_update_residual(y, cur, prev, old,
+                                                batch_dims=1)
+    rel = float(((resid - want_r).abs() / want_r.abs()).max())
+    geo = elementwise.launch_geometry("parareal_update_residual", shape,
+                                      torch.float32, tuner=tuner,
+                                      device=dev, batch_dims=1)["geometry"]
+    print(f"  elementwise candidate {TUNING_CANDIDATES['elementwise']}: "
+          f"residual geometry {geo}, output bitwise "
+          f"{torch.equal(out, want)}, sums rel {rel:.2e}", flush=True)
+    if not (torch.equal(out, want) and rel <= 1e-5):
+        raise AssertionError("the elementwise candidate misses the plain "
+                             "version")
+    dims_match(lambda: ops.parareal_update_residual(
+        y, cur, prev, old, batch_dims=1, tuner=tuner),
+        "parareal_resid_cluster_kernel",
+        ((geo["cluster"] * shape[0],), (geo["threads"],)))
+    a = torch.linspace(0.5, 0.9, shape[0], device=dev)
+    got = ops.ddim_fused(y, cur, a, a, tuner=tuner)
+    if not torch.equal(got, ref.ddim_fused(y, cur, a, a)):
+        raise AssertionError("the DDIM candidate misses the plain version")
+    dgeo = elementwise.launch_geometry("ddim_fused", shape, torch.float32,
+                                       tuner=tuner, device=dev,
+                                       per_row=True)["geometry"]
+    dims_match(lambda: ops.ddim_fused(y, cur, a, a, tuner=tuner),
+               "ddim_fused_kernel", ((dgeo["blocks"],), (dgeo["threads"],)))
+    out, resid = ops.parareal_update(y, cur, prev, tuner=tuner)
+    want, want_r = ref.parareal_update(y, cur, prev)
+    if not (torch.equal(out, want)
+            and abs(float(resid) - float(want_r)) <= 1e-5 * abs(
+                float(want_r))):
+        raise AssertionError("the update candidate misses the plain version")
+
+    # (b) flash: the DiT's shape, from phase 2's 3-stage builds
+    tuner = pinned("flash")
+    q, k, v = (randn(10, 16, 1024, 72, dtype=torch.bfloat16)
+               for _ in range(3))
+    do = randn(10, 16, 1024, 72, dtype=torch.bfloat16)
+    for t_ in (q, k, v):
+        t_.requires_grad_(True)
+    before = ops.route_counts()
+    o = ops.attention(q, k, v, causal=False, tuner=tuner)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    after = ops.route_counts()
+    o_ref, lse = ref.attention(q.detach(), k.detach(), v.detach(),
+                               causal=False)
+    want = ref.attention_bwd(q.detach(), k.detach(), v.detach(), o_ref, lse,
+                             do, causal=False)
+    fwd_rel = rel_l2([o.detach()], [o_ref])
+    bwd_rel = max(rel_l2(grads[:1], want[:1]), rel_l2(grads[1:], want[1:]))
+    from repro_torch.kernels import flash_attention as fa
+    fa_geo = fa.launch_geometry(1024, 1024, 72, torch.bfloat16, tuner=tuner,
+                                device=dev)
+    loaded = all((src, d) in _build._libs for src, d in (
+        ("flash_attention_fwd", fa_geo["fwd_defines"]),
+        ("flash_attention_bwd", fa_geo["bwd_defines"])))
+    print(f"  flash candidate {TUNING_CANDIDATES['flash']}: builds "
+          f"{fa_geo['fwd_defines']} {fa_geo['bwd_defines']} loaded "
+          f"{loaded}; rel L2 forward {fwd_rel:.3e} (limit "
+          f"{MASKED_REL_L2['bfloat16']}), backward {bwd_rel:.3e} (limit "
+          f"{BWD_MASKED_REL_L2['bfloat16']}); tc launches "
+          f"{after['flash_attention_fwd_tc'] - before['flash_attention_fwd_tc']}"
+          f"/{after['flash_attention_bwd_dq_tc'] - before['flash_attention_bwd_dq_tc']}"
+          f"/{after['flash_attention_bwd_dkv_tc'] - before['flash_attention_bwd_dkv_tc']}",
+          flush=True)
+    if not (loaded and fwd_rel <= MASKED_REL_L2["bfloat16"]
+            and bwd_rel <= BWD_MASKED_REL_L2["bfloat16"]
+            and fa_geo["fwd_defines"] and fa_geo["bwd_defines"]):
+        raise AssertionError("the flash candidate misses the plain version "
+                             "or did not run its own builds")
+    del q, k, v, do, o, grads, o_ref, want
+
+    # (c) WKV: rwkv6-1.6b's training shape, the dv sum on 64 threads
+    tuner = pinned("rwkv6")
+    b, h, t, d = 2, 32, 2048, 64
+    r, kk, vv = (randn(b, h, t, d, dtype=torch.bfloat16) for _ in range(3))
+    w = randn(b, h, t, d) * 0.5
+    u, s0 = randn(h, d) * 0.3, randn(b, h, d, d) * 0.2
+    xs = [x.requires_grad_(True) for x in (r, kk, vv, w, u, s0)]
+    dout = randn(b, h, t, d, dtype=torch.bfloat16)
+
+    def wkv_grads(tn):
+        out, _ = ops.rwkv6_wkv(*xs, tuner=tn)
+        return torch.autograd.grad(out, xs, dout)
+
+    same = all(torch.equal(x1, x2) for x1, x2 in zip(wkv_grads(tuner),
+                                                     wkv_grads(None)))
+    print(f"  rwkv6 candidate {TUNING_CANDIDATES['rwkv6']}: gradients "
+          f"bitwise the default's {same}", flush=True)
+    if not same:
+        raise AssertionError("the WKV candidate's gradients differ from the "
+                             "default's")
+    del xs, r, kk, vv, w, u, s0, dout
+
+    # (d) the scan: hymba's training shape
+    tuner = pinned("selective_scan")
+    b, t, din, n = 2, 2048, 1600, 16
+    x_ = (randn(b, t, din), torch.nn.functional.softplus(randn(b, t) - 1.0),
+          randn(b, t, n), randn(b, t, n), -torch.exp(randn(din, n) * 0.5),
+          randn(din), randn(b, din, n) * 0.5)
+    sgeo = scan.launch_geometry(b, t, din, n, tuner=tuner, device=dev)
+    y_, h_t, ckpt = scan.selective_scan(*x_, checkpoints=True, tuner=tuner)
+    fwd_rel = rel_l2([y_, h_t], list(ref.selective_scan(*x_)))
+    dy = randn(b, t, din)
+    grads = scan.selective_scan_bwd(*x_[:6], ckpt, dy, None, tuner=tuner)
+    want = ref.selective_scan_bwd(*x_, dy, None,
+                                  segments=sgeo["bwd"].segments)
+    bwd_rel = max(rel_l2([g_], [w_]) for g_, w_ in zip(grads, want))
+    print(f"  selective_scan candidate {TUNING_CANDIDATES['selective_scan']}"
+          f": forward {sgeo['fwd']}, {sgeo['stages']} stages, rel L2 "
+          f"{fwd_rel:.3e} (limit {SCAN_REL_L2}); backward {sgeo['bwd']}, "
+          f"rel L2 {bwd_rel:.3e} (limit {SCAN_BWD_REL_L2})", flush=True)
+    if not (fwd_rel <= SCAN_REL_L2 and bwd_rel <= SCAN_BWD_REL_L2):
+        raise AssertionError("the scan candidate misses the plain version")
+    fg, bg = sgeo["fwd"], sgeo["bwd"]
+    dims_match(lambda: ops.selective_scan(*x_, tuner=tuner),
+               "selective_scan_fwd_kernel", (fg.grid, (fg.threads + 32,)))
+    dims_match(lambda: scan.selective_scan_bwd(*x_[:6], ckpt, dy, None,
+                                               tuner=tuner),
+               "selective_scan_bwd_kernel", (bg.grid, (bg.threads + 32,)))
+    del x_, y_, h_t, ckpt, dy, grads, want
+    torch.cuda.empty_cache()
+
+    # (e) the sweep's card mode on its launch knobs, (f) table14
+    payload = autotune_kernels.sweep(
+        dev, launch_only=True, log=lambda m: print(m, flush=True),
+        cases=[c for c in autotune_kernels.CASES if any(
+            k in tuning.LAUNCH_PARAMS[c.family] for k in c.knobs)])
+    print(f"  launch-only sweep: {len(payload['entries'])} entries beat the "
+          f"heuristics by more than their spread (schema and round trip "
+          f"checked): {payload['entries']}", flush=True)
+    rows = table14_kernels.run_rows(dev)
+    for row in rows:
+        print(f"  {row['name']}: parity_ok {row['parity_ok']}, max abs diff "
+              f"{row['max_abs_diff']:.3g} (tol {row['tol']}), "
+              f"{row['config_source']} {row['config_params']}", flush=True)
+    if not all(row["parity_ok"] for row in rows) or len(rows) != len(
+            tuning.KERNELS):
+        raise AssertionError("table14: a family lost parity on the card")
+    if len(_build.build_log) != builds:
+        raise AssertionError(f"phase {step} built a kernel: "
+                             f"{sorted(_build.build_log)[builds:]}")
+    print(f"  phase {step}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -5069,9 +5371,12 @@ def main() -> int:
 
     # ---- 2. build --------------------------------------------------------
     from repro_torch.kernels import _build, ops, ref
-    secs = _build.build_all()
-    print(f"[2/15] build: {len(_build.sources())} CUDA source(s) in "
-          f"{secs:.1f} s", flush=True)
+    from repro_torch.kernels import tuning
+    variants = sorted(set(tuning.table_variants()) | set(tuning_builds()))
+    secs = _build.build_all(extra=variants)
+    print(f"[2/15] build: {len(_build.sources())} CUDA source(s) and "
+          f"{len(variants)} variant(s) (the committed table's and phase "
+          f"19's candidates: {variants}) in {secs:.1f} s", flush=True)
     for name, log in _build.build_log.items():
         print(f"  nvcc {name}.cu:\n" + "\n".join(
             "    " + line for line in log.strip().splitlines()))
@@ -5227,6 +5532,10 @@ def main() -> int:
     # ---- 18. the dense zoo, the stub frontends, TimeConditioned -----------
     counts18, zoo_rows = zoo_phase(torch, ops, C, 18)
     zoo_counts.update(counts18)
+    torch.cuda.empty_cache()
+
+    # ---- 19. the tuning seam ----------------------------------------------
+    tuning_phase(torch, ops, ref, 19)
 
     sources = {"flash_attention_fwd": (
         "cuda", "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",

@@ -70,11 +70,11 @@ def main() -> int:
     if args.plain:
         from repro_torch.kernels import ops, ref, rwkv6_scan
 
-        def plain_fwd(r, k, v, w, u, s0, *, checkpoints=False):
+        def plain_fwd(r, k, v, w, u, s0, *, checkpoints=False, tuner=None):
             out, s_t = ref.rwkv6_wkv(r, k, v, w, u, s0)
             return out, s_t, s0[:, :, None] if checkpoints else None
 
-        def plain_bwd(r, k, v, w, u, ckpt, dout, ds_t=None):
+        def plain_bwd(r, k, v, w, u, ckpt, dout, ds_t=None, tuner=None):
             return ref.rwkv6_wkv_bwd(r, k, v, w, u, ckpt[:, :, 0], dout,
                                      ds_t)
 

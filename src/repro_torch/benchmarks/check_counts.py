@@ -11,7 +11,15 @@ that missed its >= 25% iteration cut and a row whose ``within_tol`` is
 false (table6's ``mesh_t2d2m2``: the model-parallel DiT against the
 single-process sampler, a verdict of the current run alone).  Rows of
 tables the port has no emitter for yet are skipped with their ROADMAP
-item (table14: A12).
+item (``SKIPPED``; none is left).
+
+table14's kernel rows are gated on the current run alone, as JAX's
+``check_bench_core`` gates them: every row's ``parity_ok`` must be true
+and its tuning provenance present and well formed (``config_source`` one
+of table/heuristic/override, ``config_params`` a non-empty object); a
+baseline table14 row (JAX's, named by its backend) needs a current row of
+its kernel family on any backend, since the card's rows are named
+``table14/sm90/...``.
 
 Known divergences, each named in ROADMAP §C, are reported and not
 failed:
@@ -34,7 +42,7 @@ import argparse
 import json
 import sys
 
-SKIPPED = {"table14": "A12"}
+SKIPPED = {}
 # row -> (ROADMAP item, {field: the JAX package's value on this tree})
 REFERENCE = {
     "table12/n100_wtol0.01": ("C14", {"evals_window": 384}),
@@ -65,14 +73,48 @@ def _counted(field: str) -> bool:
             and not field.endswith("_pct"))
 
 
+def _table14(current: dict, baseline: dict):
+    """table14's failures, from the current run alone (module docstring)."""
+    failures = []
+    rows = [r for r in current.get("rows", [])
+            if r["name"].startswith("table14/")]
+    families = {r["name"].split("/")[-1] for r in rows}
+    for base in baseline.get("rows", []):
+        if base["name"].startswith("table14/") and \
+                base["name"].split("/")[-1] not in families:
+            failures.append(f"{base['name']}: no table14 row of the "
+                            f"{base['name'].split('/')[-1]} family in the "
+                            f"current artifact")
+    for r in rows:
+        name = r["name"]
+        if r.get("parity_ok") is not True:
+            failures.append(f"{name}: parity_ok is {r.get('parity_ok')!r} "
+                            f"(kernel against its plain version: "
+                            f"max_abs_diff={r.get('max_abs_diff')}, "
+                            f"tol={r.get('tol')})")
+        if r.get("config_source") not in ("table", "heuristic", "override"):
+            failures.append(f"{name}: config_source "
+                            f"{r.get('config_source')!r} is not one of "
+                            f"table/heuristic/override (tuning provenance "
+                            f"lost)")
+        params = r.get("config_params")
+        if not isinstance(params, dict) or not params:
+            failures.append(f"{name}: config_params missing/empty (tuning "
+                            f"provenance lost)")
+    return failures
+
+
 def check(current: dict, baseline: dict):
     """``(failures, notes)``: lists of strings; the gate passes when
     ``failures`` is empty."""
     failures, notes = [], []
     cur_rows = {r["name"]: r for r in current.get("rows", [])}
+    failures += _table14(current, baseline)
     for base in baseline.get("rows", []):
         name = base["name"]
         table = name.split("/")[0]
+        if table == "table14":
+            continue
         if table in SKIPPED:
             notes.append(f"{name}: skipped (no port emitter yet, ROADMAP "
                          f"{SKIPPED[table]})")

@@ -56,8 +56,20 @@ def toy_array(name: str, device) -> torch.Tensor:
     return torch.from_numpy(toy_inputs()[name].copy()).to(device)
 
 
+class _Parser(argparse.ArgumentParser):
+    """Routes ``--device`` through :func:`repro_torch.launch.env.
+    configure_platform` (``cuda``: the ``gpu`` preset; ``cpu``: no card),
+    before the emitter does any device work."""
+
+    def parse_args(self, args=None, namespace=None):
+        parsed = super().parse_args(args, namespace)
+        from repro_torch.launch.env import configure_platform
+        configure_platform("gpu" if parsed.device == "cuda" else "cpu")
+        return parsed
+
+
 def parser(doc: str) -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(description=doc)
+    ap = _Parser(description=doc)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="run on the card (default) or on the CPU")
     return ap

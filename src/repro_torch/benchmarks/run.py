@@ -12,7 +12,7 @@ from . import (prop4_blocksize, table1_pixel, table2_sd, table3_pipelined,
                table4_paradigms, table5_solvers, table6_devices,
                table8_tolerance, table9_batched, table10_slo,
                table10_wallclock, table11_truncation, table12_window,
-               table13_accel)
+               table13_accel, table14_kernels)
 from .common import parser, resolve_device
 
 TABLES = [
@@ -29,6 +29,7 @@ TABLES = [
     ("table11 (prefix truncation)", table11_truncation.main),
     ("table12 (residual windows)", table12_window.main),
     ("table13 (acceleration)", table13_accel.main),
+    ("table14 (kernel parity and tuning provenance)", table14_kernels.main),
     ("prop4 (block-size optimum)", prop4_blocksize.main),
 ]
 

@@ -82,7 +82,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kDdimThreads = 256;
+constexpr int kDdimMaxThreads = 256;   // the DDIM grid's block, at most
 constexpr int kResidMaxThreads = 1024;
 constexpr int kMaxCluster = 8;          // the portable cluster size
 constexpr unsigned kFull = 0xffffffffu;
@@ -175,7 +175,7 @@ struct Ddim {
 using Index = unsigned long long;
 
 template <typename T>
-__global__ void __launch_bounds__(kDdimThreads)
+__global__ void __launch_bounds__(kDdimMaxThreads)
 ddim_fused_kernel(const T* __restrict__ x, const T* __restrict__ e,
                   const float* __restrict__ a, const float* __restrict__ b,
                   T* __restrict__ out, Index n, Index n_vec, Index n_row,
@@ -309,13 +309,13 @@ template <typename T>
 cudaError_t launch_ddim(const void* x, const void* e, const void* a,
                         const void* b, void* out, long long n,
                         long long n_vec, long long n_row, int coef_stride,
-                        int blocks, cudaStream_t stream) {
+                        int blocks, int threads, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const T* et = static_cast<const T*>(e);
   const float* at = static_cast<const float*>(a);
   const float* bt = static_cast<const float*>(b);
   T* ot = static_cast<T*>(out);
-  ddim_fused_kernel<T><<<blocks, kDdimThreads, 0, stream>>>(
+  ddim_fused_kernel<T><<<blocks, threads, 0, stream>>>(
       xt, et, at, bt, ot, (Index)n, (Index)n_vec, (Index)n_row, coef_stride);
   return cudaGetLastError();
 }
@@ -411,25 +411,27 @@ bool resid_shape_ok(long long n_slice, long long per_block, int slices,
 // dtype (of x, e and out): 0 = float32, 1 = bfloat16, 2 = float16.  a, b:
 // f32, one per row of n_row elements (coef_stride 1) or one (0).  n_vec:
 // the 16-byte vectors to take first (0, or n / N when the caller found x,
-// e and out 16-byte aligned and n_row a multiple of N); blocks: the grid.
+// e and out 16-byte aligned and n_row a multiple of N); blocks: the grid
+// of `threads`-thread blocks (whole warps, at most kDdimMaxThreads).
 // Returns the launch's CUDA error.
 extern "C" int ddim_fused(const void* x, const void* e, const void* a,
                           const void* b, void* out, long long n,
                           long long n_vec, long long n_row, int coef_stride,
-                          int blocks, int dtype, void* stream) {
-  if (n < 1 || n_vec < 0 || n_row < 1 || blocks < 1)
+                          int blocks, int threads, int dtype, void* stream) {
+  if (n < 1 || n_vec < 0 || n_row < 1 || blocks < 1 || threads < 32 ||
+      threads > kDdimMaxThreads || threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 1)
     err = launch_ddim<__nv_bfloat16>(x, e, a, b, out, n, n_vec, n_row,
-                                     coef_stride, blocks, s);
+                                     coef_stride, blocks, threads, s);
   else if (dtype == 2)
     err = launch_ddim<__half>(x, e, a, b, out, n, n_vec, n_row, coef_stride,
-                              blocks, s);
+                              blocks, threads, s);
   else
     err = launch_ddim<float>(x, e, a, b, out, n, n_vec, n_row, coef_stride,
-                             blocks, s);
+                             blocks, threads, s);
   return (int)err;
 }
 

@@ -475,9 +475,23 @@ namespace tc {
 
 using namespace sm90;   // TMA, mbarriers, wgmma (sm90_tc.cuh)
 
+// The ring's tile and depth are build knobs (repro_torch.kernels.tuning,
+// family "flash": bwd_block_n, bwd_stages), defined with -D by _build.
+#ifndef FLASH_BWD_BLOCK_N
+#define FLASH_BWD_BLOCK_N 64
+#endif
+#ifndef FLASH_BWD_STAGES
+#define FLASH_BWD_STAGES 2
+#endif
 constexpr int kBlockM = 128;     // rows a block owns: two warpgroups of 64
-constexpr int kBlockN = 64;      // rows of a ring tile
-constexpr int kStages = 2;
+constexpr int kBlockN = FLASH_BWD_BLOCK_N;   // rows of a ring tile
+constexpr int kStages = FLASH_BWD_STAGES;
+// the transposed scores' wgmma is n64 and the producer copies lse and
+// delta rows of 64, so the layout takes tiles of 64 rows only; the ring
+// needs two stages to overlap, and three fit the dkv kernel's shared
+// memory at head dim 128 with its running sums (Layout below)
+static_assert(kBlockN == 64, "FLASH_BWD_BLOCK_N: the layout takes 64");
+static_assert(kStages >= 2 && kStages <= 3, "FLASH_BWD_STAGES: 2 or 3");
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = (kConsumerWarps + 4) * 32;   // + the producer's group
 // registers per thread after the split (setmaxnreg): the producer warp
@@ -508,6 +522,7 @@ struct Layout {
                                              : 0;
   static constexpr uint32_t kBarOffset = kSumOffset + kSumBytes;
   static constexpr uint32_t kBytes = kBarOffset + (2 * kStages + 1) * 8 + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory (227 KB)");
 };
 // dkv's two-pass form (head dims above 96), see flash_bwd_dkv_kernel_tc
 template <int DP> constexpr bool kTwoPass = DP > 96;

@@ -290,9 +290,22 @@ namespace tc {
 
 using namespace sm90;   // TMA, mbarriers, wgmma (sm90_tc.cuh)
 
+// The ring's tile and depth are build knobs (repro_torch.kernels.tuning,
+// family "flash": fwd_block_n, fwd_stages), defined with -D by _build.
+#ifndef FLASH_FWD_BLOCK_N
+#define FLASH_FWD_BLOCK_N 64
+#endif
+#ifndef FLASH_FWD_STAGES
+#define FLASH_FWD_STAGES 2
+#endif
 constexpr int kBlockM = 128;     // query rows per block: two warpgroups of 64
-constexpr int kBlockN = 64;      // keys per tile
-constexpr int kStages = 2;       // K/V ring
+constexpr int kBlockN = FLASH_FWD_BLOCK_N;   // keys per tile
+constexpr int kStages = FLASH_FWD_STAGES;    // K/V ring
+// the scores' wgmma is m64 n64 and the softmax's lanes own 64-key rows, so
+// the layout takes tiles of 64 keys only; the ring needs two stages to
+// overlap, and four fit the shared memory at head dim 128 (Layout below)
+static_assert(kBlockN == 64, "FLASH_FWD_BLOCK_N: the layout takes 64");
+static_assert(kStages >= 2 && kStages <= 4, "FLASH_FWD_STAGES: 2 to 4");
 constexpr int kConsumerWarps = 8;
 constexpr int kThreads = (kConsumerWarps + 4) * 32;   // + the producer's group
 // registers per thread after the split (setmaxnreg): the producer's
@@ -315,6 +328,7 @@ struct Layout {
   static constexpr uint32_t kTileBytes = kChunks * kBlockN * 16;
   static constexpr uint32_t kBarOffset = kQBytes + 2 * kStages * kTileBytes;
   static constexpr uint32_t kBytes = kBarOffset + (2 * kStages + 1) * 8 + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory (227 KB)");
 };
 
 template <int DP, int TERMS>

@@ -126,8 +126,22 @@ constexpr int kChunk = 16;      // steps per staged chunk and per checkpoint
 constexpr int kRows = 64;       // Dk, padded
 constexpr int kMaxDv = 128;     // the forward's largest Dv
 constexpr int kThreads = 128;
-constexpr int kFwdCols = 32;    // state columns per forward block
-constexpr int kBwdRows = 16;    // state rows per backward block
+// Build knobs of the tuning seam (repro_torch.kernels.tuning, family
+// "rwkv6": fwd_cols, bwd_rows), defined with -D by _build.  The forward's
+// thread map (4 warps x 4 column pairs x 8 row groups of 128 threads) owns
+// 32 columns and the backward's (a row a quarter warp) 16 rows, so the
+// layouts take those values only.
+#ifndef WKV_FWD_COLS
+#define WKV_FWD_COLS 32
+#endif
+#ifndef WKV_BWD_ROWS
+#define WKV_BWD_ROWS 16
+#endif
+constexpr int kFwdCols = WKV_FWD_COLS;   // state columns per forward block
+constexpr int kBwdRows = WKV_BWD_ROWS;   // state rows per backward block
+static_assert(kFwdCols == 32, "WKV_FWD_COLS: the forward's layout takes 32");
+static_assert(kBwdRows == 16, "WKV_BWD_ROWS: the backward's layout takes 16");
+constexpr int kDvSumMaxThreads = 256;   // the dv sum's block, at most
 constexpr int kBwdGroups = kRows / kBwdRows;   // the backward's row groups
 constexpr int kBwdCols = 64;    // the backward's Dv, padded
 constexpr unsigned kFull = 0xffffffffu;
@@ -621,7 +635,7 @@ wkv_bwd_rowgroup_kernel(const T* __restrict__ r, const T* __restrict__ k,
 // dv from the row groups' partials (BH, kBwdGroups, T, Dv) f32, summed in
 // order 0, 1, 2, 3 and rounded once; four elements a thread.
 template <typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kDvSumMaxThreads)
 wkv_bwd_dv_sum_kernel(const float* __restrict__ dv_part, T* __restrict__ dv,
                       int T_len, int Dv, size_t quads) {
   const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -677,7 +691,7 @@ cudaError_t launch_bwd(const void* r, const void* k, const void* v,
                        const void* dout, const void* dsT, void* dr, void* dk,
                        void* dv, void* dw, void* du_part, void* ds0,
                        void* dv_part, int bh, int t, int h, int dkd, int dvd,
-                       cudaStream_t stream) {
+                       int sum_threads, cudaStream_t stream) {
   cudaError_t err = prepare_bwd<T>();
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, kBwdGroups);
@@ -692,7 +706,8 @@ cudaError_t launch_bwd(const void* r, const void* k, const void* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t quads = (size_t)bh * t * dvd / 4;
-  wkv_bwd_dv_sum_kernel<T><<<(unsigned)((quads + 255) / 256), 256, 0, stream>>>(
+  wkv_bwd_dv_sum_kernel<T><<<(unsigned)((quads + sum_threads - 1) / sum_threads),
+                             sum_threads, 0, stream>>>(
       static_cast<const float*>(dv_part), static_cast<T*>(dv), t, dvd, quads);
   return cudaGetLastError();
 }
@@ -755,23 +770,27 @@ extern "C" int rwkv6_wkv_fwd(const void* r, const void* k, const void* v,
 // The backward: r, k, v, dout and dr, dk, dv in dtype; w, dw (bh, t, dk),
 // u (h, dk), ckpt (the forward's), dsT (null for zero) and ds0 (bh, dk, dv),
 // du_part (bh, dk) f32; dv_part: scratch of (bh, 4, t, dv) f32 for the row
-// groups' parts of dv; dk and dv as the forward's, dv <= 64.  Returns the
-// launches' CUDA error.
+// groups' parts of dv; dk and dv as the forward's, dv <= 64; sum_threads:
+// the dv sum's block (a launch knob, whole warps, at most 256).  Returns
+// the launches' CUDA error.
 extern "C" int rwkv6_wkv_bwd(const void* r, const void* k, const void* v,
                              const void* w, const void* u, const void* ckpt,
                              const void* dout, const void* dsT, void* dr,
                              void* dk, void* dv, void* dw, void* du_part,
                              void* ds0, void* dv_part, int bh, int t, int h,
-                             int dkd, int dvd, int dtype, void* stream) {
-  if (!shapes_ok(bh, t, h, dkd, dvd, kBwdCols))
+                             int dkd, int dvd, int sum_threads, int dtype,
+                             void* stream) {
+  if (!shapes_ok(bh, t, h, dkd, dvd, kBwdCols) || sum_threads < 32 ||
+      sum_threads > kDvSumMaxThreads || sum_threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 1
       ? launch_bwd<__nv_bfloat16>(r, k, v, w, u, ckpt, dout, dsT, dr, dk, dv,
                                   dw, du_part, ds0, dv_part, bh, t, h, dkd,
-                                  dvd, s)
+                                  dvd, sum_threads, s)
       : launch_bwd<float>(r, k, v, w, u, ckpt, dout, dsT, dr, dk, dv, dw,
-                          du_part, ds0, dv_part, bh, t, h, dkd, dvd, s);
+                          du_part, ds0, dv_part, bh, t, h, dkd, dvd,
+                          sum_threads, s);
   return (int)err;
 }
 

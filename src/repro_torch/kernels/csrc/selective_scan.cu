@@ -613,8 +613,10 @@ selective_scan_step_kernel(const float* __restrict__ xs, long long sxb,
 // the build caps the walk's registers for kBwdMinBlocks such blocks an SM
 // (with their producer warps), the replay's for kReplayMinBlocks: more
 // warps an SM to hide the latency of the exponentials, the shuffles and the
-// shared loads.  The knobs are macros, so that
-// scripts/torch_scan_bench.py --backward can build others.
+// shared loads.  The knobs are macros: build knobs of the tuning seam
+// (repro_torch.kernels.tuning, family "selective_scan": bwd_sub,
+// bwd_max_threads, bwd_min_blocks, bwd_replay_min_blocks), defined with -D
+// by _build; scripts/torch_scan_bench.py --backward builds others too.
 #ifndef SCAN_BWD_SUB
 #define SCAN_BWD_SUB 8
 #endif
@@ -633,7 +635,13 @@ constexpr int kBwdStages = 2;
 constexpr int kBwdMaxConsumers = SCAN_BWD_MAX_CONSUMERS;
 constexpr int kBwdMinBlocks = SCAN_BWD_MIN_BLOCKS;
 constexpr int kReplayMinBlocks = SCAN_BWD_REPLAY_MIN_BLOCKS;
-static_assert(kChunk % kSub == 0, "a chunk is whole sub-chunks");
+static_assert(kSub >= 1 && kChunk % kSub == 0,
+              "SCAN_BWD_SUB: a chunk is whole sub-chunks");
+static_assert(kBwdMaxConsumers >= 32 && kBwdMaxConsumers % 32 == 0 &&
+                  kBwdMaxConsumers <= kMaxConsumers,
+              "SCAN_BWD_MAX_CONSUMERS: whole warps, at most kMaxConsumers");
+static_assert(kBwdMinBlocks >= 1 && kReplayMinBlocks >= 1,
+              "SCAN_BWD_MIN_BLOCKS, SCAN_BWD_REPLAY_MIN_BLOCKS: at least 1");
 // route bit of dy (the forward's bits hold for dt, B, C and x)
 constexpr int kVecDy = 8;
 

@@ -12,6 +12,12 @@ DiT), causal and sliding-window masks with right-aligned query positions,
 and grouped-query attention (the language models).  ``dk`` and ``dv``
 come back in the KV heads' layout, the group summed in f32 inside the
 kernel (JAX sums per-query-head partials in its wrapper).
+
+The tensor-core kernels' ring (keys or rows a tile and stages) are build
+knobs of the tuning seam (:mod:`repro_torch.kernels.tuning`, family
+``flash``, keyed by the dtype and ``(Sq, Sk, D)``): a call loads the
+library built with its config's defines (:func:`launch_geometry` shows
+the routing without launching).
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, tuning
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_SIGNATURE = {
@@ -86,6 +92,31 @@ def _check_window(window: Optional[int]) -> None:
                          f"got {window}")
 
 
+def _defines(tuner, q, sk: int, source: str) -> tuple:
+    """The ``-D`` defines of ``source`` that ``tuner`` resolves for a call
+    on ``q`` (BH, Sq, D) against ``sk`` keys."""
+    cfg = tuning.config("flash", tuner, q.device, q.dtype,
+                        (q.shape[1], sk, q.shape[2]))
+    return tuning.defines("flash", cfg.params, source)
+
+
+def launch_geometry(sq: int, sk: int, d: int, dtype: torch.dtype, *,
+                    tuner: Optional[tuning.KernelTuner] = None,
+                    device="cpu") -> dict:
+    """What the flash kernels would build and launch for Sq queries, Sk
+    keys and head dim ``d`` of ``dtype`` on ``device``, resolved through
+    ``tuner`` (the process tuner when None), without launching:
+    ``config`` and each source's ``defines`` (``fwd_defines``,
+    ``bwd_defines``: its library's build)."""
+    cfg = tuning.config("flash", tuner, torch.device(device), dtype,
+                        (sq, sk, d))
+    return dict(config=cfg,
+                fwd_defines=tuning.defines("flash", cfg.params,
+                                           "flash_attention_fwd"),
+                bwd_defines=tuning.defines("flash", cfg.params,
+                                           "flash_attention_bwd"))
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -107,13 +138,14 @@ def _fwd_args(q, k, v, causal, window, scale):
 
 
 def _fwd_launch(fn, q, k, v, o, lse, group, causal, window, scale, mode,
-                tc):
-    """One launch of C function ``fn``; ``mode`` is its dtype code or, for
-    the terms entry point, the term count; ``tc``: the tensor-core route."""
+                tc, defines=()):
+    """One launch of C function ``fn`` of the build with ``defines``;
+    ``mode`` is its dtype code or, for the terms entry point, the term
+    count; ``tc``: the tensor-core route."""
     bh, sq, d = q.shape
     if tc:
         q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    lib = _build.load("flash_attention_fwd", _FWD_SIGNATURE)
+    lib = _build.load("flash_attention_fwd", _FWD_SIGNATURE, defines)
     with torch.cuda.device(q.device):
         code = getattr(lib, fn)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -122,33 +154,37 @@ def _fwd_launch(fn, q, k, v, o, lse, group, causal, window, scale, mode,
     _build.check(lib, code, fn)
 
 
-def fwd_route(dtype: torch.dtype, d: int) -> str:
+def fwd_route(dtype: torch.dtype, d: int, defines: tuple = ()) -> str:
     """The kernel :func:`flash_attention_fwd` launches for ``dtype`` and
     head dim ``d``: ``"tc"`` (tensor cores: bf16, ``d % 8 == 0``) or
-    ``"simt"`` (f32 FMA units), as the C entry point decides."""
-    lib = _build.load("flash_attention_fwd", _FWD_SIGNATURE)
+    ``"simt"`` (f32 FMA units), as the C entry point (of the build with
+    ``defines``) decides."""
+    lib = _build.load("flash_attention_fwd", _FWD_SIGNATURE, defines)
     return ROUTES[lib.flash_attention_fwd_route(_DTYPES[dtype], d)]
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = False, window: Optional[int] = None,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None,
+                        tuner: Optional[tuning.KernelTuner] = None):
     """q: (BH, Sq, D); k, v: (BKV, Sk, D) with BH a multiple of BKV
     (query head ``i`` reads KV head ``i // (BH // BKV)``), all on one CUDA
     device.  ``causal`` and ``window`` mask as :func:`ref.attention`, with
     query positions right-aligned to the keys.
 
     Returns ``(o (BH, Sq, D) in q's dtype, lse (BH, Sq) f32)``.  Launches
-    one kernel, counted in ``flash_attention_fwd.launches`` and by its
-    route (:func:`fwd_route`) in ``flash_attention_fwd.route_launches``.
+    one kernel of the build ``tuner`` resolves, counted in
+    ``flash_attention_fwd.launches`` and by its route (:func:`fwd_route`)
+    in ``flash_attention_fwd.route_launches``.
     """
     q, k, v, o, lse, group, scale = _fwd_args(q, k, v, causal, window,
                                               scale)
     if q.shape[0] == 0 or q.shape[1] == 0:
         return o, lse
-    route = fwd_route(q.dtype, q.shape[2])
+    defines = _defines(tuner, q, k.shape[1], "flash_attention_fwd")
+    route = fwd_route(q.dtype, q.shape[2], defines)
     _fwd_launch("flash_attention_fwd", q, k, v, o, lse, group, causal,
-                window, scale, _DTYPES[q.dtype], route == "tc")
+                window, scale, _DTYPES[q.dtype], route == "tc", defines)
     flash_attention_fwd.launches += 1
     flash_attention_fwd.route_launches[route] += 1
     return o, lse
@@ -206,10 +242,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
                         *, causal: bool = False,
                         window: Optional[int] = None,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None,
+                        tuner: Optional[tuning.KernelTuner] = None):
     """Gradients of flash attention: ``(dq (BH, Sq, D), dk, dv (BKV, Sk,
     D))``, in q's dtype, with ``causal`` and ``window`` as the forward
-    took them.
+    took them, from the build ``tuner`` resolves.
 
     q, o, do: (BH, Sq, D); k, v: (BKV, Sk, D) with BH a multiple of BKV;
     lse: the forward's (BH, Sq) f32 logsumexp; all on one CUDA device.
@@ -222,30 +259,32 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     q, k, v, do, lse, delta, scale = _bwd_args(q, k, v, o, lse, do, window,
                                                scale)
-    mask = dict(causal=causal, window=window)
+    mask = dict(causal=causal, window=window, tuner=tuner)
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, **mask)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, **mask)
     return dq, dk, dv
 
 
-def bwd_route(dtype: torch.dtype, d: int) -> str:
+def bwd_route(dtype: torch.dtype, d: int, defines: tuple = ()) -> str:
     """The kernels :func:`flash_attention_bwd` launches for ``dtype`` and
     head dim ``d``: ``"tc"`` (tensor cores: bf16, ``d % 8 == 0``) or
-    ``"simt"`` (f32 FMA units), as the C entry points decide."""
-    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURE)
+    ``"simt"`` (f32 FMA units), as the C entry points (of the build with
+    ``defines``) decide."""
+    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURE, defines)
     return ROUTES[lib.flash_attention_bwd_route(_DTYPES[dtype], d)]
 
 
 def _launch(fn: str, args, q: torch.Tensor, k: torch.Tensor, scale: float,
             causal: bool, window: Optional[int], mode: int,
-            tc: bool) -> None:
-    """One call of C function ``fn`` on ``args`` (tensors); ``mode`` is its
-    dtype code or, for the terms entry point, the term count; ``tc``: the
-    tensor-core route, whose TMA maps need 16-byte aligned operands."""
+            tc: bool, defines: tuple = ()) -> None:
+    """One call of C function ``fn`` of the build with ``defines`` on
+    ``args`` (tensors); ``mode`` is its dtype code or, for the terms entry
+    point, the term count; ``tc``: the tensor-core route, whose TMA maps
+    need 16-byte aligned operands."""
     bh, sq, d = q.shape
     if tc:
         args = [_aligned(t) if i < 6 else t for i, t in enumerate(args)]
-    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURE)
+    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURE, defines)
     with torch.cuda.device(q.device):
         code = getattr(lib, fn)(*(t.data_ptr() for t in args), bh, sq,
                                 k.shape[1], d, bh // k.shape[0], int(causal),
@@ -260,31 +299,38 @@ def _count(wrapper, route: str) -> None:
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale: float, *,
                            causal: bool = False,
-                           window: Optional[int] = None):
+                           window: Optional[int] = None,
+                           tuner: Optional[tuning.KernelTuner] = None):
     """dq (BH, Sq, D) from contiguous, checked operands: one launch of the
-    dq kernel, counted in ``flash_attention_bwd_dq.launches`` and by
-    route."""
+    dq kernel of the build ``tuner`` resolves, counted in
+    ``flash_attention_bwd_dq.launches`` and by route."""
     bh, sq, d = q.shape
     dq = torch.empty_like(q)
     if bh and sq:
-        route = bwd_route(q.dtype, d)
+        defines = _defines(tuner, q, k.shape[1], "flash_attention_bwd")
+        route = bwd_route(q.dtype, d, defines)
         _launch("flash_attention_bwd_dq", (q, k, v, do, lse, delta, dq), q, k,
-                scale, causal, window, _DTYPES[q.dtype], route == "tc")
+                scale, causal, window, _DTYPES[q.dtype], route == "tc",
+                defines)
         _count(flash_attention_bwd_dq, route)
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale: float, *,
                             causal: bool = False,
-                            window: Optional[int] = None):
+                            window: Optional[int] = None,
+                            tuner: Optional[tuning.KernelTuner] = None):
     """(dk, dv), each (BKV, Sk, D) with the GQA group summed, from
-    contiguous, checked operands: one launch of the dkv kernel, counted
-    in ``flash_attention_bwd_dkv.launches`` and by route."""
+    contiguous, checked operands: one launch of the dkv kernel of the
+    build ``tuner`` resolves, counted in
+    ``flash_attention_bwd_dkv.launches`` and by route."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if k.shape[0] and k.shape[1]:     # with Sq == 0 the kernel stores zeros
-        route = bwd_route(q.dtype, q.shape[2])
+        defines = _defines(tuner, q, k.shape[1], "flash_attention_bwd")
+        route = bwd_route(q.dtype, q.shape[2], defines)
         _launch("flash_attention_bwd_dkv", (q, k, v, do, lse, delta, dk, dv),
-                q, k, scale, causal, window, _DTYPES[q.dtype], route == "tc")
+                q, k, scale, causal, window, _DTYPES[q.dtype], route == "tc",
+                defines)
         _count(flash_attention_bwd_dkv, route)
     return dk, dv
 

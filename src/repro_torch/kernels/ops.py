@@ -27,6 +27,14 @@ differentiable: they run through :class:`FlashAttention`,
 ``_wkv``, ``jax.custom_vjp``s) and :class:`SelectiveScan` (JAX
 differentiates its ``jax.lax.scan``), whose backward is a kernel on a
 CUDA tensor and its plain version on a CPU tensor.
+
+Every op takes ``tuner=`` (a :class:`~repro_torch.kernels.tuning.KernelTuner`;
+the process tuner when None), as JAX's ops do: each kernel's launch and
+build knobs resolve through it (overrides > the committed ``sm90`` table >
+the heuristics, the kernels' shipped constants), keyed by the tensor's
+backend, dtype and shape bucket.  The tuner never selects the plain
+version: a CUDA tensor launches the kernel on the resolved geometry or
+raises.
 """
 from __future__ import annotations
 
@@ -34,7 +42,7 @@ from typing import Dict, Optional
 
 import torch
 
-from . import elementwise, ref, rwkv6_scan
+from . import elementwise, ref, rwkv6_scan, tuning
 from . import selective_scan as _scan
 from .flash_attention import (flash_attention_bwd, flash_attention_bwd_dkv,
                               flash_attention_bwd_dq, flash_attention_fwd)
@@ -108,11 +116,13 @@ class FlashAttention(torch.autograd.Function):
     :func:`ref.attention_bwd`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
+    def forward(ctx, q, k, v, causal, window, scale, tuner=None):
         ctx.mask = dict(causal=causal, window=window, scale=scale)
+        ctx.tuner = tuner
         if q.is_cuda:
             q3, k3, v3 = _heads(q), _heads(k), _heads(v)
-            o3, lse = flash_attention_fwd(q3, k3, v3, **ctx.mask)
+            o3, lse = flash_attention_fwd(q3, k3, v3, tuner=tuner,
+                                          **ctx.mask)
             ctx.save_for_backward(q3, k3, v3, o3, lse)
             ctx.shapes = q.shape, k.shape
             return o3.view(q.shape)
@@ -126,26 +136,27 @@ class FlashAttention(torch.autograd.Function):
         if q.is_cuda:
             dq, dk, dv = flash_attention_bwd(q, k, v, o, lse,
                                              _heads(do.to(q.dtype)),
-                                             **ctx.mask)
+                                             tuner=ctx.tuner, **ctx.mask)
             q_shape, k_shape = ctx.shapes
             grads = dq.view(q_shape), dk.view(k_shape), dv.view(k_shape)
         else:
             grads = ref.attention_bwd(q, k, v, o, lse, do.to(q.dtype),
                                       **ctx.mask)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: Optional[int] = None,
               scale: Optional[float] = None,
-              use_kernel: Optional[bool] = None) -> torch.Tensor:
+              use_kernel: Optional[bool] = None,
+              tuner: Optional[tuning.KernelTuner] = None) -> torch.Tensor:
     """(B, Hq, Sq, D) x (B, Hkv, Sk, D) -> (B, Hq, Sq, D), differentiable
     through :class:`FlashAttention`; ``use_kernel=False`` is the plain
     :func:`ref.attention`, differentiated by autograd."""
     if use_kernel is False:
         return ref.attention(q, k, v, causal=causal, window=window,
                              scale=scale)[0]
-    return FlashAttention.apply(q, k, v, causal, window, scale)
+    return FlashAttention.apply(q, k, v, causal, window, scale, tuner)
 
 
 class RWKV6WKV(torch.autograd.Function):
@@ -158,11 +169,12 @@ class RWKV6WKV(torch.autograd.Function):
     ``out`` and the final state, take a gradient."""
 
     @staticmethod
-    def forward(ctx, r, k, v, w, u, state):
+    def forward(ctx, r, k, v, w, u, state, tuner=None):
+        ctx.tuner = tuner
         if r.is_cuda:
             out, s_t, ckpt = rwkv6_scan.rwkv6_wkv(
                 r, k, v, w, u, state,
-                checkpoints=any(ctx.needs_input_grad))
+                checkpoints=any(ctx.needs_input_grad), tuner=tuner)
             ctx.save_for_backward(r, k, v, w, u, ckpt)
         else:
             out, s_t = ref.rwkv6_wkv(r, k, v, w, u, state)
@@ -174,29 +186,35 @@ class RWKV6WKV(torch.autograd.Function):
         r, k, v, w, u, saved = ctx.saved_tensors
         if dout is None:
             dout = torch.zeros_like(v)
-        bwd = rwkv6_wkv_bwd if r.is_cuda else ref.rwkv6_wkv_bwd
-        return bwd(r, k, v, w, u, saved, dout, ds_t)
+        if r.is_cuda:
+            grads = rwkv6_wkv_bwd(r, k, v, w, u, saved, dout, ds_t,
+                                  tuner=ctx.tuner)
+        else:
+            grads = ref.rwkv6_wkv_bwd(r, k, v, w, u, saved, dout, ds_t)
+        return (*grads, None)
 
 
 def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor,
               state: Optional[torch.Tensor] = None, *,
-              use_kernel: Optional[bool] = None):
+              use_kernel: Optional[bool] = None,
+              tuner: Optional[tuning.KernelTuner] = None):
     """r, k, w: (B, H, T, Dk); v: (B, H, T, Dv); u: (H, Dk); state:
     (B, H, Dk, Dv) f32, zeros when None.  Returns ``(out (B, H, T, Dv) in
     v's dtype, final state f32)``, differentiable through
     :class:`RWKV6WKV`; ``use_kernel=False`` is the plain
-    :func:`ref.rwkv6_wkv`, differentiated by autograd.  The JAX wrapper's
-    TPU tuning knobs (``chunk``, ``tuner``, ``plat``) have no counterpart:
-    each of the kernel's blocks streams all T steps of its part of one
-    batch x head's state."""
+    :func:`ref.rwkv6_wkv`, differentiated by autograd.  ``tuner``
+    resolves the kernels' ``rwkv6`` knobs (the dv sum's block, the
+    forward's columns and the backward's rows a block); JAX's TPU knobs
+    (``chunk``, ``plat``) have no counterpart: each of the kernel's blocks
+    streams all T steps of its part of one batch x head's state."""
     if state is None:
         b, h, _, dk = r.shape
         state = torch.zeros((b, h, dk, v.shape[-1]), dtype=torch.float32,
                             device=r.device)
     if use_kernel is False:
         return ref.rwkv6_wkv(r, k, v, w, u, state)
-    return RWKV6WKV.apply(r, k, v, w, u, state)
+    return RWKV6WKV.apply(r, k, v, w, u, state, tuner)
 
 
 class SelectiveScan(torch.autograd.Function):
@@ -209,11 +227,12 @@ class SelectiveScan(torch.autograd.Function):
     Both outputs, ``y`` and the final state, take a gradient."""
 
     @staticmethod
-    def forward(ctx, xs, dt, bb, cc, a, d, h0):
+    def forward(ctx, xs, dt, bb, cc, a, d, h0, tuner=None):
+        ctx.tuner = tuner
         if xs.is_cuda:
             y, h_t, ckpt = _scan.selective_scan(
                 xs, dt, bb, cc, a, d, h0,
-                checkpoints=any(ctx.needs_input_grad))
+                checkpoints=any(ctx.needs_input_grad), tuner=tuner)
             ctx.save_for_backward(xs, dt, bb, cc, a, d, ckpt)
         else:
             y, h_t = ref.selective_scan(xs, dt, bb, cc, a, d, h0)
@@ -225,14 +244,20 @@ class SelectiveScan(torch.autograd.Function):
         xs, dt, bb, cc, a, d, saved = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros(xs.shape, dtype=torch.float32, device=xs.device)
-        bwd = selective_scan_bwd if xs.is_cuda else ref.selective_scan_bwd
-        return bwd(xs, dt, bb, cc, a, d, saved, dy, dh_t)
+        if xs.is_cuda:
+            grads = selective_scan_bwd(xs, dt, bb, cc, a, d, saved, dy, dh_t,
+                                       tuner=ctx.tuner)
+        else:
+            grads = ref.selective_scan_bwd(xs, dt, bb, cc, a, d, saved, dy,
+                                           dh_t)
+        return (*grads, None)
 
 
 def selective_scan(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
                    cc: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
                    h0: Optional[torch.Tensor] = None, *,
-                   use_kernel: Optional[bool] = None):
+                   use_kernel: Optional[bool] = None,
+                   tuner: Optional[tuning.KernelTuner] = None):
     """Hymba's selective scan: xs (B, T, din), dt (B, T), bb and cc (B, T,
     n), a = -exp(A_log) (din, n), d (din,), h0 (B, din, n), zeros when
     None; returns ``(y (B, T, din), h_T (B, din, n))`` in f32.  A CUDA
@@ -249,14 +274,16 @@ def selective_scan(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
         return ref.selective_scan(xs, dt, bb, cc, a, d, h0)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xs, dt, bb, cc, a, d, h0)):
-        return SelectiveScan.apply(xs, dt, bb, cc, a, d, h0)
+        return SelectiveScan.apply(xs, dt, bb, cc, a, d, h0, tuner)
     if xs.is_cuda:
-        return _scan.selective_scan(xs, dt, bb, cc, a, d, h0)[:2]
+        return _scan.selective_scan(xs, dt, bb, cc, a, d, h0,
+                                    tuner=tuner)[:2]
     return ref.selective_scan(xs, dt, bb, cc, a, d, h0)
 
 
 def ddim_fused(x: torch.Tensor, eps: torch.Tensor, a, b, *,
-               use_kernel: Optional[bool] = None) -> torch.Tensor:
+               use_kernel: Optional[bool] = None,
+               tuner: Optional[tuning.KernelTuner] = None) -> torch.Tensor:
     """Fused DDIM update; ``a``/``b`` of shape () or per row ``(M,)``,
     tensors or Python floats (a dense f32 tensor on x's device passes to
     the kernel as it is)."""
@@ -267,28 +294,31 @@ def ddim_fused(x: torch.Tensor, eps: torch.Tensor, a, b, *,
         a = torch.as_tensor(a, **f32)
     if not isinstance(b, torch.Tensor):
         b = torch.as_tensor(b, **f32)
-    return elementwise.ddim_fused(x, eps, a, b)
+    return elementwise.ddim_fused(x, eps, a, b, tuner=tuner)
 
 
 def parareal_update_residual(y: torch.Tensor, cur: torch.Tensor,
                              prev: torch.Tensor, old: torch.Tensor, *,
                              batch_dims: int = 0,
-                             use_kernel: Optional[bool] = None):
+                             use_kernel: Optional[bool] = None,
+                             tuner: Optional[tuning.KernelTuner] = None):
     """``(y + cur - prev, sum|out - old|)`` in one pass; the residual keeps
     the ``batch_dims`` leading axes (0: scalar, 1: ``(K,)``, 2: ``(B, K)``)."""
     if not _kernel(y, use_kernel):
         return ref.parareal_update_residual(y, cur, prev, old,
                                             batch_dims=batch_dims)
     return elementwise.parareal_update_residual(y, cur, prev, old,
-                                                batch_dims=batch_dims)
+                                                batch_dims=batch_dims,
+                                                tuner=tuner)
 
 
 # the B4 kernel's own definition: RL002 exempts the JAX package's
 # kernels directory, not the port's
 # reprolint: disable=RL002
 def parareal_update(y: torch.Tensor, cur: torch.Tensor, prev: torch.Tensor,
-                    *, use_kernel: Optional[bool] = None):
+                    *, use_kernel: Optional[bool] = None,
+                    tuner: Optional[tuning.KernelTuner] = None):
     """``(y + cur - prev, sum|cur - prev|)`` in one pass; the sum is f32."""
     if not _kernel(y, use_kernel):
         return ref.parareal_update(y, cur, prev)
-    return elementwise.parareal_update(y, cur, prev)
+    return elementwise.parareal_update(y, cur, prev, tuner=tuner)

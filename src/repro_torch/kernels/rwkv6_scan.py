@@ -20,6 +20,13 @@ comes out as per-(batch, head) partials that
 :func:`rwkv6_wkv_bwd` sums over the batch in a fixed order, so two runs
 are bitwise equal.
 
+The geometry's knobs resolve through the tuning seam
+(:mod:`repro_torch.kernels.tuning`, family ``rwkv6``, keyed by the dtype
+and ``(T, Dk)``): the dv sum's block (``dv_sum_threads``, a launch
+parameter) and the forward's columns and the backward's rows a block
+(``fwd_cols``, ``bwd_rows``, build parameters whose layouts take 32 and
+16 only); :func:`launch_geometry` shows the routing without launching.
+
 The kernels take head dims that are multiples of 8 (rows of 16 bytes or
 more, for their bulk copies) and 16-byte aligned operands: the wrappers
 pad other head dims with zeros and slice the results back, which changes
@@ -32,11 +39,11 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, tuning
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURE = {"rwkv6_wkv_fwd": ((_P,) * 9 + (_I,) * 6 + (_P,), _I),
-              "rwkv6_wkv_bwd": ((_P,) * 15 + (_I,) * 6 + (_P,), _I),
+              "rwkv6_wkv_bwd": ((_P,) * 15 + (_I,) * 7 + (_P,), _I),
               "rwkv6_wkv_chunk": ((), _I),
               "rwkv6_wkv_launch_info": ((_I,) * 4 + (ctypes.POINTER(_I),),
                                         _I)}
@@ -45,7 +52,7 @@ MAX_DK = 64
 MAX_DV = 128
 MAX_DV_BWD = 64          # the backward's row blocks hold whole rows
 _MULTIPLE = 8            # the kernels' head dims: multiples of 8
-_ROW_GROUPS = 4          # the backward's blocks of 16 state rows
+_ROWS = 64               # the state's rows, padded (the kernels' kRows)
 
 
 def _check(r, k, v, w, u, s0) -> None:
@@ -72,8 +79,29 @@ def _check(r, k, v, w, u, s0) -> None:
                          "must be on one CUDA device")
 
 
-def _lib():
-    return _build.load("rwkv6_wkv", _SIGNATURE)
+def _lib(defines: tuple = ()):
+    return _build.load("rwkv6_wkv", _SIGNATURE, defines)
+
+
+def launch_geometry(b: int, h: int, t: int, dk: int, dv: int,
+                    dtype: torch.dtype, *,
+                    tuner: Optional[tuning.KernelTuner] = None,
+                    device="cpu") -> dict:
+    """What :func:`rwkv6_wkv` and :func:`rwkv6_wkv_bwd` would launch for
+    r (B, H, T, Dk) and v (..., Dv) of ``dtype`` on ``device``, resolved
+    through ``tuner`` (the process tuner when None), without launching:
+    ``config``, the library's ``defines``, the forward's grid, the
+    backward's grid (its row groups) and the dv sum's block and grid."""
+    cfg = tuning.config("rwkv6", tuner, torch.device(device), dtype, (t, dk))
+    p = cfg.params
+    pv = _padded(dv)
+    quads = b * h * t * pv // 4
+    threads = p["dv_sum_threads"]
+    return dict(config=cfg,
+                defines=tuning.defines("rwkv6", p, "rwkv6_wkv"),
+                fwd_grid=(b * h, -(-pv // p["fwd_cols"])),
+                bwd_grid=(b * h, _ROWS // p["bwd_rows"]),
+                dv_sum=dict(threads=threads, blocks=-(-quads // threads)))
 
 
 def _padded(n: int) -> int:
@@ -124,7 +152,8 @@ def chunk() -> int:
 
 def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor, *,
-              checkpoints: bool = False):
+              checkpoints: bool = False,
+              tuner: Optional[tuning.KernelTuner] = None):
     """r, k, w: (B, H, T, Dk); v: (B, H, T, Dv); u: (H, Dk); s0:
     (B, H, Dk, Dv), all on one CUDA device.  r, k and v share a dtype
     (f32 or bf16); w, u and s0 are taken in f32 (the model's decay logits,
@@ -150,7 +179,8 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(v)
     s_t = torch.empty((b, h, pk, pv), dtype=torch.float32, device=r.device)
     ckpt = None
-    lib = _lib()
+    cfg = tuning.config("rwkv6", tuner, r.device, r.dtype, (t, dk))
+    lib = _lib(tuning.defines("rwkv6", cfg.params, "rwkv6_wkv"))
     if checkpoints:
         n_chunks = -(-t // lib.rwkv6_wkv_chunk())
         ckpt = torch.empty((b, h, n_chunks, pk, pv), dtype=torch.float32,
@@ -175,13 +205,14 @@ rwkv6_wkv.launches = 0
 
 def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   w: torch.Tensor, u: torch.Tensor, ckpt: torch.Tensor,
-                  dout: torch.Tensor, ds_t: Optional[torch.Tensor] = None):
+                  dout: torch.Tensor, ds_t: Optional[torch.Tensor] = None, *,
+                  tuner: Optional[tuning.KernelTuner] = None):
     """Gradients of :func:`rwkv6_wkv` from the forward's inputs, its
     checkpoints ``ckpt``, the gradient of ``out`` and (optionally, zero
     when None) of the final state.  Returns ``(dr, dk, dv, dw, du, ds0)``:
     dr, dk, dv in r's dtype; dw (B, H, T, Dk), du (H, Dk) and ds0
-    (B, H, Dk, Dv) in f32.  Launches the kernel once and counts it in
-    ``rwkv6_wkv_bwd.launches``."""
+    (B, H, Dk, Dv) in f32.  Launches the kernel once (with the dv sum on
+    ``tuner``'s block) and counts it in ``rwkv6_wkv_bwd.launches``."""
     if ckpt.dim() != 5:
         raise ValueError(f"ckpt must be the forward's (B, H, chunks, Dk, "
                          f"Dv) checkpoints, got {tuple(ckpt.shape)}")
@@ -190,7 +221,8 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = v.shape[-1]
     if dv > MAX_DV_BWD:
         raise ValueError(f"the backward takes Dv <= {MAX_DV_BWD}, got {dv}")
-    lib = _lib()
+    cfg = tuning.config("rwkv6", tuner, r.device, r.dtype, (t, dk))
+    lib = _lib(tuning.defines("rwkv6", cfg.params, "rwkv6_wkv"))
     n_chunks = -(-t // lib.rwkv6_wkv_chunk())
     if ckpt.shape[2] != n_chunks or ckpt.dtype != torch.float32:
         raise ValueError(f"ckpt must be the forward's f32 checkpoints "
@@ -220,7 +252,8 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dw = torch.empty((b, h, t, pk), **f32)
     du_part = torch.empty((b, h, pk), **f32)
     ds0 = torch.empty((b, h, pk, pv), **f32)
-    dv_part = torch.empty((b * h, _ROW_GROUPS, t, pv), **f32)
+    dv_part = torch.empty((b * h, _ROWS // cfg.params["bwd_rows"], t, pv),
+                          **f32)
     with torch.cuda.device(r.device):
         code = lib.rwkv6_wkv_bwd(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
@@ -228,8 +261,7 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ds_t.data_ptr() if ds_t is not None else None, dr.data_ptr(),
             dk_.data_ptr(), dv_.data_ptr(), dw.data_ptr(),
             du_part.data_ptr(), ds0.data_ptr(), dv_part.data_ptr(), b * h, t,
-            h, pk, pv,
-            _DTYPES[r.dtype],
+            h, pk, pv, cfg.params["dv_sum_threads"], _DTYPES[r.dtype],
             torch.cuda.current_stream(r.device).cuda_stream)
     _build.check(lib, code, "rwkv6_wkv_bwd")
     rwkv6_wkv_bwd.launches += 1

@@ -16,8 +16,14 @@ producer warp and no staging, each lane's operands loaded from global
 memory.  One launch a call; two runs are bitwise equal.
 
 The launch geometry is computed here (:func:`geometry`), so the CPU tests
-reach it; its knobs are the named constants below (ROADMAP C13: no tuner
-yet).  ``xs`` is read in place through its batch and time strides (the
+reach it; its knobs resolve through the tuning seam
+(:mod:`repro_torch.kernels.tuning`, family ``selective_scan``, keyed by
+``(T, din, n)``): launch parameters (the forward's channels a block and
+ring depth, the backward's channels a block and its cut of T) and build
+parameters (the backward's sub-chunk, compute threads and register caps,
+``-D`` defines of the source).  The named constants below are the
+heuristic tier's values; :func:`launch_geometry` shows the routing
+without launching.  ``xs`` is read in place through its batch and time strides (the
 model's ``xs`` is the second half of the ``x @ w_in`` product, a strided
 view); its channel stride must be 1, or it is copied.  The other operands
 are made contiguous.  The host path checks, allocates ``y`` and ``h_T``
@@ -48,15 +54,15 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import _build
+from . import _build, tuning
 
 STATES_PER_LANE = 4      # a lane's states (n padded to a power of two)
 # a block's channels, at most MAX_THREADS / lanes: at hymba's width and
 # the served batch 4 (B 4 x T 2048) blocks of 64 read faster than of 16 or
 # 32 on an H100 (PERF.md, scripts/torch_scan_bench.py)
-CHANNELS_PER_BLOCK = 64
+CHANNELS_PER_BLOCK = tuning.default("selective_scan", "channels")
 CHUNK = 64               # steps staged a time (the kernel's kChunk)
-STAGES = 4               # the staging ring's depth (kMaxStages)
+STAGES = tuning.default("selective_scan", "stages")   # kMaxStages, the most
 MAX_STATE = 32           # a channel's lanes lie in one warp
 MAX_THREADS = 256        # a block's compute threads (kMaxConsumers)
 # (states a lane, lanes a channel) pairs the library is compiled for: the
@@ -82,15 +88,16 @@ ALIGN = 16               # the copies' addresses and sizes
 # registers, 2 blocks) and 0.45 for 4 steps; blocks of 32 channels against
 # 0.40 for 64; the replay's cap for 3 blocks within noise of 4 (PERF.md,
 # scripts/torch_scan_bench.py --backward)
-SUB = 8
+SUB = tuning.default("selective_scan", "bwd_sub")
 BWD_STAGES = 2
 VEC_DY = 8
-BWD_MAX_THREADS = 128
-BWD_MIN_BLOCKS = 3
-BWD_REPLAY_MIN_BLOCKS = 4
-BWD_CHANNELS_PER_BLOCK = 32
-SEGMENT_CHUNKS = 2
-MAX_SEGMENTS = 32
+BWD_MAX_THREADS = tuning.default("selective_scan", "bwd_max_threads")
+BWD_MIN_BLOCKS = tuning.default("selective_scan", "bwd_min_blocks")
+BWD_REPLAY_MIN_BLOCKS = tuning.default("selective_scan",
+                                       "bwd_replay_min_blocks")
+BWD_CHANNELS_PER_BLOCK = tuning.default("selective_scan", "bwd_channels")
+SEGMENT_CHUNKS = tuning.default("selective_scan", "segment_chunks")
+MAX_SEGMENTS = tuning.default("selective_scan", "max_segments")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURE = {"selective_scan_fwd": ((_P, _L, _L) + (_P,) * 8 + (_I,) * 9
@@ -125,8 +132,13 @@ class BwdGeometry(NamedTuple):
     grid: tuple          # (ceil(din / channels), batch, segments)
 
 
-def _lib() -> ctypes.CDLL:
-    return _build.load("selective_scan", _SIGNATURE)
+def _lib(defines: tuple = ()) -> ctypes.CDLL:
+    return _build.load("selective_scan", _SIGNATURE, defines)
+
+
+def _config(tuner, device, t: int, din: int, n: int):
+    return tuning.config("selective_scan", tuner, device, torch.float32,
+                         (t, din, n))
 
 
 @functools.lru_cache(maxsize=256)
@@ -188,12 +200,13 @@ def checkpoint_shape(batch: int, t: int, din: int, n: int) -> tuple:
 def bwd_geometry(batch: int, t: int, din: int, n: int,
                  channels: int = BWD_CHANNELS_PER_BLOCK,
                  segment_chunks: int = SEGMENT_CHUNKS,
-                 max_threads: int = BWD_MAX_THREADS) -> BwdGeometry:
+                 max_threads: int = BWD_MAX_THREADS,
+                 max_segments: int = MAX_SEGMENTS) -> BwdGeometry:
     """The backward's launch: lanes and states as :func:`geometry`'s, at
     most ``max_threads`` compute threads a block (the build's
     SCAN_BWD_MAX_CONSUMERS), and T cut into
     segments of whole chunks of :data:`CHUNK` steps, so that each starts on
-    one of the forward's checkpoints: ``min(MAX_SEGMENTS, ceil(chunks /
+    one of the forward's checkpoints: ``min(max_segments, ceil(chunks /
     segment_chunks))`` segments asked, ``ceil(chunks / asked)`` chunks
     each (the last may hold fewer), ``ceil(chunks / that)`` segments
     (``ref.selective_scan_bwd``'s cut for the same count).  Block ``(bx,
@@ -203,12 +216,37 @@ def bwd_geometry(batch: int, t: int, din: int, n: int,
     geo = geometry(batch, din, n, channels=min(channels,
                                                max_threads // lanes))
     chunks = -(-t // CHUNK)
-    asked = min(MAX_SEGMENTS, -(-chunks // max(1, segment_chunks)))
+    asked = min(max_segments, -(-chunks // max(1, segment_chunks)))
     per = -(-chunks // asked)
     segments = -(-chunks // per)
     return BwdGeometry(geo.states, geo.lanes, geo.channels, segments,
                        per * CHUNK, geo.threads,
                        (geo.grid[0], batch, segments))
+
+
+def _bwd_geometry(p, batch: int, t: int, din: int, n: int) -> BwdGeometry:
+    return bwd_geometry(batch, t, din, n, p["bwd_channels"],
+                        p["segment_chunks"], p["bwd_max_threads"],
+                        p["max_segments"])
+
+
+def launch_geometry(batch: int, t: int, din: int, n: int, *,
+                    tuner: Optional[tuning.KernelTuner] = None,
+                    device="cpu") -> dict:
+    """What :func:`selective_scan` and :func:`selective_scan_bwd` would
+    launch for xs (B, T, din) and n states on ``device``, resolved through
+    ``tuner`` (the process tuner when None), without launching:
+    ``config``, the library's ``defines``, the forward's
+    :class:`Geometry` and ring ``stages``, the backward's
+    :class:`BwdGeometry` and its ``sub``-step sub-chunks."""
+    cfg = _config(tuner, torch.device(device), t, din, n)
+    p = cfg.params
+    return dict(config=cfg,
+                defines=tuning.defines("selective_scan", p,
+                                       "selective_scan"),
+                fwd=geometry(batch, din, n, channels=p["channels"]),
+                stages=p["stages"],
+                bwd=_bwd_geometry(p, batch, t, din, n), sub=p["bwd_sub"])
 
 
 def partial_shape(batch: int, t: int, din: int, n: int,
@@ -313,7 +351,8 @@ def launch(lib, xs, dt, bb, cc, a, d, h0, y, h_t, geo: Geometry,
 
 def selective_scan(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
                    cc: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
-                   h0: torch.Tensor, *, checkpoints: bool = False):
+                   h0: torch.Tensor, *, checkpoints: bool = False,
+                   tuner: Optional[tuning.KernelTuner] = None):
     """xs: (B, T, din); dt: (B, T); bb, cc: (B, T, n); a: (din, n); d:
     (din,); h0: (B, din, n); all f32 on one CUDA device.  Returns ``(y
     (B, T, din), h_T (B, din, n), ckpt)``, y and h_T f32 with the semantics
@@ -321,12 +360,13 @@ def selective_scan(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
     ``checkpoints``, ``ckpt`` is the f32 state at the start of every chunk
     and the final one (:func:`checkpoint_shape`) for
     :func:`selective_scan_bwd`, otherwise None.  Launches the kernel once
-    and counts it in ``selective_scan.launches`` (and, with checkpoints,
-    in ``selective_scan.checkpoint_launches``)."""
+    on ``tuner``'s geometry and counts it in ``selective_scan.launches``
+    (and, with checkpoints, in ``selective_scan.checkpoint_launches``)."""
     _check(xs, dt, bb, cc, a, d, h0)
     b, t, din = xs.shape
     n = a.shape[-1]
-    geo = geometry(b, din, n)
+    p = _config(tuner, xs.device, t, din, n).params
+    geo = geometry(b, din, n, channels=p["channels"])
     if xs.stride(-1) != 1:
         xs = xs.contiguous()
     dt, bb, cc = dt.contiguous(), bb.contiguous(), cc.contiguous()
@@ -336,7 +376,8 @@ def selective_scan(xs: torch.Tensor, dt: torch.Tensor, bb: torch.Tensor,
     h_t = torch.empty((b, din, n), dtype=torch.float32, device=dev)
     ckpt = (torch.empty(checkpoint_shape(b, t, din, n), dtype=torch.float32,
                         device=dev) if checkpoints else None)
-    launch(_lib(), xs, dt, bb, cc, a, d, h0, y, h_t, geo, ckpt=ckpt)
+    launch(_lib(tuning.defines("selective_scan", p, "selective_scan")), xs,
+           dt, bb, cc, a, d, h0, y, h_t, geo, stages=p["stages"], ckpt=ckpt)
     selective_scan.launches += 1
     if checkpoints:
         selective_scan.checkpoint_launches += 1
@@ -352,7 +393,8 @@ def selective_scan_bwd(xs: torch.Tensor, dt: torch.Tensor,
                        d: torch.Tensor, ckpt: torch.Tensor, dy: torch.Tensor,
                        dh_t: Optional[torch.Tensor] = None, *,
                        geo: Optional[BwdGeometry] = None,
-                       lib: Optional[ctypes.CDLL] = None):
+                       lib: Optional[ctypes.CDLL] = None,
+                       tuner: Optional[tuning.KernelTuner] = None):
     """Gradients of :func:`selective_scan` from its inputs, its checkpoints
     ``ckpt``, the gradient ``dy`` of y (B, T, din) and (optionally, zeros
     when None) ``dh_t`` of the final state, all f32 on one CUDA device:
@@ -362,9 +404,9 @@ def selective_scan_bwd(xs: torch.Tensor, dt: torch.Tensor,
     :func:`bwd_geometry`'s segment count.  Launches on that geometry the
     replay (:func:`selective_scan_bwd_replay`), the walk back (counted in
     ``selective_scan_bwd.launches``), then :func:`selective_scan_bwd_sum`:
-    three launches a call.  ``geo`` (another
-    :func:`bwd_geometry`) and ``lib`` (a build of this source with other
-    knobs) are the bench's sweep."""
+    three launches a call, on ``tuner``'s geometry and build.  ``geo``
+    (another :func:`bwd_geometry`) and ``lib`` (a build of this source
+    with other knobs) are the bench's sweep."""
     b, t, din = xs.shape
     n = a.shape[-1]
     if ckpt.shape != checkpoint_shape(b, t, din, n) or \
@@ -382,16 +424,20 @@ def selective_scan_bwd(xs: torch.Tensor, dt: torch.Tensor,
                              or dh_t.device != xs.device):
         raise ValueError(f"dh_t must be f32 {(b, din, n)} on {xs.device}, "
                          f"got {dh_t.dtype} {tuple(dh_t.shape)}")
+    p = _config(tuner, xs.device, t, din, n).params
     if geo is None:
-        geo = bwd_geometry(b, t, din, n)
+        geo = _bwd_geometry(p, b, t, din, n)
     if xs.stride(-1) != 1:
         xs = xs.contiguous()
     dt, bb, cc, a, d = (v.contiguous() for v in (dt, bb, cc, a, d))
     ckpt, dy = ckpt.contiguous(), dy.contiguous()
     if dh_t is not None:
         dh_t = dh_t.contiguous()
-    lib = _lib() if lib is None else lib
-    sub = SUB if lib is _lib() else lib.selective_scan_bwd_knobs(0)
+    if lib is None:
+        lib = _lib(tuning.defines("selective_scan", p, "selective_scan"))
+        sub = p["bwd_sub"]
+    else:
+        sub = lib.selective_scan_bwd_knobs(0)
     sxb, sxt = xs.stride(0), xs.stride(1)
     ptrs = [v.data_ptr() for v in (xs, dt, bb, cc, dy)]
     bits = bwd_route((ptrs[0] % ALIGN, ptrs[1] % ALIGN,

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import repro.core as J
+from repro_torch.kernels import tuning
 from repro_torch.benchmarks import (check_counts, common, prop4_blocksize,
                                     run, serve_smoke, table1_pixel,
                                     table2_sd, table3_pipelined,
@@ -31,7 +32,9 @@ from repro_torch.benchmarks import (check_counts, common, prop4_blocksize,
                                     table6_devices, table8_tolerance,
                                     table9_batched, table10_slo,
                                     table10_wallclock, table11_truncation,
-                                    table12_window, table13_accel)
+                                    table12_window, table13_accel,
+                                    table14_kernels)
+from repro_torch.benchmarks import autotune_kernels
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
@@ -284,11 +287,15 @@ def test_check_counts_rules():
              evals_plain=780, evals_accel=670, iters_saving_pct=14.3,
              headline_met=False),
         dict(name="table6/mesh_t2d2m2", iterations=1, max_abs_diff=0.0,
-             tol=5e-5, within_tol=True, t_mesh_s=9.0)])
+             tol=5e-5, within_tol=True, t_mesh_s=9.0),
+        dict(name="table14/sm90/flash", parity_ok=True, max_abs_diff=1e-6,
+             tol=5e-5, config_source="table",
+             config_params={"fwd_stages": 3})])
     failures, notes = check_counts.check(good, base)
     assert failures == []
     assert not any("table6" in n for n in notes)
-    assert any("table14" in n and "A12" in n for n in notes)
+    assert not any("table14" in n for n in notes)
+    assert check_counts.SKIPPED == {}
     # table6's mesh row is gated: its iterations and its within_tol
     for change, want in ((dict(iterations=2), "iterations 2 != baseline 1"),
                          (dict(within_tol=False, max_abs_diff=1e-3),
@@ -309,6 +316,9 @@ def test_check_counts_rules():
     failures, _ = check_counts.check(_artifact(good["rows"][1:]), base)
     assert failures == ["table11/n100_tol0: row missing from current "
                         "artifact"]
+    failures, _ = check_counts.check(_artifact(good["rows"][:3]), base)
+    assert failures == ["table14/cpu/flash: no table14 row of the flash "
+                        "family in the current artifact"]
     # a headline miss outside the known divergence fails
     base12 = _artifact([dict(name="table13/n100_tol0.1", iters_plain=10,
                              iters_accel=9)])
@@ -350,7 +360,8 @@ def test_check_counts_cli_on_baseline(tmp_path):
     "table11_truncation.main", "table12_window.main", "table13_accel.main",
     "prop4_blocksize.main", "table3_pipelined.main", "table6_devices.main",
     "table9_batched.main", "table10_slo.main", "table10_wallclock.main",
-    "serve_smoke.main", "run.main"])
+    "serve_smoke.main", "run.main", "table14_kernels.main",
+    "table14_kernels.run_rows"])
 def test_emitter_entry_points_default_to_the_card(entry, monkeypatch):
     """Called without a device, every Python entry point of the emitters
     asks for the card, and raises where CUDA is not available (never a
@@ -364,3 +375,92 @@ def test_emitter_entry_points_default_to_the_card(entry, monkeypatch):
     with pytest.raises(SystemExit, match="CUDA is not available"):
         fn() if name != "run_rows" or module != "table12_window" \
             else fn(n=36)
+
+
+def test_table14_rows_on_cpu():
+    """One row a family on the CPU: the plain path's parity, the
+    heuristic provenance (the process tuner, no cpu table), JAX's row
+    fields (the committed baseline's table14 rows) and the scan family
+    the JAX package lacks."""
+    rows = table14_kernels.run_rows(device="cpu")
+    assert [r["kernel"] for r in rows] == list(tuning.KERNELS)
+    with open(os.path.join(REPO, "benchmarks", "baselines",
+                           "BENCH_core_baseline.json")) as f:
+        jax_rows = [r for r in json.load(f)["rows"]
+                    if r["name"].startswith("table14/")]
+    assert {r["kernel"] for r in jax_rows} <= {r["kernel"] for r in rows}
+    for r in rows:
+        assert set(jax_rows[0]) <= set(r)
+        assert r["name"] == f"table14/cpu/{r['kernel']}"
+        assert r["parity_ok"] is True and r["max_abs_diff"] == 0.0
+        assert r["config_source"] == "heuristic" and not r["compiled"]
+        assert r["config_params"] == dict(tuning.resolve(
+            r["kernel"], backend="cpu").params)
+
+
+@pytest.mark.parametrize("change, want", [
+    (dict(parity_ok=False), "parity_ok is False"),
+    (dict(parity_ok=None), "parity_ok is None"),
+    (dict(config_source="guess"), "config_source 'guess'"),
+    (dict(config_params={}), "config_params missing/empty"),
+])
+def test_check_counts_gates_table14_rows(change, want):
+    """table14 is gated on the current run alone: a row whose kernel lost
+    parity, or whose provenance is missing or malformed, fails it."""
+    rows = table14_kernels.run_rows(device="cpu")
+    base = _artifact([dict(name="table14/cpu/flash", parity_ok=True)])
+    assert check_counts.check(_artifact(rows), base) == ([], [])
+    bad = json.loads(json.dumps(rows))
+    bad[1].update(change)
+    failures, _ = check_counts.check(_artifact(bad), base)
+    assert len(failures) == 1 and want in failures[0], failures
+    assert failures[0].startswith("table14/cpu/flash")
+
+
+def test_autotune_smoke_is_structural():
+    """``--smoke`` on the CPU: every candidate resolved through an
+    override and run on the plain path, a payload of one candidate a key
+    validated and round-tripped; the full sweep and a table write refuse
+    the CPU."""
+    payload = autotune_kernels.smoke(log=lambda *_: None)
+    assert payload["backend"] == "cpu" and payload["entries"]
+    tuning.validate_table(payload)
+    keys = {(e["kernel"], tuple(e["bucket"])) for e in payload["entries"]}
+    assert {k for k, _ in keys} == set(tuning.KERNELS)
+    for knob in (k for c in autotune_kernels.CASES for k in c.knobs):
+        lo, hi, step = tuning.LIMITS[knob]
+        assert all(lo <= v <= hi and (v - lo) % step == 0
+                   for v in autotune_kernels.candidates(knob)), knob
+    assert autotune_kernels.main(["--smoke"]) == 0
+    assert autotune_kernels.main([]) == 2
+    assert autotune_kernels.main(["--smoke", "--write-table"]) == 2
+    with pytest.raises(SystemExit, match="--smoke"):
+        autotune_kernels.sweep("cpu")
+
+
+def test_autotune_limits_are_phase_3s():
+    """The sweep holds each candidate to the limits chip_smoke.py's phase
+    3 holds the kernels to."""
+    import chip_smoke as cs
+    lim = autotune_kernels.LIMITS
+    assert lim["flash_fwd"] == cs.MASKED_REL_L2["bfloat16"]
+    assert lim["flash_bwd"] == cs.BWD_MASKED_REL_L2["bfloat16"]
+    assert lim["wkv_bwd"] == cs.WKV_BWD_REL_L2["bfloat16"]
+    assert (lim["scan_fwd"], lim["scan_bwd"]) == (cs.SCAN_REL_L2,
+                                                  cs.SCAN_BWD_REL_L2)
+
+
+def test_autotune_round_trip_refuses_a_wrong_table():
+    """The round trip resolves each entry from the table tier; an entry
+    its tuner would not resolve (a bucket no shape maps to) fails it."""
+    good = {"version": 1, "backend": "sm90", "entries": [
+        {"kernel": "rwkv6", "dtype": "bfloat16", "bucket": [2048, 64],
+         "params": {"dv_sum_threads": 128}}]}
+    autotune_kernels.round_trip(good)
+    bad = json.loads(json.dumps(good))
+    bad["entries"][0]["bucket"] = [2000, 64]
+    with pytest.raises(AssertionError):
+        autotune_kernels.round_trip(bad)
+    bad["entries"][0]["params"] = {"dv_sum_threads": 100}
+    with pytest.raises(tuning.TuningTableError):
+        autotune_kernels.round_trip(bad)

@@ -1483,3 +1483,149 @@ def test_flash_fwd_and_bwd_at_zoo_head_dims_on_card(cuda, case):
                              do, **mask)
     assert rel([dq], want[:1]) <= 1e-3
     assert rel([dk, dv], want[1:]) <= 1e-3
+
+
+# ---- the tuning seam: a non-default candidate of each family -------------
+# Each family launched on a config the heuristic tier does not give, pinned
+# through KernelTuner(overrides=...), held to its plain version within the
+# default's tolerance; launch_geometry shows what the call was given.
+
+def _candidate(kernel, params):
+    from repro_torch.kernels import tuning
+    return tuning.KernelTuner(tables={"sm90": {
+        "version": tuning.TABLE_SCHEMA_VERSION, "backend": "sm90",
+        "entries": []}}, overrides={kernel: params})
+
+
+ELEMENTWISE_CANDIDATE = {"ddim_threads": 128, "resid_threads": 256,
+                         "resid_max_cluster": 4,
+                         "resid_slice_per_block": 1024}
+
+
+@pytest.mark.cuda
+def test_elementwise_launch_candidate_on_card(cuda):
+    """DDIM, the residual and the update on threads, clusters and spans
+    the heuristics do not give: outputs bitwise the plain version's (one
+    rounding of the same f32 values), sums within SUM_RTOL."""
+    from repro_torch.kernels import elementwise as ew
+    tuner = _candidate("elementwise", ELEMENTWISE_CANDIDATE)
+    shape = (2, 64, 64, 4)
+    y, cur, prev, old = (torch.from_numpy(_rand(i, shape)).to(cuda)
+                         for i in range(4))
+    geo = ew.launch_geometry("parareal_update_residual", shape,
+                             torch.float32, tuner=tuner, device=cuda,
+                             batch_dims=1)
+    assert geo["config"].source == "override"
+    assert geo["geometry"]["cluster"] == 4 and \
+        geo["geometry"]["threads"] <= 256
+    out, resid = ops.parareal_update_residual(y, cur, prev, old,
+                                              batch_dims=1, tuner=tuner)
+    want, want_r = ref.parareal_update_residual(y, cur, prev, old,
+                                                batch_dims=1)
+    assert torch.equal(out, want)
+    torch.testing.assert_close(resid, want_r, rtol=SUM_RTOL, atol=0)
+    out, resid = ops.parareal_update(y, cur, prev, tuner=tuner)
+    want, want_r = ref.parareal_update(y, cur, prev)
+    assert torch.equal(out, want)
+    torch.testing.assert_close(resid, want_r, rtol=SUM_RTOL, atol=0)
+    assert ew.launch_geometry("ddim_fused", shape, torch.float32,
+                              tuner=tuner)["geometry"]["threads"] == 128
+    got = ops.ddim_fused(y, cur, 0.9, 0.5, tuner=tuner)
+    torch.testing.assert_close(got, ref.ddim_fused(y, cur, 0.9, 0.5),
+                               atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.cuda
+def test_flash_build_candidate_on_card(cuda):
+    """The tensor-core forward and backward built with 3-stage rings (a
+    library of their own, ``-DFLASH_*_STAGES=3``) at a causal GQA bf16
+    shape: within the default's rel L2 limits (1e-4 forward, 1e-3
+    backward) of the plain version."""
+    from repro_torch.kernels import _build, flash_attention as fa
+    tuner = _candidate("flash", {"fwd_stages": 3, "bwd_stages": 3})
+    case = MASKED_CASES[0]
+    b, hq, hkv, sq, sk, d, mask = case
+    geo = fa.launch_geometry(sq, sk, d, torch.bfloat16, tuner=tuner,
+                             device=cuda)
+    assert geo["fwd_defines"] == ("FLASH_FWD_STAGES=3",)
+    assert geo["bwd_defines"] == ("FLASH_BWD_STAGES=3",)
+    q, k, v = (t.requires_grad_(True)
+               for t in _masked_qkv(cuda, case, "bfloat16"))
+    do = torch.from_numpy(_rand(9, (b, hq, sq, d))).to(cuda, torch.bfloat16)
+    o = ops.attention(q, k, v, tuner=tuner, **mask)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    assert ("flash_attention_fwd", geo["fwd_defines"]) in _build._libs
+    assert ("flash_attention_bwd", geo["bwd_defines"]) in _build._libs
+    o_ref, lse_ref = ref.attention(q.detach(), k.detach(), v.detach(),
+                                   **mask)
+    want = ref.attention_bwd(q.detach(), k.detach(), v.detach(), o.detach(),
+                             lse_ref, do, **mask)
+
+    def rel(g, w):
+        g = torch.cat([x.float().reshape(-1) for x in g])
+        w = torch.cat([x.float().reshape(-1) for x in w])
+        return ((g - w).norm() / w.norm()).item()
+
+    assert rel([o.detach()], [o_ref]) <= 1e-4
+    assert rel(got[:1], want[:1]) <= 1e-3
+    assert rel(got[1:], want[1:]) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_wkv_launch_candidate_on_card(cuda):
+    """The WKV backward's dv sum on blocks of 64 threads: the same sums in
+    the same order, so every gradient is bitwise the default's."""
+    tuner = _candidate("rwkv6", {"dv_sum_threads": 64})
+    x = _wkv_inputs(cuda, WKV_CASES[2], "bfloat16", grad=True)
+    dout = torch.from_numpy(_rand(7, tuple(x[2].shape))).to(
+        cuda, torch.bfloat16)
+
+    def grads(t):
+        out, s_t = ops.rwkv6_wkv(*x, tuner=t)
+        return torch.autograd.grad(out, x, dout)
+
+    got, base = grads(tuner), grads(None)
+    assert all(torch.equal(a, b) for a, b in zip(got, base))
+
+
+@pytest.mark.cuda
+def test_wkv_illegal_build_value_fails_at_build(cuda):
+    """A build knob outside what the layout takes fails in nvcc (the
+    source's static_assert), never at launch."""
+    from repro_torch.kernels import _build, rwkv6_scan
+    with pytest.raises(RuntimeError, match="WKV_FWD_COLS"):
+        _build.load("rwkv6_wkv", rwkv6_scan._SIGNATURE,
+                    ("WKV_FWD_COLS=16",))
+
+
+@pytest.mark.cuda
+def test_scan_candidate_on_card(cuda):
+    """The scan forward on 32 channels a block in a 2-stage ring, and its
+    backward on 16 channels a block, segments of 1 chunk (at most 8) and
+    4-step sub-chunks (a build of its own): y and h_T within 1e-4 of the
+    twin, every gradient within SCAN_BWD_REL_L2 of the twin at the
+    backward's segment count."""
+    from repro_torch.kernels import selective_scan as scan
+    tuner = _candidate("selective_scan", {
+        "channels": 32, "stages": 2, "bwd_channels": 16,
+        "segment_chunks": 1, "max_segments": 8, "bwd_sub": 4})
+    case = (2, 600, 200, 16, False)
+    b, t, din, n, _ = case
+    geo = scan.launch_geometry(b, t, din, n, tuner=tuner, device=cuda)
+    assert geo["fwd"].channels == 32 and geo["stages"] == 2
+    assert geo["bwd"].channels == 16 and geo["bwd"].segments == 5
+    assert geo["defines"] == ("SCAN_BWD_SUB=4",)
+    x = _scan_inputs(cuda, case)
+    y, h_t, ckpt = scan.selective_scan(*x, checkpoints=True, tuner=tuner)
+    y_ref, h_ref = ref.selective_scan(*x)
+    torch.testing.assert_close(y, y_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(h_t, h_ref, atol=1e-4, rtol=1e-4)
+    rng = np.random.default_rng(3)
+    dy = torch.from_numpy(rng.standard_normal((b, t, din)).astype(
+        np.float32)).to(cuda)
+    got = scan.selective_scan_bwd(*x[:6], ckpt, dy, None, tuner=tuner)
+    want = ref.selective_scan_bwd(*x, dy, None,
+                                  segments=geo["bwd"].segments)
+    for g, w in zip(got, want):
+        rel = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+        assert rel <= SCAN_BWD_REL_L2, rel
