@@ -234,8 +234,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    differences are printed, ROADMAP C20); last ``table10_wallclock`` with
    the DiT at full width and ``HERD_LAYERS`` (14) of its 28 blocks (since
    PR 30; 28 before) at its cut size (``DIT_CUT``): served wall seconds
-   per request, p50 and p95 by policy, and its four gates (on the
-   herd's virtual-clock replay).
+   per request, p50 and p95 by policy, and JAX's four gates on the
+   wall-clock herd and on its virtual-clock replay (ROADMAP C28), their
+   readings printed side by side.
 
 15. the model-parallel DiT (``models.dit.make_denoiser(shard_axis=
    "model")``: the rows split over ``model``, every layer's K/V gathered
@@ -356,6 +357,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    variants), printed here with each of its keys' cases timed under it
    and under the shipped constants in turns (and held to the plain
    version), and phases 4-18 run under it (phase 4's counts hold).
+20. rematerialization (``remat=True``, ``ParallelCtx.remat_policy``
+   ``"dots"`` and ``"nothing"``): on depth cuts at full width
+   (``REMAT_CUTS``: qwen3-8b, rwkv6-1.6b and hymba-1.5b at 2 layers,
+   arctic-480b at 1 layer with 16 of its 128 experts, batch
+   ``REMAT_BATCH`` x 2048) the loss and every gradient of ``lm_loss``
+   with remat at each policy bitwise those without it, each forward
+   kernel (flash, WKV, scan) launched twice a layer and every backward
+   kernel once, the plain run once a layer; the control, one qwen3-8b
+   block weight moved by one ulp, must miss; then the sharded qwen3-8b
+   step at one NCCL rank (``launch.train.build_on_mesh(remat=True)``,
+   ``sp``, ZeRO-1) at each policy, one step from the same seed bitwise
+   the plain sharded step (loss, grad norm, every parameter and moment).
+   Phase 10 ends with the per-policy reading on its 8-layer qwen3-8b (no
+   second model): one train step at 2 x 2048 without remat, at ``"dots"``
+   and at ``"nothing"``, each read for its peak memory, wall and CUDA
+   event ms, the wrapper's flash launches (exact: 16, 8 and 8 forward,
+   dq, dkv with remat; 8 each without) and the profiler's device records
+   of the flash forward (``profiling.window_launches``); phase 20 prints
+   them again with the 2-layer cut's peaks at the same batch and the
+   per-layer increments.
 
 Phases 4-8, 10, 12, 13, 14 and 15 also hold the flash kernels' launches on their
 main paths, forward and backward, to their tensor-core route
@@ -647,6 +668,19 @@ SCAN_BWD_REL_L2 = 1e-5
 # with f32 moments, twice: the plain and the EP model one after the other)
 MOE_SERVE_LAYERS = {"kimi-k2-1t-a32b": 1, "arctic-480b": 2}
 MOE_TRAIN_EXPERTS, MOE_TRAIN_STEPS = 16, 2
+# phase 20: rematerialization.  The bitwise cuts (layers, experts or
+# None for every expert) at full width, batch REMAT_BATCH x LM_TRAIN_SEQ;
+# the per-policy reading on phase 10's qwen3-8b (8 layers, batch
+# LM_TRAIN_BATCH) and on its 2-layer cut at the same batch
+REMAT_CUTS = {"qwen3-8b": (2, None), "rwkv6-1.6b": (2, None),
+              "hymba-1.5b": (2, None), "arctic-480b": (1, MOE_TRAIN_EXPERTS)}
+REMAT_BATCH = 1
+REMAT_POLICIES = ("dots", "nothing")
+REMAT_ARCH = "qwen3-8b"
+# each readings' settings: (label, remat, remat_policy)
+REMAT_SETTINGS = (("no remat", False, "dots"), ("dots", True, "dots"),
+                  ("nothing", True, "nothing"))
+REMAT_READINGS = {}
 # the MoE layer in bf16 (its grouped FFN's outputs rounded to bf16 at
 # each product, the combine in bf16) against the f32 loop over experts
 # on the same inputs and routing: the largest per-token relative L2 over
@@ -2079,6 +2113,10 @@ def lm_train_phase(torch, ops, step_no, arch):
         # of many small ops), a quarter of the run's time limit; its busy
         # share is the step profile's above, and so are phase 18's
         busy_windows(torch, step, model, opt_state, stream, arch)
+    if arch == REMAT_ARCH:
+        REMAT_READINGS[arch] = remat_readings(
+            torch, ops, cfg, model, opt_state, stream, lr,
+            f"{arch} {cfg.num_layers} layers (phase 20's reading)")
     del opt_state, step
     torch.cuda.empty_cache()
 
@@ -3657,7 +3695,18 @@ def serving_tables_phase(torch):
           f"({cut['n_heavy']} "
           f"heavies, {cut['n_light']} lights, loads {cut['loads']} of "
           f"{cut['sweep_requests']}): {time.perf_counter() - t0:.1f} s, "
-          f"the four gates held", flush=True)
+          f"JAX's four gates held on the wall-clock herd and on its "
+          f"virtual-clock replay (ROADMAP C28)", flush=True)
+    for r in rows:
+        if "light_p95_virtual_ms" in r:
+            print(f"    gate readings, herd {r['policy']} (wall clock | "
+                  f"virtual replay): light tier p95 "
+                  f"{r['light_p95_ms'] / 1e3:.3f} | "
+                  f"{r['light_p95_virtual_ms'] / 1e3:.3f} s, attainment "
+                  f"{r['slo_attainment']:.3f} | "
+                  f"{r['slo_attainment_virtual']:.3f}, goodput "
+                  f"{r['goodput_rps']:.4f} | "
+                  f"{r['goodput_virtual_rps']:.4f} rps", flush=True)
     for r in rows:
         if r["trace"] == "calibration":
             print(f"    calibration: {r['sec_per_eval'] * 1e3:.3f} ms a "
@@ -5350,6 +5399,269 @@ def tuning_phase(torch, ops, ref, step):
     print(f"  phase {step}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def remat_step_reading(torch, ops, cfg, model, opt_state, batch, lr,
+                       remat, policy, profile):
+    """One ``make_train_step`` step of ``model`` at ``remat`` and
+    ``policy`` after a warm-up step: ``{"peak_gb", "wall_ms", "event_ms",
+    "launches"}``, ``"grad_peak_gb"`` (the peak of one ``lm_loss`` and its
+    gradient alone, the optimizer state resident: the step's peak can
+    fall in AdamW's update instead) and, with ``profile``,
+    ``"fwd_records"`` (the flash forward's device records in a
+    ``profiling.window_launches`` window of one more step) and
+    ``"missing"`` (that window's launches with no record, ROADMAP C12)."""
+    from repro_torch.models.transformer import ParallelCtx
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.profiling import window_launches
+    from repro_torch.train import lm_loss, make_train_step
+    ctx = ParallelCtx(remat_policy=policy)
+    step = make_train_step(cfg, AdamWConfig(lr=lr), loss_kind="lm",
+                           parallel=ctx, remat=remat)
+    step(model, opt_state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    step(model, opt_state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    out = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+           "event_ms": start.elapsed_time(end),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": {k: n for k, n in ops.launch_counts().items() if n}}
+    torch.cuda.reset_peak_memory_stats()
+    loss, _ = lm_loss(cfg, model, batch, parallel=ctx, remat=remat)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    out["grad_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del loss, grads
+    if profile:
+        rec = window_launches(lambda: step(model, opt_state, batch), 1)
+        out["fwd_records"] = sum(n for name, (n, _) in rec["device"].items()
+                                 if "flash_fwd" in name)
+        out["missing"] = len(rec["missing"])
+    return out
+
+
+def remat_readings(torch, ops, cfg, model, opt_state, stream, lr, label,
+                   profile=True):
+    """Phase 20's per-policy reading on ``model`` (phase 10's 8-layer
+    qwen3-8b, or phase 20's 2-layer cut): one step of each of
+    ``REMAT_SETTINGS`` at the stream's batch 0, with the flash launches
+    held exactly (forward 2L with remat, L without; dq and dkv L) and, with
+    ``profile``, the profiler's device records of the forward to the same
+    count (less any record the window lost).  Returns the readings by
+    setting."""
+    n = cfg.num_layers
+    batch = stream.batch(0)
+    out = {}
+    for name, remat, policy in REMAT_SETTINGS:
+        r = remat_step_reading(torch, ops, cfg, model, opt_state, batch, lr,
+                               remat, policy, profile)
+        out[name] = r
+        fwd = (2 if remat else 1) * n
+        want = {"flash_attention_fwd": fwd, "flash_attention_bwd_dq": n,
+                "flash_attention_bwd_dkv": n}
+        rec = (f", the profiler's flash forward records {r['fwd_records']}"
+               f" (lost {r['missing']})" if profile else "")
+        print(f"  remat reading, {label}, {name}: peak memory "
+              f"{r['peak_gb']:.2f} GB (loss and gradient alone "
+              f"{r['grad_peak_gb']:.2f}), step wall {r['wall_ms']:.1f} ms, "
+              f"CUDA event {r['event_ms']:.1f} ms, launches "
+              f"{r['launches']}{rec}", flush=True)
+        if r["launches"] != want or (profile and not fwd - r["missing"]
+                                     <= r["fwd_records"] <= fwd):
+            raise AssertionError(f"{label} {name}: launches {r['launches']}"
+                                 f" != {want}, or the profiler's flash "
+                                 f"forward records {r.get('fwd_records')}")
+    if not out["nothing"]["grad_peak_gb"] < out["no remat"]["grad_peak_gb"]:
+        raise AssertionError(f"{label}: remat_policy 'nothing' did not lower"
+                             f" the gradient's peak memory: {out}")
+    return out
+
+
+def remat_grads(torch, ops, cfg, model, batch, remat, policy):
+    """``(loss, gradients, launch counts)`` of one ``lm_loss`` and its
+    ``torch.autograd.grad`` at ``remat`` and ``policy``; the counts
+    include the checkpointing scan forwards."""
+    from repro_torch.kernels import selective_scan as scan
+    from repro_torch.models.transformer import ParallelCtx
+    from repro_torch.train import lm_loss
+    ops.reset_launch_counts()
+    scan.selective_scan.checkpoint_launches = 0
+    loss, _ = lm_loss(cfg, model, batch, remat=remat,
+                      parallel=ParallelCtx(remat_policy=policy))
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in ops.launch_counts().items() if n}
+    if scan.selective_scan.checkpoint_launches:
+        counts["selective_scan_checkpointing"] = \
+            scan.selective_scan.checkpoint_launches
+    return loss.detach(), grads, counts
+
+
+def remat_phase(torch, ops, step):
+    """Phase 20: rematerialization (module docstring).  Returns the launch
+    counts of each cut's remat runs by path (``remat_<arch>_<policy>``)."""
+    import dataclasses
+    import tempfile
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, make_stream
+    from repro_torch.launch.mesh import init_process_group, make_test_mesh
+    from repro_torch.launch.train import build_on_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import AdamWConfig, init_opt_state, warmup_cosine
+    from repro_torch.train import make_train_step
+    t_start = time.perf_counter()
+    print(f"[{step}/20] rematerialization: remat_policy "
+          f"{' and '.join(REMAT_POLICIES)} against no remat", flush=True)
+    paths = {}
+    for arch, (layers, experts) in REMAT_CUTS.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_arch(arch), num_layers=layers)
+        if experts is not None:
+            cfg = dataclasses.replace(cfg, moe_experts=experts)
+        model = tf.init_params(cfg, torch.Generator(device="cuda")
+                               .manual_seed(SEED), device="cuda",
+                               trainable=True)
+        batch = make_stream(cfg, DataConfig(seed=SEED,
+                                            global_batch=REMAT_BATCH,
+                                            seq_len=LM_TRAIN_SEQ),
+                            device="cuda").batch(0)
+        loss, grads, plain = remat_grads(torch, ops, cfg, model, batch,
+                                         False, "dots")
+        fwd = [k for k in ("flash_attention_fwd", "rwkv6_wkv",
+                           "selective_scan", "selective_scan_checkpointing")
+               if k in plain]
+        if any(plain[k] != layers for k in fwd) or not fwd:
+            raise AssertionError(f"{arch}: the plain gradient's forward "
+                                 f"launches {plain}")
+        for policy in REMAT_POLICIES:
+            r_loss, r_grads, counts = remat_grads(torch, ops, cfg, model,
+                                                  batch, True, policy)
+            same = torch.equal(r_loss, loss) and _bitwise(torch, r_grads,
+                                                          grads)
+            want = dict(plain, **{k: 2 * layers for k in fwd})
+            cut = f"{layers} layer(s)" + ("" if experts is None else
+                                          f", {experts} experts")
+            print(f"  {arch} ({cut}, batch {REMAT_BATCH} x "
+                  f"{LM_TRAIN_SEQ}) remat {policy}: loss "
+                  f"{r_loss.item():.6f} (plain {loss.item():.6f}), loss and "
+                  f"every gradient bitwise the plain ones: {same}; launches "
+                  f"{counts} (plain {plain})", flush=True)
+            if not same or counts != want:
+                raise AssertionError(f"{arch} remat {policy}: not bitwise "
+                                     f"the plain gradient, or launches "
+                                     f"{counts} != {want}")
+            paths[f"remat_{arch}_{policy}"] = counts
+        if arch == REMAT_ARCH:
+            # the control: one block weight one ulp up must miss
+            w = model.blocks[0]["attn"]["wq"]
+            with torch.no_grad():
+                w.copy_(torch.nextafter(w, torch.full_like(w, float("inf"))))
+            c_loss, c_grads, _ = remat_grads(torch, ops, cfg, model, batch,
+                                             True, "dots")
+            same_c = torch.equal(c_loss, loss) and _bitwise(torch, c_grads,
+                                                            grads)
+            print(f"  control, {arch} with blocks.0.attn.wq one ulp up: "
+                  f"bitwise {same_c} (must not be)", flush=True)
+            if same_c:
+                raise AssertionError("phase 20's control passed")
+            del c_grads
+        del model, grads, r_grads, batch
+        torch.cuda.empty_cache()
+        print(f"    {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # the per-policy reading at 2 layers and the same batch as phase 10's
+    cfg = dataclasses.replace(get_arch(REMAT_ARCH), num_layers=2)
+    model = tf.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(SEED), device="cuda", trainable=True)
+    opt = init_opt_state(dict(model.named_parameters()))
+    stream = make_stream(cfg, DataConfig(seed=SEED,
+                                         global_batch=LM_TRAIN_BATCH,
+                                         seq_len=LM_TRAIN_SEQ),
+                         device="cuda")
+    two = remat_readings(torch, ops, cfg, model, opt, stream,
+                         LM_TRAIN_LR[REMAT_ARCH], f"{REMAT_ARCH} 2 layers",
+                         profile=False)
+    del model, opt
+    torch.cuda.empty_cache()
+    eight = REMAT_READINGS.get(REMAT_ARCH)
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    for name, _, _ in REMAT_SETTINGS:
+        t = two[name]
+        line = (f"  {REMAT_ARCH} at {LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, "
+                f"{name}: step peak {t['peak_gb']:.2f} GB (gradient "
+                f"{t['grad_peak_gb']:.2f}) at 2 layers")
+        if eight:
+            e = eight[name]
+            per = [(e[k] - t[k]) / 6 for k in ("peak_gb", "grad_peak_gb")]
+            # the layers whose step peak, the 2-layer one plus the
+            # increment a layer, fits the card's memory
+            fits = int((card_gb - t["peak_gb"]) // per[0]) + 2
+            line += (f", {e['peak_gb']:.2f} ({e['grad_peak_gb']:.2f}) at 8 "
+                     f"(phase 10): {per[0]:.3f} ({per[1]:.3f}) GB a layer, "
+                     f"so {fits} layers fit the card's {card_gb:.2f} GB; "
+                     f"step wall {e['wall_ms']:.1f} ms, CUDA event "
+                     f"{e['event_ms']:.1f} ms at 8 layers")
+        print(line, flush=True)
+
+    # the sharded qwen3-8b step at one NCCL rank
+    with tempfile.TemporaryDirectory() as store:
+        init_process_group(store, 0, 1, device_type="cuda")
+        try:
+            mesh = make_test_mesh((1, 1), device_type="cuda")
+            runs = {}
+            for name, remat, policy in REMAT_SETTINGS:
+                cfg, model, opt, s_step, _ = build_on_mesh(
+                    REMAT_ARCH, mesh, layers=2, remat=remat, device="cuda")
+                if policy != model.parallel.remat_policy:
+                    # build_on_mesh's step (its default lr and schedule)
+                    # under the policy's context
+                    s_step = make_train_step(
+                        cfg, AdamWConfig(lr=3e-4, schedule=warmup_cosine(
+                            3e-4, 10, 100)), loss_kind="lm",
+                        parallel=dataclasses.replace(model.parallel,
+                                                     remat_policy=policy),
+                        remat=remat)
+                b = make_stream(cfg, DataConfig(
+                    seed=SEED, global_batch=REMAT_BATCH,
+                    seq_len=LM_TRAIN_SEQ), device="cuda", mesh=mesh).batch(0)
+                ops.reset_launch_counts()
+                model, opt, m = s_step(model, opt, b)
+                torch.cuda.synchronize()
+                runs[name] = dict(
+                    metrics=[m[k].item() for k in ("loss", "grad_norm")],
+                    state=[t.detach().clone() for t in
+                           list(model.parameters()) + list(opt["m"].values())
+                           + list(opt["v"].values())],
+                    counts={k: n for k, n in ops.launch_counts().items()
+                            if n})
+                del model, opt, s_step
+                torch.cuda.empty_cache()
+        finally:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    plain = runs["no remat"]
+    for name in ("dots", "nothing"):
+        r = runs[name]
+        same = r["metrics"] == plain["metrics"] and _bitwise(
+            torch, r["state"], plain["state"])
+        print(f"  sharded {REMAT_ARCH} step at one NCCL rank (2 layers, "
+              f"build_on_mesh(remat=True), sp, ZeRO-1), {name}: loss/grad "
+              f"norm {r['metrics']} (plain {plain['metrics']}), every "
+              f"parameter and moment bitwise the plain step's: {same}; "
+              f"launches {r['counts']}", flush=True)
+        if not same or r["counts"]["flash_attention_fwd"] != 4:
+            raise AssertionError(f"sharded remat {name}: not bitwise the "
+                                 f"plain step, or launches {r['counts']}")
+        paths[f"remat_sharded_{name}"] = r["counts"]
+    print(f"  phase {step}: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -5536,6 +5848,11 @@ def main() -> int:
 
     # ---- 19. the tuning seam ----------------------------------------------
     tuning_phase(torch, ops, ref, 19)
+    torch.cuda.empty_cache()
+
+    # ---- 20. rematerialization ---------------------------------------------
+    remat_counts = remat_phase(torch, ops, 20)
+    torch.cuda.empty_cache()
 
     sources = {"flash_attention_fwd": (
         "cuda", "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -5624,7 +5941,9 @@ def main() -> int:
                       for a, c in lm_counts.items()},
                    **{f"train_{a}": c[counter]
                       for a, c in lm_train_counts.items()},
-                   **{k: c[counter] for k, c in driver_counts.items()}}
+                   **{k: c[counter] for k, c in driver_counts.items()},
+                   **{k: c.get(counter, 0)
+                      for k, c in remat_counts.items()}}
         extra = ({"tc_launches_by_path": {
             k: r[f"{counter}_tc"] for k, r in ROUTES_BY_PATH.items()}}
             if counter in ("flash_attention_fwd",) + BWD_KERNELS else {})

@@ -60,7 +60,7 @@ LOG_EVERY = 10
 
 def build(arch: str, *, mesh_kind: str = "local", reduced: bool = False,
           lr: float = 3e-4, total_steps: int = 100, device="cuda",
-          params=None):
+          params=None, remat: bool = False):
     """``(cfg, model, opt_state, step, loss_kind)`` for ``arch``.
 
     ``params``: a JAX-layout parameter tree (numpy leaves) to start from,
@@ -68,7 +68,9 @@ def build(arch: str, *, mesh_kind: str = "local", reduced: bool = False,
     model from seed 0 (as the JAX launcher's ``PRNGKey(0)``): the DiT's
     ``init_dit`` draws on the CPU, the LM's ``init_params`` on ``device``
     with trainable parameters; ``loss_kind`` is ``"diffusion"`` or
-    ``"lm"``."""
+    ``"lm"``.  ``remat``: the step rematerializes each layer of the LM
+    loss under the model's ``remat_policy`` (JAX's launcher passes it to
+    ``make_train_step``; the diffusion loss ignores it)."""
     if mesh_kind not in ("local", "pod1", "pod2"):
         raise ValueError(f"unknown mesh {mesh_kind!r}")
     if mesh_kind != "local":
@@ -78,7 +80,7 @@ def build(arch: str, *, mesh_kind: str = "local", reduced: bool = False,
                                     device_type=device.type)
         return build_on_mesh(arch, mesh, reduced=reduced, lr=lr,
                              total_steps=total_steps, device=device,
-                             params=params)
+                             params=params, remat=remat)
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -102,7 +104,7 @@ def build(arch: str, *, mesh_kind: str = "local", reduced: bool = False,
     opt_state = init_opt_state(dict(model.named_parameters()))
     opt_cfg = AdamWConfig(lr=lr, schedule=warmup_cosine(
         lr, max(10, total_steps // 10), total_steps))
-    step = make_train_step(cfg, opt_cfg, loss_kind=loss_kind)
+    step = make_train_step(cfg, opt_cfg, loss_kind=loss_kind, remat=remat)
     return cfg, model, opt_state, step, loss_kind
 
 
@@ -122,13 +124,14 @@ def mesh_ctx(mesh, cfg=None) -> ParallelCtx:
 def build_on_mesh(arch: str, mesh, *, reduced: bool = False,
                   lr: float = 3e-4, total_steps: int = 100, device="cuda",
                   params=None, layers: Optional[int] = None,
-                  experts: Optional[int] = None):
+                  experts: Optional[int] = None, remat: bool = False):
     """:func:`build`'s part after the mesh, for a language model:
     ``(cfg, model, opt_state, step, "lm")`` with the model's and the
     moments' parts of this rank (:func:`mesh_ctx`'s context; every rank
     draws the whole model from seed 0, or takes ``params``, a JAX tree at
     that context's padding, and keeps its part).  ``layers`` cuts the
-    depth and ``experts`` an MoE arch's expert count (a smoke test's)."""
+    depth and ``experts`` an MoE arch's expert count (a smoke test's);
+    ``remat`` as :func:`build`'s."""
     import dataclasses
     cfg = get_arch(arch)
     if reduced:
@@ -154,7 +157,8 @@ def build_on_mesh(arch: str, mesh, *, reduced: bool = False,
                                zero1=zero1_slices(model))
     opt_cfg = AdamWConfig(lr=lr, schedule=warmup_cosine(
         lr, max(10, total_steps // 10), total_steps))
-    step = make_train_step(cfg, opt_cfg, loss_kind="lm", parallel=ctx)
+    step = make_train_step(cfg, opt_cfg, loss_kind="lm", parallel=ctx,
+                           remat=remat)
     return cfg, model, opt_state, step, "lm"
 
 

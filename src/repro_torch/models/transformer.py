@@ -43,12 +43,27 @@ without it each rank gathers the experts over ``data`` and runs
 GSPMD computes it.  The router routes from an input whose gradient is
 not summed over ``model`` (it is whole on every model rank).  ``fsdp``
 in a forward raises, naming A12 (JAX's launcher never sets it;
-:func:`repro_torch.parallel.sharding.param_shardings` takes it);
-``remat`` and a ``remat_policy`` other than JAX's default raise, naming
-A13.  ``scan_unroll`` is accepted and does nothing (it changes no result
-in JAX, and the port has no scan).  ``attn_chunk_kv`` runs the plain
+:func:`repro_torch.parallel.sharding.param_shardings` takes it).
+``scan_unroll`` is accepted and does nothing (it changes no result in
+JAX, and the port has no scan).  ``attn_chunk_kv`` runs the plain
 chunked attention (``ref.attention_chunked``) where the flash kernel does
 not run, as JAX's ``attention_full`` does.
+
+Rematerialization (``remat=True`` on :func:`forward_hidden` and the
+losses and steps above it; JAX's ``jax.checkpoint`` of the scanned layer
+body): each layer's body runs under non-reentrant
+``torch.utils.checkpoint``, so its activations are computed again in the
+backward; the final norm, the unembedding and the loss stay outside.
+``remat_policy`` ``"dots"`` (JAX's ``dots_with_no_batch_dims_saveable``)
+keeps the outputs of ``aten.mm`` and ``aten.addmm``, the projections,
+through selective checkpointing and recomputes the rest: the batched
+einsums (``bmm``), the grouped MoE product, the kernels' autograd
+Functions (a CUDA kernel writes into the ``torch.empty`` the dispatcher
+sees, so none of its outputs is ever kept) and the collectives, which
+every rank replays in the same order.  Any other value (JAX's
+``nothing_saveable``) keeps nothing.  The result, loss and gradients,
+is bitwise the one without remat.  A model's ``parallel`` and the one a
+call passes may differ in ``remat_policy`` alone (:func:`same_layout`).
 
 Modes, with the JAX semantics:
   * :func:`forward_hidden` / :func:`forward_train`: the full sequence,
@@ -88,11 +103,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.parallel import collectives as coll
@@ -145,15 +163,12 @@ class ParallelCtx:
 LOCAL = ParallelCtx()
 
 
-def check_ctx(parallel: ParallelCtx, remat: bool = False) -> None:
+def check_ctx(parallel: ParallelCtx) -> None:
     """Raise for the fields whose JAX user the port lacks."""
     if parallel.fsdp:
         raise NotImplementedError("FSDP execution (parameters gathered "
                                   "over data in the forward) waits for "
                                   "ROADMAP A12")
-    if remat or parallel.remat_policy != "dots":
-        raise NotImplementedError("rematerialization (remat=, "
-                                  "remat_policy) is ROADMAP A13")
     if parallel.kv_cache_dtype not in KV_DTYPES:
         raise ValueError(f"kv_cache_dtype {parallel.kv_cache_dtype!r} not "
                          f"in {sorted(KV_DTYPES)}")
@@ -521,13 +536,19 @@ def _attn_kwargs(cfg: ArchConfig, tp: Optional[TensorParallel] = None,
                 theta=cfg.rope_theta, qk_norm=cfg.qk_norm)
 
 
-def _ctx(model: TransformerLM, parallel: Optional[ParallelCtx],
-         remat: bool = False) -> ParallelCtx:
+def same_layout(a: ParallelCtx, b: ParallelCtx) -> bool:
+    """Whether a model built for ``a`` runs under ``b``: every field
+    equal but ``remat_policy``, which places no parameter."""
+    return dataclasses.replace(a, remat_policy=b.remat_policy) == b
+
+
+def _ctx(model: TransformerLM,
+         parallel: Optional[ParallelCtx]) -> ParallelCtx:
     parallel = model.parallel if parallel is None else parallel
-    if parallel != model.parallel:
+    if not same_layout(model.parallel, parallel):
         raise ValueError("the model was built for another ParallelCtx: "
                          "pass the one it was built with (or none)")
-    check_ctx(parallel, remat)
+    check_ctx(parallel)
     return parallel
 
 
@@ -668,18 +689,44 @@ def _mlp_or_moe(cfg: ArchConfig, p, h: torch.Tensor, parallel: ParallelCtx,
     return tp.leave(apply_mlp(p["mlp"], tp.enter(h), cfg.act)), aux
 
 
+# JAX's ``dots_with_no_batch_dims_saveable``: a dot_general without batch
+# dims is a projection, ``aten.mm`` or ``aten.addmm`` here
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_layer(body, remat: bool, policy: str, *args):
+    """``body(*args)``, one layer: with ``remat`` (and grad enabled)
+    through non-reentrant ``torch.utils.checkpoint``, keeping the
+    projections' outputs under ``policy`` ``"dots"`` and nothing
+    otherwise (module docstring)."""
+    if not remat or not torch.is_grad_enabled():
+        return body(*args)
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                   _save_dots)
+    return checkpoint(body, *args, use_reentrant=False, **kw)
+
+
 def run_blocks(cfg: ArchConfig, model: TransformerLM, x: torch.Tensor,
                parallel: ParallelCtx, tp: TensorParallel, *,
-               use_kernel: Optional[bool] = None,
+               use_kernel: Optional[bool] = None, remat: bool = False,
                return_cache: bool = False, cache_len: Optional[int] = None):
     """Every block over the full sequence ``x`` (JAX's ``_block_full``
-    scanned over the layers; ``cfg.causal`` picks the attention's form):
-    ``(x, aux summed over the layers, caches)``, the caches per layer,
-    except a dense model's: its K and V, each written layer by layer into
-    one ``(L, ...)`` buffer of :func:`_kv_layout`'s ``cache_len``
-    positions (no per-layer copies to stack)."""
+    scanned over the layers; ``cfg.causal`` picks the attention's form),
+    each through :func:`remat_layer`: ``(x, aux summed over the layers,
+    caches)``, the caches per layer, except a dense model's: its K and V,
+    each written layer by layer into one ``(L, ...)`` buffer of
+    :func:`_kv_layout`'s ``cache_len`` positions (no per-layer copies to
+    stack)."""
     norm = _norm(cfg)
     chunk = parallel.attn_chunk_kv
+    policy = parallel.remat_policy
     caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block == "rwkv6":
@@ -688,32 +735,45 @@ def run_blocks(cfg: ArchConfig, model: TransformerLM, x: torch.Tensor,
                                  x.dtype, x.device)
         if tp.group is not None:
             state0 = state0._replace(wkv=tp.part(state0.wkv, 1))
+
+        def rwkv_body(p, x):
+            return rwkv_block(p, x, state0, cfg.rwkv_head_dim, norm,
+                              use_kernel=use_kernel, tp=tp)
+
         for p in model.blocks:
-            x, st = rwkv_block(p, x, state0, cfg.rwkv_head_dim, norm,
-                               use_kernel=use_kernel, tp=tp)
+            x, st = remat_layer(rwkv_body, remat, policy, p, x)
             if return_cache:
                 caches.append(st)
     elif cfg.block == "hymba":
         kw = dict(_attn_kwargs(cfg, tp), causal=cfg.causal, chunk_kv=chunk)
-        for p in model.blocks:
+
+        def hymba_body(p, x):
             fused, kv, h_fin = hymba_mix_full(
                 p, tp.enter(norm(p["ln1"], x)), kw, norm,
                 use_kernel=use_kernel, tp=tp)
             x = x + fused
             x = x + tp.leave(apply_mlp(p["mlp"],
                                        tp.enter(norm(p["ln2"], x)), cfg.act))
+            return x, (*kv, h_fin)
+
+        for p in model.blocks:
+            x, cache = remat_layer(hymba_body, remat, policy, p, x)
             if return_cache:
-                caches.append((*kv, h_fin))
+                caches.append(cache)
     else:
         kw = _attn_kwargs(cfg, tp)
-        for i, p in enumerate(model.blocks):
+
+        def dense_body(p, x):
             out, kv = attention_full(p["attn"], tp.enter(norm(p["ln1"], x)),
                                      causal=cfg.causal, **kw,
                                      use_kernel=use_kernel, chunk_kv=chunk)
             x = x + tp.leave(out)
             out, layer_aux = _mlp_or_moe(cfg, p, norm(p["ln2"], x),
                                          parallel, tp)
-            x = x + out
+            return x + out, layer_aux, kv
+
+        for i, p in enumerate(model.blocks):
+            x, layer_aux, kv = remat_layer(dense_body, remat, policy, p, x)
             if layer_aux is not None:
                 aux = aux + layer_aux
             if return_cache:
@@ -739,8 +799,9 @@ def forward_hidden(cfg: ArchConfig, model: TransformerLM, batch, *,
     returns.  Under ``sp`` ``x`` is this rank's part of the sequence
     (``S / m`` rows).  ``cache_len``: a dense cache's length, zeros past
     ``S`` (default ``S``; with a mesh rounded up to a multiple of the
-    ``model`` dim)."""
-    parallel = _ctx(model, parallel, remat)
+    ``model`` dim).  ``remat``: each layer rematerialized under
+    ``parallel.remat_policy`` (module docstring)."""
+    parallel = _ctx(model, parallel)
     tp = TensorParallel(cfg, parallel)
     norm = _norm(cfg)
     x = embed_inputs(cfg, model, batch, tp)
@@ -749,7 +810,7 @@ def forward_hidden(cfg: ArchConfig, model: TransformerLM, batch, *,
     if tp.group is not None:
         length = -(-length // tp.m) * tp.m
     x, aux, caches = run_blocks(cfg, model, x, parallel, tp,
-                                use_kernel=use_kernel,
+                                use_kernel=use_kernel, remat=remat,
                                 return_cache=return_cache,
                                 cache_len=length)
     x = norm(model["ln_f"], x)
@@ -799,8 +860,9 @@ def forward_train(cfg: ArchConfig, model: TransformerLM, batch, *,
     rank's vocabulary columns ``(B, S, vocab / m)`` of every position
     (JAX's logits are sharded the same way).  The MoE aux is
     :func:`forward_hidden`'s."""
-    parallel = _ctx(model, parallel, remat)
-    x, _, _ = forward_hidden(cfg, model, batch, use_kernel=use_kernel)
+    parallel = _ctx(model, parallel)
+    x, _, _ = forward_hidden(cfg, model, batch, parallel=parallel,
+                             remat=remat, use_kernel=use_kernel)
     return unembed(model["unembed"], TensorParallel(cfg, parallel).enter(x))
 
 

@@ -26,9 +26,13 @@ of leaves split over ``model`` summed over ``model``, of those split over
 ``data`` over ``data``, the replicated ones once), and AdamW updates each
 rank's ZeRO-1 slice (:func:`zero1_slices`: ``opt_state_shardings``'s
 ``data`` dim, on leaves whose parameter is not already split there) and
-gathers it over ``data``.  Rematerialization (``remat=``) is ROADMAP
-A13.  The MoE, audio and vision families train as the dense ones do
-(their losses: :func:`repro_torch.train.losses.lm_loss`)."""
+gathers it over ``data``.  ``remat=True`` rematerializes each layer of
+the LM loss's forward in the backward under the context's
+``remat_policy`` (:mod:`repro_torch.models.transformer`; JAX's
+``jax.checkpoint`` of the layer body), in every step here; the diffusion
+loss ignores it, as JAX's does.  The MoE, audio and vision families
+train as the dense ones do (their losses:
+:func:`repro_torch.train.losses.lm_loss`)."""
 from __future__ import annotations
 
 import re
@@ -44,8 +48,11 @@ from repro_torch.parallel import sharding
 from .losses import AUX_COEF, diffusion_loss, lm_loss
 
 
-def _loss_fn(cfg: ArchConfig, loss_kind: str):
-    """``loss_fn(model, batch, generator, t, eps) -> (loss, metrics)``."""
+def _loss_fn(cfg: ArchConfig, loss_kind: str, parallel=None,
+             remat: bool = False):
+    """``loss_fn(model, batch, generator, t, eps) -> (loss, metrics)``;
+    the LM loss under ``parallel`` (the model's when None) and ``remat``
+    (the diffusion loss ignores both)."""
     if loss_kind not in ("diffusion", "lm"):
         raise ValueError(f"unknown loss_kind {loss_kind!r}")
     if (loss_kind == "diffusion") != (cfg.family == "dit"):
@@ -54,7 +61,8 @@ def _loss_fn(cfg: ArchConfig, loss_kind: str):
 
     def loss_fn(model, batch, generator, t, eps):
         if loss_kind == "lm":
-            return lm_loss(cfg, model, batch)
+            return lm_loss(cfg, model, batch, parallel=parallel,
+                           remat=remat)
         return diffusion_loss(model, batch, generator, t=t, eps=eps)
 
     return loss_fn
@@ -157,15 +165,18 @@ def sharded_global_norm(model, grads: Dict[str, torch.Tensor]
     return torch.sqrt(sum(sq))
 
 
-def _sharded_lm_step(cfg: ArchConfig, opt_cfg: AdamWConfig, parallel):
-    from repro_torch.models.transformer import model_partial_grads
+def _sharded_lm_step(cfg: ArchConfig, opt_cfg: AdamWConfig, parallel,
+                     remat: bool):
+    from repro_torch.models.transformer import (model_partial_grads,
+                                                same_layout)
     mesh = parallel.mesh
 
     def step(model, opt_state, batch, generator=None, *, t=None, eps=None):
-        if model.parallel != parallel:
+        if not same_layout(model.parallel, parallel):
             raise ValueError("the model was built for another ParallelCtx")
         params = dict(model.named_parameters())
-        loss, metrics = lm_loss(cfg, model, batch)
+        loss, metrics = lm_loss(cfg, model, batch, parallel=parallel,
+                                remat=remat)
         grads = dict(zip(params, torch.autograd.grad(
             loss, list(params.values()))))
         keep = opt_cfg.bf16_grad_sync
@@ -194,9 +205,11 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
     part of the global batch (``data.make_stream(..., mesh=)``), the
     model and ``opt_state`` hold the rank's parts
     (``init_opt_state(params, zero1=zero1_slices(model))``), and the
-    metrics are global."""
-    if remat:
-        raise NotImplementedError("make_train_step(remat=) is ROADMAP A13")
+    metrics are global.  ``parallel`` without a mesh: the context of the
+    local LM loss (the model's when None; it may differ from the model's
+    in ``remat_policy`` alone).  ``remat``: each layer of the LM loss
+    rematerialized under ``parallel.remat_policy`` (the module
+    docstring)."""
     if parallel is not None and parallel.mesh is not None:
         if loss_kind != "lm":
             raise ValueError("the sharded step trains the language models; "
@@ -205,8 +218,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
         _loss_fn(cfg, loss_kind)
         from repro_torch.models.transformer import check_ctx
         check_ctx(parallel)
-        return _sharded_lm_step(cfg, opt_cfg, parallel)
-    loss_fn = _loss_fn(cfg, loss_kind)
+        return _sharded_lm_step(cfg, opt_cfg, parallel, remat)
+    loss_fn = _loss_fn(cfg, loss_kind, parallel, remat)
 
     def step(model, opt_state, batch, generator=None, *, t=None, eps=None):
         params = dict(model.named_parameters())
@@ -240,7 +253,8 @@ def layer_scale_groups(params) -> Dict[str, str]:
 
 def make_dp_train_step_compressed(cfg: ArchConfig, opt_cfg: AdamWConfig,
                                   mesh, axis: str = "data", *,
-                                  loss_kind: str = "diffusion"):
+                                  loss_kind: str = "diffusion",
+                                  remat: bool = False):
     """The data-parallel step with int8 error-feedback gradient sync:
     ``step(model, opt_state, ef, batch, generator=None, *, t=None,
     eps=None) -> (model, opt_state, ef, metrics)``.
@@ -253,11 +267,13 @@ def make_dp_train_step_compressed(cfg: ArchConfig, opt_cfg: AdamWConfig,
     with the carry ``ef`` (:func:`init_error_feedback`), AdamW applies
     the mean, and the loss and metrics come back averaged over the dim.
     Each block parameter's layers share one scale, as JAX's leaf stacked
-    over the layers does (:func:`layer_scale_groups`)."""
+    over the layers does (:func:`layer_scale_groups`).  ``remat``: the LM
+    loss's layers rematerialized under the model's ``remat_policy``, as
+    JAX's step passes ``remat`` to its ``lm_loss``."""
     from repro_torch.parallel.collectives import (check_backend,
                                                   compressed_psum_mean)
     from repro_torch.parallel.sharding import mesh_shape
-    loss_fn = _loss_fn(cfg, loss_kind)
+    loss_fn = _loss_fn(cfg, loss_kind, remat=remat)
     group = mesh.get_group(axis)
     n = mesh_shape(mesh)[axis]
     me = mesh.get_local_rank(axis)

@@ -1629,3 +1629,30 @@ def test_scan_candidate_on_card(cuda):
     for g, w in zip(got, want):
         rel = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
         assert rel <= SCAN_BWD_REL_L2, rel
+
+
+@pytest.mark.cuda
+def test_torch_quickstart_on_card(cuda):
+    """``examples/torch_quickstart.py`` on the card: the tiny DiT trains
+    (its loss falls) and SRDS samples through the flash forward, DDIM and
+    residual kernels (each launched), within its tol 2e-3 of the
+    sequential sample."""
+    import importlib
+    import pathlib
+    import sys
+    examples = pathlib.Path(__file__).resolve().parents[1] / "examples"
+    sys.path.insert(0, str(examples))
+    try:
+        quickstart = importlib.import_module("torch_quickstart")
+    finally:
+        sys.path.remove(str(examples))
+    ops.reset_launch_counts()
+    out = quickstart.main(["--device", "cuda"])
+    counts = ops.launch_counts()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv", "ddim_fused",
+                 "parareal_update_residual"):
+        assert counts[name] > 0, (name, counts)
+    assert out["last"] < out["first"]
+    assert out["sample"].is_cuda and torch.isfinite(out["sample"]).all()
+    assert out["rel_err"] <= 2e-3

@@ -58,3 +58,34 @@ def test_port_imports_without_jax_or_repro():
                           timeout=300, cwd=str(REPO))
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split()[-1] == str(len(mods))
+
+
+def _imported_roots(path: pathlib.Path):
+    """The top-level names every ``import`` and ``from ... import`` of a
+    file names, read from its AST (relative imports excluded)."""
+    import ast
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_examples_import_no_jax_or_repro():
+    """No ``examples/torch_*.py`` imports ``jax``, ``jaxlib`` or the JAX
+    package (by an AST read of every import statement, at any depth);
+    each imports ``repro_torch``.  The control: JAX's own
+    ``examples/quickstart.py`` is caught."""
+    files = sorted((REPO / "examples").glob("torch_*.py"))
+    assert [f.name for f in files] == [
+        "torch_quickstart.py", "torch_serve_diffusion_slo.py",
+        "torch_serve_llm.py", "torch_srds_sampling.py",
+        "torch_train_diffusion.py"]
+    banned = {"jax", "jaxlib", "repro"}
+    for f in files:
+        roots = _imported_roots(f)
+        assert not roots & banned, (f.name, roots & banned)
+        assert "repro_torch" in roots, f.name
+    assert _imported_roots(REPO / "examples" / "quickstart.py") & banned

@@ -547,8 +547,9 @@ def test_world_one_equals_plain_bitwise(mesh11, name, sp):
 
 def test_parallel_ctx_fields_and_unported_users():
     """The port's ``ParallelCtx`` has JAX's fields and defaults; the
-    fields whose JAX user the port lacks raise, naming their item (the
-    MoE fields no longer do);
+    field whose JAX user the port lacks (``fsdp``) raises, naming its
+    item (the MoE and remat fields no longer do: a forward with
+    ``remat=True`` returns the forward's result at either policy);
     ``kv_cache_dtype`` float8 stores ``torch.float8_e4m3fn``; a chunked
     attention (``attn_chunk_kv``) equals the plain one."""
     from repro.models import transformer as jtf
@@ -563,12 +564,15 @@ def test_parallel_ctx_fields_and_unported_users():
     # the MoE fields have their user (they raised before)
     for kw in (dict(use_ep=True), dict(moe_chunk=4)):
         tf.check_ctx(tf.ParallelCtx(**kw))
-    for kw, item in ((dict(fsdp=True), "A12"),
-                     (dict(remat_policy="nothing"), "A13")):
-        with pytest.raises(NotImplementedError, match=item):
-            tf.check_ctx(tf.ParallelCtx(**kw))
-    with pytest.raises(NotImplementedError, match="A13"):
-        tf.forward_hidden(cfg, model, {"tokens": toks}, remat=True)
+    with pytest.raises(NotImplementedError, match="A12"):
+        tf.check_ctx(tf.ParallelCtx(fsdp=True))
+    tf.check_ctx(tf.ParallelCtx(remat_policy="nothing"))
+    want = tf.forward_hidden(cfg, model, {"tokens": toks})[0]
+    for policy in ("dots", "nothing"):
+        got = tf.forward_hidden(cfg, model, {"tokens": toks}, remat=True,
+                                parallel=tf.ParallelCtx(
+                                    remat_policy=policy))[0]
+        assert torch.equal(got, want)
     c = tf.make_dense_cache(cfg, 2, 8, device="cpu",
                             parallel=tf.ParallelCtx(
                                 kv_cache_dtype="float8_e4m3fn"))

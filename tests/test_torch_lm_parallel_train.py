@@ -11,10 +11,12 @@ config (``sp=True``, ZeRO-1, JAX's launcher context), each started from
 JAX's state entering it, then the port's own 3 steps with a checkpoint
 after the second, the data slices and the launcher's cases; one of 2
 ranks on (data 1, model 2) restores that checkpoint and takes the third
-step.  JAX's side runs in one subprocess with 4 fake devices: its step
-jitted on a (2, 2) mesh with ``param_shardings`` and
-``opt_state_shardings`` (``repro.launch.train``'s placement), f32,
-``use_kernel=False``.
+step, then each arch's first step plain and with ``remat=True`` at both
+policies (bitwise the plain step).  JAX's side runs in one subprocess
+with 4 fake devices: its step jitted on a (2, 2) mesh with
+``param_shardings`` and ``opt_state_shardings`` (``repro.launch.train``'s
+placement), f32, ``use_kernel=False``, and qwen3's first step with
+``remat=True`` at each policy.
 
 Tolerances (each step from JAX's state entering it): the loss within
 ``LOSS_RTOL`` (1e-5) relative, the grad norm within ``NORM_RTOL`` (1e-5),
@@ -95,6 +97,29 @@ for name, cfg in jcfgs.items():
                          params=jax.tree.map(np.asarray, params),
                          opt=jax.tree.map(np.asarray, opt)))
     out[name] = runs
+# the first step from the tree with remat at each policy
+cfg = jcfgs[C.STEP_ARCH]
+for policy in ("dots", "nothing"):
+    rpar = jtf.ParallelCtx(mesh=mesh, batch_axes=("data",), sp=True,
+                           model_parallel=2, remat_policy=policy)
+    params = jax.tree.map(jnp.asarray, trees[C.STEP_ARCH])
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, AdamWConfig(lr=C.STEP_LR), parallel=rpar,
+                           remat=True, loss_kind="lm", use_kernel=False)
+    p_sh = param_shardings(cfg, mesh, params, rpar)
+    o_sh = opt_state_shardings(cfg, mesh, opt, rpar)
+    step = jit_train_step(step, in_shardings=(p_sh, o_sh, None, None),
+                          out_shardings=(p_sh, o_sh, None))
+    toks = C.step_batches()[0]
+    b = {"tokens": jnp.asarray(toks, jnp.int32),
+         "labels": jnp.asarray(toks, jnp.int32)}
+    params, opt, m = step(jax.device_put(params, p_sh),
+                          jax.device_put(opt, o_sh), b,
+                          jax.random.PRNGKey(0))
+    out[f"remat/{policy}"] = dict(loss=float(m["loss"]),
+                                  grad_norm=float(m["grad_norm"]),
+                                  params=jax.tree.map(np.asarray, params),
+                                  opt=jax.tree.map(np.asarray, opt))
 with open(sys.argv[2], "wb") as f:
     pickle.dump(out, f)
 print("JAX LM TRAIN OK")
@@ -164,8 +189,8 @@ def world4(jax_run, ckpt_dir):
 
 @pytest.fixture(scope="module")
 def world2(jax_run, world4, ckpt_dir):
-    return tmesh.spawn_ranks(cases.train2, 2, jax_run.trees[cases.STEP_ARCH],
-                             ckpt_dir, device_type="cpu")
+    return tmesh.spawn_ranks(cases.train2, 2, jax_run.trees, ckpt_dir,
+                             device_type="cpu")
 
 
 def _leaves(cfg, tree):
@@ -199,6 +224,12 @@ def test_sharded_step_matches_jax(world4, jax_run, name, i):
         assert r["loss"] == got["loss"]
         assert all(np.array_equal(r["params"][k], got["params"][k])
                    for k in got["params"])
+    _close_to_jax(cfg, got, want)
+
+
+def _close_to_jax(cfg, got, want):
+    """A port step's loss, grad norm, parameters and gathered moments
+    within the module's tolerances of JAX's."""
     assert _rel(got["loss"], want["loss"]) <= LOSS_RTOL
     assert _rel(got["grad_norm"], want["grad_norm"]) <= NORM_RTOL
     wp = _leaves(cfg, want["params"])
@@ -215,6 +246,28 @@ def test_sharded_step_matches_jax(world4, jax_run, name, i):
             scale = max(float(np.abs(wm[k]).max()), 1e-30)
             err = float(np.abs(got["mom"][key][k] - wm[k]).max()) / scale
             assert err <= MOMENT_RTOL, (key, k, err)
+
+
+@pytest.mark.parametrize("name", cases.STEP_ARCHS)
+def test_remat_sharded_step_is_the_plain_step(world2, jax_run, name):
+    """The first step on (data 1, model 2) with ``sp`` and ZeRO-1 from
+    JAX's tree, with ``remat`` at ``"dots"`` and ``"nothing"``: bitwise
+    the plain step on both ranks (loss, grad norm, every parameter and
+    moment), and for qwen3 within the module's tolerances of JAX's
+    jitted ``remat=True`` step at the same policy."""
+    cfg = cases.cfg_of(name)
+    for r in world2:
+        plain = r[f"remat/{name}/0/dots"]
+        for policy in ("dots", "nothing"):
+            got = r[f"remat/{name}/1/{policy}"]
+            assert got["loss"] == plain["loss"]
+            assert got["grad_norm"] == plain["grad_norm"]
+            assert all(np.array_equal(got["params"][k], plain["params"][k])
+                       for k in plain["params"])
+            assert all(np.array_equal(got["mom"][a][k], plain["mom"][a][k])
+                       for a in plain["mom"] for k in plain["mom"][a])
+            if name == cases.STEP_ARCH:
+                _close_to_jax(cfg, got, jax_run.get()[f"remat/{policy}"])
 
 
 @pytest.mark.parametrize("name", cases.STEP_ARCHS)
@@ -369,15 +422,26 @@ def test_world_one_step_equals_plain_bitwise(mesh11, name):
 
 
 def test_sharded_step_raises_for_remat_and_dit():
-    """``make_train_step(remat=True)`` names ROADMAP A13; the sharded step
-    trains the language models only."""
+    """``make_train_step(remat=True)`` builds a step that trains: its
+    third step's loss on a repeated batch is below its first; the
+    sharded step trains the language models only."""
     from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
     from repro_torch.models.transformer import ParallelCtx
-    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim import AdamWConfig, init_opt_state
     from repro_torch.train import make_train_step
     cfg = cases.cfg_of(cases.STEP_ARCH)
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_train_step(cfg, AdamWConfig(), loss_kind="lm", remat=True)
+    step = make_train_step(cfg, AdamWConfig(lr=cases.STEP_LR),
+                           loss_kind="lm", remat=True)
+    model = tf.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu", trainable=True)
+    opt = init_opt_state(dict(model.named_parameters()))
+    t = torch.from_numpy(cases.step_batches(1)[0]).long()
+    losses = []
+    for _ in range(3):
+        model, opt, m = step(model, opt, {"tokens": t, "labels": t})
+        losses.append(float(m["loss"]))
+    assert losses[2] < losses[0], losses
     with pytest.raises(ValueError, match="language models"):
         make_train_step(get_arch("srds-dit-cifar"), AdamWConfig(),
                         loss_kind="diffusion",

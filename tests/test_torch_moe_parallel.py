@@ -2,8 +2,9 @@
 groups, against the JAX package's ``shard_map`` path on fake devices: the
 MoE sharding rules, ``forward_train`` (logits and aux) with ``use_ep`` on
 meshes (data 2, model 1) and (data 2, model 2) with ``sp`` off and on,
-the non-EP path on a mesh, the served tokens, and two sharded ZeRO-1
-steps.
+the non-EP path on a mesh, the served tokens, two sharded ZeRO-1
+steps, and the first EP step on (2, 1) with ``remat=True`` at both
+policies (bitwise the plain step; JAX's remat step as the yardstick).
 
 The rank bodies live in ``tests/torch_moe_cases.py`` (no JAX there).  One
 ``spawn_ranks`` per world size: 2 ranks on (2, 1), 4 on (2, 2) (the
@@ -146,6 +147,26 @@ for t in C.step_batches():
                      params=jax.tree.map(np.asarray, params),
                      opt=jax.tree.map(np.asarray, opt)))
 out["steps"] = runs
+# the first step from the tree with remat at each policy
+for policy in ("dots", "nothing"):
+    rpar = jtf.ParallelCtx(mesh=mesh, batch_axes=("data",), use_ep=True,
+                           sp=True, model_parallel=2, remat_policy=policy)
+    params = jax.tree.map(jnp.asarray, trees[C.ARCH])
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, AdamWConfig(lr=C.STEP_LR), parallel=rpar,
+                           remat=True, loss_kind="lm", use_kernel=False)
+    step = jit_train_step(step, in_shardings=(p_sh, o_sh, None, None),
+                          out_shardings=(p_sh, o_sh, None))
+    t = C.step_batches()[0]
+    b = {"tokens": jnp.asarray(t, jnp.int32),
+         "labels": jnp.asarray(t, jnp.int32)}
+    params, opt, m = step(jax.device_put(params, p_sh),
+                          jax.device_put(opt, o_sh), b,
+                          jax.random.PRNGKey(0))
+    out[f"remat/{policy}"] = dict(loss=float(m["loss"]), aux=float(m["aux"]),
+                                  grad_norm=float(m["grad_norm"]),
+                                  params=jax.tree.map(np.asarray, params),
+                                  opt=jax.tree.map(np.asarray, opt))
 with open(sys.argv[2], "wb") as f:
     pickle.dump(out, f)
 print("JAX MOE PARALLEL OK")
@@ -223,8 +244,8 @@ def jax_run(tmp_path_factory):
 def ranks(jax_run):
     """Every rank's results by mesh: 2 ranks on (2, 1) (started while JAX
     runs), then 4 on (2, 2) (their steps start from JAX's states)."""
-    out = {(2, 1): tmesh.spawn_ranks(cases.forward_serve, 2, jax_run.trees,
-                                     (2, 1), device_type="cpu")}
+    out = {(2, 1): tmesh.spawn_ranks(cases.world2, 2, jax_run.trees,
+                                     device_type="cpu")}
     steps = [dict(params=r["params"], opt=r["opt"])
              for r in jax_run.get()["steps"]]
     out[(2, 2)] = tmesh.spawn_ranks(cases.world4, 4, jax_run.trees, steps,
@@ -357,6 +378,12 @@ def test_ep_sharded_step_matches_jax(ranks, jax_run, i):
         assert r["loss"] == got["loss"]
         assert all(np.array_equal(r["params"][k], got["params"][k])
                    for k in got["params"])
+    _step_close_to_jax(cfg, got, want)
+
+
+def _step_close_to_jax(cfg, got, want):
+    """A port step's loss, aux, grad norm, parameters and gathered
+    moments within the module's tolerances of JAX's."""
     assert _rel(got["loss"], want["loss"]) <= LOSS_RTOL
     assert _rel(got["aux"], want["aux"]) <= AUX_RTOL
     assert _rel(got["grad_norm"], want["grad_norm"]) <= NORM_RTOL
@@ -374,6 +401,26 @@ def test_ep_sharded_step_matches_jax(ranks, jax_run, i):
             scale = max(float(np.abs(wm[k]).max()), 1e-30)
             err = float(np.abs(got["mom"][key][k] - wm[k]).max()) / scale
             assert err <= MOMENT_RTOL, (key, k, err)
+
+
+def test_ep_remat_step_is_the_plain_step(ranks, jax_run):
+    """The first EP step on (data 2, model 1) (``use_ep``, ``sp``,
+    ZeRO-1) from the tree with ``remat`` at ``"dots"`` and ``"nothing"``:
+    bitwise the plain step on both ranks (loss, aux, grad norm, every
+    parameter and moment), and within the module's tolerances of JAX's
+    jitted ``remat=True`` step at the same policy on (2, 2)."""
+    cfg = cases.cfg_of(cases.ARCH)
+    for r in ranks[(2, 1)]:
+        plain = r["remat/0/dots"]
+        for policy in ("dots", "nothing"):
+            got = r[f"remat/1/{policy}"]
+            for k in ("loss", "aux", "grad_norm"):
+                assert got[k] == plain[k], (policy, k)
+            assert all(np.array_equal(got["params"][k], plain["params"][k])
+                       for k in plain["params"])
+            assert all(np.array_equal(got["mom"][a][k], plain["mom"][a][k])
+                       for a in plain["mom"] for k in plain["mom"][a])
+            _step_close_to_jax(cfg, got, jax_run.get()[f"remat/{policy}"])
 
 
 def test_experts_summed_over_data_miss_jax(ranks, jax_run):

@@ -17,6 +17,7 @@ jax.config.update("jax_enable_x64", True)
 
 import functools  # noqa: E402
 import json  # noqa: E402
+import re  # noqa: E402
 import sys  # noqa: E402
 
 import jax.numpy as jnp  # noqa: E402
@@ -105,16 +106,26 @@ def test_table10_slo_keeps_jax_assert(jax_f64):
                          dtype=torch.float64)
 
 
-def test_table10_wallclock_toy_herd(jax_f64):
-    """The toy herd: the four gates hold (the emitter asserts them), and
-    the calibration's physical evals, cold and warm, equal JAX's."""
+def test_table10_wallclock_toy_herd(jax_f64, monkeypatch):
+    """The toy herd: the four gates hold (the emitter asserts them), on
+    the CPU on the virtual-clock replay alone (ROADMAP C28: the wall
+    clock binds on the card), and the calibration's physical evals, cold
+    and warm, equal JAX's."""
     eng = JEngine(jax_f64, (16,), j10w.SolverConfig("ddim"),
                   num_steps=j10w.N, batch_size=j10w.BATCH, clock=JClock(),
                   dtype=jnp.float64)
     cold = JLoop(eng, JFIFO()).run(j10w.herd_trace())
     warm = JLoop(eng, JFIFO()).run(j10w.herd_trace())
+    gated, real = [], table10_wallclock.gate
+
+    def recorded(readings, which):
+        gated.append(which)
+        real(readings, which)
+
+    monkeypatch.setattr(table10_wallclock, "gate", recorded)
     rows = table10_wallclock.main(device="cpu", noise_fn=jax_noise,
                                   dtype=torch.float64)
+    assert gated == ["virtual-clock replay of the"]
     cal = rows[0]
     assert cal["trace"] == "calibration"
     assert (cal["physical_evals_cold"], cal["physical_evals"]) == \
@@ -126,6 +137,27 @@ def test_table10_wallclock_toy_herd(jax_f64):
     assert [r["trace"] for r in rows[5:]] == [
         f"poisson_load{x:g}" for x in table10_wallclock.LOADS
         for _ in range(3)]
+
+
+def test_table10_wallclock_gate_is_jaxs():
+    """The gate both herds go through is JAX's: EDF's and CostAware's
+    light-tier p95 below FIFO's, EDF's attainment within 0.05 of FIFO's,
+    CostAware's goodput at least 0.9 of FIFO's, each failure with JAX's
+    message; readings that meet all four pass."""
+    ok = {"fifo": (2.0, 0.50, 1.00), "edf": (1.0, 0.46, 1.10),
+          "cost": (1.5, 0.40, 0.90)}
+    table10_wallclock.gate(ok, "wall-clock")
+    for policy, i, value, msg in (
+            ("edf", 0, 2.0, "EDF light-tier p95 (2.000s) must beat FIFO "
+                            "(2.000s) on the pinned wall-clock herd"),
+            ("cost", 0, 2.5, "CostAware light-tier p95"),
+            ("edf", 1, 0.44, "EDF attainment 0.44 fell below FIFO 0.50"),
+            ("cost", 2, 0.89, "CostAware goodput 0.9rps fell >10% below")):
+        bad = dict(ok)
+        bad[policy] = tuple(value if j == i else v
+                            for j, v in enumerate(ok[policy]))
+        with pytest.raises(AssertionError, match=re.escape(msg)):
+            table10_wallclock.gate(bad, "wall-clock")
 
 
 def test_table10_wallclock_dit_cut_is_stated():

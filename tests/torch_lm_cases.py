@@ -302,24 +302,29 @@ def step_batches(n=3):
     return [tokens(seed=20 + i, s=STEP_SEQ) for i in range(n)]
 
 
-def _step_model(name, tree, mesh, jopt=None):
+def _step_model(name, tree, mesh, jopt=None, remat=False,
+                policy="dots"):
     """The sharded model, optimizer state and step on ``mesh`` (JAX's
-    launcher context: ``sp``, ZeRO-1), from JAX's tree and optimizer
-    state (or fresh moments)."""
+    launcher context: ``sp``, ZeRO-1, ``remat_policy``), from JAX's tree
+    and optimizer state (or fresh moments); ``remat`` the step's."""
     from repro_torch.launch.train import mesh_ctx
     from repro_torch.models import transformer as tf
     from repro_torch.optim import AdamWConfig, init_opt_state
     from repro_torch.train import make_train_step
     from repro_torch.train.steps import zero1_slices
-    ctx = mesh_ctx(mesh)
+    ctx = dataclasses.replace(mesh_ctx(mesh), remat_policy=policy)
     model = tf.load_jax_params(cfg_of(name), tree, device="cpu",
                                trainable=True, parallel=ctx)
     z = zero1_slices(model)
     opt = (init_opt_state(dict(model.named_parameters()), zero1=z)
            if jopt is None else tf.load_jax_opt_state(model, jopt, zero1=z))
     step = make_train_step(cfg_of(name), AdamWConfig(lr=STEP_LR),
-                           loss_kind="lm", parallel=ctx)
+                           loss_kind="lm", parallel=ctx, remat=remat)
     return model, opt, step
+
+
+# (remat, remat_policy) of the remat steps: the plain step first
+REMAT_RUNS = ((False, "dots"), (True, "dots"), (True, "nothing"))
 
 
 def _rows(mesh, t):
@@ -451,14 +456,16 @@ def train4(rank, world, trees, jsteps, ckpt_dir):
     return out
 
 
-def train2(rank, world, tree, ckpt_dir):
+def train2(rank, world, trees, ckpt_dir):
     """2 ranks, a (data 1, model 2) mesh: the (2, 2) checkpoint restored
-    (every leaf whole) and the third step taken from it."""
+    (every leaf whole) and the third step taken from it; for every arch
+    the first step from JAX's tree (``sp``, ZeRO-1) plain and with
+    ``remat`` at each policy (:data:`REMAT_RUNS`)."""
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.train.steps import train_state_specs
     mesh = make_test_mesh((1, 2), device_type="cpu")
-    model, opt, step = _step_model(STEP_ARCH, tree, mesh)
+    model, opt, step = _step_model(STEP_ARCH, trees[STEP_ARCH], mesh)
     with torch.no_grad():
         for p in model.parameters():
             p.zero_()
@@ -470,4 +477,15 @@ def train2(rank, world, tree, ckpt_dir):
     restored = _whole_state(model, opt)
     t = torch.from_numpy(step_batches()[2]).long()
     model, opt, _ = step(model, opt, {"tokens": t, "labels": t})
-    return dict(step=at, restored=restored, next=_whole_state(model, opt))
+    out = dict(step=at, restored=restored, next=_whole_state(model, opt))
+    t = _rows(mesh, torch.from_numpy(step_batches()[0]).long())
+    for name in STEP_ARCHS:
+        for remat, policy in REMAT_RUNS:
+            model, opt, step = _step_model(name, trees[name], mesh,
+                                           remat=remat, policy=policy)
+            model, opt, m = step(model, opt, {"tokens": t, "labels": t})
+            params, mom = _whole_state(model, opt)
+            out[f"remat/{name}/{int(remat)}/{policy}"] = dict(
+                loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                params=params, mom=mom)
+    return out

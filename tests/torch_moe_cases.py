@@ -172,22 +172,46 @@ def _whole_state(model, opt):
     return params, mom
 
 
-def _step_model(tree, mesh, jopt=None):
+def _step_model(tree, mesh, jopt=None, remat=False, policy="dots"):
     from repro_torch.launch.train import mesh_ctx
     from repro_torch.models import transformer as tf
     from repro_torch.optim import AdamWConfig, init_opt_state
     from repro_torch.train import make_train_step
     from repro_torch.train.steps import zero1_slices
     cfg = cfg_of(ARCH)
-    ctx = mesh_ctx(mesh, cfg)
+    ctx = dataclasses.replace(mesh_ctx(mesh, cfg), remat_policy=policy)
     model = tf.load_jax_params(cfg, tree, device="cpu", trainable=True,
                                parallel=ctx)
     z = zero1_slices(model)
     opt = (init_opt_state(dict(model.named_parameters()), zero1=z)
            if jopt is None else tf.load_jax_opt_state(model, jopt, zero1=z))
     step = make_train_step(cfg, AdamWConfig(lr=STEP_LR), loss_kind="lm",
-                           parallel=ctx)
+                           parallel=ctx, remat=remat)
     return model, opt, step
+
+
+# (remat, remat_policy) of the remat steps: the plain step first
+REMAT_RUNS = ((False, "dots"), (True, "dots"), (True, "nothing"))
+
+
+def world2(rank, world, trees):
+    """(data 2, model 1): :func:`forward_serve`'s cases, then the first
+    EP step (``use_ep``, ``sp``, ZeRO-1) from the tree plain and with
+    ``remat`` at each policy (:data:`REMAT_RUNS`): loss, aux, grad norm,
+    parameters and moments."""
+    from repro_torch.launch.mesh import make_test_mesh
+    out = forward_serve(rank, world, trees, (2, 1))
+    mesh = make_test_mesh((2, 1), device_type="cpu")
+    t = torch.from_numpy(_rows(mesh, step_batches()[0])).long()
+    for remat, policy in REMAT_RUNS:
+        model, opt, step = _step_model(trees[ARCH], mesh, remat=remat,
+                                       policy=policy)
+        model, opt, m = step(model, opt, {"tokens": t, "labels": t})
+        params, mom = _whole_state(model, opt)
+        out[f"remat/{int(remat)}/{policy}"] = dict(
+            loss=m["loss"].item(), aux=m["aux"].item(),
+            grad_norm=m["grad_norm"].item(), params=params, mom=mom)
+    return out
 
 
 def world4(rank, world, trees, jsteps):
