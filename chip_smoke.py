@@ -316,9 +316,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    router's gradient zeroed as the control that must miss; launch counts
    equal;
 18. the rest of the zoo: (a) ``qwen3-14b`` and ``qwen1.5-32b`` at full
-   width and depth serving phase 8's requests with phase 8's checks
+   width and depth (all 64 layers: the prefill MLP runs in row chunks,
+   ROADMAP C25) serving phase 8's requests with phase 8's checks
    (qwen1.5-32b's on the first request: its weights and cache fill the
-   card); (b) ``stablelm-3b`` (32 layers), (c) ``hubert-xlarge`` (48,
+   card), each with its peak allocated memory; (b) ``stablelm-3b`` (32 layers), (c) ``hubert-xlarge`` (48,
    non-causal, frame features from ``AudioStream``) and (d)
    ``phi-3-vision-4.2b`` (16 of 32 layers, ``VLMStream``) trained with
    phase 10's checks (the broken backward flips the causal mask; for the
@@ -377,6 +378,21 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    of the flash forward (``profiling.window_launches``); phase 20 prints
    them again with the 2-layer cut's peaks at the same batch and the
    per-layer increments.
+21. the dry run (``repro_torch.launch.dryrun``) against the card: (a) its
+   world-1 prediction of phase 10's cell (qwen3-8b at ``DRY_LAYERS``
+   layers, 2 x 2048, bf16, remat ``"dots"``, ``use_kernel=False``, mesh
+   (1, 1)), traced on meta tensors in a subprocess, against that step run
+   on the card at one NCCL rank with the dry run's own context and step:
+   ``FlopCounterMode``'s total must equal the prediction, and the step's
+   peak allocated memory (above what was resident before) must fall
+   within ``DRY_MEM_BAND`` of the predicted argument + temp bytes; the
+   collectives at world size 1 and the roofline's compute and memory
+   terms against the measured step are readings; (b) the FSDP step
+   (``build_on_mesh(fsdp=True)``: each leaf's data shard stored, gathered
+   a layer at a time) at one NCCL rank through the kernels, qwen3-8b at
+   ``FSDP_LAYERS`` layers: bitwise the plain sharded step (loss, grad
+   norm, every parameter and moment), the flash kernels launched once a
+   layer each way.  It prints its seconds.
 
 Phases 4-8, 10, 12, 13, 14 and 15 also hold the flash kernels' launches on their
 main paths, forward and backward, to their tensor-core route
@@ -532,12 +548,12 @@ LM_PROMPTS, LM_NEW, LM_TOKEN_IDS = (2048, 1536, 1024, 512), (32, 32, 16,
 LM_LIMITS = {"qwen3-8b": (5e-2, 5e-2), "rwkv6-1.6b": (1e-3, 1e-3),
              "qwen3-14b": (5e-2, 5e-2), "qwen1.5-32b": (5e-2, 5e-2)}
 # phase 18 (a): the served depth (None: the whole model).  qwen1.5-32b at
-# all 64 layers (70.4 GB of bf16 weights, a 10.9 GB cache at 4 x 2080
-# positions) ran out of memory in the prefill's MLP on an H100 (77.25 GiB
-# allocated by PyTorch of the 79.18 GiB, an 856 MiB f32 SiLU wanted);
-# each layer is 1.14 GiB of weights and cache, so it serves 62; its checks
-# run on the first request (LM_CHECK_ROWS)
-LM_SERVE_LAYERS = {"qwen3-14b": None, "qwen1.5-32b": 62}
+# all 64 layers is 70.4 GB of bf16 weights and a 10.9 GB cache at 4 x
+# 2080 positions; its prefill MLP runs in row chunks without a gradient
+# (models/layers.py MLP_CHUNK_ROWS), where the whole-batch f32 SiLU ran
+# out of memory (ROADMAP C25); its checks run on the first request
+# (LM_CHECK_ROWS)
+LM_SERVE_LAYERS = {"qwen3-14b": None, "qwen1.5-32b": None}
 LM_CHECK_ROWS = {"qwen3-14b": None, "qwen1.5-32b": 1}
 # phase 12: hymba-1.5b's (kernels vs plain prefill, teacher-forced
 # decode) rel L2 limits, in f32 on the served weights (ROADMAP Rules: a
@@ -681,6 +697,13 @@ REMAT_ARCH = "qwen3-8b"
 REMAT_SETTINGS = (("no remat", False, "dots"), ("dots", True, "dots"),
                   ("nothing", True, "nothing"))
 REMAT_READINGS = {}
+# phase 21 (a): the dry run's world-1 prediction of phase 10's cell
+# (qwen3-8b at DRY_LAYERS layers, LM_TRAIN_BATCH x LM_TRAIN_SEQ, bf16,
+# remat "dots", use_kernel=False) against that step on the card: the
+# FLOPs equal, the peak memory within DRY_MEM_BAND of the prediction
+# (argument + temp bytes) (PERF.md, PR 32's prediction);
+# (b) the FSDP step at one NCCL rank through the kernels at FSDP_LAYERS
+DRY_LAYERS, DRY_MEM_BAND, FSDP_LAYERS = 8, 0.10, 2
 # the MoE layer in bf16 (its grouped FFN's outputs rounded to bf16 at
 # each product, the combine in bf16) against the f32 loop over experts
 # on the same inputs and routing: the largest per-token relative L2 over
@@ -5122,10 +5145,15 @@ def zoo_phase(torch, ops, C, step):
     print(f"[{step}/18] the dense zoo, the audio and vision stubs, the "
           f"TimeConditioned backbone", flush=True)
     counts = {}
+    card = torch.cuda.get_device_properties(0).total_memory
     for arch in ("qwen3-14b", "qwen1.5-32b"):
+        torch.cuda.reset_peak_memory_stats()
         counts[f"serve_{arch}"] = lm_phase(torch, ops, step, arch,
                                            LM_LIMITS[arch],
                                            LM_CHECK_ROWS[arch])
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  {arch}: peak allocated {peak / 2 ** 30:.2f} GiB of the "
+              f"card's {card / 2 ** 30:.2f} GiB ({smi_line()})", flush=True)
         torch.cuda.empty_cache()
     for arch in ("stablelm-3b", "hubert-xlarge", "phi-3-vision-4.2b"):
         counts[f"train_{arch}"] = lm_train_phase(torch, ops, step, arch)
@@ -5662,6 +5690,165 @@ def remat_phase(torch, ops, step):
     return paths
 
 
+def dryrun_phase(torch, ops, step):
+    """Phase 21: the dry run's world-1 prediction against the card, and
+    the FSDP step at one NCCL rank (module docstring).  Returns the FSDP
+    step's launch counts by path (``fsdp_<arch>``)."""
+    import dataclasses
+    import tempfile
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, make_stream
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_process_group, make_test_mesh
+    from repro_torch.launch.train import build_on_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train.steps import zero1_slices
+    t_start = time.perf_counter()
+    smi = smi_line()
+    print(f"[{step}/21] the dry run against the card; FSDP at one NCCL "
+          f"rank ({smi})", flush=True)
+    out_dir = tempfile.mkdtemp(prefix="dryrun_")
+    cell = ["--arch", REMAT_ARCH, "--shape", "train_4k", "--mesh", "1x1",
+            "--layers", str(DRY_LAYERS), "--batch", str(LM_TRAIN_BATCH),
+            "--seq", str(LM_TRAIN_SEQ), "--out", out_dir]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(REPO, "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch."
+                             "dryrun", *cell], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+    paths = {}
+    with tempfile.TemporaryDirectory() as store:
+        init_process_group(store, 0, 1, device_type="cuda")
+        try:
+            mesh = make_test_mesh((1, 1), device_type="cuda")
+            # (a) the dry run's cell, on the card
+            cfg = dataclasses.replace(get_arch(REMAT_ARCH),
+                                      num_layers=DRY_LAYERS)
+            par = dryrun.build_parallel(cfg, mesh)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            model = tf.init_params(cfg, torch.Generator(device="cuda")
+                                   .manual_seed(SEED), device="cuda",
+                                   trainable=True, parallel=par)
+            params = dict(model.named_parameters())
+            opt = init_opt_state(params, zero1=zero1_slices(model))
+            batch = make_stream(cfg, DataConfig(
+                seed=SEED, global_batch=LM_TRAIN_BATCH,
+                seq_len=LM_TRAIN_SEQ), device="cuda", mesh=mesh).batch(0)
+            d_step = dryrun.train_step_for(cfg, par)
+            d_step(model, opt, batch)                 # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            d_step(model, opt, batch)
+            end.record()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            event_s = start.elapsed_time(end) / 1e3
+            peak = torch.cuda.max_memory_allocated() - base
+            ledger = dryrun.CostLedger()
+            ledger.resident(params, opt, batch)
+            with FlopCounterMode(display=False) as fc, ledger:
+                d_step(model, opt, batch)
+            torch.cuda.synchronize()
+            flops = fc.get_total_flops()
+            card_coll = {k: v["count"] for k, v in
+                         ledger.collectives.items() if v["count"]}
+            del model, params, opt, batch, ledger
+            torch.cuda.empty_cache()
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"the dry run failed:\n{out}\n{err}")
+            with open(os.path.join(out_dir, f"{REMAT_ARCH}__train_4k__1x1"
+                                   f".json")) as f:
+                pred = json.load(f)
+            mem = pred["memory_analysis"]
+            want = mem["argument_bytes"] + mem["temp_bytes"]
+            off = peak / want - 1.0
+            roof = pred["roofline"]
+            coll = {k: v["count"] for k, v in pred["collectives"].items()
+                    if v["count"]}
+            print(f"  (a) {REMAT_ARCH} at {DRY_LAYERS} layers, "
+                  f"{LM_TRAIN_BATCH} x {LM_TRAIN_SEQ}, {cfg.dtype}, remat "
+                  f"{par.remat_policy}, use_kernel=False, mesh (1, 1): "
+                  f"FLOPs on the card {flops} (FlopCounterMode), dry run "
+                  f"{int(pred['flops_per_device'])}: equal "
+                  f"{flops == pred['flops_per_device']}; peak memory on "
+                  f"the card {peak / 2 ** 30:.3f} GiB above the "
+                  f"{base / 2 ** 30:.3f} GiB resident before, dry run "
+                  f"argument + temp {want / 2 ** 30:.3f} GiB "
+                  f"({mem['argument_bytes'] / 2 ** 30:.3f} + "
+                  f"{mem['temp_bytes'] / 2 ** 30:.3f}): {off:+.2%} (band "
+                  f"{DRY_MEM_BAND:.0%}); collectives at world size 1: "
+                  f"card {card_coll}, dry run {coll}; step wall {wall_s * 1e3:.1f} ms, CUDA event "
+                  f"{event_s * 1e3:.1f} ms; roofline at H100 constants: "
+                  f"compute {roof['compute_s'] * 1e3:.1f} ms "
+                  f"({roof['compute_s'] / event_s:.1%} of the event time), "
+                  f"memory {roof['memory_s'] * 1e3:.1f} ms "
+                  f"({roof['memory_s'] / event_s:.1%}), dominant "
+                  f"{roof['dominant']}; the trace took "
+                  f"{pred['compile_s']:.1f} s ({smi})", flush=True)
+            if flops != pred["flops_per_device"] or \
+                    abs(off) > DRY_MEM_BAND:
+                raise AssertionError(f"the dry run's prediction missed the "
+                                     f"card: FLOPs {flops} vs "
+                                     f"{pred['flops_per_device']}, memory "
+                                     f"{peak} vs {want}")
+            # (b) FSDP through the kernels, bitwise the plain step
+            runs = {}
+            for fsdp in (False, True):
+                cfg2, m2, o2, s2, _ = build_on_mesh(
+                    REMAT_ARCH, mesh, layers=FSDP_LAYERS, device="cuda",
+                    fsdp=fsdp)
+                b = make_stream(cfg2, DataConfig(
+                    seed=SEED, global_batch=REMAT_BATCH,
+                    seq_len=LM_TRAIN_SEQ), device="cuda",
+                    mesh=mesh).batch(0)
+                ops.reset_launch_counts()
+                m2, o2, met = s2(m2, o2, b)
+                torch.cuda.synchronize()
+                runs[fsdp] = dict(
+                    metrics=[met[k].item() for k in ("loss", "grad_norm")],
+                    state=[t.detach().clone() for t in
+                           list(m2.parameters()) + list(o2["m"].values())
+                           + list(o2["v"].values())],
+                    counts={k: n for k, n in ops.launch_counts().items()
+                            if n},
+                    sharded=len(m2.fsdp_dims))
+                del m2, o2, s2, b
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    plain, fs = runs[False], runs[True]
+    same = fs["metrics"] == plain["metrics"] and _bitwise(
+        torch, fs["state"], plain["state"])
+    want_counts = {k: FSDP_LAYERS for k in ("flash_attention_fwd",
+                                            "flash_attention_bwd_dq",
+                                            "flash_attention_bwd_dkv")}
+    got_counts = {k: fs["counts"].get(k, 0) for k in want_counts}
+    print(f"  (b) FSDP {REMAT_ARCH} step at one NCCL rank ({FSDP_LAYERS} "
+          f"layers, batch {REMAT_BATCH} x {LM_TRAIN_SEQ}, sp, "
+          f"{fs['sharded']} leaves stored as data shards, gathered a layer "
+          f"at a time): loss/grad norm {fs['metrics']} (plain "
+          f"{plain['metrics']}), every parameter and moment bitwise the "
+          f"plain sharded step's: {same}; flash launches {got_counts} "
+          f"(plain {plain['counts']}) ({smi})", flush=True)
+    if not same or got_counts != want_counts or not fs["sharded"]:
+        raise AssertionError(f"FSDP at one rank: not bitwise the plain "
+                             f"step, or launches {fs['counts']}")
+    paths[f"fsdp_{REMAT_ARCH}"] = fs["counts"]
+    print(f"  phase {step}: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -5852,6 +6039,10 @@ def main() -> int:
 
     # ---- 20. rematerialization ---------------------------------------------
     remat_counts = remat_phase(torch, ops, 20)
+    torch.cuda.empty_cache()
+
+    # ---- 21. the dry run against the card, FSDP ---------------------------
+    remat_counts.update(dryrun_phase(torch, ops, 21))
     torch.cuda.empty_cache()
 
     sources = {"flash_attention_fwd": (

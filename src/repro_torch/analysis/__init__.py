@@ -13,10 +13,12 @@ tree; text or ``--format=json``); suppress a finding inline with ``#
 reprolint: disable=RL010`` (same line, or a standalone comment directly
 above), or file-wide with ``# reprolint: disable-file=RL010``: the JAX
 linter's directives, so one comment serves both.  Stdlib only: it imports
-neither torch nor numpy.
+neither torch nor numpy.  The marker RL003 reads, ``hot_loop``, is
+:mod:`repro_torch.analysis.markers`'.
 """
 from repro_torch.analysis.core import (DEFAULT_PATHS, Finding, LintReport,
                                        lint_paths, rule_table)
+from repro_torch.analysis.markers import hot_loop
 
-__all__ = ["Finding", "LintReport", "lint_paths", "rule_table",
+__all__ = ["Finding", "LintReport", "lint_paths", "rule_table", "hot_loop",
            "DEFAULT_PATHS"]

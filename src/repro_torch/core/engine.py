@@ -483,8 +483,8 @@ def run_parareal(G: GFn, fine_fn: FineFn, x_init: torch.Tensor,
         raise NotImplementedError(
             "a block-sharding constraint inside one program has no torch "
             "counterpart: the port's block parallelism is "
-            "repro_torch.core.pipelined.make_sharded_sampler (ROADMAP A10); "
-            "the dryrun's GSPMD form waits for A12")
+            "repro_torch.core.pipelined.make_sharded_sampler (ROADMAP A10), "
+            "which repro_torch.launch.dryrun's sample cell runs")
     use_fused = resolve_fused(use_fused_update, x_init)
     gate = batched and not fixed_iters
     B = len(starts)

@@ -44,8 +44,8 @@ def srds_sample(model_fn: ModelFn, sched: DiffusionSchedule,
         raise NotImplementedError(
             "cfg.block_sharding (a sharding constraint inside one program) "
             "has no torch counterpart: shard the blocks over ranks with "
-            "repro_torch.core.pipelined.make_sharded_sampler (ROADMAP A10); "
-            "the dryrun that reads it waits for A12")
+            "repro_torch.core.pipelined.make_sharded_sampler (ROADMAP A10), "
+            "as repro_torch.launch.dryrun's sample cell does")
     if x_init.dim() < 2:
         raise ValueError(f"x_init must be (K, *sample_shape); got shape "
                          f"{tuple(x_init.shape)}")

@@ -19,8 +19,9 @@ rank and the world size (:func:`spawn_ranks` does so for N local ranks).
 The production meshes (:func:`make_production_mesh`) are JAX's: ``(16,
 16)`` over ``("data", "model")``, 256 ranks, or ``(2, 16, 16)`` with
 ``"pod"``, 512; under ``torchrun`` :func:`init_process_group` starts from
-its environment (``env://``).  The TPU roofline constants of the JAX
-module are not ported.
+its environment (``env://``).  The roofline constants are an H100's
+(:data:`PEAK_FLOPS_BF16`, :data:`HBM_BW`, :data:`NVLINK_BW`; JAX's are a
+TPU v5e's), read by :mod:`repro_torch.launch.dryrun`.
 """
 from __future__ import annotations
 
@@ -34,8 +35,16 @@ import torch.distributed as dist
 
 from repro_torch.parallel.collectives import BACKENDS
 
-__all__ = ["init_process_group", "make_production_mesh", "make_srds_mesh",
-           "make_test_mesh", "production_shape", "spawn_ranks"]
+__all__ = ["HBM_BW", "NVLINK_BW", "PEAK_FLOPS_BF16", "init_process_group",
+           "make_production_mesh", "make_srds_mesh", "make_test_mesh",
+           "production_shape", "spawn_ranks"]
+
+# NVIDIA H100 SXM (80 GB HBM3) constants for the dry run's roofline (per
+# card): dense bf16 tensor-core peak, HBM bandwidth, and NVLink 4 at 450
+# GB/s a direction (900 GB/s both ways)
+PEAK_FLOPS_BF16 = 989e12      # FLOP/s
+HBM_BW = 3.35e12              # B/s
+NVLINK_BW = 450e9             # B/s a direction
 
 
 def init_process_group(store_dir: Optional[str] = None,

@@ -60,7 +60,7 @@ LOG_EVERY = 10
 
 def build(arch: str, *, mesh_kind: str = "local", reduced: bool = False,
           lr: float = 3e-4, total_steps: int = 100, device="cuda",
-          params=None, remat: bool = False):
+          params=None, remat: bool = False, fsdp: bool = False):
     """``(cfg, model, opt_state, step, loss_kind)`` for ``arch``.
 
     ``params``: a JAX-layout parameter tree (numpy leaves) to start from,
@@ -70,9 +70,13 @@ def build(arch: str, *, mesh_kind: str = "local", reduced: bool = False,
     with trainable parameters; ``loss_kind`` is ``"diffusion"`` or
     ``"lm"``.  ``remat``: the step rematerializes each layer of the LM
     loss under the model's ``remat_policy`` (JAX's launcher passes it to
-    ``make_train_step``; the diffusion loss ignores it)."""
+    ``make_train_step``; the diffusion loss ignores it).  ``fsdp``: on a
+    production mesh, :func:`build_on_mesh`'s."""
     if mesh_kind not in ("local", "pod1", "pod2"):
         raise ValueError(f"unknown mesh {mesh_kind!r}")
+    if fsdp and mesh_kind == "local":
+        raise ValueError("fsdp shards over a mesh's data dim: pass "
+                         "mesh_kind='pod1' or 'pod2'")
     if mesh_kind != "local":
         from repro_torch.launch.mesh import make_production_mesh
         device = resolve_device(device)
@@ -80,7 +84,7 @@ def build(arch: str, *, mesh_kind: str = "local", reduced: bool = False,
                                     device_type=device.type)
         return build_on_mesh(arch, mesh, reduced=reduced, lr=lr,
                              total_steps=total_steps, device=device,
-                             params=params, remat=remat)
+                             params=params, remat=remat, fsdp=fsdp)
     cfg = get_arch(arch)
     if reduced:
         cfg = cfg.reduced()
@@ -124,14 +128,17 @@ def mesh_ctx(mesh, cfg=None) -> ParallelCtx:
 def build_on_mesh(arch: str, mesh, *, reduced: bool = False,
                   lr: float = 3e-4, total_steps: int = 100, device="cuda",
                   params=None, layers: Optional[int] = None,
-                  experts: Optional[int] = None, remat: bool = False):
+                  experts: Optional[int] = None, remat: bool = False,
+                  fsdp: bool = False):
     """:func:`build`'s part after the mesh, for a language model:
     ``(cfg, model, opt_state, step, "lm")`` with the model's and the
     moments' parts of this rank (:func:`mesh_ctx`'s context; every rank
     draws the whole model from seed 0, or takes ``params``, a JAX tree at
     that context's padding, and keeps its part).  ``layers`` cuts the
     depth and ``experts`` an MoE arch's expert count (a smoke test's);
-    ``remat`` as :func:`build`'s."""
+    ``remat`` as :func:`build`'s; ``fsdp`` stores each rank's ``data``
+    shard of the large dense weights and gathers them a layer at a time
+    (``ParallelCtx.fsdp``; the moments take the same shards)."""
     import dataclasses
     cfg = get_arch(arch)
     if reduced:
@@ -145,7 +152,7 @@ def build_on_mesh(arch: str, mesh, *, reduced: bool = False,
                          "the DiT's data-parallel step is "
                          "make_dp_train_step_compressed")
     device = resolve_device(device)
-    ctx = mesh_ctx(mesh, cfg)
+    ctx = dataclasses.replace(mesh_ctx(mesh, cfg), fsdp=fsdp)
     if params is not None:
         model = transformer.load_jax_params(cfg, params, device=device,
                                             trainable=True, parallel=ctx)
@@ -169,7 +176,7 @@ def run(args, ckpt_dir: str):
             init_process_group(device_type=resolve_device(args.device).type)
     cfg, model, opt_state, step, _ = build(
         args.arch, mesh_kind=args.mesh, reduced=args.reduced, lr=args.lr,
-        total_steps=args.steps, device=args.device)
+        total_steps=args.steps, device=args.device, fsdp=args.fsdp)
     ctx = getattr(model, "parallel", None)
     mesh = None if ctx is None else ctx.mesh
     stream = make_stream(cfg, DataConfig(global_batch=args.batch,
@@ -213,6 +220,9 @@ def main(argv: Optional[list] = None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--mesh", default="local", choices=["local", "pod1", "pod2"])
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="with --mesh pod1/pod2: each rank stores its data "
+                         "shard of the large dense weights (FSDP)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint directory (resumes from it); default: "

@@ -307,7 +307,7 @@ def init_dit(cfg: ArchConfig, generator: torch.Generator,
 
 
 def make_denoiser(model: DiT, *, shard_axis: Optional[str] = None,
-                  mesh=None):
+                  mesh=None, use_kernel: Optional[bool] = None):
     """``model_fn(x, t)`` for the samplers: x (M, H, W, C), t a scalar or
     per-row ``(M,)``; runs without autograd.
 
@@ -317,12 +317,13 @@ def make_denoiser(model: DiT, *, shard_axis: Optional[str] = None,
     out_spec = (None, shard_axis)``), ``shard_fn`` is the row-sharded
     forward with the K/V all-gathered over the dim's group, and ``fn`` the
     plain forward (the reference).  ``mesh`` binds it for standalone
-    calls (``srds_sample``)."""
+    calls (``srds_sample``).  ``use_kernel=False`` takes the plain
+    attention (the dry run's form)."""
 
     @torch.no_grad()
     def model_fn(x, t):
         tb = torch.as_tensor(t, dtype=torch.float32, device=x.device)
-        return model(x, tb.expand(x.shape[0]))
+        return model(x, tb.expand(x.shape[0]), use_kernel=use_kernel)
 
     if shard_axis is None:
         return model_fn
@@ -344,7 +345,7 @@ def make_denoiser(model: DiT, *, shard_axis: Optional[str] = None,
             return all_gather_dim(a, 1, group)
 
         tb = torch.as_tensor(t, dtype=torch.float32, device=x.device)
-        return model(x, tb.expand(x.shape[0]),
+        return model(x, tb.expand(x.shape[0]), use_kernel=use_kernel,
                      shard_rank=mesh.get_local_rank(shard_axis),
                      kv_gather=kv_gather)
 

@@ -17,6 +17,9 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
+# rows an MLP runs at once where no gradient is recorded (apply_mlp)
+MLP_CHUNK_ROWS = 2048
+
 
 def apply_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                eps: float = 1e-6, *, kind: str = "rmsnorm",
@@ -206,14 +209,33 @@ def attention_decode(p, x: torch.Tensor, k_cache: torch.Tensor,
     return o @ p["wo"], k_cache, v_cache
 
 
-def apply_mlp(p, x: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
-    """SwiGLU (SiLU of the gate in f32, cast, times ``x @ w_up``) or GELU
-    (``jax.nn.gelu``'s tanh form, in f32)."""
+def _mlp_rows(p, x: torch.Tensor, act: str) -> torch.Tensor:
     if act == "swiglu":
         h = F.silu((x @ p["w_gate"]).float()).to(x.dtype) * (x @ p["w_up"])
     else:
         h = F.gelu((x @ p["w_up"]).float(), approximate="tanh").to(x.dtype)
     return h @ p["w_down"]
+
+
+def apply_mlp(p, x: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
+    """SwiGLU (SiLU of the gate in f32, cast, times ``x @ w_up``) or GELU
+    (``jax.nn.gelu``'s tanh form, in f32).  Where no gradient is recorded
+    and ``x`` has more than :data:`MLP_CHUNK_ROWS` rows, the same per-row
+    math runs over chunks of that many rows into one output, so the
+    ``(rows, d_ff)`` temporaries of a long prefill are a chunk's."""
+    ws = [p[k] for k in ("w_gate", "w_up", "w_down") if k in p]
+    rows = x.numel() // x.shape[-1]
+    if rows <= MLP_CHUNK_ROWS or (torch.is_grad_enabled() and any(
+            t.requires_grad for t in [x, *ws])):
+        return _mlp_rows(p, x, act)
+    flat = x.reshape(rows, x.shape[-1])
+    w_down = p["w_down"]
+    out = flat.new_empty((rows, w_down.shape[-1]),
+                         dtype=torch.result_type(flat, w_down))
+    for lo in range(0, rows, MLP_CHUNK_ROWS):
+        out[lo:lo + MLP_CHUNK_ROWS] = _mlp_rows(
+            p, flat[lo:lo + MLP_CHUNK_ROWS], act)
+    return out.reshape(*x.shape[:-1], w_down.shape[-1])
 
 
 def embed(p, tokens: torch.Tensor) -> torch.Tensor:

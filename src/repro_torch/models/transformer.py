@@ -41,9 +41,21 @@ rank's share: :func:`repro_torch.parallel.collectives.mean_share`);
 without it each rank gathers the experts over ``data`` and runs
 :func:`moe_local` on its tokens, with the global Switch loss as JAX's
 GSPMD computes it.  The router routes from an input whose gradient is
-not summed over ``model`` (it is whole on every model rank).  ``fsdp``
-in a forward raises, naming A12 (JAX's launcher never sets it;
-:func:`repro_torch.parallel.sharding.param_shardings` takes it).
+not summed over ``model`` (it is whole on every model rank).
+
+FSDP (``fsdp=True``; JAX sets it through its dry run's ``--override``):
+each rank stores its ``data`` shard of every leaf that
+``param_shardings(..., fsdp=True)`` splits on ``data`` where the plain
+rules do not (the large dense weights' other dim, ZeRO-1's layout, so
+the moments match: :attr:`TransformerLM.fsdp_dims`).  Each layer gathers
+its shards over ``data`` as it reads them
+(:func:`repro_torch.parallel.collectives.gather_seq`: all-gather
+forward, reduce-scatter backward, so a shard's gradient comes out summed
+over ``data``), inside the layer's body: under ``remat`` the recompute
+gathers again and no gathered weight outlives its layer (without remat
+autograd keeps what the products save until the backward).  The
+unembedding is gathered where it is read.  At one ``data`` rank every
+gather returns its input's bits.
 ``scan_unroll`` is accepted and does nothing (it changes no result in
 JAX, and the port has no scan).  ``attn_chunk_kv`` runs the plain
 chunked attention (``ref.attention_chunked``) where the flash kernel does
@@ -164,11 +176,7 @@ LOCAL = ParallelCtx()
 
 
 def check_ctx(parallel: ParallelCtx) -> None:
-    """Raise for the fields whose JAX user the port lacks."""
-    if parallel.fsdp:
-        raise NotImplementedError("FSDP execution (parameters gathered "
-                                  "over data in the forward) waits for "
-                                  "ROADMAP A12")
+    """Raise for a field value the port does not know."""
     if parallel.kv_cache_dtype not in KV_DTYPES:
         raise ValueError(f"kv_cache_dtype {parallel.kv_cache_dtype!r} not "
                          f"in {sorted(KV_DTYPES)}")
@@ -331,7 +339,7 @@ class TransformerLM(ParamTree):
         top, blk = _leaves(cfg, parallel.model_parallel)
         self_shapes = global_shapes(cfg, parallel)
         specs = (sharding.param_shardings(cfg, parallel.mesh, self_shapes,
-                                          parallel)
+                                          parallel, fsdp=parallel.fsdp)
                  if parallel.mesh is not None else None)
 
         def local(leaves, layer):
@@ -351,9 +359,50 @@ class TransformerLM(ParamTree):
         self.parallel = parallel
         self.shapes = self_shapes
         self.specs = specs
+        self.fsdp_dims = (sharding.fsdp_dims(cfg, parallel.mesh,
+                                             self_shapes, parallel)
+                          if specs is not None and parallel.fsdp else {})
         self.blocks = nn.ModuleList(
             ParamTree(_nest(local(blk, i)), device, trainable)
             for i in range(cfg.num_layers))
+
+
+class _Gathered:
+    """A :class:`ParamTree` node read as the layers read it, each FSDP
+    leaf (``dims``: name -> its ``data`` dim) gathered over ``group`` on
+    its first read; subtrees without such a leaf are returned as they
+    are."""
+
+    def __init__(self, node: ParamTree, prefix: str, dims: dict, group):
+        self.node, self.prefix, self.dims, self.group = (node, prefix, dims,
+                                                         group)
+        self.seen: Dict[str, Any] = {}
+
+    def __getitem__(self, key: str):
+        if key not in self.seen:
+            v, name = self.node[key], self.prefix + key
+            if isinstance(v, ParamTree):
+                if any(n.startswith(name + ".") for n in self.dims):
+                    v = _Gathered(v, name + ".", self.dims, self.group)
+            elif name in self.dims:
+                v = coll.gather_seq(v, self.dims[name], self.group)
+            self.seen[key] = v
+        return self.seen[key]
+
+    def __contains__(self, key: str) -> bool:
+        return key in self.node
+
+
+def fsdp_view(model: TransformerLM, layer: Optional[int] = None):
+    """The parameters of block ``layer`` (the top level for None) as a
+    forward reads them: with FSDP its shards gathered over ``data`` on
+    first read (module docstring); the node itself otherwise."""
+    node = model if layer is None else model.blocks[layer]
+    if not model.fsdp_dims:
+        return node
+    ctx = model.parallel
+    return _Gathered(node, "" if layer is None else f"blocks.{layer}.",
+                     model.fsdp_dims, ctx.mesh.get_group(ctx.data_axis))
 
 
 def _param(model: TransformerLM, path: str, layer: Optional[int]):
@@ -452,7 +501,8 @@ def load_jax_params(cfg: ArchConfig, tree, device="cuda", *,
     """An LM holding the JAX parameter tree ``tree`` (numpy or array-like
     leaves of any float dtype; ``blocks`` leaves stacked on a leading
     ``num_layers`` axis, as ``jax.vmap`` over layers builds them; the
-    shapes of JAX's init with ``parallel``'s ``model_parallel``)."""
+    shapes of JAX's init with ``parallel``'s ``model_parallel``); with a
+    mesh each leaf's part of this rank (with FSDP its ``data`` shard)."""
     model = TransformerLM(cfg, device=device, trainable=trainable,
                           parallel=parallel)
     for param, value, _ in _jax_values(model, tree):
@@ -468,7 +518,8 @@ def load_jax_opt_state(model: TransformerLM, jax_opt_state,
     stacked on the layer axis, split here into the port's per-layer
     trees), so a JAX train state continues in the port.  ``zero1``
     (:func:`repro_torch.train.steps.zero1_slices`) keeps each rank's
-    ZeRO-1 slice of the moments."""
+    ZeRO-1 slice of the moments; with FSDP the moments take the
+    parameters' shards (no slice)."""
     device = next(model.parameters()).device
     state = {}
     for key in ("m", "v"):
@@ -736,18 +787,20 @@ def run_blocks(cfg: ArchConfig, model: TransformerLM, x: torch.Tensor,
         if tp.group is not None:
             state0 = state0._replace(wkv=tp.part(state0.wkv, 1))
 
-        def rwkv_body(p, x):
-            return rwkv_block(p, x, state0, cfg.rwkv_head_dim, norm,
+        def rwkv_body(i, x):
+            return rwkv_block(fsdp_view(model, i), x, state0,
+                              cfg.rwkv_head_dim, norm,
                               use_kernel=use_kernel, tp=tp)
 
-        for p in model.blocks:
-            x, st = remat_layer(rwkv_body, remat, policy, p, x)
+        for i in range(cfg.num_layers):
+            x, st = remat_layer(rwkv_body, remat, policy, i, x)
             if return_cache:
                 caches.append(st)
     elif cfg.block == "hymba":
         kw = dict(_attn_kwargs(cfg, tp), causal=cfg.causal, chunk_kv=chunk)
 
-        def hymba_body(p, x):
+        def hymba_body(i, x):
+            p = fsdp_view(model, i)
             fused, kv, h_fin = hymba_mix_full(
                 p, tp.enter(norm(p["ln1"], x)), kw, norm,
                 use_kernel=use_kernel, tp=tp)
@@ -756,14 +809,15 @@ def run_blocks(cfg: ArchConfig, model: TransformerLM, x: torch.Tensor,
                                        tp.enter(norm(p["ln2"], x)), cfg.act))
             return x, (*kv, h_fin)
 
-        for p in model.blocks:
-            x, cache = remat_layer(hymba_body, remat, policy, p, x)
+        for i in range(cfg.num_layers):
+            x, cache = remat_layer(hymba_body, remat, policy, i, x)
             if return_cache:
                 caches.append(cache)
     else:
         kw = _attn_kwargs(cfg, tp)
 
-        def dense_body(p, x):
+        def dense_body(i, x):
+            p = fsdp_view(model, i)
             out, kv = attention_full(p["attn"], tp.enter(norm(p["ln1"], x)),
                                      causal=cfg.causal, **kw,
                                      use_kernel=use_kernel, chunk_kv=chunk)
@@ -772,8 +826,8 @@ def run_blocks(cfg: ArchConfig, model: TransformerLM, x: torch.Tensor,
                                          parallel, tp)
             return x + out, layer_aux, kv
 
-        for i, p in enumerate(model.blocks):
-            x, layer_aux, kv = remat_layer(dense_body, remat, policy, p, x)
+        for i in range(cfg.num_layers):
+            x, layer_aux, kv = remat_layer(dense_body, remat, policy, i, x)
             if layer_aux is not None:
                 aux = aux + layer_aux
             if return_cache:
@@ -863,7 +917,8 @@ def forward_train(cfg: ArchConfig, model: TransformerLM, batch, *,
     parallel = _ctx(model, parallel)
     x, _, _ = forward_hidden(cfg, model, batch, parallel=parallel,
                              remat=remat, use_kernel=use_kernel)
-    return unembed(model["unembed"], TensorParallel(cfg, parallel).enter(x))
+    return unembed(fsdp_view(model)["unembed"],
+                   TensorParallel(cfg, parallel).enter(x))
 
 
 def make_dense_cache(cfg: ArchConfig, batch: int, seq_len: int,
@@ -921,7 +976,7 @@ def prefill(cfg: ArchConfig, model: TransformerLM, batch, *,
     tp = TensorParallel(cfg, parallel)
     x, _, cache = forward_hidden(cfg, model, batch, use_kernel=use_kernel,
                                  return_cache=True, cache_len=cache_len)
-    logits = unembed(model["unembed"], tp.enter(x)[:, -1])
+    logits = unembed(fsdp_view(model)["unembed"], tp.enter(x)[:, -1])
     return tp.gather(logits, -1), cache
 
 
@@ -970,7 +1025,8 @@ def decode_step(cfg: ArchConfig, model: TransformerLM, token_batch, cache,
     tp = TensorParallel(cfg, parallel).without_sp()
     x = _embed(model, token_batch["tokens"], tp)
     if cfg.block == "rwkv6":
-        for layer, p in enumerate(model.blocks):
+        for layer in range(cfg.num_layers):
+            p = fsdp_view(model, layer)
             st = RWKVState(tp.gather(cache.x_tmix[layer], -1),
                            cache.wkv[layer],
                            tp.gather(cache.x_cmix[layer], -1))
@@ -981,7 +1037,8 @@ def decode_step(cfg: ArchConfig, model: TransformerLM, token_batch, cache,
             cache.x_cmix[layer].copy_(tp.part(new.x_cmix, -1))
     elif cfg.block == "hymba" and tp.group is not None:
         w = cfg.window
-        for layer, p in enumerate(model.blocks):
+        for layer in range(cfg.num_layers):
+            p = fsdp_view(model, layer)
             c = HymbaCache(*(t[layer] for t in cache))
             fused = hymba_mix_decode(
                 p, norm(p["ln1"], x), c, pos, window=w, norm_fn=norm,
@@ -993,7 +1050,8 @@ def decode_step(cfg: ArchConfig, model: TransformerLM, token_batch, cache,
     elif cfg.block == "hymba":
         kw = _attn_kwargs(cfg, mp=parallel.model_parallel)
         kw.pop("qk_norm")
-        for layer, p in enumerate(model.blocks):
+        for layer in range(cfg.num_layers):
+            p = fsdp_view(model, layer)
             c = HymbaCache(*(t[layer] for t in cache))
             fused, _ = hymba_mix_decode(p, norm(p["ln1"], x), c, pos, **kw,
                                         norm_fn=norm, use_kernel=use_kernel)
@@ -1008,7 +1066,8 @@ def decode_step(cfg: ArchConfig, model: TransformerLM, token_batch, cache,
             valid = valid & (kpos > pos - cfg.window)
         owner, slot = divmod(pos, n_slots)
         slot = slot if owner == tp.r else None
-        for layer, p in enumerate(model.blocks):
+        for layer in range(cfg.num_layers):
+            p = fsdp_view(model, layer)
             out = _decode_attention(cfg, p["attn"], norm(p["ln1"], x),
                                     k_c[layer], v_c[layer], pos, tp, valid,
                                     slot)
@@ -1017,10 +1076,12 @@ def decode_step(cfg: ArchConfig, model: TransformerLM, token_batch, cache,
     else:
         kw = _attn_kwargs(cfg, mp=parallel.model_parallel)
         k_c, v_c = cache
-        for layer, p in enumerate(model.blocks):
+        for layer in range(cfg.num_layers):
+            p = fsdp_view(model, layer)
             out, _, _ = attention_decode(p["attn"], norm(p["ln1"], x),
                                          k_c[layer], v_c[layer], pos, **kw)
             x = x + out
             x = x + _mlp_or_moe(cfg, p, norm(p["ln2"], x), parallel, tp)[0]
     x = norm(model["ln_f"], x)
-    return tp.gather(unembed(model["unembed"], x[:, -1]), -1), cache
+    return tp.gather(unembed(fsdp_view(model)["unembed"], x[:, -1]), -1), \
+        cache

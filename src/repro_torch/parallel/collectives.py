@@ -52,7 +52,8 @@ rank it returns its input's bits):
 :data:`CALLS` counts every collective issued, by kind.
 
 A CUDA tensor needs an NCCL group and a CPU tensor a gloo one
-(:func:`check_backend`); nothing here switches backend.
+(:func:`check_backend`; the dry run's ``fake`` group takes either);
+nothing here switches backend.
 """
 from __future__ import annotations
 
@@ -85,9 +86,12 @@ def reset_calls() -> None:
 
 def check_backend(group, x: torch.Tensor) -> None:
     """``x`` must live where ``group``'s backend works: NCCL for a CUDA
-    tensor, gloo for a CPU one."""
+    tensor, gloo for a CPU one; a ``fake`` group (the dry run's,
+    :mod:`repro_torch.launch.dryrun`) takes either."""
     want = BACKENDS.get(x.device.type)
     have = str(dist.get_backend(group))
+    if have == "fake":
+        return
     if want is None or (have != want
                         and f"{x.device.type}:{want}" not in have):
         raise ValueError(f"a {x.device.type} tensor needs a {want} process "

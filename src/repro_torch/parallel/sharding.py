@@ -4,6 +4,7 @@
 :func:`local_part` / :func:`full_tensor`), the serving engine's specs
 (:func:`microbatch_spec`, :func:`denoiser_spec`) and the language models'
 rule tables (:func:`param_shardings` with ``fsdp=``/``zero1=``,
+:func:`fsdp_dims`,
 :func:`opt_state_shardings`, :func:`batch_shardings`,
 :func:`cache_shardings`).
 
@@ -35,7 +36,8 @@ from .collectives import all_gather_dim
 Spec = Tuple[Optional[str], ...]
 
 __all__ = ["HALVES", "Spec", "batch_shardings", "cache_shardings",
-           "denoiser_spec", "full_tensor", "gather_spec", "local_part",
+           "denoiser_spec", "fsdp_dims", "full_tensor", "gather_spec",
+           "local_part",
            "mesh_shape", "microbatch_spec", "opt_state_shardings",
            "param_shardings", "slice_spec"]
 
@@ -249,6 +251,21 @@ def param_shardings(cfg, mesh, params, parallel, *, fsdp: bool = False,
         out[name] = tuple(
             ax if ax is not None and dim % max(sizes[ax], 1) == 0 else None
             for dim, ax in zip(shape, spec + (None,) * len(shape)))
+    return out
+
+
+def fsdp_dims(cfg, mesh, params, parallel) -> Dict[str, int]:
+    """``{name: dim}`` of the leaves FSDP splits: those whose
+    ``param_shardings(..., fsdp=True)`` spec puts ``data`` on a dim the
+    plain spec leaves whole."""
+    da = parallel.data_axis
+    plain = param_shardings(cfg, mesh, params, parallel)
+    out = {}
+    for name, spec in param_shardings(cfg, mesh, params, parallel,
+                                      fsdp=True).items():
+        for dim, (a, b) in enumerate(zip(spec, plain[name])):
+            if a == da and b != da:
+                out[name] = dim
     return out
 
 

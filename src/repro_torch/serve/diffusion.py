@@ -73,6 +73,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.markers import hot_loop
 from repro_torch.core.accel import resolve_accel
 from repro_torch.core.denoiser import as_denoiser, check_driver_dims
 from repro_torch.core.engine import (IterationCost, blockwise_norm,
@@ -94,13 +95,6 @@ from repro_torch.transfer import host_to_device
 
 __all__ = ["SampleRequest", "SampleResponse", "CompletionRecord",
            "DiffusionSamplingEngine", "IterationEMA", "default_noise"]
-
-
-def hot_loop(fn):
-    """Marks a function of the serving hot loop, where every device read
-    goes through :func:`_host_fetch` (reprolint's RL003 checks the bodies
-    of functions so marked)."""
-    return fn
 
 
 class _Fetch(NamedTuple):

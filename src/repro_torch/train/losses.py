@@ -20,7 +20,7 @@ import torch
 
 import torch.distributed as dist
 
-from repro_torch.models.transformer import forward_hidden
+from repro_torch.models.transformer import forward_hidden, fsdp_view
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.tensor_parallel import TensorParallel
 
@@ -172,7 +172,8 @@ def lm_loss(cfg, model, batch, *, parallel=None, remat: bool = False,
         x_in, tgt = x, labels
         valid = batch["mask"] if "mask" in batch else torch.ones(
             (b, s), dtype=torch.bool, device=x.device)
-    loss_sum, n = _chunked_ce(x_in, tgt, valid, model["unembed"]["w"],
+    loss_sum, n = _chunked_ce(x_in, tgt, valid,
+                              fsdp_view(model)["unembed"]["w"],
                               cfg.vocab_size, tp=tp, masksum=ctx.ce_masksum)
     if ctx.mesh is None:
         ce = loss_sum / torch.clamp(n, min=1.0)

@@ -26,17 +26,23 @@ of leaves split over ``model`` summed over ``model``, of those split over
 ``data`` over ``data``, the replicated ones once), and AdamW updates each
 rank's ZeRO-1 slice (:func:`zero1_slices`: ``opt_state_shardings``'s
 ``data`` dim, on leaves whose parameter is not already split there) and
-gathers it over ``data``.  ``remat=True`` rematerializes each layer of
-the LM loss's forward in the backward under the context's
-``remat_policy`` (:mod:`repro_torch.models.transformer`; JAX's
-``jax.checkpoint`` of the layer body), in every step here; the diffusion
-loss ignores it, as JAX's does.  The MoE, audio and vision families
+gathers it over ``data``.  With ``fsdp`` (FSDP,
+:mod:`repro_torch.models.transformer`) a leaf stored as its ``data``
+shard has its gradient summed over ``data`` by the forward gather's
+reduce-scatter, so the step sums it over the other batch axes only, its
+norm counts each shard once (a leaf split over ``data``), and AdamW
+updates the shard in place against moments of the same shape (no
+ZeRO-1 slice, no gather after the update).  ``remat=True``
+rematerializes each layer of the LM loss's forward in the backward under
+the context's ``remat_policy`` (:mod:`repro_torch.models.transformer`;
+JAX's ``jax.checkpoint`` of the layer body), in every step here; the
+diffusion loss ignores it, as JAX's does.  The MoE, audio and vision families
 train as the dense ones do (their losses:
 :func:`repro_torch.train.losses.lm_loss`)."""
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -49,10 +55,11 @@ from .losses import AUX_COEF, diffusion_loss, lm_loss
 
 
 def _loss_fn(cfg: ArchConfig, loss_kind: str, parallel=None,
-             remat: bool = False):
+             remat: bool = False, use_kernel: Optional[bool] = None):
     """``loss_fn(model, batch, generator, t, eps) -> (loss, metrics)``;
     the LM loss under ``parallel`` (the model's when None) and ``remat``
-    (the diffusion loss ignores both)."""
+    (the diffusion loss ignores both); ``use_kernel=False`` the plain
+    path."""
     if loss_kind not in ("diffusion", "lm"):
         raise ValueError(f"unknown loss_kind {loss_kind!r}")
     if (loss_kind == "diffusion") != (cfg.family == "dit"):
@@ -62,8 +69,9 @@ def _loss_fn(cfg: ArchConfig, loss_kind: str, parallel=None,
     def loss_fn(model, batch, generator, t, eps):
         if loss_kind == "lm":
             return lm_loss(cfg, model, batch, parallel=parallel,
-                           remat=remat)
-        return diffusion_loss(model, batch, generator, t=t, eps=eps)
+                           remat=remat, use_kernel=use_kernel)
+        return diffusion_loss(model, batch, generator, t=t, eps=eps,
+                              use_kernel=use_kernel)
 
     return loss_fn
 
@@ -166,7 +174,7 @@ def sharded_global_norm(model, grads: Dict[str, torch.Tensor]
 
 
 def _sharded_lm_step(cfg: ArchConfig, opt_cfg: AdamWConfig, parallel,
-                     remat: bool):
+                     remat: bool, use_kernel: Optional[bool]):
     from repro_torch.models.transformer import (model_partial_grads,
                                                 same_layout)
     mesh = parallel.mesh
@@ -176,7 +184,7 @@ def _sharded_lm_step(cfg: ArchConfig, opt_cfg: AdamWConfig, parallel,
             raise ValueError("the model was built for another ParallelCtx")
         params = dict(model.named_parameters())
         loss, metrics = lm_loss(cfg, model, batch, parallel=parallel,
-                                remat=remat)
+                                remat=remat, use_kernel=use_kernel)
         grads = dict(zip(params, torch.autograd.grad(
             loss, list(params.values()))))
         keep = opt_cfg.bf16_grad_sync
@@ -196,7 +204,7 @@ def _sharded_lm_step(cfg: ArchConfig, opt_cfg: AdamWConfig, parallel,
 
 def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
                     loss_kind: str = "diffusion", parallel=None,
-                    remat: bool = False):
+                    remat: bool = False, use_kernel: Optional[bool] = None):
     """Returns ``step(model, opt_state, batch, generator=None, *, t=None,
     eps=None) -> (model, opt_state, metrics)``; ``t``/``eps`` pin the
     diffusion loss's draws (tests and yardsticks; the LM loss draws
@@ -209,7 +217,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
     local LM loss (the model's when None; it may differ from the model's
     in ``remat_policy`` alone).  ``remat``: each layer of the LM loss
     rematerialized under ``parallel.remat_policy`` (the module
-    docstring)."""
+    docstring).  ``use_kernel=False``: the plain path (JAX's launcher
+    and dry run build their steps so; a yardstick on the card)."""
     if parallel is not None and parallel.mesh is not None:
         if loss_kind != "lm":
             raise ValueError("the sharded step trains the language models; "
@@ -218,8 +227,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, *,
         _loss_fn(cfg, loss_kind)
         from repro_torch.models.transformer import check_ctx
         check_ctx(parallel)
-        return _sharded_lm_step(cfg, opt_cfg, parallel, remat)
-    loss_fn = _loss_fn(cfg, loss_kind, parallel, remat)
+        return _sharded_lm_step(cfg, opt_cfg, parallel, remat, use_kernel)
+    loss_fn = _loss_fn(cfg, loss_kind, parallel, remat, use_kernel)
 
     def step(model, opt_state, batch, generator=None, *, t=None, eps=None):
         params = dict(model.named_parameters())

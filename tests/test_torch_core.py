@@ -248,7 +248,8 @@ def test_eval_accounting_matches_jax():
 def test_unported_paths_raise_naming_their_roadmap_item():
     """What is left unported raises and names its ROADMAP item: JAX's
     in-program block sharding, which has no torch counterpart, names the
-    port's sharded driver (A10) and the dryrun (A12).  The serving
+    port's sharded driver (A10) and the dry run's sample cell that runs
+    it (``repro_torch.launch.dryrun``).  The serving
     engine's mesh options are ported (A10(b); on gloo ranks in
     ``tests/test_torch_model_parallel.py``): here they reach their own
     checks, a model-parallel denoiser without a mesh needs one, and no
@@ -264,7 +265,7 @@ def test_unported_paths_raise_naming_their_roadmap_item():
     seq = T.sample_sequential(_torch_matmul, sched, ddpm, x0)
     assert seq.shape == x0.shape and bool(torch.isfinite(seq).all())
     with pytest.raises(NotImplementedError,
-                       match="make_sharded_sampler.*A10.*A12"):
+                       match="make_sharded_sampler.*A10.*dryrun"):
         T.srds_sample(_torch_matmul, sched, T.SolverConfig("ddim"), x0,
                       T.SRDSConfig(block_sharding=object()))
     assert T.srds_stats(sched, T.SolverConfig("ddim"), T.SRDSConfig(), 2,

@@ -52,6 +52,9 @@ def test_port_imports_without_jax_or_repro():
     assert "repro_torch.core.paradigms" in mods
     assert "repro_torch.benchmarks.check_counts" in mods
     assert "repro_torch.benchmarks.table11_truncation" in mods
+    for name in ("launch.specs", "launch.dryrun", "launch.dryrun_all",
+                 "analysis.markers", "benchmarks.roofline"):
+        assert f"repro_torch.{name}" in mods
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", BLOCKER, *mods],
                           capture_output=True, text=True, env=env,

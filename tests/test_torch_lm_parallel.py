@@ -545,11 +545,13 @@ def test_world_one_equals_plain_bitwise(mesh11, name, sp):
     assert not torch.equal(got, ctrl)
 
 
-def test_parallel_ctx_fields_and_unported_users():
-    """The port's ``ParallelCtx`` has JAX's fields and defaults; the
-    field whose JAX user the port lacks (``fsdp``) raises, naming its
-    item (the MoE and remat fields no longer do: a forward with
-    ``remat=True`` returns the forward's result at either policy);
+def test_parallel_ctx_fields_and_unported_users(mesh11):
+    """The port's ``ParallelCtx`` has JAX's fields and defaults; every
+    field has its user (the MoE, remat and FSDP fields no longer raise: a
+    forward with ``remat=True`` returns the forward's result at either
+    policy, and at world size 1 an FSDP model's forward, prefill and
+    decode logits are the plain model's bitwise, each of its sharded
+    leaves gathered);
     ``kv_cache_dtype`` float8 stores ``torch.float8_e4m3fn``; a chunked
     attention (``attn_chunk_kv``) equals the plain one."""
     from repro.models import transformer as jtf
@@ -564,8 +566,17 @@ def test_parallel_ctx_fields_and_unported_users():
     # the MoE fields have their user (they raised before)
     for kw in (dict(use_ep=True), dict(moe_chunk=4)):
         tf.check_ctx(tf.ParallelCtx(**kw))
-    with pytest.raises(NotImplementedError, match="A12"):
-        tf.check_ctx(tf.ParallelCtx(fsdp=True))
+    tf.check_ctx(tf.ParallelCtx(fsdp=True))
+    fsdp = tf.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu", parallel=tf.ParallelCtx(
+                              mesh=mesh11, fsdp=True))
+    assert fsdp.fsdp_dims and all(fsdp.specs[n][d] == "data"
+                                  for n, d in fsdp.fsdp_dims.items())
+    with torch.no_grad():
+        assert torch.equal(tf.forward_train(cfg, fsdp, {"tokens": toks}),
+                           tf.forward_train(cfg, model, {"tokens": toks}))
+    assert np.array_equal(cases._decode_logits("qwen3-8b", fsdp, toks),
+                          cases._decode_logits("qwen3-8b", model, toks))
     tf.check_ctx(tf.ParallelCtx(remat_policy="nothing"))
     want = tf.forward_hidden(cfg, model, {"tokens": toks})[0]
     for policy in ("dots", "nothing"):

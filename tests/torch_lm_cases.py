@@ -1,5 +1,5 @@
 """The rank bodies of ``tests/test_torch_lm_parallel.py`` and
-``tests/test_torch_lm_parallel_train.py``: each runs in a process of a
+``tests/test_torch_lm_parallel_train.py`` and ``tests/test_torch_fsdp.py``: each runs in a process of a
 gloo group started by ``repro_torch.launch.mesh.spawn_ranks`` and returns
 numpy results (this module imports no JAX).
 
@@ -303,16 +303,18 @@ def step_batches(n=3):
 
 
 def _step_model(name, tree, mesh, jopt=None, remat=False,
-                policy="dots"):
+                policy="dots", fsdp=False):
     """The sharded model, optimizer state and step on ``mesh`` (JAX's
-    launcher context: ``sp``, ZeRO-1, ``remat_policy``), from JAX's tree
-    and optimizer state (or fresh moments); ``remat`` the step's."""
+    launcher context: ``sp``, ZeRO-1, ``remat_policy``, ``fsdp``), from
+    JAX's tree and optimizer state (or fresh moments); ``remat`` the
+    step's."""
     from repro_torch.launch.train import mesh_ctx
     from repro_torch.models import transformer as tf
     from repro_torch.optim import AdamWConfig, init_opt_state
     from repro_torch.train import make_train_step
     from repro_torch.train.steps import zero1_slices
-    ctx = dataclasses.replace(mesh_ctx(mesh), remat_policy=policy)
+    ctx = dataclasses.replace(mesh_ctx(mesh), remat_policy=policy,
+                              fsdp=fsdp)
     model = tf.load_jax_params(cfg_of(name), tree, device="cpu",
                                trainable=True, parallel=ctx)
     z = zero1_slices(model)
@@ -489,3 +491,85 @@ def train2(rank, world, trees, ckpt_dir):
                 loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                 params=params, mom=mom)
     return out
+
+
+# --------------------------------------------------------------------------
+# FSDP (tests/test_torch_fsdp.py)
+# --------------------------------------------------------------------------
+
+FSDP_ARCHS = ("qwen3-8b", "rwkv6-1.6b", "hymba-1.5b")
+FSDP_MESHES = ((2, 2), (4, 1))
+# (remat, remat_policy) of the FSDP steps
+FSDP_REMAT = ((False, "dots"), (True, "dots"))
+# the train cell whose collectives the dry run predicts: (B, S)
+COLL_SHAPE = (4, 16)
+
+
+def fsdp4(rank, world, trees):
+    """4 ranks: on (data 2, model 2) and (data 4, model 1), for every arch
+    of :data:`FSDP_ARCHS` the first step from JAX's tree with and
+    without FSDP at each :data:`FSDP_REMAT` (the loss, the grad norm,
+    every parameter and moment whole after it, the FSDP leaves' local
+    shapes), the FSDP step with the sharded gradients also all-reduced
+    over ``data`` (the control), and the prefill and decode logits of
+    both models on the rank's rows; on (2, 2) the collectives of the dry
+    run's train cell at :data:`COLL_SHAPE`, run on these gloo ranks with
+    the dry run's own context and step.  Rank 0 returns its results, the
+    others nothing."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.train import steps
+    out = {}
+    for shape in FSDP_MESHES:
+        mesh = make_test_mesh(shape, device_type="cpu")
+        t = _rows(mesh, torch.from_numpy(step_batches()[0]).long())
+        batch = {"tokens": t, "labels": t}
+        for name in FSDP_ARCHS:
+            for remat, policy in FSDP_REMAT:
+                for fsdp in (False, True):
+                    model, opt, step = _step_model(name, trees[name], mesh,
+                                                   remat=remat,
+                                                   policy=policy, fsdp=fsdp)
+                    if fsdp and not remat:
+                        out[("local", shape, name)] = {
+                            n: tuple(p.shape)
+                            for n, p in model.named_parameters()
+                            if n in model.fsdp_dims}
+                        out[("dims", shape, name)] = dict(model.fsdp_dims)
+                        with torch.no_grad():
+                            out[("decode", shape, name)] = _decode_logits(
+                                name, model, t)
+                    elif not remat:
+                        with torch.no_grad():
+                            out[("decode", shape, name, "plain")] = \
+                                _decode_logits(name, model, t)
+                    model, opt, m = step(model, opt, batch)
+                    params, mom = _whole_state(model, opt)
+                    out[(shape, name, remat, fsdp)] = dict(
+                        loss=float(m["loss"]),
+                        grad_norm=float(m["grad_norm"]),
+                        params=params, mom=mom)
+            # the control: the sharded gradients summed over data again
+            model, opt, step = _step_model(name, trees[name], mesh,
+                                           fsdp=True)
+            keep = steps.batch_summed
+            steps.batch_summed = lambda model, axis: list(model.specs)
+            try:
+                model, opt, m = step(model, opt, batch)
+            finally:
+                steps.batch_summed = keep
+            params, mom = _whole_state(model, opt)
+            out[(shape, name, "control")] = dict(
+                loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                params=params, mom=mom)
+        if shape == (2, 2):
+            cfg = cfg_of(STEP_ARCH)
+            cell = ShapeConfig("cell", COLL_SHAPE[1], COLL_SHAPE[0], "train")
+            for fsdp in (False, True):
+                par = dataclasses.replace(dryrun.build_parallel(cfg, mesh),
+                                          fsdp=fsdp)
+                trace = dryrun.trace_cell(cfg, cell, par, "cpu")
+                out[("collectives", fsdp)] = {
+                    k: dict(v) for k, v in trace["ledger"].collectives.items()}
+    return out if rank == 0 else {}
